@@ -30,3 +30,10 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the hand-written kernels of "
+        "deephumor_tpu_torch); skipped without one")
