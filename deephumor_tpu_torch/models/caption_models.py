@@ -1,4 +1,5 @@
-"""The word-level cross-attention captioning transformer (inference).
+"""The cross-attention captioning transformer (inference), word- or
+character-level.
 
 Counterpart of ``CaptioningTransformer`` in
 deephumor_tpu/models/caption_models.py: ResNet-50 spatial encoder ->
@@ -6,14 +7,22 @@ cross-attention transformer decoder, generating with batched beam search
 over KV caches that are never reordered (ancestry tables select each
 branch's history; see models/transformer.py).
 
+Long generations (the char config: 128 steps) add the JAX package's two
+phase-boundary transforms. Early-EOS compaction moves the items whose
+every branch has ended to the batch tail, and the kernels skip them.
+Canonical-prefix attention gathers each item's common ancestor path below
+``c`` once into a shared cache, so the kernels read one row per position
+there instead of ``beam``.
+
 The model is a frozen dataclass of hyperparameters; its parameters are a
-nested dict of tensors (``init``, ``from_pretrained``) that the caller
-places on a device. Generation runs where the parameters live: on a CUDA
-device the decode path goes through the hand-written kernels, on the CPU
-through their plain twins.
+nested dict of tensors (``init``, ``from_pretrained``), on the card unless
+the caller asks for the CPU. Generation runs where the parameters live: on
+a CUDA device the decode path goes through the hand-written kernels, on
+the CPU through their plain twins.
 """
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -25,11 +34,15 @@ from deephumor_tpu_torch.models import transformer as tfm
 from deephumor_tpu_torch.models.encoders import (image_encoder_apply,
                                                  image_encoder_init)
 from deephumor_tpu_torch.models.sampling import beam_search
+from deephumor_tpu_torch.ops.attention import MASK_FILL
 from deephumor_tpu_torch.utils.pytree import load_params, tree_map
 
 __all__ = ["CaptioningTransformer"]
 
 _SAMPLERS = ("exact", "pallas")
+# canonical prefix length c = p_eff - _CANON_LAG: the still-diverging
+# window [c, p_eff) stays per slot
+_CANON_LAG = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +66,7 @@ class CaptioningTransformer:
 
     model_type = "captioning_transformer"
 
-    def init(self, gen, device="cpu"):
+    def init(self, gen, device="cuda"):
         """Random parameters drawn from ``gen`` (a ``torch.Generator`` on
         ``device``)."""
         return {
@@ -64,7 +77,7 @@ class CaptioningTransformer:
         }
 
     @classmethod
-    def from_pretrained(cls, path, device="cpu"):
+    def from_pretrained(cls, path, device="cuda"):
         """Loads a ``.npz`` + ``.json`` checkpoint saved by the JAX
         package's ``save``; returns ``(model, params)``."""
         tree, hp = load_params(path)
@@ -108,7 +121,7 @@ class CaptioningTransformer:
         state = {"cache": cache, "valid": valid, "pos": pos}
         return logits, state, {"cross": cross, "enc_key_mask": enc_key_mask}
 
-    def _make_step(self, dec, consts, p_eff, return_hidden):
+    def _make_step(self, dec, consts, p_eff, return_hidden, canon_c=None):
         scale = math.sqrt(self.hid_dim)
 
         def step(state, tokens):
@@ -116,11 +129,20 @@ class CaptioningTransformer:
             valid[:, pos] = tokens != self.pad_index
             # this step's K/V land in the branch's own physical slot
             anc[:, :, pos] = torch.arange(anc.shape[1], device=anc.device)
+            # with compaction the cross-attention K/V and the encoder mask
+            # follow the item permutation, so they live in the state
+            src = consts if consts is not None else state
+            canon = None
+            if canon_c is not None:
+                canon = {"c": canon_c, **{k: state[k] for k in (
+                    "shared", "bias_sh", "strag_ids", "n_strag",
+                    "strag_rows")}}
             emb = L.embed(dec["tok_embedding"], tokens) / scale
             out, cache = tfm.decode_step(
                 dec, emb, pos, state["cache"], valid, self.n_heads,
-                consts["cross"], consts["enc_key_mask"], anc=anc,
-                p_eff=p_eff, return_hidden=return_hidden)
+                src["cross"], src["enc_key_mask"], anc=anc, p_eff=p_eff,
+                return_hidden=return_hidden, live_items=state.get("live"),
+                canon=canon)
             return out, dict(state, cache=cache, pos=pos + 1)
 
         return step
@@ -129,14 +151,103 @@ class CaptioningTransformer:
     def _shuffle_state(state, flat_branch, branch):
         """Survivor reorder without touching the KV caches: validity
         follows the branch, the ancestry table re-roots onto the surviving
-        branch's history."""
+        branch's history. Per-item entries (compaction, canon) pass
+        through."""
         anc = state["anc"]
         return dict(state, valid=state["valid"][flat_branch],
                     anc=anc.gather(1, branch[:, :, None].expand_as(anc)))
 
+    @staticmethod
+    def _compact_state(state, seq, val, ended, prefix_positions=None):
+        """Early-EOS compaction at a phase boundary: a stable partition
+        that moves every item whose branches have all ended to the batch
+        tail, and the new live count (a host int) that the kernels read.
+        Results equal the uncompacted run's (ended branches only append
+        pads at score 0); ``_finalize_compaction`` undoes the order.
+
+        ``prefix_positions``: the finished phase's p_eff. Cache positions
+        past it are still their initial zeros, the same in every row, so
+        only the prefix is gathered (in place).
+        """
+        num_items, beam = ended.shape
+        dead = ended.all(dim=1)
+        order = torch.sort(dead.to(torch.int8), stable=True).indices
+        flat = (order[:, None] * beam
+                + torch.arange(beam, device=order.device)).reshape(-1)
+        for layer in state["cache"]:
+            for x in layer.values():
+                pp = x.shape[1] if prefix_positions is None else min(
+                    prefix_positions, x.shape[1])
+                x[:, :pp] = x[flat, :pp]
+        new_state = dict(state, valid=state["valid"][flat],
+                         anc=state["anc"][order],
+                         item_perm=state["item_perm"][order],
+                         live=int((~dead).sum()))
+        if "cross" in state:
+            new_state["cross"] = [{k: v[order] for k, v in c.items()}
+                                  for c in state["cross"]]
+            new_state["enc_key_mask"] = state["enc_key_mask"][order]
+        return new_state, seq[order], val[order], ended[order]
+
+    @staticmethod
+    def _finalize_compaction(state, out):
+        """Puts the outputs back in the caller's item order."""
+        inv = torch.argsort(state["item_perm"])
+        return {k: v[inv] for k, v in out.items()}
+
+    @staticmethod
+    def _canonicalize_state(state, seq, val, ended, *, c):
+        """Phase-boundary setup of canonical-prefix attention.
+
+        For every item whose live branches all descend from one ancestor
+        path below ``c``, that path's cache rows are gathered once into a
+        per-layer ``shared`` cache ``[B, c, D]``, which K5 reads instead
+        of ``beam`` slots per position. Items whose live branches disagree
+        (stragglers) are listed first in ``strag_ids`` (``n_strag`` of
+        them, a host int) and recomputed full-width by K6. Agreement below
+        ``c`` persists for the rest of the phase (survivors inherit live
+        ancestries; ended branches' outputs are discarded), so one gather
+        per boundary is exact.
+        """
+        anc = state["anc"]
+        num_items, beam, _ = anc.shape
+        live_b = ~ended
+        first_live = live_b.to(torch.int8).argmax(dim=1)
+        path = anc[:, :, :c].gather(
+            1, first_live[:, None, None].expand(-1, 1, c))[:, 0]
+        agree = ((anc[:, :, :c] == path[:, None, :])
+                 | ~live_b[:, :, None]).all(dim=2).all(dim=1)
+        is_strag = live_b.any(dim=1) & ~agree
+        # stragglers first, each group in item order
+        strag_ids = torch.sort((~is_strag).to(torch.int8),
+                               stable=True).indices.to(torch.int32)
+        rowsel = (torch.arange(num_items, device=anc.device)[:, None] * beam
+                  + path)
+        possel = torch.arange(c, device=anc.device)[None, :]
+        shared = [{"sk": layer["k"][rowsel, possel],
+                   "sv": layer["v"][rowsel, possel]}
+                  for layer in state["cache"]]
+        valid = state["valid"].reshape(num_items, beam, -1)[:, :, :c]
+        sval = valid.gather(1, first_live[:, None, None].expand(-1, 1, c))
+        bias_sh = torch.where(sval, 0.0, MASK_FILL).to(torch.float32)
+        new_state = dict(
+            state, shared=shared, bias_sh=bias_sh, strag_ids=strag_ids,
+            n_strag=int(is_strag.sum()),
+            strag_rows=is_strag.repeat_interleave(beam))
+        return new_state, seq, val, ended
+
+    @staticmethod
+    def _chain_boundaries(fns):
+        def run(state, seq, val, ended):
+            for fn in fns:
+                state, seq, val, ended = fn(state, seq, val, ended)
+            return state, seq, val, ended
+
+        return run
+
     def _generate_impl(self, params, enc, gen, caption, temperature, *,
                        max_len, beam_size, top_k, greedy, eos_index,
-                       sampler):
+                       sampler, compact=None, canon=None):
         dec = params["decoder"]
         dt = getattr(torch, self.compute_dtype)
         if dt != torch.float32:
@@ -153,41 +264,95 @@ class CaptioningTransformer:
                           for layer in state["cache"]]
         state["valid"] = state["valid"].repeat_interleave(beam_size, 0)
         num_items = logits.shape[0]
+        dev = logits.device
         # every beam slot holds its own copy of the prefill cache
-        state["anc"] = torch.arange(beam_size, device=logits.device)[
+        state["anc"] = torch.arange(beam_size, device=dev)[
             None, :, None].expand(num_items, beam_size,
                                   max_positions).contiguous()
         classifier = None
         if sampler == "pallas" and not greedy:
             cls = dec["classifier"]
             classifier = (cls["weight"], cls["bias"])
-        # phase ladder: the attention kernel reads only the first p_eff
+        steps = max_len - prefix_len
+        # early-EOS compaction: on by default for long generations of many
+        # items, where most items end well before the last step
+        use_compact = (num_items >= 32 and steps >= 64
+                       if compact is None else compact)
+        live_fn = finalize_fn = None
+        if use_compact:
+            state["live"] = num_items
+            state["item_perm"] = torch.arange(num_items, device=dev)
+            state.update(consts)
+            consts = None
+            live_fn = lambda st: st["live"]  # noqa: E731
+            finalize_fn = self._finalize_compaction
+        use_canon = True if canon is None else canon
+        # phase ladder: the attention kernels read only the first p_eff
         # cache positions, which grow with the decode position (step s
         # needs p_eff >= prefix_len + s + 1); the last phase reads only
         # through the last written position
         p_cache = -(-max_positions // 8) * 8
-        steps = max_len - prefix_len
         pes = [pe for pe in range(16, p_cache, 8)
                if 1 <= pe - prefix_len - 1 < steps - 1]
+        # phase k runs canon when the boundary before it can set up a
+        # canonical prefix c = pe - lag >= 24 (and pe >= 48: on a short
+        # runway the boundary gathers cost more than they save)
+        canon_cs = [None] + [
+            pe - _CANON_LAG
+            if use_canon and pe - _CANON_LAG >= 24 and pe >= 48 else None
+            for pe in (pes + [p_cache])[1:]]
         p_last = min(p_cache, -(-(prefix_len + steps) // 8) * 8)
         phases = [(pe - prefix_len - 1,
-                   self._make_step(dec, consts, pe, classifier is not None))
-                  for pe in pes]
+                   self._make_step(dec, consts, pe, classifier is not None,
+                                   canon_cs[k]))
+                  for k, pe in enumerate(pes)]
         phases.append((steps - 1, self._make_step(
-            dec, consts, p_last, classifier is not None)))
-        return beam_search(
+            dec, consts, p_last, classifier is not None, canon_cs[-1])))
+        # boundaries: compaction at pe = 24, 48, 96, ... (each pass gathers
+        # the cache prefix, so they are sparse), canonicalisation before
+        # every canon phase, after the compaction of the same boundary so
+        # its straggler ids index the permuted order
+        compactors, last_c, boundaries = [], 0, []
+        for k, pe in enumerate(pes):
+            fns = []
+            compacts = use_compact and pe >= 24 and pe >= 2 * last_c
+            if compacts:
+                fns.append(functools.partial(self._compact_state,
+                                             prefix_positions=pe))
+                last_c = pe
+            if canon_cs[k + 1] is not None:
+                fns.append(functools.partial(self._canonicalize_state,
+                                             c=canon_cs[k + 1]))
+            if fns:
+                fns.append(functools.partial(
+                    self._record_boundary, boundaries, pe, compacts,
+                    canon_cs[k + 1] is not None))
+            compactors.append(self._chain_boundaries(fns) if fns else None)
+        out = beam_search(
             gen, state, logits, shuffle_fn=self._shuffle_state,
             phases=phases, beam_size=beam_size, top_k=top_k,
             temperature=temperature, max_len=max_len, prefix=caption,
             prefix_len=prefix_len, greedy=greedy, sampler=sampler,
-            classifier=classifier, eos_index=eos_index,
+            classifier=classifier, live_fn=live_fn, compactors=compactors,
+            finalize_fn=finalize_fn, eos_index=eos_index,
             pad_index=self.pad_index)
+        return dict(out, boundaries=boundaries)
+
+    @staticmethod
+    def _record_boundary(log, pe, compacted, canon, state, seq, val, ended):
+        """Notes what a boundary left: the live items after its compaction
+        and the stragglers of its canon set-up (None for a part that did
+        not run). Both are host ints already."""
+        log.append({"p_eff": pe,
+                    "live": state["live"] if compacted else None,
+                    "stragglers": state["n_strag"] if canon else None})
+        return state, seq, val, ended
 
     @torch.inference_mode()
     def generate_from_emb(self, params, enc, generator=None, caption=None,
                           max_len=25, temperature=1.0, beam_size=10,
                           top_k=50, eos_index=EOS, greedy=False,
-                          sampler=None):
+                          sampler=None, compact=None, canon=None):
         """Batched generation from (possibly cached) ``encode`` output.
 
         Args:
@@ -196,11 +361,18 @@ class CaptioningTransformer:
                 (default: seeded with 0).
             caption: optional ``[B, prefix_len]`` fixed first tokens.
             sampler: "exact" (default; sorted f32 top-k) or "pallas" (the
-                K3 kernel; the serving path).
+                sampler kernels K3/K4; the serving path).
+            compact: early-EOS compaction; None (default) turns it on for
+                at least 32 items and 64 steps.
+            canon: canonical-prefix attention; None (default) is on, and it
+                engages only in phases with p_eff >= 48.
 
         Returns:
             dict with ``sequences [B, beam, max_len]``, ``scores``,
-            ``chosen [B, max_len]`` and ``ended``.
+            ``chosen [B, max_len]``, ``ended`` and ``boundaries``: one dict
+            per phase boundary that ran (``p_eff`` of the phase before
+            it, ``live`` items after its compaction, ``stragglers`` of its
+            canon set-up; None where that part did not run).
         """
         sampler = sampler or "exact"
         if sampler not in _SAMPLERS:
@@ -212,15 +384,17 @@ class CaptioningTransformer:
         return self._generate_impl(
             params, enc, generator, caption, temperature, max_len=max_len,
             beam_size=beam_size, top_k=top_k, greedy=greedy,
-            eos_index=eos_index, sampler=sampler)
+            eos_index=eos_index, sampler=sampler, compact=compact,
+            canon=canon)
 
     def generate(self, params, images, generator=None, caption=None,
                  max_len=25, temperature=1.0, beam_size=10, top_k=50,
-                 eos_index=EOS, greedy=False, sampler=None):
+                 eos_index=EOS, greedy=False, sampler=None, compact=None,
+                 canon=None):
         """Batched caption generation from NHWC images ``[B, H, W, 3]``
         (ImageNet-normalized); arguments as :meth:`generate_from_emb`."""
         return self.generate_from_emb(
             params, self.encode(params, images), generator=generator,
             caption=caption, max_len=max_len, temperature=temperature,
             beam_size=beam_size, top_k=top_k, eos_index=eos_index,
-            greedy=greedy, sampler=sampler)
+            greedy=greedy, sampler=sampler, compact=compact, canon=canon)

@@ -17,7 +17,7 @@ __all__ = ["image_encoder_init", "image_encoder_apply",
 RESNET_FEATURE_DIM = 2048
 
 
-def image_encoder_init(gen, emb_dim=256, device="cpu"):
+def image_encoder_init(gen, emb_dim=256, device="cuda"):
     return {
         "resnet": resnet50_init(gen, device),
         "linear": L.linear_init(gen, RESNET_FEATURE_DIM, emb_dim, device),

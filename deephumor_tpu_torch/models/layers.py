@@ -42,24 +42,24 @@ def _uniform(gen, shape, bound, device):
     return (u * 2.0 - 1.0) * bound
 
 
-def linear_init(gen, in_dim, out_dim, device="cpu"):
+def linear_init(gen, in_dim, out_dim, device="cuda"):
     """Kaiming-uniform weight and bias, bound 1/sqrt(in_dim)."""
     bound = 1.0 / math.sqrt(in_dim)
     return {"weight": _uniform(gen, (out_dim, in_dim), bound, device),
             "bias": _uniform(gen, (out_dim,), bound, device)}
 
 
-def embedding_init(gen, num_embeddings, dim, device="cpu"):
+def embedding_init(gen, num_embeddings, dim, device="cuda"):
     return {"weight": torch.randn((num_embeddings, dim), generator=gen,
                                   device=device)}
 
 
-def layer_norm_init(dim, device="cpu"):
+def layer_norm_init(dim, device="cuda"):
     return {"weight": torch.ones(dim, device=device),
             "bias": torch.zeros(dim, device=device)}
 
 
-def batch_norm_init(dim, device="cpu"):
+def batch_norm_init(dim, device="cuda"):
     return {"weight": torch.ones(dim, device=device),
             "bias": torch.zeros(dim, device=device),
             "running_mean": torch.zeros(dim, device=device),

@@ -69,7 +69,7 @@ def _bottleneck(params, x, stride):
     return torch.relu(out + identity)
 
 
-def resnet50_init(gen, device="cpu"):
+def resnet50_init(gen, device="cuda"):
     """Random ResNet-50 trunk parameters (real weights come from a
     converted checkpoint)."""
     params = {"conv1": _conv_init(gen, 7, 7, 3, 64, device),

@@ -11,18 +11,25 @@ The token loop runs on the host, one decoder step per position, split
 into ``phases`` whose step functions read a growing cache prefix. It
 stops early once every branch has ended (one ``ended.all()`` read per
 step), which gives the same result as running every step: ended branches
-only append pads at score 0. Random draws come from the caller's
-``torch.Generator``, which must live on the device of the logits.
+only append pads at score 0. A model may run a boundary function after a
+phase (early-EOS compaction, canonical-prefix setup) that permutes the
+items; ``finalize_fn`` puts the outputs back in the caller's order.
+Random draws come from the caller's ``torch.Generator``, which must live
+on the device of the logits.
 """
 
 import torch
 
 from deephumor_tpu_torch import EOS, PAD, UNK
-from deephumor_tpu_torch.ops.sampler import fused_topk_gumbel_sample
+from deephumor_tpu_torch.ops.sampler import (
+    fused_classifier_topk_gumbel_sample, fused_topk_gumbel_sample)
 
 __all__ = ["filter_top_k", "gumbel_top_k", "beam_search"]
 
 NEG_INF = float("-inf")
+# above this vocabulary the classifier runs as a separate bf16 product
+# before K3; at or below it K4 computes it inside the sampler kernel
+FUSED_CLASSIFIER_MAX_V = 16384
 
 
 def _top_k(x, k):
@@ -62,16 +69,27 @@ def _log_softmax_scores(vals):
 
 
 def _topk_space_draw(gen, logits, top_k, k, inv_t, greedy, unk_index,
-                     sampler="exact", classifier=None, seed=None):
+                     sampler="exact", classifier=None, seed=None,
+                     live_rows=None):
     """One vocab-wide top-k selection, then the k-token draw in the
     reduced space. Returns (token ids ``[..., k]``, scores ``[..., k]``).
 
-    ``sampler="pallas"`` (stochastic only) runs the K3 kernel
-    (ops.fused_topk_gumbel_sample) on bf16 logits; with ``classifier``,
-    ``logits`` is the pre-classifier hidden state and the classifier is a
-    plain bf16 matmul first. ``"exact"`` (and greedy) sorts the f32
+    ``sampler="pallas"`` (stochastic only) runs the sampler kernels. With
+    ``classifier``, ``logits`` is the pre-classifier hidden state: up to
+    ``FUSED_CLASSIFIER_MAX_V`` the K4 kernel
+    (ops.fused_classifier_topk_gumbel_sample) computes the classifier
+    inside the draw and skips rows at or past ``live_rows``; above it the
+    classifier is a plain bf16 matmul before K3
+    (ops.fused_topk_gumbel_sample). ``"exact"`` (and greedy) sorts the f32
     logits."""
     if sampler == "pallas" and not greedy:
+        if classifier is not None and (
+                classifier[0].shape[0] <= FUSED_CLASSIFIER_MAX_V):
+            w, b = classifier
+            tokens, vals = fused_classifier_topk_gumbel_sample(
+                logits, w, b, seed, inv_t, top_k=top_k, num_draws=k,
+                unk_index=unk_index, live_rows=live_rows)
+            return tokens, _log_softmax_scores(vals)
         if classifier is not None:
             bf = torch.bfloat16
             w, b = classifier
@@ -102,6 +120,7 @@ def _topk_space_draw(gen, logits, top_k, k, inv_t, greedy, unk_index,
 def beam_search(gen, state, init_logits, *, shuffle_fn, phases, beam_size,
                 top_k, temperature, max_len, prefix=None, prefix_len=0,
                 greedy=False, sampler="exact", classifier=None,
+                live_fn=None, compactors=None, finalize_fn=None,
                 eos_index=EOS, unk_index=UNK, pad_index=PAD):
     """Runs batched stochastic or greedy beam search.
 
@@ -117,6 +136,12 @@ def beam_search(gen, state, init_logits, *, shuffle_fn, phases, beam_size,
             ``last_step`` (the final entry covers the rest).
         classifier: optional ``(weight [V, D], bias [V])``; when given the
             step functions return hidden states and the draw classifies.
+        live_fn: optional ``state -> int or None``, the live-item count
+            (live items lead); the draw skips the other rows.
+        compactors: optional list, one entry per phase but the last:
+            ``None`` or ``(state, seq, val, ended) -> (state, seq, val,
+            ended)``, run after that phase's loop (it may permute items).
+        finalize_fn: optional ``(state, out) -> out`` run on the outputs.
         max_len: total output length including any prefix.
 
     Returns:
@@ -135,9 +160,9 @@ def beam_search(gen, state, init_logits, *, shuffle_fn, phases, beam_size,
         seeds = torch.randint(0, 2 ** 31 - 1, (steps,), generator=gen,
                               device=gen.device).tolist()
 
-    def draw(logits, seed, cls=None):
+    def draw(logits, seed, cls=None, live_rows=None):
         return _topk_space_draw(gen, logits, top_k, beam, inv_t, greedy,
-                                unk_index, sampler, cls, seed)
+                                unk_index, sampler, cls, seed, live_rows)
 
     first_idx, val = draw(init_logits, seeds[0])
     seq = torch.full((num_items, beam, max_len), pad_index,
@@ -151,12 +176,18 @@ def beam_search(gen, state, init_logits, *, shuffle_fn, phases, beam_size,
 
     bounds = [(min(b, steps - 1), f) for b, f in phases[:-1]]
     bounds.append((steps - 1, phases[-1][1]))
+    compactors = list(compactors or []) + [None] * len(bounds)
     s = 1
-    for last_step, step_fn in bounds:
-        while s <= last_step and not bool(ended.all()):
+    all_ended = bool(ended.all())
+    for (last_step, step_fn), boundary in zip(bounds, compactors):
+        if last_step < 1:
+            continue
+        while s <= last_step and not all_ended:
             out, state = step_fn(state, seq[:, :, prefix_len + s - 1]
                                  .reshape(-1))
-            new_idx, new_val = draw(out, seeds[s], classifier)
+            live = None if live_fn is None else live_fn(state)
+            new_idx, new_val = draw(out, seeds[s], classifier,
+                                    None if live is None else live * beam)
             new_idx = new_idx.reshape(num_items, beam, beam)
             new_val = new_val.reshape(num_items, beam, beam)
             e3 = ended[..., None]
@@ -177,7 +208,13 @@ def beam_search(gen, state, init_logits, *, shuffle_fn, phases, beam_size,
             state = shuffle_fn(state, (items * beam + branch).reshape(-1),
                                branch)
             s += 1
+            all_ended = bool(ended.all())
+        # once every branch has ended no later step runs, so a boundary
+        # would only permute rows that finalize_fn puts back
+        if boundary is not None and not all_ended:
+            state, seq, val, ended = boundary(state, seq, val, ended)
 
     final = _select_k(gen, val * inv_t, 1, greedy)[:, 0]
-    return {"sequences": seq, "scores": val,
-            "chosen": seq[items[:, 0], final], "ended": ended}
+    out = {"sequences": seq, "scores": val,
+           "chosen": seq[items[:, 0], final], "ended": ended}
+    return out if finalize_fn is None else finalize_fn(state, out)

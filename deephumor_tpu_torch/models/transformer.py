@@ -5,9 +5,13 @@ post-LN blocks, learned positions, token embeddings divided by
 sqrt(hid_dim), -1e8 mask fills. During beam search the caches are never
 reordered: each branch carries an ancestry table and self-attention runs
 in the K1 kernel (ops.ancestry_attention_update), which also writes the
-position's K/V into the caches in place. Cross-attention onto each item's
-encoder K/V runs in the K2 kernel (ops.grouped_cross_attention). On CPU
-tensors both run their plain twins.
+position's K/V into the caches in place. Once the engine has set up a
+canonical prefix (long generations), self-attention runs in K5
+(ops.ancestry_attention_update_canon) over the shared ancestor rows and a
+per-slot window, with the straggler items recomputed full-width by K6
+(ops.ancestry_attention_ids). Cross-attention onto each item's encoder K/V
+runs in the K2 kernel (ops.grouped_cross_attention). On CPU tensors every
+kernel runs its plain twin.
 """
 
 import math
@@ -17,8 +21,8 @@ import torch.nn.functional as F
 
 from deephumor_tpu_torch.models import layers as L
 from deephumor_tpu_torch.ops.attention import (
-    MASK_FILL, ancestry_attention_update, ancestry_bias,
-    grouped_cross_attention)
+    MASK_FILL, ancestry_attention_ids, ancestry_attention_update,
+    ancestry_attention_update_canon, ancestry_bias, grouped_cross_attention)
 
 __all__ = ["transformer_decoder_init", "init_cache",
            "precompute_cross_attention", "pff_apply", "decode_step"]
@@ -30,7 +34,7 @@ def _mha_init(gen, d, device):
 
 
 def transformer_decoder_init(gen, num_tokens, hid_dim=512, n_layers=6,
-                             pf_dim=2048, max_len=128, device="cpu"):
+                             pf_dim=2048, max_len=128, device="cuda"):
     """Random cross-attention decoder parameters (same tree as the JAX
     ``transformer_decoder_init``)."""
     layers = []
@@ -91,7 +95,7 @@ def pff_apply(params, x):
 
 def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
                 n_heads, cross, enc_key_mask=None, anc=None, p_eff=None,
-                return_hidden=False):
+                return_hidden=False, live_items=None, canon=None):
     """One incremental decode position; writes K/V at ``pos`` in place.
 
     Args:
@@ -109,6 +113,18 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
             (prefill).
         p_eff: with ``anc``, the number of leading cache positions read.
         return_hidden: return the pre-classifier hidden state.
+        live_items: optional host int, the number of live items (early-EOS
+            compaction keeps them first); the kernels skip the rest, whose
+            attention rows are zero.
+        canon: optional canonical-prefix bundle from the engine's phase
+            boundary (``CaptioningTransformer._canonicalize_state``):
+            ``{"c": int, "shared": [{"sk", "sv"} per layer],
+            "bias_sh": [B, 1, c], "strag_ids": [B], "n_strag": int,
+            "strag_rows": bool [bs]}``. Self-attention then reads the
+            shared rows below ``c`` plus the per-slot window
+            ``[c, p_eff)`` (K5); straggler items are recomputed full-width
+            (K6) and merged by row mask. A phase without stragglers
+            launches no K6.
 
     Returns:
         (logits ``[bs, V]`` or hidden ``[bs, D]``, cache)
@@ -117,9 +133,15 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
     p_cache = cache[0]["k"].shape[1]
     pad = p_cache - self_key_valid.shape[-1]
     valid = F.pad(self_key_valid, (0, pad))
-    anc_bias = None
+    anc_bias = bias_win = None
     if anc is not None:
-        anc_bias = ancestry_bias(F.pad(anc, (0, pad)), valid, p_cache)
+        anc = F.pad(anc, (0, pad))
+        anc_bias = ancestry_bias(anc, valid, p_cache)
+        if canon is not None:
+            # the same fold restricted to the still-diverging tip [c, pe)
+            c = canon["c"]
+            pe = p_cache if p_eff is None else min(p_eff, p_cache)
+            bias_win = ancestry_bias(anc[:, :, c:pe], valid[:, c:pe], pe - c)
     cross_bias = None
     if enc_key_mask is not None:
         cross_bias = torch.where(enc_key_mask[:, None, :], MASK_FILL,
@@ -132,10 +154,22 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
         b = torch.cat([sa[n]["bias"] for n in ("fc_q", "fc_k", "fc_v")])
         q, k, v = (t.contiguous() for t in F.linear(x, w, b).split(d, -1))
         ck, cv = cache[i]["k"], cache[i]["v"]
-        if anc_bias is not None:
+        if canon is not None:
+            beam = anc.shape[1]
+            sh = canon["shared"][i]
+            attn = ancestry_attention_update_canon(
+                q, ck, cv, sh["sk"], sh["sv"], k, v, canon["bias_sh"],
+                bias_win, pos, beam=beam, n_heads=n_heads, c=canon["c"],
+                p_eff=pe, live_items=live_items)
+            if canon["n_strag"]:
+                out_s = ancestry_attention_ids(
+                    q, ck, cv, anc_bias, canon["strag_ids"], canon["n_strag"],
+                    beam=beam, n_heads=n_heads, p_eff=p_eff)
+                attn = torch.where(canon["strag_rows"][:, None], out_s, attn)
+        elif anc_bias is not None:
             attn = ancestry_attention_update(
                 q, ck, cv, k, v, anc_bias, pos, beam=anc.shape[1],
-                n_heads=n_heads, p_eff=p_eff)
+                n_heads=n_heads, p_eff=p_eff, live_items=live_items)
         else:
             ck[:, pos] = k
             cv[:, pos] = v
@@ -145,7 +179,7 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
         ea = layer["enc_attn"]
         attn = grouped_cross_attention(
             L.linear(ea["fc_q"], x), cross[i]["ek"], cross[i]["ev"],
-            cross_bias, n_heads=n_heads)
+            cross_bias, n_heads=n_heads, live_items=live_items)
         x = L.layer_norm(layer["enc_attn_ln"], x + L.linear(ea["fc_o"], attn))
         x = L.layer_norm(layer["pf_ln"], x + pff_apply(layer["pf"], x))
     if return_hidden:

@@ -2,14 +2,23 @@
 
 from deephumor_tpu_torch.ops._build import LAUNCHES, reset_launch_counts
 from deephumor_tpu_torch.ops.attention import (
-    ancestry_attention_update, ancestry_attention_update_plain,
+    ancestry_attention_ids, ancestry_attention_ids_plain,
+    ancestry_attention_update, ancestry_attention_update_canon,
+    ancestry_attention_update_canon_plain, ancestry_attention_update_plain,
     ancestry_bias, grouped_cross_attention, grouped_cross_attention_plain)
 from deephumor_tpu_torch.ops.sampler import (
-    fused_topk_gumbel_sample, fused_topk_gumbel_sample_plain)
+    fused_classifier_topk_gumbel_sample,
+    fused_classifier_topk_gumbel_sample_plain, fused_topk_gumbel_sample,
+    fused_topk_gumbel_sample_plain)
 
 __all__ = [
     "LAUNCHES", "reset_launch_counts", "ancestry_bias",
     "ancestry_attention_update", "ancestry_attention_update_plain",
+    "ancestry_attention_update_canon",
+    "ancestry_attention_update_canon_plain",
+    "ancestry_attention_ids", "ancestry_attention_ids_plain",
     "grouped_cross_attention", "grouped_cross_attention_plain",
     "fused_topk_gumbel_sample", "fused_topk_gumbel_sample_plain",
+    "fused_classifier_topk_gumbel_sample",
+    "fused_classifier_topk_gumbel_sample_plain",
 ]

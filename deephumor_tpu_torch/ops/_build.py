@@ -1,6 +1,9 @@
 """Builds ``ops/csrc/*.cu`` with ``nvcc`` into one shared library and
 loads it with ``ctypes``.
 
+Each source compiles to an object in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects into the library.
+
 The library has a plain C interface: every pointer and the stream are
 ``c_void_p``, sizes are ``c_int``, and every entry point returns
 ``cudaGetLastError()`` so a refused launch raises in the wrapper instead
@@ -24,32 +27,48 @@ import subprocess
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "library", "check",
            "BUILD_DIR", "dtype_code", "on_kernel_device",
-           "check_vector_rows", "stream_of"]
+           "check_vector_rows", "live_count", "stream_of"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parents[2] / "build" / "deephumor_tpu_torch"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {
     "ancestry_attention_update": 0,
     "grouped_cross_attention": 0,
     "fused_topk_gumbel_sample": 0,
+    "fused_classifier_topk_gumbel_sample": 0,
+    "ancestry_attention_update_canon": 0,
+    "ancestry_attention_ids": 0,
 }
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _SIGNATURES = {
     # dtype, q, cache_k, cache_v, k_new, v_new, bias, out,
-    # items, beam, P, p_eff, D, H, pos, inv_scale, stream
+    # items, live, beam, P, p_eff, D, H, pos, inv_scale, stream
     "dh_ancestry_attention_update":
-        [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # dtype, q, ek, ev, bias (or NULL), out, G, r, T, D, H, inv_scale,
-    # stream
+        [_I, *[_P] * 7, *[_I] * 8, _F, _P],
+    # dtype, q, ek, ev, bias (or NULL), out, G, live, r, T, D, H,
+    # inv_scale, stream
     "dh_grouped_cross_attention":
-        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        [_I, *[_P] * 5, *[_I] * 6, _F, _P],
     # dtype, logits, ids, rows, V, top_k, num_draws, unk, seed, invT, stream
     "dh_topk_gumbel_sample":
         [_I, _P, _P, _I, _I, _I, _I, _I, _U, _F, _P],
+    # x, w, b, ids, vals, rows, live_rows, V, D, top_k, num_draws, unk,
+    # seed, invT, stream
+    "dh_classifier_topk_gumbel_sample":
+        [*[_P] * 5, *[_I] * 7, _U, _F, _P],
+    # dtype, q, cache_k, cache_v, shared_k, shared_v, k_new, v_new,
+    # bias_shared, bias_win, out, items, live, beam, P, shared_len, c,
+    # p_eff, D, H, pos, inv_scale, stream
+    "dh_ancestry_attention_update_canon":
+        [_I, *[_P] * 10, *[_I] * 10, _F, _P],
+    # dtype, q, cache_k, cache_v, bias, item_ids, out, items, n_sel, beam,
+    # P, p_eff, D, H, inv_scale, stream
+    "dh_ancestry_attention_ids":
+        [_I, *[_P] * 6, *[_I] * 7, _F, _P],
 }
 
 def reset_launch_counts():
@@ -75,14 +94,20 @@ def library():
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libdh_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        cmds = [[_nvcc(), *FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "nvcc.log").write_text(
-            " ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        log = []
+        try:
+            _run_all(cmds, log)
+            _run_all([[_nvcc(), *FLAGS[:2], "-shared", "-o", str(tmp),
+                       *map(str, objs)]], log)
+        finally:
+            (BUILD_DIR / "nvcc.log").write_text("".join(log))
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
@@ -92,6 +117,21 @@ def library():
     lib.dh_error_string.argtypes = [_I]
     lib.dh_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _run_all(cmds, log):
+    """Runs the commands in parallel; raises if any of them failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out[-4000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
 
 def check(err, name):
@@ -137,6 +177,12 @@ def check_vector_rows(name, head_dim, *tensors):
                          f"multiple of 16")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+def live_count(n, live):
+    """How many of ``n`` leading items (or rows) a kernel computes: all of
+    them when ``live`` is None, else ``live`` clamped to [0, n]."""
+    return n if live is None else min(max(int(live), 0), n)
 
 
 def stream_of(t):

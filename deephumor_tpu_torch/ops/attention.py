@@ -1,4 +1,5 @@
-"""Decode-time attention: the K1 and K2 kernel wrappers and their twins.
+"""Decode-time attention: the K1, K2, K5 and K6 kernel wrappers and their
+twins.
 
 Counterparts of deephumor_tpu/ops/pallas_attention.py. Each wrapper
 launches its CUDA kernel (ops/csrc/) for CUDA tensors and runs its plain
@@ -14,7 +15,10 @@ import torch
 from deephumor_tpu_torch.ops import _build
 
 __all__ = ["MASK_FILL", "ancestry_bias", "ancestry_attention_update",
-           "ancestry_attention_update_plain", "grouped_cross_attention",
+           "ancestry_attention_update_plain",
+           "ancestry_attention_update_canon",
+           "ancestry_attention_update_canon_plain", "ancestry_attention_ids",
+           "ancestry_attention_ids_plain", "grouped_cross_attention",
            "grouped_cross_attention_plain"]
 
 MASK_FILL = -1e8
@@ -43,34 +47,37 @@ def ancestry_bias(anc, valid, p):
 
 def _check_update(q, cache_k, cache_v, k_new, v_new, bias, pos, beam,
                   n_heads):
+    """Shapes of the ancestry kernels' operands; k_new/v_new, bias and pos
+    may be None where a kernel does not take them."""
     rows, p, d = cache_k.shape
     if cache_v.shape != cache_k.shape:
         raise ValueError("cache_k and cache_v shapes differ")
-    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
+    news = [(n, t) for n, t in (("k_new", k_new), ("v_new", v_new))
+            if t is not None]
+    for name, t in [("q", q)] + news:
         if t.shape != (rows, d):
             raise ValueError(f"{name} must be [{rows}, {d}], got "
                              f"{tuple(t.shape)}")
-    if len({t.dtype for t in (q, cache_k, cache_v, k_new, v_new)}) != 1:
+    if len({t.dtype for t in [q, cache_k, cache_v] + [t for _, t in news]}
+           ) != 1:
         raise ValueError("q, caches and k_new/v_new must share one dtype")
     if rows % beam or d % n_heads:
         raise ValueError(f"rows {rows} / beam {beam} or D {d} / heads "
                          f"{n_heads} do not divide")
-    if bias.dtype != torch.float32 or bias.shape != (rows // beam, beam,
-                                                      beam * p):
+    if bias is not None and (bias.dtype != torch.float32
+                             or bias.shape != (rows // beam, beam, beam * p)):
         raise ValueError(f"bias must be f32 [{rows // beam}, {beam}, "
                          f"{beam * p}], got {bias.dtype} {tuple(bias.shape)}")
-    if not 0 <= pos < p:
+    if pos is not None and not 0 <= pos < p:
         raise ValueError(f"pos {pos} outside the cache length {p}")
 
 
-def ancestry_attention_update_plain(q, cache_k, cache_v, k_new, v_new, bias,
-                                    pos, *, beam, n_heads, p_eff=None):
-    """Plain PyTorch twin of :func:`ancestry_attention_update`."""
+def _attend(q, cache_k, cache_v, bias, *, beam, n_heads, pe):
+    """Ancestry attention of every item in ``q [items*beam, D]`` over the
+    first ``pe`` positions of its caches: f32 energies and softmax, weights
+    rounded to the value dtype before the AV product."""
     rows, p, d = cache_k.shape
     b, hd = rows // beam, d // n_heads
-    pe = p if p_eff is None else min(p_eff, p)
-    cache_k[:, pos] = k_new
-    cache_v[:, pos] = v_new
     k = cache_k[:, :pe].float().reshape(b, beam, pe, n_heads, hd)
     v = cache_v[:, :pe].float().reshape(b, beam, pe, n_heads, hd)
     qf = q.float().reshape(b, beam, n_heads, hd)
@@ -82,8 +89,24 @@ def ancestry_attention_update_plain(q, cache_k, cache_v, k_new, v_new, bias,
     return out.reshape(rows, d).to(q.dtype)
 
 
+def ancestry_attention_update_plain(q, cache_k, cache_v, k_new, v_new, bias,
+                                    pos, *, beam, n_heads, p_eff=None,
+                                    live_items=None):
+    """Plain PyTorch twin of :func:`ancestry_attention_update`."""
+    rows, p, _ = cache_k.shape
+    pe = p if p_eff is None else min(p_eff, p)
+    live = _build.live_count(rows // beam, live_items)
+    lr = live * beam
+    cache_k[:lr, pos] = k_new[:lr]
+    cache_v[:lr, pos] = v_new[:lr]
+    out = torch.zeros_like(q)
+    out[:lr] = _attend(q[:lr], cache_k[:lr], cache_v[:lr], bias[:live],
+                       beam=beam, n_heads=n_heads, pe=pe)
+    return out
+
+
 def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
-                              *, beam, n_heads, p_eff=None):
+                              *, beam, n_heads, p_eff=None, live_items=None):
     """K1: writes (k_new, v_new) at ``pos``, then ancestry attention.
 
     The caches are updated IN PLACE: ``cache_k[:, pos] = k_new`` and
@@ -98,6 +121,10 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
         pos: int decode position, ``0 <= pos < P``.
         p_eff: read only the first ``p_eff`` cache positions (every valid
             position must lie below it).
+        live_items: optional host int; items at or past it (retired by
+            early-EOS compaction, which keeps live items first) are not
+            computed: their output rows are zero and their cache columns
+            are not written.
 
     Returns:
         attention output ``[B*beam, D]`` (before the output projection).
@@ -105,7 +132,7 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
     name = "ancestry_attention_update"
     _check_update(q, cache_k, cache_v, k_new, v_new, bias, pos, beam,
                   n_heads)
-    kw = dict(beam=beam, n_heads=n_heads, p_eff=p_eff)
+    kw = dict(beam=beam, n_heads=n_heads, p_eff=p_eff, live_items=live_items)
     if not _build.on_kernel_device(name, q, cache_k, cache_v, k_new, v_new,
                                    bias):
         return ancestry_attention_update_plain(
@@ -118,29 +145,210 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
     err = _build.library().dh_ancestry_attention_update(
         _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
         cache_v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), rows // beam, beam, p, pe, d,
-        n_heads, pos, 1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
+        bias.data_ptr(), out.data_ptr(), rows // beam,
+        _build.live_count(rows // beam, live_items), beam, p, pe, d, n_heads,
+        pos, 1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out
 
 
-def grouped_cross_attention_plain(q, ek, ev, bias, *, n_heads):
+def _check_canon(q, cache_k, shared_k, shared_v, bias_shared, bias_win, pos,
+                 beam, c, p_eff):
+    rows, p, d = cache_k.shape
+    b = rows // beam
+    if not 0 < c < p_eff <= p or not c <= pos < p_eff:
+        raise ValueError(f"need 0 < c ({c}) <= pos ({pos}) < p_eff "
+                         f"({p_eff}) <= P ({p})")
+    if shared_v.shape != shared_k.shape or shared_k.ndim != 3 or (
+            shared_k.shape[0] != b or shared_k.shape[1] < c
+            or shared_k.shape[2] != d):
+        raise ValueError(f"shared caches must be [{b}, >={c}, {d}], got "
+                         f"{tuple(shared_k.shape)}")
+    if shared_k.dtype != q.dtype:
+        raise ValueError("shared caches must have the dtype of q")
+    w = p_eff - c
+    for name, t, shape in (("bias_shared", bias_shared, (b, 1, c)),
+                           ("bias_win", bias_win, (b, beam, beam * w))):
+        if t.dtype != torch.float32 or t.shape != shape:
+            raise ValueError(f"{name} must be f32 {list(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def ancestry_attention_update_canon_plain(q, cache_k, cache_v, shared_k,
+                                          shared_v, k_new, v_new,
+                                          bias_shared, bias_win, pos, *,
+                                          beam, n_heads, c, p_eff,
+                                          live_items=None):
+    """Plain PyTorch twin of :func:`ancestry_attention_update_canon`."""
+    rows, _, d = cache_k.shape
+    hd, w = d // n_heads, p_eff - c
+    live = _build.live_count(rows // beam, live_items)
+    lr = live * beam
+    cache_k[:lr, pos] = k_new[:lr]
+    cache_v[:lr, pos] = v_new[:lr]
+    out = torch.zeros_like(q)
+    qf = q[:lr].float().reshape(live, beam, n_heads, hd)
+    sk, sv = (s[:live, :c].float().reshape(live, c, n_heads, hd)
+              for s in (shared_k, shared_v))
+    wk, wv = (t[:lr, c:p_eff].float().reshape(live, beam * w, n_heads, hd)
+              for t in (cache_k, cache_v))
+    scale = 1.0 / math.sqrt(hd)
+    e_sh = torch.einsum("bjhd,bchd->bjhc", qf, sk) * scale
+    e_sh = e_sh + bias_shared[:live, :, None, :]
+    e_wn = torch.einsum("bjhd,bwhd->bjhw", qf, wk) * scale
+    e_wn = e_wn + bias_win[:live, :, None, :]
+    wt = torch.softmax(torch.cat([e_sh, e_wn], dim=-1), dim=-1)
+    wt = wt.to(q.dtype).float()
+    o = (torch.einsum("bjhc,bchd->bjhd", wt[..., :c], sv)
+         + torch.einsum("bjhw,bwhd->bjhd", wt[..., c:], wv))
+    out[:lr] = o.reshape(lr, d).to(q.dtype)
+    return out
+
+
+def ancestry_attention_update_canon(q, cache_k, cache_v, shared_k, shared_v,
+                                    k_new, v_new, bias_shared, bias_win, pos,
+                                    *, beam, n_heads, c, p_eff,
+                                    live_items=None):
+    """K5: writes (k_new, v_new) at ``pos``, then canonical-prefix
+    attention.
+
+    Each branch j of item b attends over the item's shared ancestor rows
+    ``shared[b, :c]`` (bias ``bias_shared``) joined with its item's
+    per-slot window ``cache[b*beam:(b+1)*beam, c:p_eff]`` (bias
+    ``bias_win``), one softmax over both. Items whose live branches
+    disagree below ``c`` (stragglers) get outputs from a stale shared path:
+    the caller recomputes them with :func:`ancestry_attention_ids`.
+
+    Args:
+        q, k_new, v_new: ``[B*beam, D]``.
+        cache_k, cache_v: ``[B*beam, P, D]``, updated IN PLACE at ``pos``.
+        shared_k, shared_v: ``[B, >=c, D]`` canonical ancestor caches.
+        bias_shared: f32 ``[B, 1, c]`` validity bias of the shared rows.
+        bias_win: f32 ``[B, beam, beam*(p_eff-c)]`` ancestry bias of the
+            window (:func:`ancestry_bias` over positions ``[c, p_eff)``).
+        pos: int, ``c <= pos < p_eff``.
+        live_items: as :func:`ancestry_attention_update`.
+
+    Returns:
+        attention output ``[B*beam, D]`` (before the output projection).
+    """
+    name = "ancestry_attention_update_canon"
+    rows, p, d = cache_k.shape
+    _check_update(q, cache_k, cache_v, k_new, v_new, None, pos, beam,
+                  n_heads)
+    p_eff = min(p_eff, p)
+    _check_canon(q, cache_k, shared_k, shared_v, bias_shared, bias_win, pos,
+                 beam, c, p_eff)
+    kw = dict(beam=beam, n_heads=n_heads, c=c, p_eff=p_eff,
+              live_items=live_items)
+    if not _build.on_kernel_device(name, q, cache_k, cache_v, shared_k,
+                                   shared_v, k_new, v_new, bias_shared,
+                                   bias_win):
+        return ancestry_attention_update_canon_plain(
+            q, cache_k, cache_v, shared_k, shared_v, k_new, v_new,
+            bias_shared, bias_win, pos, **kw)
+    _build.check_vector_rows(name, d // n_heads, cache_k, cache_v, shared_k,
+                             shared_v, k_new, v_new)
+    out = torch.empty_like(q)
+    err = _build.library().dh_ancestry_attention_update_canon(
+        _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
+        cache_v.data_ptr(), shared_k.data_ptr(), shared_v.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), bias_shared.data_ptr(),
+        bias_win.data_ptr(), out.data_ptr(), rows // beam,
+        _build.live_count(rows // beam, live_items), beam, p,
+        shared_k.shape[1], c, p_eff, d, n_heads, pos,
+        1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def _selected(item_ids, n_sel, items):
+    """The item ids the kernel's grid walks: the first n_sel, at least one
+    (the TPU grid is clamped to [1, items] the same way)."""
+    return item_ids[:min(max(int(n_sel), 1), items)]
+
+
+def ancestry_attention_ids_plain(q, cache_k, cache_v, bias, item_ids, n_sel,
+                                 *, beam, n_heads, p_eff=None):
+    """Plain PyTorch twin of :func:`ancestry_attention_ids` (rows of items
+    it does not compute are zero)."""
+    rows, p, _ = cache_k.shape
+    pe = p if p_eff is None else min(p_eff, p)
+    sel = _selected(item_ids, n_sel, rows // beam).long()
+    sel_rows = (sel[:, None] * beam
+                + torch.arange(beam, device=sel.device)).reshape(-1)
+    out = torch.zeros_like(q)
+    out[sel_rows] = _attend(q[sel_rows], cache_k[sel_rows], cache_v[sel_rows],
+                            bias[sel], beam=beam, n_heads=n_heads, pe=pe)
+    return out
+
+
+def ancestry_attention_ids(q, cache_k, cache_v, bias, item_ids, n_sel, *,
+                           beam, n_heads, p_eff=None):
+    """K6: read-only full-width ancestry attention of the items
+    ``item_ids[:max(n_sel, 1)]``.
+
+    Args:
+        q, cache_k, cache_v, bias, p_eff: as
+            :func:`ancestry_attention_update` (``bias`` is the step's full
+            ``[B, beam, beam*P]`` bias); the caches are only read.
+        item_ids: int ``[>= n_sel]`` item indices (the engine lists the
+            straggler items first).
+        n_sel: host int, the number of leading ids to compute.
+
+    Returns:
+        ``[B*beam, D]``: rows of the selected items hold their attention
+        output; the kernel leaves every other row unwritten (the caller
+        merges by row mask).
+    """
+    name = "ancestry_attention_ids"
+    rows, p, d = cache_k.shape
+    _check_update(q, cache_k, cache_v, None, None, bias, None, beam,
+                  n_heads)
+    if item_ids.ndim != 1 or item_ids.dtype not in (torch.int32,
+                                                    torch.int64):
+        raise ValueError("item_ids must be a 1-D integer tensor")
+    kw = dict(beam=beam, n_heads=n_heads, p_eff=p_eff)
+    if not _build.on_kernel_device(name, q, cache_k, cache_v, bias,
+                                   item_ids):
+        return ancestry_attention_ids_plain(q, cache_k, cache_v, bias,
+                                            item_ids, n_sel, **kw)
+    _build.check_vector_rows(name, d // n_heads, cache_k, cache_v)
+    pe = p if p_eff is None else min(p_eff, p)
+    sel = _selected(item_ids, n_sel, rows // beam).to(torch.int32)
+    out = torch.empty_like(q)
+    err = _build.library().dh_ancestry_attention_ids(
+        _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
+        cache_v.data_ptr(), bias.data_ptr(), sel.data_ptr(), out.data_ptr(),
+        rows // beam, sel.shape[0], beam, p, pe, d, n_heads,
+        1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def grouped_cross_attention_plain(q, ek, ev, bias, *, n_heads,
+                                  live_items=None):
     """Plain PyTorch twin of :func:`grouped_cross_attention`."""
     g, t, d = ek.shape
     r, hd = q.shape[0] // g, d // n_heads
-    qf = q.float().reshape(g, r, n_heads, hd)
-    k = ek.float().reshape(g, t, n_heads, hd)
-    v = ev.float().reshape(g, t, n_heads, hd)
+    live = _build.live_count(g, live_items)
+    qf = q[:live * r].float().reshape(live, r, n_heads, hd)
+    k = ek[:live].float().reshape(live, t, n_heads, hd)
+    v = ev[:live].float().reshape(live, t, n_heads, hd)
     e = torch.einsum("grhd,gthd->grht", qf, k) * (1.0 / math.sqrt(hd))
     if bias is not None:
-        e = e + bias.reshape(g, 1, 1, t)
+        e = e + bias[:live].reshape(live, 1, 1, t)
     w = torch.softmax(e, dim=-1).to(q.dtype).float()
-    out = torch.einsum("grht,gthd->grhd", w, v)
-    return out.reshape(g * r, d).to(q.dtype)
+    out = torch.zeros_like(q)
+    out[:live * r] = torch.einsum("grht,gthd->grhd", w, v).reshape(
+        live * r, d).to(q.dtype)
+    return out
 
 
-def grouped_cross_attention(q, ek, ev, bias, *, n_heads):
+def grouped_cross_attention(q, ek, ev, bias, *, n_heads, live_items=None):
     """K2: single-query cross-attention of ``G*r`` rows over per-group K/V.
 
     Args:
@@ -148,6 +356,8 @@ def grouped_cross_attention(q, ek, ev, bias, *, n_heads):
         ek, ev: ``[G, T, D]`` pre-projected encoder keys/values, the dtype
             of ``q``.
         bias: f32 ``[G, 1, T]`` additive mask (0 or -1e8), or None.
+        live_items: optional host int; groups at or past it are not
+            computed and their output rows are zero.
 
     Returns:
         ``[G*r, D]`` attention output (before the output projection).
@@ -166,14 +376,15 @@ def grouped_cross_attention(q, ek, ev, bias, *, n_heads):
     tensors = (q, ek, ev) if bias is None else (q, ek, ev, bias)
     if not _build.on_kernel_device(name, *tensors):
         return grouped_cross_attention_plain(q, ek, ev, bias,
-                                             n_heads=n_heads)
+                                             n_heads=n_heads,
+                                             live_items=live_items)
     _build.check_vector_rows(name, d // n_heads, ek, ev)
     out = torch.empty_like(q)
     err = _build.library().dh_grouped_cross_attention(
         _build.dtype_code(q, name), q.data_ptr(), ek.data_ptr(),
         ev.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), g, q.shape[0] // g, t, d, n_heads,
-        1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
+        out.data_ptr(), g, _build.live_count(g, live_items), q.shape[0] // g,
+        t, d, n_heads, 1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

@@ -21,6 +21,10 @@
 // coalesced loads, so each cache byte leaves device memory once; energies
 // and weights stay in shared memory too. wgmma / TMA staging is later
 // work.
+//
+// Early-EOS compaction keeps the live items first: blocks of items at or
+// past `live` write zero output rows and neither read nor write the
+// caches (the TPU kernel shrinks its grid and leaves those rows stale).
 
 #include "common.cuh"
 
@@ -48,8 +52,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) ancestry_attention_update_kernel(
     const T* __restrict__ q, T* __restrict__ ck, T* __restrict__ cv,
     const T* __restrict__ knew, const T* __restrict__ vnew,
-    const float* __restrict__ bias, T* __restrict__ out, int beam, int P,
-    int pe, int D, int hd, int pos, float inv_scale) {
+    const float* __restrict__ bias, T* __restrict__ out, int live, int beam,
+    int P, int pe, int D, int hd, int pos, float inv_scale) {
   extern __shared__ __align__(16) uint32_t smem_w[];
   const int n = beam * pe;                  // (slot, position) rows
   const int wpr = hd * (int)sizeof(T) / 4;  // 4-byte words per row
@@ -61,6 +65,10 @@ __global__ void __launch_bounds__(kThreads) ancestry_attention_update_kernel(
   float* e = qs + beam * hd;                // [beam][n]
   const size_t row0 = (size_t)blockIdx.x * beam;
   const int col0 = blockIdx.y * hd;
+  if ((int)blockIdx.x >= live) {
+    dh::zero_rows(out + row0 * D + col0, beam, hd, D);
+    return;
+  }
 
   // stage this (item, head)'s K/V rows; the fresh column comes from
   // k_new / v_new
@@ -108,7 +116,7 @@ __global__ void __launch_bounds__(kThreads) ancestry_attention_update_kernel(
 template <typename T>
 cudaError_t launch(const void* q, void* ck, void* cv, const void* kn,
                    const void* vn, const void* bias, void* out, int items,
-                   int beam, int P, int pe, int D, int H, int pos,
+                   int live, int beam, int P, int pe, int D, int H, int pos,
                    float inv_scale, cudaStream_t stream) {
   const int hd = D / H;
   const size_t n = (size_t)beam * pe;
@@ -122,7 +130,7 @@ cudaError_t launch(const void* q, void* ck, void* cv, const void* kn,
   }
   kernel<<<dim3(items, H), kThreads, smem, stream>>>(
       (const T*)q, (T*)ck, (T*)cv, (const T*)kn, (const T*)vn,
-      (const float*)bias, (T*)out, beam, P, pe, D, hd, pos,
+      (const float*)bias, (T*)out, live, beam, P, pe, D, hd, pos,
       inv_scale);
   return cudaGetLastError();
 }
@@ -131,12 +139,13 @@ cudaError_t launch(const void* q, void* ck, void* cv, const void* kn,
 
 extern "C" int dh_ancestry_attention_update(
     int dtype, const void* q, void* ck, void* cv, const void* kn,
-    const void* vn, const void* bias, void* out, int items, int beam, int P,
-    int pe, int D, int H, int pos, float inv_scale, void* stream) {
+    const void* vn, const void* bias, void* out, int items, int live,
+    int beam, int P, int pe, int D, int H, int pos, float inv_scale,
+    void* stream) {
   auto s = (cudaStream_t)stream;
   if (dtype == dh::kBFloat16)
-    return launch<__nv_bfloat16>(q, ck, cv, kn, vn, bias, out, items, beam,
-                                 P, pe, D, H, pos, inv_scale, s);
-  return launch<float>(q, ck, cv, kn, vn, bias, out, items, beam, P, pe, D,
-                       H, pos, inv_scale, s);
+    return launch<__nv_bfloat16>(q, ck, cv, kn, vn, bias, out, items, live,
+                                 beam, P, pe, D, H, pos, inv_scale, s);
+  return launch<float>(q, ck, cv, kn, vn, bias, out, items, live, beam, P,
+                       pe, D, H, pos, inv_scale, s);
 }

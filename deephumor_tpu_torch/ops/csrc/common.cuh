@@ -111,6 +111,52 @@ __device__ __forceinline__ void stage_rows(uint32_t* dst, int ld, int rows,
   }
 }
 
+// Monotone f32 -> int32 map: signed-int order == float order ("order
+// key"). bf16 values occupy a key's top 16 bits.
+__device__ __forceinline__ int order_key(float x) {
+  const int i = __float_as_int(x);
+  return i < 0 ? i ^ 0x7FFFFFFF : i;
+}
+
+// The samplers' counter-based noise. "lowbias32" integer finaliser;
+// ops/sampler.py's mix32 / noise_bits run the same integer ops, so the
+// kernels and their plain twins draw the same tokens.
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7feb352dU;
+  x ^= x >> 15;
+  x *= 0x846ca68bU;
+  x ^= x >> 16;
+  return x;
+}
+
+// Per-row hash of (seed, global row); the noise of a column is
+// mix32(row_hash ^ column).
+__device__ __forceinline__ uint32_t row_hash(uint32_t seed, uint32_t row) {
+  return mix32(mix32(seed ^ 0x9e3779b9U) ^ row);
+}
+
+// The packed draw key of column c of a kept logit x: the order key of
+// x * invt + Gumbel(c) in the high bits, (cmask - c) in the low col_bits,
+// so one max yields both the winner and its column (ties to the smallest
+// column). 24 high noise bits give the uniform, floored at 1e-10.
+__device__ __forceinline__ int packed_draw(float x, float invt, uint32_t rh,
+                                           int c, int cmask) {
+  const uint32_t bits = mix32(rh ^ (uint32_t)c);
+  const float u = fmaxf((float)(bits >> 8) * (1.0f / 16777216.0f), 1e-10f);
+  const float pert = __fadd_rn(__fmul_rn(x, invt), -logf(-logf(u)));
+  return (order_key(pert) & ~cmask) | (cmask - c);
+}
+
+// Zeroes `rows` rows of `cols` values at a row stride of `ld` values: the
+// output rows of items that early-EOS compaction has retired.
+template <typename T>
+__device__ __forceinline__ void zero_rows(T* dst, int rows, int cols,
+                                          int ld) {
+  for (int t = threadIdx.x; t < rows * cols; t += blockDim.x)
+    dst[(size_t)(t / cols) * ld + t % cols] = from_f32<T>(0.f);
+}
+
 // Dot product of `n` f32 values in shared memory with `n` values of T.
 template <typename T>
 __device__ __forceinline__ float dot(const float* a, const T* b, int n) {

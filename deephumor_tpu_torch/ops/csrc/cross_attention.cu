@@ -14,6 +14,8 @@
 // V tiles into shared memory once, with batched 16-byte loads (rows padded
 // by one word against bank conflicts), and serves all r query rows from
 // there, so each encoder byte leaves device memory once per launch.
+// Groups at or past `live` (compacted, all-ended items) write zero rows
+// and read nothing.
 
 #include "common.cuh"
 
@@ -34,7 +36,8 @@ template <typename T>
 __global__ void __launch_bounds__(128) grouped_cross_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ ek,
     const T* __restrict__ ev, const float* __restrict__ bias,
-    T* __restrict__ out, int r, int Tn, int D, int hd, float inv_scale) {
+    T* __restrict__ out, int live, int r, int Tn, int D, int hd,
+    float inv_scale) {
   extern __shared__ __align__(16) uint32_t smem_w[];
   const int wpr = hd * (int)sizeof(T) / 4;  // 4-byte words per row
   const int ld = wpr + 1;                   // odd: conflict-free columns
@@ -45,6 +48,10 @@ __global__ void __launch_bounds__(128) grouped_cross_attention_kernel(
   const int g = blockIdx.x, col0 = blockIdx.y * hd;
   const size_t kv0 = (size_t)g * Tn * D + col0;
   const size_t q0 = (size_t)g * r;
+  if (g >= live) {
+    dh::zero_rows(out + q0 * D + col0, r, hd, D);
+    return;
+  }
 
   dh::stage_rows(ks, ld, Tn, wpr / 4, EncoderRows<T>{ek + kv0, D});
   dh::stage_rows(vs, ld, Tn, wpr / 4, EncoderRows<T>{ev + kv0, D});
@@ -77,8 +84,9 @@ __global__ void __launch_bounds__(128) grouped_cross_attention_kernel(
 
 template <typename T>
 cudaError_t launch(const void* q, const void* ek, const void* ev,
-                   const void* bias, void* out, int G, int r, int Tn, int D,
-                   int H, float inv_scale, cudaStream_t stream) {
+                   const void* bias, void* out, int G, int live, int r,
+                   int Tn, int D, int H, float inv_scale,
+                   cudaStream_t stream) {
   const int hd = D / H;
   const size_t smem = 4 * ((size_t)2 * Tn * (hd * sizeof(T) / 4 + 1) +
                            (size_t)r * (hd + Tn));
@@ -90,7 +98,7 @@ cudaError_t launch(const void* q, const void* ek, const void* ev,
   }
   kernel<<<dim3(G, H), 128, smem, stream>>>(
       (const T*)q, (const T*)ek, (const T*)ev, (const float*)bias, (T*)out,
-      r, Tn, D, hd, inv_scale);
+      live, r, Tn, D, hd, inv_scale);
   return cudaGetLastError();
 }
 
@@ -99,13 +107,15 @@ cudaError_t launch(const void* q, const void* ek, const void* ev,
 extern "C" int dh_grouped_cross_attention(int dtype, const void* q,
                                           const void* ek, const void* ev,
                                           const void* bias, void* out, int G,
-                                          int r, int Tn, int D, int H,
-                                          float inv_scale, void* stream) {
+                                          int live, int r, int Tn, int D,
+                                          int H, float inv_scale,
+                                          void* stream) {
   auto s = (cudaStream_t)stream;
   if (dtype == dh::kBFloat16)
-    return launch<__nv_bfloat16>(q, ek, ev, bias, out, G, r, Tn, D, H,
+    return launch<__nv_bfloat16>(q, ek, ev, bias, out, G, live, r, Tn, D, H,
                                  inv_scale, s);
-  return launch<float>(q, ek, ev, bias, out, G, r, Tn, D, H, inv_scale, s);
+  return launch<float>(q, ek, ev, bias, out, G, live, r, Tn, D, H, inv_scale,
+                       s);
 }
 
 extern "C" const char* dh_error_string(int err) {

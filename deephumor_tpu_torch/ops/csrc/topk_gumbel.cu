@@ -35,20 +35,7 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kCap = 1024;  // candidate-list capacity (keys >= the bound)
 
-__device__ __forceinline__ int order_key(float x) {
-  const int i = __float_as_int(x);
-  return i < 0 ? i ^ 0x7FFFFFFF : i;
-}
-
-// "lowbias32" integer finaliser; the plain twin implements the same ops
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352dU;
-  x ^= x >> 15;
-  x *= 0x846ca68bU;
-  x ^= x >> 16;
-  return x;
-}
+using dh::order_key;
 
 // Local count of order keys >= cand: over the candidate list (keys[0, n))
 // or over the whole row (row[0, n)).
@@ -127,7 +114,7 @@ __global__ void __launch_bounds__(kThreads) topk_gumbel_kernel(
                               top_k, low_bit, scratch);
 
   const int cmask = (1 << col_bits) - 1;
-  const uint32_t row_hash = mix32(mix32(seed ^ 0x9e3779b9U) ^ (uint32_t)r);
+  const uint32_t rh = dh::row_hash(seed, (uint32_t)r);
   int m = INT32_MIN;
   for (int j = 0; j < num_draws; ++j) {
     int best = INT32_MIN;
@@ -135,10 +122,7 @@ __global__ void __launch_bounds__(kThreads) topk_gumbel_kernel(
       const int c = use_list ? list_cols[i] : i;
       const float x = dh::to_f32(row[c]);
       if (order_key(x) < t || c == unk) continue;
-      const uint32_t bits = mix32(row_hash ^ (uint32_t)c);
-      const float u = fmaxf((float)(bits >> 8) * (1.0f / 16777216.0f), 1e-10f);
-      const float pert = __fadd_rn(__fmul_rn(x, invt), -logf(-logf(u)));
-      const int packed = (order_key(pert) & ~cmask) | (cmask - c);
+      const int packed = dh::packed_draw(x, invt, rh, c, cmask);
       if (j == 0 || packed < m) best = max(best, packed);
     }
     m = dh::block_max(best, scratch);

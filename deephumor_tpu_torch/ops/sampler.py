@@ -1,11 +1,13 @@
-"""Exact keep-ties top-k + Gumbel-top-k sampling: the K3 wrapper and its
-plain twin.
+"""Exact keep-ties top-k + Gumbel-top-k sampling: the K3 and K4 wrappers
+and their plain twins.
 
-Counterpart of deephumor_tpu/ops/pallas_sampler.py's
-``fused_topk_gumbel_sample``. The TPU kernel draws its noise from the
-on-core PRNG; here the noise is a counter-based hash of (seed, row,
-column) that the CUDA kernel and the twin compute with the same integer
-ops, so the two draw the same tokens from the same logits.
+Counterparts of deephumor_tpu/ops/pallas_sampler.py's
+``fused_topk_gumbel_sample`` (K3, over logits) and
+``fused_classifier_topk_gumbel_sample`` (K4, over hidden states: the
+classifier product runs inside the kernel). The TPU kernels draw their
+noise from the on-core PRNG; here the noise is a counter-based hash of
+(seed, row, column) that the CUDA kernels and the twins compute with the
+same integer ops, so they draw the same tokens from the same logits.
 """
 
 import numpy as np
@@ -15,6 +17,8 @@ from deephumor_tpu_torch import UNK
 from deephumor_tpu_torch.ops import _build
 
 __all__ = ["fused_topk_gumbel_sample", "fused_topk_gumbel_sample_plain",
+           "fused_classifier_topk_gumbel_sample",
+           "fused_classifier_topk_gumbel_sample_plain", "classifier_logits",
            "mix32", "noise_bits"]
 
 _INT_MIN = -(2 ** 31)
@@ -134,3 +138,94 @@ def fused_topk_gumbel_sample(logits, seed, inv_temperature, *, top_k,
     _build.LAUNCHES[name] += 1
     ids = ids.to(torch.int64)
     return ids, logits.gather(1, ids).float()
+
+
+def classifier_logits(x, w, b):
+    """K4's logits: bf16 ``x @ w.T`` accumulated in f32, plus the f32
+    bias, rounded to bf16."""
+    bf = torch.bfloat16
+    return (x.to(bf).float() @ w.to(bf).float().T + b.float()).to(bf)
+
+
+def _check_classifier(x, w, b, top_k, num_draws):
+    if x.ndim != 2 or w.ndim != 2 or w.shape[1] != x.shape[1] or (
+            b.shape != (w.shape[0],)):
+        raise ValueError(f"need x [rows, D], w [V, D], b [V]; got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(b.shape)}")
+    if not 1 <= num_draws <= top_k <= w.shape[0]:
+        raise ValueError(f"need 1 <= num_draws ({num_draws}) <= top_k "
+                         f"({top_k}) <= V ({w.shape[0]})")
+
+
+def fused_classifier_topk_gumbel_sample_plain(x, w, b, seed, inv_temperature,
+                                              *, top_k, num_draws,
+                                              unk_index=UNK, live_rows=None):
+    """Plain PyTorch twin of :func:`fused_classifier_topk_gumbel_sample`."""
+    _check_classifier(x, w, b, top_k, num_draws)
+    rows, live = x.shape[0], _build.live_count(x.shape[0], live_rows)
+    ids = torch.zeros((rows, num_draws), dtype=torch.int64, device=x.device)
+    vals = torch.zeros((rows, num_draws), dtype=torch.float32,
+                       device=x.device)
+    if live:
+        logits = classifier_logits(x[:live], w, b)
+        ids[:live] = fused_topk_gumbel_sample_plain(
+            logits, seed, inv_temperature, top_k=top_k, num_draws=num_draws,
+            unk_index=unk_index)[0]
+        vals[:live] = logits.float().gather(1, ids[:live])
+    return ids, vals
+
+
+def fused_classifier_topk_gumbel_sample(x, w, b, seed, inv_temperature, *,
+                                        top_k, num_draws, unk_index=UNK,
+                                        live_rows=None):
+    """K4: :func:`fused_topk_gumbel_sample` of :func:`classifier_logits`
+    ``(x, w, b)``, with the logits kept inside the kernel.
+
+    Args:
+        x: ``[rows, D]`` hidden states (cast to bf16).
+        w: ``[V, D]`` classifier weight (cast to bf16); b: ``[V]`` bias
+            (f32).
+        live_rows: optional host int; rows at or past it are not computed
+            and get id 0 and value 0 (early-EOS compaction keeps the live
+            rows first).
+        seed, inv_temperature, top_k, num_draws, unk_index: as K3; the
+            noise hashes the global row, so a row draws the same tokens
+            whatever ``live_rows`` is.
+
+    Returns:
+        (ids ``[rows, num_draws]`` int64, vals ``[rows, num_draws]`` f32 --
+        the bf16-rounded logits at the drawn ids).
+    """
+    name = "fused_classifier_topk_gumbel_sample"
+    _check_classifier(x, w, b, top_k, num_draws)
+    if not 0 <= int(seed) < 2 ** 31:
+        raise ValueError(f"{name}: seed {seed} outside [0, 2**31)")
+    kw = dict(top_k=top_k, num_draws=num_draws, unk_index=unk_index,
+              live_rows=live_rows)
+    if not _build.on_kernel_device(name, x, w, b):
+        return fused_classifier_topk_gumbel_sample_plain(
+            x, w, b, seed, inv_temperature, **kw)
+    if x.shape[1] % 16:
+        raise ValueError(f"{name}: D {x.shape[1]} is not a multiple of 16 "
+                         f"(the kernel's tensor-core product steps by 16)")
+    bf = torch.bfloat16
+    rows, v = x.shape[0], w.shape[0]
+    xb, bb = x.to(bf), b.float().contiguous()
+    # the kernel's tensor-core product reads W in 16-row fragments
+    wb = w.to(bf) if v % 16 == 0 else torch.nn.functional.pad(
+        w.to(bf), (0, 0, 0, -v % 16))
+    _build.check_vector_rows(name, x.shape[1], xb, wb)
+    if wb.data_ptr() % 32:
+        raise ValueError(f"{name}: w must be 32-byte aligned")
+    ids = torch.empty((rows, num_draws), dtype=torch.int32, device=x.device)
+    vals = torch.empty((rows, num_draws), dtype=torch.float32,
+                       device=x.device)
+    err = _build.library().dh_classifier_topk_gumbel_sample(
+        xb.data_ptr(), wb.data_ptr(), bb.data_ptr(), ids.data_ptr(),
+        vals.data_ptr(), rows, _build.live_count(rows, live_rows), v,
+        x.shape[1], top_k, num_draws, unk_index, int(seed),
+        float(np.float32(inv_temperature)), _build.stream_of(x))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return ids.to(torch.int64), vals

@@ -11,6 +11,7 @@ import torch
 from deephumor_tpu_torch.ops import LAUNCHES, reset_launch_counts
 from deephumor_tpu_torch.ops import attention as A
 from deephumor_tpu_torch.ops import sampler as S
+from deephumor_tpu_torch.ops.testing import canon_state
 
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -98,3 +99,110 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     kv = torch.randn(2, 5, 8, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 16"):
         A.grouped_cross_attention(q, kv, kv, None, n_heads=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("live_items", [None, 5])
+def test_canon_update_matches_twin(cuda, dtype, live_items):
+    items, beam, p, c, pe, d, heads = 9, 7, 40, 24, 40, 128, 2
+    g = torch.Generator(cuda).manual_seed(3)
+    s = canon_state(items=items, beam=beam, p=p, c=c, pe=pe, d=d,
+                    dtype=dtype, generator=g, stragglers=range(1, items, 2),
+                    pos=33)
+    caches = [(s["ck"].clone(), s["cv"].clone()) for _ in range(2)]
+    args = (s["sk"], s["sv"], s["kn"], s["vn"], s["bias_sh"], s["bias_win"],
+            s["pos"])
+    kw = dict(beam=beam, n_heads=heads, c=c, p_eff=pe, live_items=live_items)
+    reset_launch_counts()
+    got = A.ancestry_attention_update_canon(s["q"], *caches[0], *args, **kw)
+    want = A.ancestry_attention_update_canon_plain(s["q"], *caches[1], *args,
+                                                   **kw)
+    assert LAUNCHES["ancestry_attention_update_canon"] == 1
+    torch.testing.assert_close(got, want, atol=_tol(dtype), rtol=_tol(dtype))
+    assert torch.equal(caches[0][0], caches[1][0])
+    assert torch.equal(caches[0][1], caches[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("beam,pe,n_sel", [(3, 24, 2), (7, 128, 3),
+                                           (7, 128, 0)])
+def test_ids_matches_twin(cuda, dtype, beam, pe, n_sel):
+    # beam 7 x p_eff 128 is 896 (slot, position) rows: more than one block
+    # could stage at once, in f32 above all, so the kernel tiles them
+    items, p, d, heads = 6, 136, 128, 2
+    g = torch.Generator(cuda).manual_seed(4)
+    s = canon_state(items=items, beam=beam, p=p, c=16, pe=pe, d=d,
+                    dtype=dtype, generator=g, stragglers=range(1, items, 2))
+    args = (s["q"], s["ck"], s["cv"], s["bias"])
+    ids = torch.tensor([4, 1, 5, 0, 2, 3], dtype=torch.int32, device=cuda)
+    kw = dict(beam=beam, n_heads=heads, p_eff=pe)
+    got = A.ancestry_attention_ids(*args, ids, n_sel, **kw)
+    want = A.ancestry_attention_ids_plain(*args, ids, n_sel, **kw)
+    rows = (ids[:max(n_sel, 1), None].long() * beam
+            + torch.arange(beam, device=cuda)).reshape(-1)
+    torch.testing.assert_close(got[rows], want[rows], atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_live_items_in_k1_and_k2(cuda, dtype):
+    items, beam, p, d, heads, pos, live = 7, 3, 24, 128, 4, 6, 4
+    rows, lr = items * beam, live * beam
+    g = torch.Generator(cuda).manual_seed(5)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)  # noqa
+    q, kn, vn, ck, cv = (rnd(rows, d), rnd(rows, d), rnd(rows, d),
+                         rnd(rows, p, d), rnd(rows, p, d))
+    anc = torch.randint(0, beam, (items, beam, p), generator=g, device=cuda)
+    valid = torch.ones(rows, p, dtype=torch.bool, device=cuda)
+    bias = A.ancestry_bias(anc, valid, p)
+    caches = [(ck.clone(), cv.clone()) for _ in range(2)]
+    kw = dict(beam=beam, n_heads=heads, p_eff=8, live_items=live)
+    got = A.ancestry_attention_update(q, *caches[0], kn, vn, bias, pos, **kw)
+    want = A.ancestry_attention_update_plain(q, *caches[1], kn, vn, bias,
+                                             pos, **kw)
+    torch.testing.assert_close(got, want, atol=_tol(dtype), rtol=_tol(dtype))
+    assert not got[lr:].any()
+    assert torch.equal(caches[0][0], caches[1][0])
+    assert torch.equal(caches[0][0][lr:], ck[lr:])
+    ek, ev = rnd(items, 49, d), rnd(items, 49, d)
+    got = A.grouped_cross_attention(q, ek, ev, None, n_heads=heads,
+                                    live_items=live)
+    want = A.grouped_cross_attention_plain(q, ek, ev, None, n_heads=heads,
+                                           live_items=live)
+    torch.testing.assert_close(got, want, atol=_tol(dtype), rtol=_tol(dtype))
+    assert not got[lr:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("vocab,live_rows", [(128, None), (128, 300),
+                                             (1000, None), (8192, 300)])
+def test_classifier_topk_gumbel_matches_twin(cuda, dtype, vocab, live_rows):
+    rows, d, top_k, draws = 448, 512, 50, 7
+    g = torch.Generator(cuda).manual_seed(6)
+    x = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(vocab, d, generator=g, device=cuda) / 8).to(dtype)
+    b = torch.randn(vocab, generator=g, device=cuda)
+    b[1] = 30.0  # UNK on top
+    kw = dict(top_k=top_k, num_draws=draws, live_rows=live_rows)
+    reset_launch_counts()
+    ids, vals = S.fused_classifier_topk_gumbel_sample(x, w, b, 11, 0.9, **kw)
+    ids_p, vals_p = S.fused_classifier_topk_gumbel_sample_plain(
+        x, w, b, 11, 0.9, **kw)
+    assert LAUNCHES["fused_classifier_topk_gumbel_sample"] == 1
+    live = rows if live_rows is None else live_rows
+    assert not ids[live:].any() and not vals[live:].any()
+    # the product's summation order may move a bf16 rounding by one ulp
+    same = (ids == ids_p).all(dim=1).float().mean().item()
+    assert same >= 0.99
+    logits = S.classifier_logits(x[:live], w, b).float()
+    kth = logits.topk(top_k, dim=1).values[:, -1:]
+    assert (logits.gather(1, ids[:live]) >= kth).all()
+    assert not (ids == 1).any()
+    srt = ids[:live].sort(dim=1).values
+    assert (srt[:, 1:] != srt[:, :-1]).all()
+    eq = (ids == ids_p).all(dim=1)
+    assert torch.equal(vals[eq], vals_p[eq])

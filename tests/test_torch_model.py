@@ -53,7 +53,7 @@ def _flat(tree, prefix=""):
 @pytest.fixture(scope="module")
 def models():
     tm = CaptioningTransformer(**HP)
-    tp = tm.init(torch.Generator().manual_seed(0))
+    tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
     # a low EOS bias keeps every branch alive through the whole p_eff
     # ladder {16, 24, 32}
     tp["decoder"]["classifier"]["bias"][3] = -2.0
@@ -200,7 +200,7 @@ def test_from_pretrained_gives_same_tokens(models, tmp_path):
     jm, jp, tm, tp = models
     jm.save(jp, tmp_path / "model.npz")
     model, params = CaptioningTransformer.from_pretrained(
-        tmp_path / "model.npz")
+        tmp_path / "model.npz", device="cpu")
     assert model == tm
     imgs = torch.from_numpy(_images(0.05))
     want = tm.generate(tp, imgs, greedy=True, **GEN)["chosen"]
