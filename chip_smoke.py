@@ -11,11 +11,20 @@ held against their plain PyTorch twins at that path's shapes:
   1.1, EOS bias 1.0, batch 768 (K1, K2, K3 for the first draw, K4, K5, K6;
   early-EOS compaction and canonical-prefix attention on by default).
 
+Each path also runs with the two kernel-selecting switches:
+DH_FUSED_SURVIVOR=1 (the survivor update in K10) and DH_CROSS_PACK=4
+(decode cross-attention in K9, four items per block, over a store padded
+to 56 rows; prefill stays on K2). Five serving legs in all: word,
+word_fused, word_packed_fused, char and char_packed_fused.
+
 Weights are random from a seed. For each path it checks greedy f32
-generation through the kernels against the plain path on the CPU, then
-runs the path once with every launch count at zero and fails if one of
-its kernels was not launched. It ends the char path with a torch.profiler
-table of one more call (kernel time by name, the device's idle share).
+generation through the kernels, without and with both switches, against
+the plain path on the CPU, then runs each leg once with every launch count
+at zero and fails if one of its kernels was not launched or one off its
+leg was. word_fused must give the default word leg's sequences and scores
+exactly. It ends the char path with torch.profiler tables of one more
+call without and one with both switches (kernel time by name, the
+device's idle share).
 
     python3 chip_smoke.py
 
@@ -25,7 +34,9 @@ name and power limit, and the one before that a JSON summary of the
 kernels (times, launches per path, bounds, library yardsticks).
 """
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -36,6 +47,7 @@ import torch
 VOCAB, HID, LAYERS, HEADS, PF = 29184, 512, 6, 8, 2048
 BEAM, MAX_LEN, TOP_K, BATCH, EOS_BIAS = 5, 32, 64, 1792, 1.5
 ROWS, P, T_ENC = BATCH * BEAM, 40, 49
+T_PAD, PACK = 56, 4  # the packed legs' padded cross store, items per block
 # char serving config (bench.py:63-70,225-251)
 C_VOCAB, C_BEAM, C_LEN, C_TOP_K, C_BATCH = 128, 7, 128, 50, 768
 C_EOS_BIAS, C_TEMP = 1.0, 1.1
@@ -47,10 +59,30 @@ C_ROWS, C_P = C_BATCH * C_BEAM, 136  # 129 positions, padded to 8
 TOL = 2e-2  # bf16 kernel vs twin: one bf16 rounding of each output
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SPIN_CYCLES = 50_000_000  # ~25 ms of the device's clock: outlasts an enqueue
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def switches(pack=0, fused=False):
+    """Runs the block with DH_CROSS_PACK / DH_FUSED_SURVIVOR set as given
+    (unset when 0 / False), and restores the environment after."""
+    keys = ("DH_CROSS_PACK", "DH_FUSED_SURVIVOR")
+    old = {k: os.environ.pop(k, None) for k in keys}
+    if pack:
+        os.environ["DH_CROSS_PACK"] = str(pack)
+    if fused:
+        os.environ["DH_FUSED_SURVIVOR"] = "1"
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
 
 
 def card():
@@ -61,16 +93,24 @@ def card():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=10, warmup=2):
-    """Mean CUDA-event time of one call, after ``warmup`` calls."""
+def cuda_ms(fn, iters=10, warmup=2, queued=False):
+    """Mean CUDA-event time of one call, after ``warmup`` calls. With
+    ``queued`` the device first spins while the host enqueues every call,
+    so that calls shorter than their own host overhead are timed on the
+    device alone (fails if the spin ended before the last was enqueued)."""
     for _ in range(warmup):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    if queued and start.query():
+        raise AssertionError("timing: the spin ended before every call was "
+                             "enqueued")
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -186,6 +226,102 @@ def check_k2(A, dev, gen, *, items, beam, live_items=None):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms(lambda: sdpa(qh, kh, vh, m4)),
                 **bound(nbytes, 4 * live * beam * T_ENC * HID, dt))
+
+
+def check_k9(A, dev, gen, *, items, beam, ngs, live_items=None):
+    """K9 vs its twin for each ng on a store padded from T_ENC to T_PAD
+    rows (pad rows random, their bias columns 0, so only t_real keeps them
+    out), item 0 fully masked. Returns the measurements at ng = PACK."""
+    dt = torch.bfloat16
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)  # noqa
+    q, ek, ev = rnd(items * beam, HID), rnd(items, T_PAD, HID), rnd(
+        items, T_PAD, HID)
+    mask = torch.rand(items, T_PAD, generator=gen, device=dev) < 0.1
+    mask[0] = True
+    mask[:, T_ENC:] = False
+    bias = torch.where(mask[:, None, :], A.MASK_FILL, 0.0).float()
+    live = items if live_items is None else live_items
+    err, row = 0.0, None
+    for ng in ngs:
+        kw = dict(n_heads=HEADS, pack_items=ng, t_real=T_ENC,
+                  live_items=live_items)
+        got = A.grouped_cross_attention(q, ek, ev, bias, **kw)
+        want = A.cross_attention_packed_plain(q, ek, ev, bias, **kw)
+        torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+        if not torch.isfinite(got[:beam].float()).all():
+            raise AssertionError("K9: all-masked item is not finite")
+        if got[live * beam:].any():
+            raise AssertionError("K9: rows past live_items are not 0")
+        e = (got.float() - want.float()).abs().max().item()
+        err = max(err, e)
+        ms = cuda_ms(lambda: A.grouped_cross_attention(q, ek, ev, bias, **kw))
+        log(f"  K9 G={items} r={beam} T {T_ENC} of {T_PAD} ng={ng} "
+            f"live_items={live_items}: max|out-twin|={e:.3e} (atol=rtol="
+            f"{TOL}), {ms:.4f} ms")
+        if ng == PACK:
+            row = dict(ms=ms, plain_ms=cuda_ms(
+                lambda: A.cross_attention_packed_plain(q, ek, ev, bias, **kw),
+                iters=3))
+    qh = q.reshape(items, beam, HEADS, -1).transpose(1, 2)
+    kh, vh = (heads(x[:, :T_ENC], items, T_ENC) for x in (ek, ev))
+    m4 = bias[..., :T_ENC].reshape(items, 1, 1, T_ENC)
+    nbytes = (2 * live * T_ENC * HID + 2 * live * beam * HID) * 2 + (
+        live * T_ENC * 4)
+    return dict(row, max_abs_err=err,
+                library_ms=library_ms(lambda: sdpa(qh, kh, vh, m4)),
+                **bound(nbytes, 4 * live * beam * T_ENC * HID, dt))
+
+
+def check_k10(E, dev, gen, *, items, beam, length, live_items=None):
+    """K10 vs its twin at one path's shapes (seq [items, beam, length],
+    anc/valid [items, beam, length + 1]): every output equal exactly, and
+    items at or past ``live_items`` left as they were."""
+    from deephumor_tpu_torch import EOS, PAD
+
+    p = length + 1
+    ri = lambda hi, *s: torch.randint(0, hi, s, generator=gen,  # noqa: E731
+                                      device=dev)
+    new_idx = ri(C_VOCAB, items, beam, beam)
+    new_idx[::5, 0, 0] = EOS  # planted EOS picks
+    ended = torch.rand(items, beam, generator=gen, device=dev) < 0.2
+    ended[::7] = True  # items whose branches have all ended
+    args = [new_idx, torch.randn(items, beam, beam, generator=gen, device=dev),
+            ri(beam * beam, items, beam), ended,
+            torch.randn(items, beam, generator=gen, device=dev),
+            ri(C_VOCAB, items, beam, length), ri(beam, items, beam, p),
+            torch.rand(items, beam, p, generator=gen, device=dev) < 0.8]
+    pos = length // 2
+    kw = dict(beam=beam, eos_index=EOS, pad_index=PAD, live_items=live_items)
+    got = E.fused_survivor_update(*[a.clone() for a in args], pos, **kw)
+    want = E.fused_survivor_update_plain(*args, pos, **kw)
+    names = ("chosen", "val", "ended", "seq", "anc", "valid")
+    for name, x, y in zip(names, got, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"K10: {name} differs from the twin")
+    live = items if live_items is None else live_items
+    for name, x, a in zip(names[1:], got[1:], (args[4], args[3], *args[5:])):
+        if not torch.equal(x[live:], a[live:]):
+            raise AssertionError(f"K10: {name} of a dead item changed")
+    # a call is shorter than its host overhead: time it queued, on the
+    # device alone, and also paced by the host as the engine's loop runs it
+    work = [a.clone() for a in args]
+    ms, host_ms = (cuda_ms(lambda: E.fused_survivor_update(*work, pos, **kw),
+                           queued=q) for q in (True, False))
+    plain_ms, plain_host_ms = (cuda_ms(
+        lambda: E.fused_survivor_update_plain(*args, pos, **kw), iters=3,
+        queued=q) for q in (True, False))
+    log(f"  K10 items={items} beam={beam} L={length} P={p} live_items="
+        f"{live_items}: all six outputs equal to the twin; device "
+        f"{ms:.4f} ms (twin {plain_ms:.4f} ms), host-paced {host_ms:.4f} ms "
+        f"(twin {plain_host_ms:.4f} ms)")
+    # live rows read new_idx, new_val (beam each), surv, ended, val, seq,
+    # anc, valid and write all but the candidates and picks; chosen is
+    # written for every row; no arithmetic to speak of
+    rows = live * beam
+    nbytes = rows * (beam * 12 + 8 + 1 + 4 + 2 * (length * 8 + p * 9)
+                     + 1 + 4) + items * beam * 8
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(nbytes, 0, torch.float32))
 
 
 def check_draws(ids, ids_p, logits, top_k, label):
@@ -397,11 +533,12 @@ def retiring_greedy(model, params, enc, kw):
                          "items with stragglers left at a canon boundary")
 
 
-def check_greedy(CaptioningTransformer, tree_map, dev, char):
-    """Greedy f32 generation through the kernels vs the plain path on the
-    CPU at the serving widths (char: 32 items at several feature scales,
-    compaction and canon on by the defaults, many items retired early, and
-    the same boundaries on both)."""
+def check_greedy(CaptioningTransformer, tree_map, _build, dev, char):
+    """Greedy f32 generation through the kernels, without and with both
+    switches (K9 and K10 then launch), vs the plain path on the CPU
+    without switches at the serving widths (char: 32 items at several
+    feature scales, compaction and canon on by the defaults, many items
+    retired early, and the same boundaries on all three)."""
     model, params = make_model(CaptioningTransformer, "float32", dev, char)
     n = 32 if char else 64
     enc = features(n, dev, 1)
@@ -417,15 +554,26 @@ def check_greedy(CaptioningTransformer, tree_map, dev, char):
     cpu = lambda t: t.cpu()  # noqa: E731
     want = model.generate_from_emb(tree_map(cpu, params),
                                    tuple(map(cpu, enc)), greedy=True, **kw)
-    same = (got["chosen"].cpu() == want["chosen"]).all(dim=1).float().mean()
-    log(f"  greedy f32, {n} items: kernel path == CPU plain path on "
-        f"{same.item():.4f} of items (>= 0.99); boundaries (kernels) "
-        f"{marks(got)}; (CPU) {marks(want)}")
-    if same < 0.99:
-        raise AssertionError("greedy kernel path disagrees with plain path")
-    if char and got["boundaries"] != want["boundaries"]:
-        raise AssertionError("greedy char: boundaries differ from the CPU "
-                             "path's")
+    _build.reset_launch_counts()
+    with switches(pack=PACK, fused=True):
+        got_sw = model.generate_from_emb(params, enc, greedy=True, **kw)
+    k9, k10 = (_build.LAUNCHES[k] for k in ("cross_attention_packed",
+                                             "fused_survivor_update"))
+    if not (k9 and k10):
+        raise AssertionError(f"greedy with both switches: K9 {k9}, K10 {k10} "
+                             f"launches")
+    for label, g in (("kernel path", got),
+                     (f"kernel path, both switches (K9 {k9}, K10 {k10} "
+                      f"launches)", got_sw)):
+        same = (g["chosen"].cpu() == want["chosen"]).all(dim=1).float().mean()
+        log(f"  greedy f32, {n} items: {label} == CPU plain path on "
+            f"{same.item():.4f} of items (>= 0.99); boundaries (kernels) "
+            f"{marks(g)}; (CPU) {marks(want)}")
+        if same < 0.99:
+            raise AssertionError(f"greedy {label} disagrees with plain path")
+        if char and g["boundaries"] != want["boundaries"]:
+            raise AssertionError(f"greedy char, {label}: boundaries differ "
+                                 f"from the CPU path's")
 
 
 def check_output(out, n, vocab, beam, max_len):
@@ -448,20 +596,24 @@ def timed_call(model, params, enc, kw, seed):
     return out, time.perf_counter() - t0
 
 
-def drive(model, params, enc, _build, kw, name_limit, label, path_kernels):
+def drive(model, params, enc, _build, kw, name_limit, label, path_kernels,
+          pack=0, fused=False):
     """One warm-up call, then one call with every launch count at zero;
     fails unless each kernel of ``path_kernels`` launched (and no other).
-    Two more calls (not counted) show the run-to-run spread."""
-    model.generate_from_emb(params, enc, **kw)
-    _build.reset_launch_counts()
-    out, secs = timed_call(model, params, enc, kw, 5)
-    launches = dict(_build.LAUNCHES)
-    n = enc[0].shape[0]
-    steps = int((out["sequences"] != 0).any(dim=(0, 1)).sum())
-    log(f"  {label} generate_from_emb: {n / secs:.1f} captions/s "
-        f"({secs:.3f} s, {steps} positions, {name_limit}); launches "
-        f"{launches}")
-    again = [n / timed_call(model, params, enc, kw, s)[1] for s in (6, 7)]
+    Two more calls (not counted) show the run-to-run spread. ``pack`` and
+    ``fused`` set the two switches for this leg's calls."""
+    with switches(pack, fused):
+        model.generate_from_emb(params, enc, **kw)
+        _build.reset_launch_counts()
+        out, secs = timed_call(model, params, enc, kw, 5)
+        launches = dict(_build.LAUNCHES)
+        n = enc[0].shape[0]
+        steps = int((out["sequences"] != 0).any(dim=(0, 1)).sum())
+        log(f"  {label} generate_from_emb: {n / secs:.1f} captions/s "
+            f"({secs:.3f} s, {steps} positions, {name_limit}); launches "
+            f"{launches}")
+        again = [n / timed_call(model, params, enc, kw, s)[1]
+                 for s in (6, 7)]
     log(f"  {label} two more calls (seeds 6, 7): "
         f"{', '.join(f'{r:.1f}' for r in again)} captions/s")
     missing = [k for k in path_kernels if launches[k] < 1]
@@ -472,14 +624,16 @@ def drive(model, params, enc, _build, kw, name_limit, label, path_kernels):
     return out, launches
 
 
-def profile_char(model, params, enc, kw, name_limit):
-    """torch.profiler over one char call: kernel time by name (the 25
-    largest) and the device's idle share."""
+def profile_char(model, params, enc, kw, name_limit, label, top, pack=0,
+                 fused=False):
+    """torch.profiler over one char call with the switches as given:
+    kernel time by name (the ``top`` largest) and the device's idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with switches(pack, fused), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         model.generate_from_emb(params, enc, **kw)
         torch.cuda.synchronize()
@@ -489,14 +643,29 @@ def profile_char(model, params, enc, kw, name_limit):
               and e.device_type.name == "CUDA"]
     busy = sum(e.device_time_total for e in events) / 1e3
     events.sort(key=lambda e: -e.device_time_total)
-    lines = [f"char profile ({name_limit}): wall {wall * 1e3:.1f} ms "
+    lines = [f"{label} profile ({name_limit}): wall {wall * 1e3:.1f} ms "
              f"(profiled), device kernel time {busy:.1f} ms, idle share "
              f"{1 - busy / (wall * 1e3):.3f}"]
-    for e in events[:25]:
+    for e in events[:top]:
         lines.append(f"  {e.device_time_total / 1e3:10.3f} ms "
                      f"{e.count:6d} calls  {e.key[:90]}")
     for line in lines:
         log(line)
+
+
+def check_leg_launches(label, launches, packed, steps):
+    """A switched leg's counts: K10 once per decode step and, when packed,
+    K2 only in the prefill's layers and K9 in every decode layer-step
+    (else K2 in every layer of the prefill and of each step)."""
+    got = tuple(launches[k] for k in ("grouped_cross_attention",
+                                      "cross_attention_packed",
+                                      "fused_survivor_update"))
+    want = ((LAYERS, LAYERS * steps, steps) if packed
+            else (LAYERS * (steps + 1), 0, steps))
+    log(f"  {label}: {steps} decode steps; K2, K9, K10 launches {got} "
+        f"(want {want})")
+    if got != want:
+        raise AssertionError(f"{label}: K2/K9/K10 launch counts")
 
 
 def main():
@@ -505,12 +674,16 @@ def main():
     from deephumor_tpu_torch.models import CaptioningTransformer
     from deephumor_tpu_torch.ops import _build
     from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops import engine as E
     from deephumor_tpu_torch.ops import sampler as S
     from deephumor_tpu_torch.utils.pytree import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     # the f32 ResNet runs on cuDNN in full f32, as the JAX encoder does
     torch.backends.cudnn.allow_tf32 = False
+    # the default legs run without the two switches; switched legs set them
+    for key in ("DH_CROSS_PACK", "DH_FUSED_SURVIVOR"):
+        os.environ.pop(key, None)
     dev = torch.device("cuda", 0)
     name_limit = card()
     t_start = time.perf_counter()
@@ -539,9 +712,17 @@ def main():
     rows["fused_topk_gumbel_sample"] = check_k3(
         S, dev, gen, rows=ROWS, vocab=VOCAB, top_k=TOP_K, draws=BEAM,
         inv_t=1.0, label="K3")
+    log(f"    K9 G {BATCH}, r {BEAM}, T {T_ENC} padded to {T_PAD}, ng 2, 4, 8"
+        f" (K2 at this shape: {rows['grouped_cross_attention']['ms']:.4f} ms)")
+    rows["cross_attention_packed"] = check_k9(A, dev, gen, items=BATCH,
+                                              beam=BEAM, ngs=(2, 4, 8))
+    log(f"    K10 items {BATCH}, beam {BEAM}, L {MAX_LEN}, P {MAX_LEN + 1}")
+    rows["fused_survivor_update"] = check_k10(E, dev, gen, items=BATCH,
+                                              beam=BEAM, length=MAX_LEN)
 
-    log("[4] word greedy generate_from_emb, f32, kernels vs plain CPU path")
-    check_greedy(CaptioningTransformer, tree_map, dev, char=False)
+    log("[4] word greedy generate_from_emb, f32, kernels (without and with "
+        "both switches) vs plain CPU path")
+    check_greedy(CaptioningTransformer, tree_map, _build, dev, char=False)
 
     log(f"[5] word main path: bf16, sampler='pallas', batch {BATCH}")
     model, params = make_model(CaptioningTransformer, "bfloat16", dev, False)
@@ -553,12 +734,34 @@ def main():
                          generator=torch.Generator(dev).manual_seed(3), **kw)
     check_output(out, 8, VOCAB, BEAM, MAX_LEN)
     log("  generate(8 images 224x224): ok")
-    out, word_launches = drive(
-        model, params, features(BATCH, dev, 4), _build, kw, name_limit,
-        "word", ("ancestry_attention_update", "grouped_cross_attention",
-                 "fused_topk_gumbel_sample"))
+    word_kernels = ("ancestry_attention_update", "grouped_cross_attention",
+                    "fused_topk_gumbel_sample")
+    enc = features(BATCH, dev, 4)
+    legs = {}
+    out, legs["word"] = drive(model, params, enc, _build, kw, name_limit,
+                              "word", word_kernels)
     check_output(out, BATCH, VOCAB, BEAM, MAX_LEN)
-    del model, params, out
+    fused, legs["word_fused"] = drive(
+        model, params, enc, _build, kw, name_limit, "word_fused",
+        word_kernels + ("fused_survivor_update",), fused=True)
+    # K3 draws once after the prefill and once per decode step
+    check_leg_launches("word_fused", legs["word_fused"], False,
+                       legs["word_fused"]["fused_topk_gumbel_sample"] - 1)
+    # no compaction at 32 steps: K10 changes no draw
+    if not (torch.equal(fused["sequences"], out["sequences"])
+            and torch.equal(fused["scores"], out["scores"])):
+        raise AssertionError("word_fused: sequences or scores differ from "
+                             "the default word leg's at the same seed")
+    log("  word_fused: sequences and scores equal to the word leg's")
+    out, legs["word_packed_fused"] = drive(
+        model, params, enc, _build, kw, name_limit, "word_packed_fused",
+        word_kernels + ("cross_attention_packed", "fused_survivor_update"),
+        pack=PACK, fused=True)
+    check_output(out, BATCH, VOCAB, BEAM, MAX_LEN)
+    check_leg_launches(
+        "word_packed_fused", legs["word_packed_fused"], True,
+        legs["word_packed_fused"]["fused_topk_gumbel_sample"] - 1)
+    del model, params, out, fused, enc
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
 
     log(f"[6] char kernels: K4 x [{C_ROWS}, {HID}] W [{C_VOCAB}, {HID}] "
@@ -585,26 +788,52 @@ def main():
                 f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms)")
     log(f"    K3 at the char shape: {char_k3['ms']:.4f} ms (twin "
         f"{char_k3['plain_ms']:.4f} ms, bound {char_k3['bound_ms']:.4f} ms)")
+    log("    K9 and K10 at the char shapes, all items live and 500 live")
+    for live in (None, 500):
+        char_k9 = check_k9(A, dev, gen, items=C_BATCH, beam=C_BEAM,
+                           ngs=(PACK,), live_items=live)
+        char_k10 = check_k10(E, dev, gen, items=C_BATCH, beam=C_BEAM,
+                             length=C_LEN, live_items=live)
+        for name, r in (("K9 (ng 4)", char_k9), ("K10", char_k10)):
+            log(f"    {name} at the char shape, live items {live}: "
+                f"{r['ms']:.4f} ms (twin {r['plain_ms']:.4f} ms, SDPA "
+                f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms)")
 
-    log("[7] char greedy generate_from_emb, f32, kernels vs plain CPU path")
-    check_greedy(CaptioningTransformer, tree_map, dev, char=True)
+    log("[7] char greedy generate_from_emb, f32, kernels (without and with "
+        "both switches) vs plain CPU path")
+    check_greedy(CaptioningTransformer, tree_map, _build, dev, char=True)
 
     log(f"[8] char main path: bf16, sampler='pallas', batch {C_BATCH}")
     model, params = make_model(CaptioningTransformer, "bfloat16", dev, True)
     kw = dict(max_len=C_LEN, beam_size=C_BEAM, top_k=C_TOP_K,
               temperature=C_TEMP, sampler="pallas")
     enc = features(C_BATCH, dev, 6)
-    out, char_launches = drive(
-        model, params, enc, _build, kw, name_limit, "char",
-        ("ancestry_attention_update", "grouped_cross_attention",
-         "fused_topk_gumbel_sample", "fused_classifier_topk_gumbel_sample",
-         "ancestry_attention_update_canon", "ancestry_attention_ids"))
+    char_kernels = (
+        "ancestry_attention_update", "grouped_cross_attention",
+        "fused_topk_gumbel_sample", "fused_classifier_topk_gumbel_sample",
+        "ancestry_attention_update_canon", "ancestry_attention_ids")
+    out, legs["char"] = drive(model, params, enc, _build, kw, name_limit,
+                              "char", char_kernels)
     check_output(out, C_BATCH, C_VOCAB, C_BEAM, C_LEN)
-    if char_launches["fused_topk_gumbel_sample"] != 1:
-        raise AssertionError("char: K3 runs the first draw only")
     log(f"  boundaries (p_eff, live items after compaction, stragglers): "
         f"{marks(out)}")
-    profile_char(model, params, enc, kw, name_limit)
+    profile_char(model, params, enc, kw, name_limit, "char", 25)
+    out, legs["char_packed_fused"] = drive(
+        model, params, enc, _build, kw, name_limit, "char_packed_fused",
+        char_kernels + ("cross_attention_packed", "fused_survivor_update"),
+        pack=PACK, fused=True)
+    check_output(out, C_BATCH, C_VOCAB, C_BEAM, C_LEN)
+    # K4 draws once per decode step
+    check_leg_launches(
+        "char_packed_fused", legs["char_packed_fused"], True,
+        legs["char_packed_fused"]["fused_classifier_topk_gumbel_sample"])
+    log(f"  boundaries (p_eff, live items after compaction, stragglers): "
+        f"{marks(out)}")
+    profile_char(model, params, enc, kw, name_limit, "char_packed_fused", 12,
+                 pack=PACK, fused=True)
+    for leg in ("char", "char_packed_fused"):
+        if legs[leg]["fused_topk_gumbel_sample"] != 1:
+            raise AssertionError(f"{leg}: K3 runs the first draw only")
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
 
     sources = {
@@ -620,6 +849,10 @@ def main():
             "ancestry_attention_canon.cu", "pallas_attention.py:845"),
         "ancestry_attention_ids": (
             "ancestry_attention_ids.cu", "pallas_attention.py:1015"),
+        "cross_attention_packed": (
+            "cross_attention_packed.cu", "pallas_attention.py:1275"),
+        "fused_survivor_update": (
+            "survivor_update.cu", "pallas_engine.py:154"),
     }
     kernels = []
     for name, (src, tpu) in sources.items():
@@ -628,9 +861,8 @@ def main():
             "name": name, "route": "cuda",
             "source": "deephumor_tpu_torch/ops/csrc/" + src,
             "replaces": "deephumor_tpu/ops/" + tpu,
-            "launches": word_launches[name] + char_launches[name],
-            "launches_by_path": {"word": word_launches[name],
-                                 "char": char_launches[name]},
+            "launches": sum(leg[name] for leg in legs.values()),
+            "launches_by_path": {k: leg[name] for k, leg in legs.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

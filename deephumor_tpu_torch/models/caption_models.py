@@ -24,6 +24,7 @@ the CPU through their plain twins.
 import dataclasses
 import functools
 import math
+import os
 
 import torch
 
@@ -35,6 +36,7 @@ from deephumor_tpu_torch.models.encoders import (image_encoder_apply,
                                                  image_encoder_init)
 from deephumor_tpu_torch.models.sampling import beam_search
 from deephumor_tpu_torch.ops.attention import MASK_FILL
+from deephumor_tpu_torch.ops.engine import fused_survivor_update
 from deephumor_tpu_torch.utils.pytree import load_params, tree_map
 
 __all__ = ["CaptioningTransformer"]
@@ -95,7 +97,8 @@ class CaptioningTransformer:
         return image_encoder_apply(params["encoder"], images,
                                    spatial_features=True)
 
-    def _prefill_and_state(self, dec, enc, prefix, max_positions):
+    def _prefill_and_state(self, dec, enc, prefix, max_positions,
+                           pad_to_tile=False):
         start_emb, spatial = enc
         bs = start_emb.shape[0]
         scale = math.sqrt(self.hid_dim)
@@ -103,7 +106,9 @@ class CaptioningTransformer:
         valid = torch.zeros((bs, max_positions), dtype=torch.bool,
                             device=start_emb.device)
         valid[:, 0] = True
-        cross = tfm.precompute_cross_attention(dec, spatial)
+        # packed cross-attention (K9) reads a store padded to 8 rows;
+        # decode_step widens the mask and K9 skips rows past cross_t_real
+        cross = tfm.precompute_cross_attention(dec, spatial, pad_to_tile)
         # the reference masks encoder rows holding a zero
         enc_key_mask = ~(spatial != 0.0).all(dim=-1)
         logits, cache = tfm.decode_step(
@@ -119,9 +124,11 @@ class CaptioningTransformer:
                 enc_key_mask)
             pos += 1
         state = {"cache": cache, "valid": valid, "pos": pos}
-        return logits, state, {"cross": cross, "enc_key_mask": enc_key_mask}
+        return logits, state, {"cross": cross, "enc_key_mask": enc_key_mask,
+                               "cross_t_real": spatial.shape[1]}
 
-    def _make_step(self, dec, consts, p_eff, return_hidden, canon_c=None):
+    def _make_step(self, dec, consts, p_eff, return_hidden, canon_c=None,
+                   pack_items=None):
         scale = math.sqrt(self.hid_dim)
 
         def step(state, tokens):
@@ -130,7 +137,9 @@ class CaptioningTransformer:
             # this step's K/V land in the branch's own physical slot
             anc[:, :, pos] = torch.arange(anc.shape[1], device=anc.device)
             # with compaction the cross-attention K/V and the encoder mask
-            # follow the item permutation, so they live in the state
+            # follow the item permutation, so they live in the state, and
+            # cross_t_real with them (the JAX package reads it from consts
+            # only, so under compaction its packed kernel never runs)
             src = consts if consts is not None else state
             canon = None
             if canon_c is not None:
@@ -142,7 +151,8 @@ class CaptioningTransformer:
                 dec, emb, pos, state["cache"], valid, self.n_heads,
                 src["cross"], src["enc_key_mask"], anc=anc, p_eff=p_eff,
                 return_hidden=return_hidden, live_items=state.get("live"),
-                canon=canon)
+                canon=canon, cross_t_real=src["cross_t_real"],
+                pack_items=pack_items)
             return out, dict(state, cache=cache, pos=pos + 1)
 
         return step
@@ -179,6 +189,7 @@ class CaptioningTransformer:
                 pp = x.shape[1] if prefix_positions is None else min(
                     prefix_positions, x.shape[1])
                 x[:, :pp] = x[flat, :pp]
+        # cross_t_real, a host int, passes through unchanged
         new_state = dict(state, valid=state["valid"][flat],
                          anc=state["anc"][order],
                          item_perm=state["item_perm"][order],
@@ -255,8 +266,14 @@ class CaptioningTransformer:
             enc = tuple(e.to(dt) for e in enc)
         prefix_len = 0 if caption is None else caption.shape[1]
         max_positions = max_len + 1
+        # the JAX package's two kernel-selecting switches, read per call:
+        # DH_CROSS_PACK=<ng> runs decode cross-attention in K9 with ng
+        # items per block (0 or unset: K2), DH_FUSED_SURVIVOR=1 runs the
+        # survivor update in K10
+        pack_items = int(os.environ.get("DH_CROSS_PACK", "0") or 0)
+        fused_survivor = os.environ.get("DH_FUSED_SURVIVOR") == "1"
         logits, state, consts = self._prefill_and_state(
-            dec, enc, caption, max_positions)
+            dec, enc, caption, max_positions, pad_to_tile=pack_items > 1)
         # decoder state is tiled per beam (item-major rows); the
         # cross-attention K/V stay per item
         state["cache"] = [{k: v.repeat_interleave(beam_size, 0)
@@ -304,10 +321,11 @@ class CaptioningTransformer:
         p_last = min(p_cache, -(-(prefix_len + steps) // 8) * 8)
         phases = [(pe - prefix_len - 1,
                    self._make_step(dec, consts, pe, classifier is not None,
-                                   canon_cs[k]))
+                                   canon_cs[k], pack_items))
                   for k, pe in enumerate(pes)]
         phases.append((steps - 1, self._make_step(
-            dec, consts, p_last, classifier is not None, canon_cs[-1])))
+            dec, consts, p_last, classifier is not None, canon_cs[-1],
+            pack_items)))
         # boundaries: compaction at pe = 24, 48, 96, ... (each pass gathers
         # the cache prefix, so they are sparse), canonicalisation before
         # every canon phase, after the compaction of the same boundary so
@@ -328,14 +346,31 @@ class CaptioningTransformer:
                     self._record_boundary, boundaries, pe, compacts,
                     canon_cs[k + 1] is not None))
             compactors.append(self._chain_boundaries(fns) if fns else None)
+        survivor_update_fn = None
+        if fused_survivor:
+            pad_index = self.pad_index
+
+            def survivor_update_fn(st, new_idx, new_val, surv, ended, val,
+                                   seq, pos):
+                n, bm = surv.shape
+                # the survivor draw's picks are a slice of a sort
+                chosen, val, ended, seq, anc, valid = fused_survivor_update(
+                    new_idx, new_val, surv.contiguous(), ended, val, seq,
+                    st["anc"],
+                    st["valid"].reshape(n, bm, -1), pos, beam=bm,
+                    eos_index=eos_index, pad_index=pad_index,
+                    live_items=st.get("live"))
+                st = dict(st, anc=anc, valid=valid.reshape(n * bm, -1))
+                return st, seq, val, ended, chosen
+
         out = beam_search(
             gen, state, logits, shuffle_fn=self._shuffle_state,
             phases=phases, beam_size=beam_size, top_k=top_k,
             temperature=temperature, max_len=max_len, prefix=caption,
             prefix_len=prefix_len, greedy=greedy, sampler=sampler,
             classifier=classifier, live_fn=live_fn, compactors=compactors,
-            finalize_fn=finalize_fn, eos_index=eos_index,
-            pad_index=self.pad_index)
+            finalize_fn=finalize_fn, survivor_update_fn=survivor_update_fn,
+            eos_index=eos_index, pad_index=self.pad_index)
         return dict(out, boundaries=boundaries)
 
     @staticmethod
@@ -366,6 +401,13 @@ class CaptioningTransformer:
                 at least 32 items and 64 steps.
             canon: canonical-prefix attention; None (default) is on, and it
                 engages only in phases with p_eff >= 48.
+
+        Two environment variables, read at each call, select kernels as in
+        the JAX package: ``DH_CROSS_PACK=<ng>`` runs decode
+        cross-attention in K9 (ng items per block over a store padded to
+        8 rows; 0 or unset: K2) and ``DH_FUSED_SURVIVOR=1`` runs the
+        survivor update in K10. Neither changes a draw when compaction is
+        off; with it on, K10 leaves retired items' branches unpermuted.
 
         Returns:
             dict with ``sequences [B, beam, max_len]``, ``scores``,

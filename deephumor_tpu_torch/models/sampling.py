@@ -121,7 +121,8 @@ def beam_search(gen, state, init_logits, *, shuffle_fn, phases, beam_size,
                 top_k, temperature, max_len, prefix=None, prefix_len=0,
                 greedy=False, sampler="exact", classifier=None,
                 live_fn=None, compactors=None, finalize_fn=None,
-                eos_index=EOS, unk_index=UNK, pad_index=PAD):
+                survivor_update_fn=None, eos_index=EOS, unk_index=UNK,
+                pad_index=PAD):
     """Runs batched stochastic or greedy beam search.
 
     Args:
@@ -142,6 +143,13 @@ def beam_search(gen, state, init_logits, *, shuffle_fn, phases, beam_size,
             ``None`` or ``(state, seq, val, ended) -> (state, seq, val,
             ended)``, run after that phase's loop (it may permute items).
         finalize_fn: optional ``(state, out) -> out`` run on the outputs.
+        survivor_update_fn: optional replacement of the whole update after
+            the survivor draw, ``shuffle_fn`` included: ``(state, new_idx,
+            new_val, surv, ended, val, seq, pos) -> (state, seq, val,
+            ended, chosen)`` with the draw's raw (unmasked) candidates
+            ``[B, beam, beam]``. It must reproduce the default update
+            (ops.fused_survivor_update does); given, ``shuffle_fn`` is not
+            called.
         max_len: total output length including any prefix.
 
     Returns:
@@ -191,22 +199,26 @@ def beam_search(gen, state, init_logits, *, shuffle_fn, phases, beam_size,
             new_idx = new_idx.reshape(num_items, beam, beam)
             new_val = new_val.reshape(num_items, beam, beam)
             e3 = ended[..., None]
-            new_idx = new_idx.masked_fill(e3, pad_index)
-            new_val = new_val.masked_fill(e3, 0.0)
             valid = ~e3 | (col == 0)
-            cand_val = val[..., None] + new_val
+            cand_val = val[..., None] + new_val.masked_fill(e3, 0.0)
             weight = torch.where(valid, cand_val * inv_t, NEG_INF)
             surv = _select_k(gen, weight.reshape(num_items, -1), beam,
                              greedy)
-            branch = surv // beam
-            chosen = new_idx.reshape(num_items, -1).gather(1, surv)
-            val = cand_val.reshape(num_items, -1).gather(1, surv)
-            seq = seq[items, branch]
-            ended = ended.gather(1, branch)
-            seq[:, :, prefix_len + s] = chosen
-            ended = ended | (chosen == eos_index)
-            state = shuffle_fn(state, (items * beam + branch).reshape(-1),
-                               branch)
+            if survivor_update_fn is not None:
+                state, seq, val, ended, _ = survivor_update_fn(
+                    state, new_idx, new_val, surv, ended, val, seq,
+                    prefix_len + s)
+            else:
+                branch = surv // beam
+                chosen = new_idx.masked_fill(e3, pad_index).reshape(
+                    num_items, -1).gather(1, surv)
+                val = cand_val.reshape(num_items, -1).gather(1, surv)
+                seq = seq[items, branch]
+                ended = ended.gather(1, branch)
+                seq[:, :, prefix_len + s] = chosen
+                ended = ended | (chosen == eos_index)
+                state = shuffle_fn(state, (items * beam + branch).reshape(
+                    -1), branch)
             s += 1
             all_ended = bool(ended.all())
         # once every branch has ended no later step runs, so a boundary

@@ -10,8 +10,10 @@ canonical prefix (long generations), self-attention runs in K5
 (ops.ancestry_attention_update_canon) over the shared ancestor rows and a
 per-slot window, with the straggler items recomputed full-width by K6
 (ops.ancestry_attention_ids). Cross-attention onto each item's encoder K/V
-runs in the K2 kernel (ops.grouped_cross_attention). On CPU tensors every
-kernel runs its plain twin.
+runs in the K2 kernel (ops.grouped_cross_attention), or, when the caller
+asks for packing over a tile-padded store, in K9
+(ops.cross_attention_packed). On CPU tensors every kernel runs its plain
+twin.
 """
 
 import math
@@ -68,9 +70,17 @@ def init_cache(params, bs, max_positions, dtype=torch.float32):
             for _ in params["layers"]]
 
 
-def precompute_cross_attention(params, enc_out):
+def precompute_cross_attention(params, enc_out, pad_to_tile=False):
     """Per-layer cross-attention keys/values over the fixed encoder output
-    ``[G, T, D]``, computed once per generation."""
+    ``[G, T, D]``, computed once per generation.
+
+    ``pad_to_tile`` zero-pads T up to a multiple of 8, the store that the
+    packed cross-attention (K9) takes; :func:`decode_step` then masks the
+    pad rows (``cross_t_real`` = the unpadded T).
+    """
+    t = enc_out.shape[-2]
+    if pad_to_tile and t % 8:
+        enc_out = F.pad(enc_out, (0, 0, 0, -(-t // 8) * 8 - t))
     return [{"ek": L.linear(layer["enc_attn"]["fc_k"], enc_out),
              "ev": L.linear(layer["enc_attn"]["fc_v"], enc_out)}
             for layer in params["layers"]]
@@ -95,7 +105,8 @@ def pff_apply(params, x):
 
 def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
                 n_heads, cross, enc_key_mask=None, anc=None, p_eff=None,
-                return_hidden=False, live_items=None, canon=None):
+                return_hidden=False, live_items=None, canon=None,
+                cross_t_real=None, pack_items=None):
     """One incremental decode position; writes K/V at ``pos`` in place.
 
     Args:
@@ -125,11 +136,32 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
             ``[c, p_eff)`` (K5); straggler items are recomputed full-width
             (K6) and merged by row mask. A phase without stragglers
             launches no K6.
+        cross_t_real: the number of valid encoder rows of a tile-padded
+            cross store (None: the store is not padded).
+        pack_items: with ``anc`` and ``cross_t_real``, cross-attention
+            runs K9 (ops.cross_attention_packed) with this many items per
+            block where the JAX package's packed kernel would run: above
+            1, dividing the groups, T and ``n_heads * rows per group``
+            multiples of 8. Elsewhere K2 runs.
 
     Returns:
         (logits ``[bs, V]`` or hidden ``[bs, D]``, cache)
     """
     x = token_emb_scaled + params["pos_embedding"]["weight"][pos]
+    # a tile-padded cross store holds rows past cross_t_real: widen the
+    # encoder mask so that every cross path masks them
+    t_cross = cross[0]["ek"].shape[1]
+    if enc_key_mask is not None and enc_key_mask.shape[-1] < t_cross:
+        enc_key_mask = F.pad(enc_key_mask,
+                             (0, t_cross - enc_key_mask.shape[-1]),
+                             value=True)
+    groups = cross[0]["ek"].shape[0]
+    pack = None
+    if (pack_items is not None and pack_items > 1 and anc is not None
+            and cross_t_real is not None and groups % pack_items == 0
+            and t_cross % 8 == 0
+            and n_heads * (x.shape[0] // groups) % 8 == 0):
+        pack = pack_items
     p_cache = cache[0]["k"].shape[1]
     pad = p_cache - self_key_valid.shape[-1]
     valid = F.pad(self_key_valid, (0, pad))
@@ -179,7 +211,8 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
         ea = layer["enc_attn"]
         attn = grouped_cross_attention(
             L.linear(ea["fc_q"], x), cross[i]["ek"], cross[i]["ev"],
-            cross_bias, n_heads=n_heads, live_items=live_items)
+            cross_bias, n_heads=n_heads, live_items=live_items,
+            pack_items=pack, t_real=cross_t_real if pack else None)
         x = L.layer_norm(layer["enc_attn_ln"], x + L.linear(ea["fc_o"], attn))
         x = L.layer_norm(layer["pf_ln"], x + pff_apply(layer["pf"], x))
     if return_hidden:

@@ -5,7 +5,10 @@ from deephumor_tpu_torch.ops.attention import (
     ancestry_attention_ids, ancestry_attention_ids_plain,
     ancestry_attention_update, ancestry_attention_update_canon,
     ancestry_attention_update_canon_plain, ancestry_attention_update_plain,
-    ancestry_bias, grouped_cross_attention, grouped_cross_attention_plain)
+    ancestry_bias, cross_attention_packed, cross_attention_packed_plain,
+    grouped_cross_attention, grouped_cross_attention_plain)
+from deephumor_tpu_torch.ops.engine import (fused_survivor_update,
+                                            fused_survivor_update_plain)
 from deephumor_tpu_torch.ops.sampler import (
     fused_classifier_topk_gumbel_sample,
     fused_classifier_topk_gumbel_sample_plain, fused_topk_gumbel_sample,
@@ -18,7 +21,9 @@ __all__ = [
     "ancestry_attention_update_canon_plain",
     "ancestry_attention_ids", "ancestry_attention_ids_plain",
     "grouped_cross_attention", "grouped_cross_attention_plain",
+    "cross_attention_packed", "cross_attention_packed_plain",
     "fused_topk_gumbel_sample", "fused_topk_gumbel_sample_plain",
     "fused_classifier_topk_gumbel_sample",
     "fused_classifier_topk_gumbel_sample_plain",
+    "fused_survivor_update", "fused_survivor_update_plain",
 ]

@@ -41,6 +41,8 @@ LAUNCHES = {
     "fused_classifier_topk_gumbel_sample": 0,
     "ancestry_attention_update_canon": 0,
     "ancestry_attention_ids": 0,
+    "cross_attention_packed": 0,
+    "fused_survivor_update": 0,
 }
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
@@ -69,6 +71,14 @@ _SIGNATURES = {
     # P, p_eff, D, H, inv_scale, stream
     "dh_ancestry_attention_ids":
         [_I, *[_P] * 6, *[_I] * 7, _F, _P],
+    # dtype, q, ek, ev, bias (or NULL), out, G, live, r, Tp, t_real, ng, D,
+    # H, inv_scale, stream
+    "dh_cross_attention_packed":
+        [_I, *[_P] * 5, *[_I] * 8, _F, _P],
+    # new_idx, new_val, surv, ended, val, seq, anc, valid, chosen, B, live,
+    # beam, L, P, pos, eos, pad, stream
+    "dh_fused_survivor_update":
+        [*[_P] * 9, *[_I] * 8, _P],
 }
 
 def reset_launch_counts():

@@ -1,5 +1,5 @@
-"""Decode-time attention: the K1, K2, K5 and K6 kernel wrappers and their
-twins.
+"""Decode-time attention: the K1, K2, K5, K6 and K9 kernel wrappers and
+their twins.
 
 Counterparts of deephumor_tpu/ops/pallas_attention.py. Each wrapper
 launches its CUDA kernel (ops/csrc/) for CUDA tensors and runs its plain
@@ -19,7 +19,8 @@ __all__ = ["MASK_FILL", "ancestry_bias", "ancestry_attention_update",
            "ancestry_attention_update_canon",
            "ancestry_attention_update_canon_plain", "ancestry_attention_ids",
            "ancestry_attention_ids_plain", "grouped_cross_attention",
-           "grouped_cross_attention_plain"]
+           "grouped_cross_attention_plain", "cross_attention_packed",
+           "cross_attention_packed_plain"]
 
 MASK_FILL = -1e8
 
@@ -348,8 +349,47 @@ def grouped_cross_attention_plain(q, ek, ev, bias, *, n_heads,
     return out
 
 
-def grouped_cross_attention(q, ek, ev, bias, *, n_heads, live_items=None):
-    """K2: single-query cross-attention of ``G*r`` rows over per-group K/V.
+def cross_attention_packed_plain(q, ek, ev, bias, *, n_heads, pack_items,
+                                 t_real, live_items=None):
+    """Plain PyTorch twin of :func:`cross_attention_packed`: K2's twin over
+    each item's first ``t_real`` encoder rows (packing only groups the
+    items; the masked cross-item energies add nothing)."""
+    return grouped_cross_attention_plain(
+        q, ek[:, :t_real], ev[:, :t_real],
+        None if bias is None else bias[..., :t_real], n_heads=n_heads,
+        live_items=live_items)
+
+
+def cross_attention_packed(q, ek, ev, bias, *, n_heads, pack_items, t_real,
+                           live_items=None):
+    """K9: :func:`grouped_cross_attention` with ``pack_items`` items per
+    block over a tile-padded store; the caller goes through
+    ``grouped_cross_attention(..., pack_items=, t_real=)``, which checks
+    the arguments."""
+    name = "cross_attention_packed"
+    kw = dict(n_heads=n_heads, pack_items=pack_items, t_real=t_real,
+              live_items=live_items)
+    tensors = (q, ek, ev) if bias is None else (q, ek, ev, bias)
+    if not _build.on_kernel_device(name, *tensors):
+        return cross_attention_packed_plain(q, ek, ev, bias, **kw)
+    g, t, d = ek.shape
+    _build.check_vector_rows(name, d // n_heads, q, ek, ev)
+    out = torch.empty_like(q)
+    err = _build.library().dh_cross_attention_packed(
+        _build.dtype_code(q, name), q.data_ptr(), ek.data_ptr(),
+        ev.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), g, _build.live_count(g, live_items), q.shape[0] // g,
+        t, t_real, pack_items, d, n_heads, 1.0 / math.sqrt(d // n_heads),
+        _build.stream_of(q))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def grouped_cross_attention(q, ek, ev, bias, *, n_heads, live_items=None,
+                            pack_items=None, t_real=None):
+    """K2: single-query cross-attention of ``G*r`` rows over per-group K/V;
+    with ``pack_items > 1``, K9 (:func:`cross_attention_packed`).
 
     Args:
         q: ``[G*r, D]`` pre-projected queries (r rows per group).
@@ -358,6 +398,12 @@ def grouped_cross_attention(q, ek, ev, bias, *, n_heads, live_items=None):
         bias: f32 ``[G, 1, T]`` additive mask (0 or -1e8), or None.
         live_items: optional host int; groups at or past it are not
             computed and their output rows are zero.
+        pack_items: optional; above 1, blocks of this many items (it must
+            divide G) over a store padded past its valid rows
+            (``precompute_cross_attention(..., pad_to_tile=True)``).
+        t_real: with ``pack_items``, required: the number of valid
+            encoder rows; rows ``[t_real, T)`` get zero weight. ``bias``
+            must cover the padded T.
 
     Returns:
         ``[G*r, D]`` attention output (before the output projection).
@@ -372,7 +418,20 @@ def grouped_cross_attention(q, ek, ev, bias, *, n_heads, live_items=None):
         raise ValueError(f"{name}: q, ek and ev must share one dtype")
     if bias is not None and (bias.dtype != torch.float32
                              or bias.shape != (g, 1, t)):
-        raise ValueError(f"{name}: bias must be f32 [{g}, 1, {t}]")
+        raise ValueError(f"{name}: bias must be f32 [{g}, 1, {t}] (with "
+                         f"pack_items: the padded T)")
+    if pack_items is not None and pack_items > 1:
+        if t_real is None or not 0 < t_real <= t:
+            raise ValueError(f"{name}: pack_items needs t_real, the number "
+                             f"of valid encoder rows (0 < t_real <= {t}), "
+                             f"got {t_real}: the pad rows would otherwise "
+                             f"get softmax weight")
+        if g % pack_items:
+            raise ValueError(f"{name}: pack_items {pack_items} does not "
+                             f"divide the {g} groups")
+        return cross_attention_packed(q, ek, ev, bias, n_heads=n_heads,
+                                      pack_items=pack_items, t_real=t_real,
+                                      live_items=live_items)
     tensors = (q, ek, ev) if bias is None else (q, ek, ev, bias)
     if not _build.on_kernel_device(name, *tensors):
         return grouped_cross_attention_plain(q, ek, ev, bias,

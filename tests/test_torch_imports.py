@@ -9,6 +9,7 @@ import torch
 
 from deephumor_tpu_torch.ops import (LAUNCHES, _build, ancestry_bias,
                                      ancestry_attention_update,
+                                     fused_survivor_update,
                                      fused_topk_gumbel_sample,
                                      grouped_cross_attention,
                                      reset_launch_counts)
@@ -50,15 +51,24 @@ def _small_inputs():
     cross = (torch.randn(rows, d, generator=g),
              torch.randn(items, t, d, generator=g),
              torch.randn(items, t, d, generator=g), None)
-    return attn, cross, torch.randn(rows, 40, generator=g)
+    surv = (torch.randint(0, 40, (items, beam, beam), generator=g),
+            torch.randn(items, beam, beam, generator=g),
+            torch.randint(0, beam * beam, (items, beam), generator=g),
+            torch.zeros(items, beam, dtype=torch.bool),
+            torch.randn(items, beam, generator=g),
+            torch.zeros(items, beam, 6, dtype=torch.int64),
+            anc, valid.reshape(items, beam, p))
+    return attn, cross, torch.randn(rows, 40, generator=g), surv
 
 
 def test_cpu_tensors_use_the_twins_and_launch_nothing():
     reset_launch_counts()
-    attn, cross, logits = _small_inputs()
+    attn, cross, logits, surv = _small_inputs()
     ancestry_attention_update(*attn, 3, beam=3, n_heads=2)
     grouped_cross_attention(*cross, n_heads=2)
+    grouped_cross_attention(*cross, n_heads=2, pack_items=2, t_real=4)
     fused_topk_gumbel_sample(logits, 1, 1.0, top_k=8, num_draws=3)
+    fused_survivor_update(*surv, 2, beam=3, eos_index=3, pad_index=0)
     assert set(LAUNCHES.values()) == {0}
     # nothing was built either
     assert _build.library.cache_info().currsize == 0
@@ -70,9 +80,11 @@ def test_other_devices_raise():
         fused_topk_gumbel_sample(logits, 1, 1.0, top_k=8, num_draws=3)
 
 
-@pytest.mark.parametrize("case", ["dtype", "shape", "pos", "draws"])
+@pytest.mark.parametrize("case", ["dtype", "shape", "pos", "draws",
+                                  "pack t_real", "pack groups",
+                                  "survivor dtype", "survivor pos"])
 def test_wrappers_reject_what_the_kernels_do_not_take(case):
-    attn, cross, logits = _small_inputs()
+    attn, cross, logits, surv = _small_inputs()
     with pytest.raises(ValueError):
         if case == "dtype":
             grouped_cross_attention(cross[0].half(), *cross[1:], n_heads=2)
@@ -81,5 +93,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
                                       n_heads=2)
         elif case == "pos":
             ancestry_attention_update(*attn, 8, beam=3, n_heads=2)
+        elif case == "pack t_real":
+            grouped_cross_attention(*cross, n_heads=2, pack_items=2)
+        elif case == "pack groups":
+            grouped_cross_attention(*cross, n_heads=2, pack_items=3,
+                                    t_real=4)
+        elif case == "survivor dtype":
+            fused_survivor_update(surv[0].int(), *surv[1:], 2, beam=3,
+                                  eos_index=3, pad_index=0)
+        elif case == "survivor pos":
+            fused_survivor_update(*surv, 6, beam=3, eos_index=3,
+                                  pad_index=0)
         else:
             fused_topk_gumbel_sample(logits, 1, 1.0, top_k=2, num_draws=3)

@@ -206,3 +206,60 @@ def test_classifier_topk_gumbel_matches_twin(cuda, dtype, vocab, live_rows):
     assert (srt[:, 1:] != srt[:, :-1]).all()
     eq = (ids == ids_p).all(dim=1)
     assert torch.equal(vals[eq], vals_p[eq])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("r,ng,live_items", [(5, 2, None), (7, 4, None),
+                                             (7, 4, 6), (3, 8, None),
+                                             (10, 2, 3)])
+def test_cross_attention_packed_matches_twin(cuda, dtype, r, ng, live_items):
+    # T 49 padded to 56; one item fully masked; r 10 takes two row chunks
+    groups, t_real, tp, d, heads = 16, 49, 56, 256, 4
+    g = torch.Generator(cuda).manual_seed(7)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)  # noqa
+    q, ek, ev = rnd(groups * r, d), rnd(groups, tp, d), rnd(groups, tp, d)
+    mask = torch.rand(groups, tp, generator=g, device=cuda) < 0.3
+    mask[1] = True
+    bias = torch.where(mask[:, None, :], A.MASK_FILL, 0.0).float()
+    kw = dict(n_heads=heads, pack_items=ng, t_real=t_real,
+              live_items=live_items)
+    for b in (bias, None):
+        reset_launch_counts()
+        got = A.grouped_cross_attention(q, ek, ev, b, **kw)
+        want = A.cross_attention_packed_plain(q, ek, ev, b, **kw)
+        assert LAUNCHES["cross_attention_packed"] == 1
+        assert LAUNCHES["grouped_cross_attention"] == 0
+        torch.testing.assert_close(got, want, atol=_tol(dtype),
+                                   rtol=_tol(dtype))
+        assert torch.isfinite(got.float()).all()
+        if live_items is not None:
+            assert not got[live_items * r:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam,live_items", [(3, None), (5, None), (7, None),
+                                             (7, 5)])
+def test_fused_survivor_update_matches_twin(cuda, beam, live_items):
+    from deephumor_tpu_torch.ops import engine as E
+
+    items, L, P, pos = 9, 40, 41, 17
+    g = torch.Generator(cuda).manual_seed(8)
+    ri = lambda hi, *s: torch.randint(0, hi, s, generator=g,  # noqa: E731
+                                      device=cuda)
+    new_idx = ri(60, items, beam, beam)
+    new_idx[0, 1, 2] = new_idx[4, 0, 0] = 3  # planted EOS picks
+    ended = ri(2, items, beam).bool()
+    ended[6] = True
+    args = [new_idx, torch.randn(items, beam, beam, generator=g, device=cuda),
+            ri(beam * beam, items, beam), ended,
+            torch.randn(items, beam, generator=g, device=cuda),
+            ri(60, items, beam, L), ri(beam, items, beam, P),
+            ri(2, items, beam, P).bool()]
+    kw = dict(beam=beam, eos_index=3, pad_index=0, live_items=live_items)
+    reset_launch_counts()
+    got = E.fused_survivor_update(*[a.clone() for a in args], pos, **kw)
+    want = E.fused_survivor_update_plain(*args, pos, **kw)
+    assert LAUNCHES["fused_survivor_update"] == 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
