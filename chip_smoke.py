@@ -14,17 +14,31 @@ held against their plain PyTorch twins at that path's shapes:
 Each path also runs with the two kernel-selecting switches:
 DH_FUSED_SURVIVOR=1 (the survivor update in K10) and DH_CROSS_PACK=4
 (decode cross-attention in K9, four items per block, over a store padded
-to 56 rows; prefill stays on K2). Five serving legs in all: word,
-word_fused, word_packed_fused, char and char_packed_fused.
+to 56 rows; prefill stays on K2). Between the two paths, the other two
+caption families run at the word settings: CaptioningTransformerBase
+(decoder-only, global embedding; K1, K3) without and with
+DH_FUSED_SURVIVOR=1 (adding K10), and CaptioningLSTM (emb 256, hidden
+512, 3 layers; the classifier a bf16 product before K3), both from 1792
+cached embeddings; the LSTMs, with and without labels, also from images.
+Eight serving legs in all: word, word_fused, word_packed_fused, base,
+base_fused, lstm, char and char_packed_fused.
 
-Weights are random from a seed. For each path it checks greedy f32
-generation through the kernels, without and with both switches, against
-the plain path on the CPU, then runs each leg once with every launch count
-at zero and fails if one of its kernels was not launched or one off its
-leg was. word_fused must give the default word leg's sequences and scores
-exactly. It ends the char path with torch.profiler tables of one more
-call without and one with both switches (kernel time by name, the
-device's idle share).
+The three kernels that no path of the JAX package launches on the device
+run in kernel phases alone, each against its twin at the word shapes and
+again at the char shapes: K7 (read-only ancestry attention, each TPU
+layout), K8 (K1 with the caches read in 8-position tiles, timed beside
+K1) and K11 (the in-place cache column write, exact). They launch 0
+times on every leg.
+
+Weights are random from a seed. For each model it checks greedy f32
+generation through the kernels (for CaptioningTransformer also with both
+switches) against the plain path on the CPU, then runs each leg once with
+every launch count at zero and fails if one of its kernels was not
+launched or one off its leg was. word_fused and base_fused must give
+their default legs' sequences and scores exactly. torch.profiler tables
+(kernel time by name, the device's idle share) follow the base,
+base_fused and lstm legs, and end the char path: one more call without
+and one with both switches.
 
     python3 chip_smoke.py
 
@@ -35,6 +49,7 @@ kernels (times, launches per path, bounds, library yardsticks).
 """
 
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -48,6 +63,8 @@ VOCAB, HID, LAYERS, HEADS, PF = 29184, 512, 6, 8, 2048
 BEAM, MAX_LEN, TOP_K, BATCH, EOS_BIAS = 5, 32, 64, 1792, 1.5
 ROWS, P, T_ENC = BATCH * BEAM, 40, 49
 T_PAD, PACK = 56, 4  # the packed legs' padded cross store, items per block
+# the LSTM leg (bench.py:164-194): emb 256, hidden 512, 3 layers
+L_EMB, L_HID, L_LAYERS = 256, 512, 3
 # char serving config (bench.py:63-70,225-251)
 C_VOCAB, C_BEAM, C_LEN, C_TOP_K, C_BATCH = 128, 7, 128, 50, 768
 C_EOS_BIAS, C_TEMP = 1.0, 1.1
@@ -141,6 +158,30 @@ def sdpa(q, k, v, mask):
         q, k, v, attn_mask=mask)
 
 
+def attention_state(A, dev, gen, *, items, beam, p, pos, dt):
+    """q, caches, k_new, v_new and the ancestry bias of a decode state at
+    ``pos`` (valid positions at most ``pos``)."""
+    rows = items * beam
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)  # noqa
+    anc = torch.randint(0, beam, (items, beam, p), generator=gen, device=dev)
+    valid = torch.rand(rows, p, generator=gen, device=dev) < 0.8
+    valid[:, pos + 1:] = False
+    valid[:, 0] = valid[:, pos] = True
+    return (rnd(rows, HID), rnd(rows, p, HID), rnd(rows, p, HID),
+            rnd(rows, HID), rnd(rows, HID), A.ancestry_bias(anc, valid, p))
+
+
+def ancestry_sdpa_ms(q, k, v, bias, items, beam, p, pe):
+    """One SDPA call over the (slot, position) rows [0, pe) of every item
+    with the same bias: the library yardstick of K1, K7 and K8."""
+    qh = q.reshape(items, beam, HEADS, -1).transpose(1, 2)
+    kh, vh = (heads(x[:, :pe].reshape(items, beam * pe, HID), items,
+                    beam * pe) for x in (k, v))
+    mask = bias.reshape(items, beam, beam, p)[..., :pe].reshape(
+        items, 1, beam, beam * pe).contiguous()
+    return library_ms(lambda: sdpa(qh, kh, vh, mask))
+
+
 def k1_bytes(live, beam, pe, elt):
     """K/V prefix, q, k_new, v_new, out and the two written columns, plus
     the bias over the read positions."""
@@ -186,15 +227,126 @@ def check_k1(A, dev, gen, *, items, beam, p, pes, dt, live_items=None,
     plain_ms = cuda_ms(lambda: A.ancestry_attention_update_plain(
         q, k, v, kn, vn, bias, pos, **kw), iters=3)
     live = items if live_items is None else live_items
-    qh = q.reshape(items, beam, HEADS, -1).transpose(1, 2)
-    kh, vh = (heads(x[:, :pe].reshape(items, beam * pe, HID), items,
-                    beam * pe) for x in (k, v))
-    mask = bias.reshape(items, beam, beam, p)[..., :pe].reshape(
-        items, 1, beam, beam * pe).contiguous()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms(lambda: sdpa(qh, kh, vh, mask)),
+                library_ms=ancestry_sdpa_ms(q, k, v, bias, items, beam, p, pe),
                 **bound(k1_bytes(live, beam, pe, k.element_size()),
                         4 * live * beam * beam * pe * HID, dt))
+
+
+def check_k7(A, dev, gen, *, items, beam, p, cases, label):
+    """K7 vs its twin for each (impl, p_eff) of ``cases`` (valid
+    positions below the smallest p_eff); returns the first case's
+    measurements."""
+    dt = torch.bfloat16
+    pos = min(pe or p for _, pe in cases) - 1
+    q, ck, cv, _, _, bias = attention_state(A, dev, gen, items=items,
+                                            beam=beam, p=p, pos=pos, dt=dt)
+    err, row = 0.0, None
+    for impl, p_eff in cases:
+        kw = dict(beam=beam, n_heads=HEADS, impl=impl, p_eff=p_eff)
+        got = A.ancestry_attention(q, ck, cv, bias, **kw)
+        want = A.ancestry_attention_plain(q, ck, cv, bias, **kw)
+        torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+        e = (got.float() - want.float()).abs().max().item()
+        err = max(err, e)
+        ms = cuda_ms(lambda: A.ancestry_attention(q, ck, cv, bias, **kw))
+        pe = p if impl != "native4d" or p_eff is None else p_eff
+        log(f"  {label} impl={impl} p_eff={p_eff} (reads {pe} positions): "
+            f"max|out-twin|={e:.3e} (atol=rtol={TOL}), {ms:.4f} ms")
+        if row is None:
+            rows = items * beam
+            nbytes = (2 * rows * pe * HID + 2 * rows * HID) * 2 + (
+                rows * beam * pe * 4)
+            row = dict(ms=ms, plain_ms=cuda_ms(
+                lambda: A.ancestry_attention_plain(q, ck, cv, bias, **kw),
+                iters=3), library_ms=ancestry_sdpa_ms(
+                    q, ck, cv, bias, items, beam, p, pe),
+                **bound(nbytes, 4 * rows * beam * pe * HID, dt))
+    return dict(row, max_abs_err=err)
+
+
+def check_k8(A, dev, gen, *, items, beam, p, positions, k1_pe, label):
+    """K8 vs its twin at each decode position (written caches bit-equal),
+    timed beside K1 at the same read length where K1 can stage it;
+    returns the last position's measurements."""
+    dt = torch.bfloat16
+    err = 0.0
+    for pos in positions:
+        q, ck, cv, kn, vn, bias = attention_state(
+            A, dev, gen, items=items, beam=beam, p=p, pos=pos, dt=dt)
+        caches = [(ck.clone(), cv.clone()) for _ in range(2)]
+        kw = dict(beam=beam, n_heads=HEADS)
+        got = A.ancestry_attention_update_flash(q, *caches[0], kn, vn, bias,
+                                                pos, **kw)
+        want = A.ancestry_attention_update_flash_plain(
+            q, *caches[1], kn, vn, bias, pos, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(caches[0][0], caches[1][0])
+                and torch.equal(caches[0][1], caches[1][1])):
+            raise AssertionError(f"{label} pos={pos}: written caches differ")
+        torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+        e = (got.float() - want.float()).abs().max().item()
+        err = max(err, e)
+        k, v = caches[0]
+        ms = cuda_ms(lambda: A.ancestry_attention_update_flash(
+            q, k, v, kn, vn, bias, pos, **kw))
+        pe = 8 * (pos // 8 + 1)
+        k1 = "K1 cannot stage these rows"
+        if pe <= k1_pe:
+            k1_ms = cuda_ms(lambda: A.ancestry_attention_update(
+                q, k, v, kn, vn, bias, pos, p_eff=pe, **kw))
+            k1 = f"K1 at p_eff {pe}: {k1_ms:.4f} ms"
+        log(f"  {label} pos={pos} (tiles through p_eff {pe}): caches "
+            f"bit-equal, max|out-twin|={e:.3e} (atol=rtol={TOL}), "
+            f"{ms:.4f} ms; {k1}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=cuda_ms(
+        lambda: A.ancestry_attention_update_flash_plain(
+            q, k, v, kn, vn, bias, pos, **kw), iters=3),
+        library_ms=ancestry_sdpa_ms(q, k, v, bias, items, beam, p, pe),
+        **bound(k1_bytes(items, beam, pe, k.element_size()),
+                4 * items * beam * beam * pe * HID, dt))
+
+
+def check_k11(C, dev, gen, *, rows, p, positions, label):
+    """K11 vs its twin at each position, bf16 caches from bf16 and from
+    f32 columns: caches exactly equal. Returns the bf16 -> bf16
+    measurements."""
+    bf = torch.bfloat16
+    ck, cv = (torch.randn(rows, p, HID, generator=gen, device=dev).to(bf)
+              for _ in range(2))
+    row = None
+    for new_dt in (bf, torch.float32):
+        news = [[torch.randn(rows, HID, generator=gen, device=dev).to(new_dt)
+                 for _ in range(2)] for _ in range(8)]
+        for pos in positions:
+            got = C.cache_column_write(ck.clone(), cv.clone(), *news[0], pos)
+            want = C.cache_column_write_plain(ck.clone(), cv.clone(),
+                                              *news[0], pos)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{label} pos={pos} {new_dt}: caches "
+                                     f"differ from the twin's")
+        # eight column pairs written at eight positions, over 100 MB in
+        # all: each timed call reads inputs that have left the 50 MB L2
+        calls = itertools.cycle([(kn, vn, 5 * i % p)
+                                 for i, (kn, vn) in enumerate(news)])
+        k, v = ck.clone(), cv.clone()
+        ms = cuda_ms(lambda: C.cache_column_write(k, v, *next(calls)),
+                     queued=True)
+        log(f"  {label} rows={rows} P={p} pos={positions} new {new_dt}: "
+            f"caches equal to the twin's; {ms:.4f} ms (inputs cold in L2)")
+        if row is None:
+            def copies(kn, vn, pos):
+                k[:, pos].copy_(kn)
+                v[:, pos].copy_(vn)
+
+            row = dict(ms=ms, max_abs_err=0.0, plain_ms=cuda_ms(
+                lambda: C.cache_column_write_plain(k, v, *next(calls)),
+                queued=True), library_ms=cuda_ms(
+                lambda: copies(*next(calls)), queued=True),
+                # read both new columns, write both cache columns
+                **bound(4 * rows * HID * 2, 0, bf))
+    return row
 
 
 def check_k2(A, dev, gen, *, items, beam, live_items=None):
@@ -576,6 +728,29 @@ def check_greedy(CaptioningTransformer, tree_map, _build, dev, char):
                                  f"from the CPU path's")
 
 
+def make_lstm(cls, dtype, dev):
+    model = cls(num_tokens=VOCAB, emb_dim=L_EMB, hidden_size=L_HID,
+                num_layers=L_LAYERS, compute_dtype=dtype)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    params["decoder"]["classifier"]["bias"][3] = EOS_BIAS
+    return model, params
+
+
+def greedy_parity(model, params, enc, tree_map, label):
+    """Greedy f32 generation at the word settings on the card vs the plain
+    path on the CPU: token-equal on >= 99% of items."""
+    kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K)
+    got = model.generate_from_emb(params, enc, greedy=True, **kw)
+    cpu = lambda t: t.cpu()  # noqa: E731
+    want = model.generate_from_emb(tree_map(cpu, params), tree_map(cpu, enc),
+                                   greedy=True, **kw)
+    same = (got["chosen"].cpu() == want["chosen"]).all(dim=1).float().mean()
+    log(f"  greedy f32, {batch(enc).shape[0]} items: {label} on the card == "
+        f"CPU plain path on {same.item():.4f} of items (>= 0.99)")
+    if same < 0.99:
+        raise AssertionError(f"greedy {label} disagrees with plain path")
+
+
 def check_output(out, n, vocab, beam, max_len):
     seq = out["sequences"]
     if out["chosen"].shape != (n, max_len) or seq.shape != (n, beam,
@@ -586,12 +761,18 @@ def check_output(out, n, vocab, beam, max_len):
         raise AssertionError("tokens out of range, UNK drawn or bad scores")
 
 
+def batch(enc):
+    """The global embeddings of ``encode`` output: the whole of it, or the
+    first of the cross-attention model's pair."""
+    return enc[0] if isinstance(enc, tuple) else enc
+
+
 def timed_call(model, params, enc, kw, seed):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = model.generate_from_emb(
-        params, enc, generator=torch.Generator(enc[0].device).manual_seed(
-            seed), **kw)
+        params, enc, generator=torch.Generator(
+            batch(enc).device).manual_seed(seed), **kw)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
@@ -607,7 +788,7 @@ def drive(model, params, enc, _build, kw, name_limit, label, path_kernels,
         _build.reset_launch_counts()
         out, secs = timed_call(model, params, enc, kw, 5)
         launches = dict(_build.LAUNCHES)
-        n = enc[0].shape[0]
+        n = batch(enc).shape[0]
         steps = int((out["sequences"] != 0).any(dim=(0, 1)).sum())
         log(f"  {label} generate_from_emb: {n / secs:.1f} captions/s "
             f"({secs:.3f} s, {steps} positions, {name_limit}); launches "
@@ -624,11 +805,10 @@ def drive(model, params, enc, _build, kw, name_limit, label, path_kernels,
     return out, launches
 
 
-def profile_char(model, params, enc, kw, name_limit, label, top, pack=0,
+def profile_call(model, params, enc, kw, name_limit, label, top, pack=0,
                  fused=False):
-    """torch.profiler over one char call with the switches as given:
-    kernel time by name (the ``top`` largest) and the device's idle
-    share."""
+    """torch.profiler over one call with the switches as given: kernel
+    time by name (the ``top`` largest) and the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -671,9 +851,13 @@ def check_leg_launches(label, launches, packed, steps):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing is run")
-    from deephumor_tpu_torch.models import CaptioningTransformer
+    from deephumor_tpu_torch.models import (CaptioningLSTM,
+                                            CaptioningLSTMWithLabels,
+                                            CaptioningTransformer,
+                                            CaptioningTransformerBase)
     from deephumor_tpu_torch.ops import _build
     from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops import cache as C
     from deephumor_tpu_torch.ops import engine as E
     from deephumor_tpu_torch.ops import sampler as S
     from deephumor_tpu_torch.utils.pytree import tree_map
@@ -719,6 +903,19 @@ def main():
     log(f"    K10 items {BATCH}, beam {BEAM}, L {MAX_LEN}, P {MAX_LEN + 1}")
     rows["fused_survivor_update"] = check_k10(E, dev, gen, items=BATCH,
                                               beam=BEAM, length=MAX_LEN)
+    log(f"    K7 rows {ROWS}, P {P}: native4d p_eff 32, 16, 24; grouped, "
+        f"blockdiag (all P)")
+    rows["ancestry_attention"] = check_k7(
+        A, dev, gen, items=BATCH, beam=BEAM, p=P, label="K7",
+        cases=(("native4d", 32), ("native4d", 16), ("native4d", 24),
+               ("grouped", None), ("blockdiag", None)))
+    log(f"    K8 rows {ROWS}, P {P}, pos 7, 39, 31, beside K1")
+    rows["ancestry_attention_update_flash"] = check_k8(
+        A, dev, gen, items=BATCH, beam=BEAM, p=P, positions=(7, 39, 31),
+        k1_pe=P, label="K8")
+    log(f"    K11 rows {ROWS}, P {P}, D {HID}")
+    rows["cache_column_write"] = check_k11(C, dev, gen, rows=ROWS, p=P,
+                                           positions=(0, 17, 39), label="K11")
 
     log("[4] word greedy generate_from_emb, f32, kernels (without and with "
         "both switches) vs plain CPU path")
@@ -764,7 +961,68 @@ def main():
     del model, params, out, fused, enc
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
 
-    log(f"[6] char kernels: K4 x [{C_ROWS}, {HID}] W [{C_VOCAB}, {HID}] "
+    log("[6] decoder-only transformer and LSTM: greedy f32 on the card vs "
+        "plain CPU path, then the serving legs (bf16, sampler='pallas', "
+        f"batch {BATCH})")
+    model, params = make_model(CaptioningTransformerBase, "float32", dev,
+                               False)
+    greedy_parity(model, params, features(64, dev, 1)[0], tree_map,
+                  "CaptioningTransformerBase (K1)")
+    model, params = make_lstm(CaptioningLSTM, "float32", dev)
+    greedy_parity(model, params, torch.randn(
+        64, L_EMB, device=dev, generator=torch.Generator(dev).manual_seed(1)),
+        tree_map, "CaptioningLSTM")
+    base_kernels = ("ancestry_attention_update", "fused_topk_gumbel_sample")
+    model, params = make_model(CaptioningTransformerBase, "bfloat16", dev,
+                               False)
+    out = model.generate(params, images,
+                         generator=torch.Generator(dev).manual_seed(3), **kw)
+    check_output(out, 8, VOCAB, BEAM, MAX_LEN)
+    log("  base generate(8 images 224x224): ok")
+    enc = features(BATCH, dev, 4)[0]
+    out, legs["base"] = drive(model, params, enc, _build, kw, name_limit,
+                              "base", base_kernels)
+    check_output(out, BATCH, VOCAB, BEAM, MAX_LEN)
+    fused, legs["base_fused"] = drive(
+        model, params, enc, _build, kw, name_limit, "base_fused",
+        base_kernels + ("fused_survivor_update",), fused=True)
+    # K3 draws once after the prefill and once per decode step
+    steps = legs["base_fused"]["fused_topk_gumbel_sample"] - 1
+    if legs["base_fused"]["fused_survivor_update"] != steps:
+        raise AssertionError("base_fused: K10 not launched once per step")
+    if not (torch.equal(fused["sequences"], out["sequences"])
+            and torch.equal(fused["scores"], out["scores"])):
+        raise AssertionError("base_fused: sequences or scores differ from "
+                             "the base leg's at the same seed")
+    log(f"  base_fused: K10 once in each of {steps} decode steps; sequences "
+        f"and scores equal to the base leg's")
+    profile_call(model, params, enc, kw, name_limit, "base", 12)
+    profile_call(model, params, enc, kw, name_limit, "base_fused", 12,
+                 fused=True)
+    model, params = make_lstm(CaptioningLSTM, "bfloat16", dev)
+    out = model.generate(params, images,
+                         generator=torch.Generator(dev).manual_seed(3), **kw)
+    check_output(out, 8, VOCAB, BEAM, MAX_LEN)
+    lab_model, lab_params = make_lstm(CaptioningLSTMWithLabels, "bfloat16",
+                                      dev)
+    labels = torch.randint(4, VOCAB, (8, 5), device=dev,
+                           generator=torch.Generator(dev).manual_seed(5))
+    out = lab_model.generate(lab_params, images, labels,
+                             generator=torch.Generator(dev).manual_seed(3),
+                             **kw)
+    check_output(out, 8, VOCAB, BEAM, MAX_LEN)
+    log("  lstm generate(8 images) and lstm_labels generate(8 images, "
+        "labels): ok")
+    enc = torch.randn(BATCH, L_EMB, device=dev,
+                      generator=torch.Generator(dev).manual_seed(4))
+    out, legs["lstm"] = drive(model, params, enc, _build, kw, name_limit,
+                              "lstm", ("fused_topk_gumbel_sample",))
+    check_output(out, BATCH, VOCAB, BEAM, MAX_LEN)
+    profile_call(model, params, enc, kw, name_limit, "lstm", 12)
+    del model, params, lab_model, lab_params, out, fused, enc
+    log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
+
+    log(f"[7] char kernels: K4 x [{C_ROWS}, {HID}] W [{C_VOCAB}, {HID}] "
         f"bf16, top_k {C_TOP_K}, draws {C_BEAM}")
     rows["fused_classifier_topk_gumbel_sample"] = check_k4(S, dev, gen)
     log(f"    K5/K6 rows {C_ROWS}, P {C_P}, D {HID}, bf16")
@@ -799,11 +1057,25 @@ def main():
                 f"{r['ms']:.4f} ms (twin {r['plain_ms']:.4f} ms, SDPA "
                 f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms)")
 
-    log("[7] char greedy generate_from_emb, f32, kernels (without and with "
+    log(f"    K7 and K8 rows {C_ROWS}, P {C_P}; K11 rows {C_ROWS}, P {C_P}")
+    char_k7 = check_k7(A, dev, gen, items=C_BATCH, beam=C_BEAM, p=C_P,
+                       cases=(("native4d", 128), ("grouped", None)),
+                       label="K7 char")
+    char_k8 = check_k8(A, dev, gen, items=C_BATCH, beam=C_BEAM, p=C_P,
+                       positions=(127,), k1_pe=0, label="K8 char")
+    char_k11 = check_k11(C, dev, gen, rows=C_ROWS, p=C_P,
+                         positions=(0, 64, 127), label="K11 char")
+    for name, r in (("K7 (native4d, p_eff 128)", char_k7),
+                    ("K8 (pos 127)", char_k8), ("K11 (pos 64)", char_k11)):
+        log(f"    {name} at the char shape: {r['ms']:.4f} ms (twin "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms)")
+
+    log("[8] char greedy generate_from_emb, f32, kernels (without and with "
         "both switches) vs plain CPU path")
     check_greedy(CaptioningTransformer, tree_map, _build, dev, char=True)
 
-    log(f"[8] char main path: bf16, sampler='pallas', batch {C_BATCH}")
+    log(f"[9] char main path: bf16, sampler='pallas', batch {C_BATCH}")
     model, params = make_model(CaptioningTransformer, "bfloat16", dev, True)
     kw = dict(max_len=C_LEN, beam_size=C_BEAM, top_k=C_TOP_K,
               temperature=C_TEMP, sampler="pallas")
@@ -817,7 +1089,7 @@ def main():
     check_output(out, C_BATCH, C_VOCAB, C_BEAM, C_LEN)
     log(f"  boundaries (p_eff, live items after compaction, stragglers): "
         f"{marks(out)}")
-    profile_char(model, params, enc, kw, name_limit, "char", 25)
+    profile_call(model, params, enc, kw, name_limit, "char", 25)
     out, legs["char_packed_fused"] = drive(
         model, params, enc, _build, kw, name_limit, "char_packed_fused",
         char_kernels + ("cross_attention_packed", "fused_survivor_update"),
@@ -829,7 +1101,7 @@ def main():
         legs["char_packed_fused"]["fused_classifier_topk_gumbel_sample"])
     log(f"  boundaries (p_eff, live items after compaction, stragglers): "
         f"{marks(out)}")
-    profile_char(model, params, enc, kw, name_limit, "char_packed_fused", 12,
+    profile_call(model, params, enc, kw, name_limit, "char_packed_fused", 12,
                  pack=PACK, fused=True)
     for leg in ("char", "char_packed_fused"):
         if legs[leg]["fused_topk_gumbel_sample"] != 1:
@@ -853,6 +1125,12 @@ def main():
             "cross_attention_packed.cu", "pallas_attention.py:1275"),
         "fused_survivor_update": (
             "survivor_update.cu", "pallas_engine.py:154"),
+        "ancestry_attention": (
+            "ancestry_attention_ids.cu", "pallas_attention.py:264"),
+        "ancestry_attention_update_flash": (
+            "ancestry_attention_flash.cu", "pallas_attention.py:1459"),
+        "cache_column_write": (
+            "cache_column_write.cu", "pallas_cache.py:64"),
     }
     kernels = []
     for name, (src, tpu) in sources.items():

@@ -13,7 +13,13 @@ embedding ``table``             ``weight``
 layer norm ``scale, bias``      ``weight, bias``
 batch norm ``scale, bias,       ``weight, bias, running_mean,
 mean, var``                     running_var``
+LSTM layer ``wi [in, 4H],       ``weight_ih [4H, in], weight_hh
+wh [H, 4H], bi, bh``            [4H, H], bias_ih, bias_hh``
 ==============================  ====================================
+
+The labelled LSTM captioner stores its decoder's token embedding once,
+under ``encoder/label_encoder``; its ``decoder`` has no ``embedding`` in
+either package, and the model reads the label encoder's table.
 """
 
 import numpy as np
@@ -23,6 +29,8 @@ __all__ = ["params_from_jax"]
 
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
+_LSTM = {"wi": "weight_ih", "wh": "weight_hh", "bi": "bias_ih",
+         "bh": "bias_hh"}
 
 
 def _tensor(x):
@@ -46,6 +54,8 @@ def _leaf_dict(node):
         return out
     if keys == {"table"}:
         return {"weight": _tensor(node["table"])}
+    if keys == set(_LSTM):
+        return {_LSTM[k]: _tensor(np.asarray(v).T) for k, v in node.items()}
     if keys == set(_BN):
         return {_BN[k]: _tensor(v) for k, v in node.items()}
     if keys == {"scale", "bias"}:

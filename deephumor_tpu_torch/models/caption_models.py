@@ -1,11 +1,19 @@
-"""The cross-attention captioning transformer (inference), word- or
-character-level.
+"""The four captioning models (inference).
 
-Counterpart of ``CaptioningTransformer`` in
-deephumor_tpu/models/caption_models.py: ResNet-50 spatial encoder ->
-cross-attention transformer decoder, generating with batched beam search
-over KV caches that are never reordered (ancestry tables select each
-branch's history; see models/transformer.py).
+Counterparts of deephumor_tpu/models/caption_models.py:
+
+- ``CaptioningLSTM``: ResNet-50 global embedding -> LSTM decoder.
+- ``CaptioningLSTMWithLabels``: image + template-label embedding -> LSTM
+  decoder whose token embedding is the label encoder's table.
+- ``CaptioningTransformerBase``: global embedding -> decoder-only
+  transformer.
+- ``CaptioningTransformer``: ResNet-50 spatial encoder -> cross-attention
+  transformer decoder, word- or character-level.
+
+The LSTMs generate by batched beam search over their (h, c) state, which
+follows the surviving branches row by row. The transformers generate over
+KV caches that are never reordered (ancestry tables select each branch's
+history; see models/transformer.py).
 
 Long generations (the char config: 128 steps) add the JAX package's two
 phase-boundary transforms. Early-EOS compaction moves the items whose
@@ -14,11 +22,11 @@ Canonical-prefix attention gathers each item's common ancestor path below
 ``c`` once into a shared cache, so the kernels read one row per position
 there instead of ``beam``.
 
-The model is a frozen dataclass of hyperparameters; its parameters are a
-nested dict of tensors (``init``, ``from_pretrained``), on the card unless
-the caller asks for the CPU. Generation runs where the parameters live: on
-a CUDA device the decode path goes through the hand-written kernels, on
-the CPU through their plain twins.
+Each model is a frozen dataclass of hyperparameters; its parameters are
+a nested dict of tensors (``init``, ``from_pretrained``), on the card
+unless the caller asks for the CPU. Generation runs where the parameters
+live: on a CUDA device the decode path goes through the hand-written
+kernels, on the CPU through their plain twins.
 """
 
 import dataclasses
@@ -32,14 +40,19 @@ from deephumor_tpu_torch import EOS
 from deephumor_tpu_torch.convert.jax_params import params_from_jax
 from deephumor_tpu_torch.models import layers as L
 from deephumor_tpu_torch.models import transformer as tfm
-from deephumor_tpu_torch.models.encoders import (image_encoder_apply,
-                                                 image_encoder_init)
+from deephumor_tpu_torch.models.encoders import (
+    image_encoder_apply, image_encoder_init, image_label_encoder_apply,
+    image_label_encoder_init)
+from deephumor_tpu_torch.models.lstm import (lstm_decoder_init, lstm_forward,
+                                             lstm_step)
 from deephumor_tpu_torch.models.sampling import beam_search
 from deephumor_tpu_torch.ops.attention import MASK_FILL
 from deephumor_tpu_torch.ops.engine import fused_survivor_update
 from deephumor_tpu_torch.utils.pytree import load_params, tree_map
 
-__all__ = ["CaptioningTransformer"]
+__all__ = ["CaptioningLSTM", "CaptioningLSTMWithLabels",
+           "CaptioningTransformerBase", "CaptioningTransformer",
+           "MODEL_REGISTRY"]
 
 _SAMPLERS = ("exact", "pallas")
 # canonical prefix length c = p_eff - _CANON_LAG: the still-diverging
@@ -47,9 +60,187 @@ _SAMPLERS = ("exact", "pallas")
 _CANON_LAG = 16
 
 
+def _check_sampler(sampler):
+    sampler = sampler or "exact"
+    if sampler not in _SAMPLERS:
+        raise ValueError(f"sampler must be one of {_SAMPLERS}")
+    return sampler
+
+
+def _cast(tree, dtype_name):
+    """``tree`` (decoder parameters, embeddings) in the model's compute
+    dtype."""
+    dt = getattr(torch, dtype_name)
+    return tree if dt == torch.float32 else tree_map(lambda t: t.to(dt), tree)
+
+
+class _Captioner:
+    """Loading shared by the four models."""
+
+    @classmethod
+    def from_pretrained(cls, path, device="cuda"):
+        """Loads a ``.npz`` + ``.json`` checkpoint saved by the JAX
+        package's ``save``; returns ``(model, params)``. The checkpoint's
+        ``model_type`` picks the class: this one or a subclass (so
+        ``CaptioningTransformerBase`` loads either transformer)."""
+        tree, hp = load_params(path)
+        hp = dict(hp or {})
+        model_type = hp.pop("model_type", cls.model_type)
+        model_cls = MODEL_REGISTRY.get(model_type)
+        if model_cls is None or not issubclass(model_cls, cls):
+            raise ValueError(f"checkpoint holds a {model_type!r} model, not "
+                             f"a {cls.__name__}")
+        params = tree_map(lambda t: t.to(device), params_from_jax(tree))
+        return model_cls(**hp), params
+
+
 @dataclasses.dataclass(frozen=True)
-class CaptioningTransformer:
-    """Cross-attention transformer captioner over spatial image features.
+class CaptioningLSTM(_Captioner):
+    """LSTM captioner conditioned on the global image embedding.
+
+    ``compute_dtype="bfloat16"`` runs the decoder in bf16 (the serving
+    configuration); the encoder always runs in f32.
+    """
+
+    num_tokens: int
+    emb_dim: int = 256
+    hidden_size: int = 512
+    num_layers: int = 2
+    enc_dropout: float = 0.3
+    dec_dropout: float = 0.1
+    compute_dtype: str = "float32"
+
+    model_type = "captioning_lstm"
+
+    def init(self, gen, device="cuda"):
+        """Random parameters drawn from ``gen`` (a ``torch.Generator`` on
+        ``device``)."""
+        return {
+            "encoder": image_encoder_init(gen, self.emb_dim, device),
+            "decoder": lstm_decoder_init(
+                gen, self.num_tokens, self.emb_dim, self.hidden_size,
+                self.num_layers, device),
+        }
+
+    @torch.inference_mode()
+    def encode(self, params, images):
+        """NHWC images -> global embedding ``[bs, emb_dim]`` (cacheable per
+        template)."""
+        return image_encoder_apply(params["encoder"], images)
+
+    def _decoder(self, params):
+        return params["decoder"]
+
+    def _prefill(self, dec, emb, prefix):
+        """Runs the image embedding (and the prefix tokens) through the
+        LSTM: the first draw's logits and the batch-first state
+        ``{"h", "c": [bs, layers, H]}`` that the engine gathers by row."""
+        inputs = emb[:, None, :]
+        if prefix is not None:
+            inputs = torch.cat([inputs, L.embed(dec["embedding"], prefix)],
+                               dim=1)
+        outs, (h, c) = lstm_forward(dec["lstm"], inputs)
+        logits = L.linear(dec["classifier"], outs[:, -1])
+        return logits, {"h": h.transpose(0, 1), "c": c.transpose(0, 1)}
+
+    @staticmethod
+    def _make_step(dec, return_hidden):
+        def step(state, tokens):
+            out, (h, c) = lstm_step(
+                dec["lstm"], L.embed(dec["embedding"], tokens),
+                state["h"].transpose(0, 1), state["c"].transpose(0, 1))
+            if not return_hidden:
+                # else the draw applies the classifier
+                out = L.linear(dec["classifier"], out)
+            return out, {"h": h.transpose(0, 1), "c": c.transpose(0, 1)}
+
+        return step
+
+    @torch.inference_mode()
+    def generate_from_emb(self, params, emb, generator=None, caption=None,
+                          max_len=25, temperature=1.0, beam_size=10,
+                          top_k=50, eos_index=EOS, greedy=False,
+                          sampler=None):
+        """Batched generation from (possibly cached) image embeddings
+        ``[B, emb_dim]``; arguments and result as
+        :meth:`CaptioningTransformer.generate_from_emb` (no phases, no
+        compaction: the state is a few rows per branch). With
+        ``sampler="pallas"`` the steps return hidden states and the draw
+        runs the classifier: inside K4 up to V = 16384, as a bf16 product
+        before K3 above it."""
+        sampler = _check_sampler(sampler)
+        if generator is None:
+            generator = torch.Generator(emb.device).manual_seed(0)
+        dec, emb = _cast((self._decoder(params), emb), self.compute_dtype)
+        logits, state = self._prefill(dec, emb, caption)
+        state = {k: v.repeat_interleave(beam_size, 0)
+                 for k, v in state.items()}
+        classifier = None
+        if sampler == "pallas" and not greedy:
+            cls = dec["classifier"]
+            classifier = (cls["weight"], cls["bias"])
+        return beam_search(
+            generator, state, logits,
+            step_fn=self._make_step(dec, classifier is not None),
+            beam_size=beam_size, top_k=top_k, temperature=temperature,
+            max_len=max_len, prefix=caption,
+            prefix_len=0 if caption is None else caption.shape[1],
+            greedy=greedy, sampler=sampler, classifier=classifier,
+            eos_index=eos_index)
+
+    def generate(self, params, images, generator=None, caption=None,
+                 max_len=25, temperature=1.0, beam_size=10, top_k=50,
+                 eos_index=EOS, greedy=False, sampler=None):
+        """Batched caption generation from NHWC images ``[B, H, W, 3]``
+        (ImageNet-normalized); arguments as :meth:`generate_from_emb`."""
+        return self.generate_from_emb(
+            params, self.encode(params, images), generator=generator,
+            caption=caption, max_len=max_len, temperature=temperature,
+            beam_size=beam_size, top_k=top_k, eos_index=eos_index,
+            greedy=greedy, sampler=sampler)
+
+
+@dataclasses.dataclass(frozen=True)
+class CaptioningLSTMWithLabels(CaptioningLSTM):
+    """LSTM captioner conditioned on image + template label; the decoder's
+    token embedding is the label encoder's table, stored once under the
+    encoder."""
+
+    model_type = "captioning_lstm_labels"
+
+    def init(self, gen, device="cuda"):
+        dec = lstm_decoder_init(gen, self.num_tokens, self.emb_dim,
+                                self.hidden_size, self.num_layers, device)
+        del dec["embedding"]
+        return {"encoder": image_label_encoder_init(
+                    gen, self.num_tokens, self.emb_dim, device),
+                "decoder": dec}
+
+    def _decoder(self, params):
+        return dict(params["decoder"],
+                    embedding=params["encoder"]["label_encoder"]["embedding"])
+
+    @torch.inference_mode()
+    def encode(self, params, images, labels):
+        """NHWC images and label tokens ``[B, n]`` -> joint embedding
+        ``[B, emb_dim]``."""
+        return image_label_encoder_apply(params["encoder"], images, labels)
+
+    def generate(self, params, images, labels, generator=None, caption=None,
+                 max_len=25, temperature=1.0, beam_size=10, top_k=50,
+                 eos_index=EOS, greedy=False, sampler=None):
+        """Batched caption generation from NHWC images and label tokens;
+        arguments as :meth:`generate_from_emb`."""
+        return self.generate_from_emb(
+            params, self.encode(params, images, labels), generator=generator,
+            caption=caption, max_len=max_len, temperature=temperature,
+            beam_size=beam_size, top_k=top_k, eos_index=eos_index,
+            greedy=greedy, sampler=sampler)
+
+
+@dataclasses.dataclass(frozen=True)
+class CaptioningTransformerBase(_Captioner):
+    """Decoder-only transformer captioner on the global image embedding.
 
     ``compute_dtype="bfloat16"`` runs the decoder in bf16 (the serving
     configuration); the encoder always runs in f32.
@@ -66,51 +257,37 @@ class CaptioningTransformer:
     max_len: int = 128
     compute_dtype: str = "float32"
 
-    model_type = "captioning_transformer"
+    model_type = "captioning_transformer_base"
+    cross_attention = False
 
     def init(self, gen, device="cuda"):
         """Random parameters drawn from ``gen`` (a ``torch.Generator`` on
         ``device``)."""
+        init_fn = (tfm.transformer_decoder_init if self.cross_attention
+                   else tfm.self_attn_decoder_init)
         return {
             "encoder": image_encoder_init(gen, self.hid_dim, device),
-            "decoder": tfm.transformer_decoder_init(
-                gen, self.num_tokens, self.hid_dim, self.n_layers,
-                self.pf_dim, self.max_len, device),
+            "decoder": init_fn(gen, self.num_tokens, self.hid_dim,
+                               self.n_layers, self.pf_dim, self.max_len,
+                               device),
         }
-
-    @classmethod
-    def from_pretrained(cls, path, device="cuda"):
-        """Loads a ``.npz`` + ``.json`` checkpoint saved by the JAX
-        package's ``save``; returns ``(model, params)``."""
-        tree, hp = load_params(path)
-        hp = dict(hp or {})
-        model_type = hp.pop("model_type", cls.model_type)
-        if model_type != cls.model_type:
-            raise ValueError(f"checkpoint holds a {model_type!r} model")
-        params = tree_map(lambda t: t.to(device), params_from_jax(tree))
-        return cls(**hp), params
 
     @torch.inference_mode()
     def encode(self, params, images):
-        """NHWC images -> (global emb ``[bs, D]``, spatial emb
-        ``[bs, 49, D]``); both can be cached per template."""
-        return image_encoder_apply(params["encoder"], images,
-                                   spatial_features=True)
+        """NHWC images -> global emb ``[bs, D]`` (cacheable per
+        template)."""
+        return image_encoder_apply(params["encoder"], images)
 
-    def _prefill_and_state(self, dec, enc, prefix, max_positions,
-                           pad_to_tile=False):
-        start_emb, spatial = enc
+    def _prefill(self, dec, start_emb, prefix, max_positions, cross=None,
+                 enc_key_mask=None):
+        """Feeds the start embedding (and the prefix tokens) through
+        ``decode_step``: the first draw's logits and the cache state."""
         bs = start_emb.shape[0]
         scale = math.sqrt(self.hid_dim)
         cache = tfm.init_cache(dec, bs, max_positions, dtype=start_emb.dtype)
         valid = torch.zeros((bs, max_positions), dtype=torch.bool,
                             device=start_emb.device)
         valid[:, 0] = True
-        # packed cross-attention (K9) reads a store padded to 8 rows;
-        # decode_step widens the mask and K9 skips rows past cross_t_real
-        cross = tfm.precompute_cross_attention(dec, spatial, pad_to_tile)
-        # the reference masks encoder rows holding a zero
-        enc_key_mask = ~(spatial != 0.0).all(dim=-1)
         logits, cache = tfm.decode_step(
             dec, start_emb / scale, 0, cache, valid, self.n_heads, cross,
             enc_key_mask)
@@ -123,9 +300,12 @@ class CaptioningTransformer:
                 dec, emb, pos, cache, valid, self.n_heads, cross,
                 enc_key_mask)
             pos += 1
-        state = {"cache": cache, "valid": valid, "pos": pos}
-        return logits, state, {"cross": cross, "enc_key_mask": enc_key_mask,
-                               "cross_t_real": spatial.shape[1]}
+        return logits, {"cache": cache, "valid": valid, "pos": pos}
+
+    def _prefill_and_state(self, dec, enc, prefix, max_positions,
+                           pad_to_tile=False):
+        """(first logits, decoder state, per-item constants or None)."""
+        return (*self._prefill(dec, enc, prefix, max_positions), None)
 
     def _make_step(self, dec, consts, p_eff, return_hidden, canon_c=None,
                    pack_items=None):
@@ -139,7 +319,8 @@ class CaptioningTransformer:
             # with compaction the cross-attention K/V and the encoder mask
             # follow the item permutation, so they live in the state, and
             # cross_t_real with them (the JAX package reads it from consts
-            # only, so under compaction its packed kernel never runs)
+            # only, so under compaction its packed kernel never runs); the
+            # decoder-only model has none of them
             src = consts if consts is not None else state
             canon = None
             if canon_c is not None:
@@ -149,9 +330,10 @@ class CaptioningTransformer:
             emb = L.embed(dec["tok_embedding"], tokens) / scale
             out, cache = tfm.decode_step(
                 dec, emb, pos, state["cache"], valid, self.n_heads,
-                src["cross"], src["enc_key_mask"], anc=anc, p_eff=p_eff,
-                return_hidden=return_hidden, live_items=state.get("live"),
-                canon=canon, cross_t_real=src["cross_t_real"],
+                src.get("cross"), src.get("enc_key_mask"), anc=anc,
+                p_eff=p_eff, return_hidden=return_hidden,
+                live_items=state.get("live"), canon=canon,
+                cross_t_real=src.get("cross_t_real"),
                 pack_items=pack_items)
             return out, dict(state, cache=cache, pos=pos + 1)
 
@@ -259,11 +441,7 @@ class CaptioningTransformer:
     def _generate_impl(self, params, enc, gen, caption, temperature, *,
                        max_len, beam_size, top_k, greedy, eos_index,
                        sampler, compact=None, canon=None):
-        dec = params["decoder"]
-        dt = getattr(torch, self.compute_dtype)
-        if dt != torch.float32:
-            dec = tree_map(lambda t: t.to(dt), dec)
-            enc = tuple(e.to(dt) for e in enc)
+        dec, enc = _cast((params["decoder"], enc), self.compute_dtype)
         prefix_len = 0 if caption is None else caption.shape[1]
         max_positions = max_len + 1
         # the JAX package's two kernel-selecting switches, read per call:
@@ -299,7 +477,7 @@ class CaptioningTransformer:
         if use_compact:
             state["live"] = num_items
             state["item_perm"] = torch.arange(num_items, device=dev)
-            state.update(consts)
+            state.update(consts or {})
             consts = None
             live_fn = lambda st: st["live"]  # noqa: E731
             finalize_fn = self._finalize_compaction
@@ -391,7 +569,9 @@ class CaptioningTransformer:
         """Batched generation from (possibly cached) ``encode`` output.
 
         Args:
-            enc: ``(global emb [B, D], spatial emb [B, T, D])``.
+            enc: the global emb ``[B, D]``, or, for
+                :class:`CaptioningTransformer`, ``(global emb [B, D],
+                spatial emb [B, T, D])``.
             generator: ``torch.Generator`` on the parameters' device
                 (default: seeded with 0).
             caption: optional ``[B, prefix_len]`` fixed first tokens.
@@ -405,7 +585,8 @@ class CaptioningTransformer:
         Two environment variables, read at each call, select kernels as in
         the JAX package: ``DH_CROSS_PACK=<ng>`` runs decode
         cross-attention in K9 (ng items per block over a store padded to
-        8 rows; 0 or unset: K2) and ``DH_FUSED_SURVIVOR=1`` runs the
+        8 rows; 0 or unset: K2; no effect without cross-attention) and
+        ``DH_FUSED_SURVIVOR=1`` runs the
         survivor update in K10. Neither changes a draw when compaction is
         off; with it on, K10 leaves retired items' branches unpermuted.
 
@@ -416,11 +597,10 @@ class CaptioningTransformer:
             it, ``live`` items after its compaction, ``stragglers`` of its
             canon set-up; None where that part did not run).
         """
-        sampler = sampler or "exact"
-        if sampler not in _SAMPLERS:
-            raise ValueError(f"sampler must be one of {_SAMPLERS}")
+        sampler = _check_sampler(sampler)
         if generator is None:
-            generator = torch.Generator(enc[0].device).manual_seed(0)
+            generator = torch.Generator(params["decoder"]["classifier"][
+                "weight"].device).manual_seed(0)
         # the positional table bounds total positions (start emb + tokens)
         max_len = min(max_len, self.max_len - 1)
         return self._generate_impl(
@@ -440,3 +620,36 @@ class CaptioningTransformer:
             caption=caption, max_len=max_len, temperature=temperature,
             beam_size=beam_size, top_k=top_k, eos_index=eos_index,
             greedy=greedy, sampler=sampler, compact=compact, canon=canon)
+
+
+@dataclasses.dataclass(frozen=True)
+class CaptioningTransformer(CaptioningTransformerBase):
+    """Cross-attention transformer captioner over spatial image features."""
+
+    model_type = "captioning_transformer"
+    cross_attention = True
+
+    @torch.inference_mode()
+    def encode(self, params, images):
+        """NHWC images -> (global emb ``[bs, D]``, spatial emb
+        ``[bs, 49, D]``); both can be cached per template."""
+        return image_encoder_apply(params["encoder"], images,
+                                   spatial_features=True)
+
+    def _prefill_and_state(self, dec, enc, prefix, max_positions,
+                           pad_to_tile=False):
+        start_emb, spatial = enc
+        # packed cross-attention (K9) reads a store padded to 8 rows;
+        # decode_step widens the mask and K9 skips rows past cross_t_real
+        cross = tfm.precompute_cross_attention(dec, spatial, pad_to_tile)
+        # the reference masks encoder rows holding a zero
+        enc_key_mask = ~(spatial != 0.0).all(dim=-1)
+        logits, state = self._prefill(dec, start_emb, prefix, max_positions,
+                                      cross, enc_key_mask)
+        return logits, state, {"cross": cross, "enc_key_mask": enc_key_mask,
+                               "cross_t_real": spatial.shape[1]}
+
+
+MODEL_REGISTRY = {cls.model_type: cls for cls in (
+    CaptioningLSTM, CaptioningLSTMWithLabels, CaptioningTransformerBase,
+    CaptioningTransformer)}

@@ -8,7 +8,8 @@ the k drawn values, ended branches continue with one pad/score-0
 candidate, and a deterministic ``greedy`` mode (argmax everywhere).
 
 The token loop runs on the host, one decoder step per position, split
-into ``phases`` whose step functions read a growing cache prefix. It
+into ``phases`` whose step functions read a growing cache prefix (or one
+``step_fn`` over every step, as the LSTM runs). It
 stops early once every branch has ended (one ``ended.all()`` read per
 step), which gives the same result as running every step: ended branches
 only append pads at score 0. A model may run a boundary function after a
@@ -23,6 +24,7 @@ import torch
 from deephumor_tpu_torch import EOS, PAD, UNK
 from deephumor_tpu_torch.ops.sampler import (
     fused_classifier_topk_gumbel_sample, fused_topk_gumbel_sample)
+from deephumor_tpu_torch.utils.pytree import tree_map
 
 __all__ = ["filter_top_k", "gumbel_top_k", "beam_search"]
 
@@ -117,8 +119,15 @@ def _topk_space_draw(gen, logits, top_k, k, inv_t, greedy, unk_index,
     return tokens, _log_softmax_scores(picked)
 
 
-def beam_search(gen, state, init_logits, *, shuffle_fn, phases, beam_size,
-                top_k, temperature, max_len, prefix=None, prefix_len=0,
+def _gather_rows(state, flat_branch, branch):
+    """The default survivor reorder: every state tensor's rows follow
+    their surviving branch."""
+    return tree_map(lambda t: t[flat_branch], state)
+
+
+def beam_search(gen, state, init_logits, *, beam_size, top_k, temperature,
+                max_len, step_fn=None, phases=None, shuffle_fn=None,
+                prefix=None, prefix_len=0,
                 greedy=False, sampler="exact", classifier=None,
                 live_fn=None, compactors=None, finalize_fn=None,
                 survivor_update_fn=None, eos_index=EOS, unk_index=UNK,
@@ -130,11 +139,15 @@ def beam_search(gen, state, init_logits, *, shuffle_fn, phases, beam_size,
             ``greedy``).
         state: decoder state after prefill, batched ``B * beam`` rows.
         init_logits: ``[B, V]`` logits of the first generated token.
-        shuffle_fn: ``(state, flat_branch [B*beam], branch [B, beam]) ->
-            state`` reorders the decoder state to the surviving branches.
-        phases: ``[(last_step, step_fn), ...]``: ``step_fn(state, tokens
-            [B*beam]) -> (logits or hidden, state)`` runs steps up to
-            ``last_step`` (the final entry covers the rest).
+        step_fn: ``(state, tokens [B*beam]) -> (logits or hidden,
+            state)``, run for every step when ``phases`` is not given.
+        phases: optional ``[(last_step, step_fn), ...]``: each step_fn runs
+            the steps up to its ``last_step`` (the final entry covers the
+            rest).
+        shuffle_fn: optional ``(state, flat_branch [B*beam], branch
+            [B, beam]) -> state`` that reorders the decoder state to the
+            surviving branches; by default every state tensor's rows are
+            gathered by ``flat_branch``.
         classifier: optional ``(weight [V, D], bias [V])``; when given the
             step functions return hidden states and the draw classifies.
         live_fn: optional ``state -> int or None``, the live-item count
@@ -162,6 +175,9 @@ def beam_search(gen, state, init_logits, *, shuffle_fn, phases, beam_size,
     num_items = init_logits.shape[0]
     beam, inv_t, dev = beam_size, 1.0 / temperature, init_logits.device
     steps = max_len - prefix_len
+    if phases is None:
+        phases = [(steps - 1, step_fn)]
+    shuffle_fn = shuffle_fn or _gather_rows
     seeds = [None] * steps
     if sampler == "pallas" and not greedy:
         # the K3 kernel's per-step seeds, drawn once up front

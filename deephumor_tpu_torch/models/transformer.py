@@ -12,8 +12,10 @@ per-slot window, with the straggler items recomputed full-width by K6
 (ops.ancestry_attention_ids). Cross-attention onto each item's encoder K/V
 runs in the K2 kernel (ops.grouped_cross_attention), or, when the caller
 asks for packing over a tile-padded store, in K9
-(ops.cross_attention_packed). On CPU tensors every kernel runs its plain
-twin.
+(ops.cross_attention_packed). The decoder-only stack
+(``self_attn_decoder_init``, CaptioningTransformerBase) has no
+cross-attention: its layers carry no ``enc_attn`` and ``decode_step`` takes
+``cross=None``. On CPU tensors every kernel runs its plain twin.
 """
 
 import math
@@ -26,7 +28,8 @@ from deephumor_tpu_torch.ops.attention import (
     MASK_FILL, ancestry_attention_ids, ancestry_attention_update,
     ancestry_attention_update_canon, ancestry_bias, grouped_cross_attention)
 
-__all__ = ["transformer_decoder_init", "init_cache",
+__all__ = ["transformer_decoder_init", "self_attn_decoder_init",
+           "init_cache",
            "precompute_cross_attention", "pff_apply", "decode_step"]
 
 
@@ -35,27 +38,41 @@ def _mha_init(gen, d, device):
             for name in ("fc_q", "fc_k", "fc_v", "fc_o")}
 
 
-def transformer_decoder_init(gen, num_tokens, hid_dim=512, n_layers=6,
-                             pf_dim=2048, max_len=128, device="cuda"):
-    """Random cross-attention decoder parameters (same tree as the JAX
-    ``transformer_decoder_init``)."""
+def _stack_init(gen, num_tokens, hid_dim, n_layers, pf_dim, max_len,
+                cross_attention, device):
     layers = []
     for _ in range(n_layers):
-        layers.append({
-            "self_attn": _mha_init(gen, hid_dim, device),
-            "self_attn_ln": L.layer_norm_init(hid_dim, device),
-            "enc_attn": _mha_init(gen, hid_dim, device),
-            "enc_attn_ln": L.layer_norm_init(hid_dim, device),
-            "pf": {"fc_1": L.linear_init(gen, hid_dim, pf_dim, device),
-                   "fc_2": L.linear_init(gen, pf_dim, hid_dim, device)},
-            "pf_ln": L.layer_norm_init(hid_dim, device),
-        })
+        layer = {"self_attn": _mha_init(gen, hid_dim, device),
+                 "self_attn_ln": L.layer_norm_init(hid_dim, device)}
+        if cross_attention:
+            layer["enc_attn"] = _mha_init(gen, hid_dim, device)
+            layer["enc_attn_ln"] = L.layer_norm_init(hid_dim, device)
+        layer["pf"] = {"fc_1": L.linear_init(gen, hid_dim, pf_dim, device),
+                       "fc_2": L.linear_init(gen, pf_dim, hid_dim, device)}
+        layer["pf_ln"] = L.layer_norm_init(hid_dim, device)
+        layers.append(layer)
     return {
         "tok_embedding": L.embedding_init(gen, num_tokens, hid_dim, device),
         "pos_embedding": L.embedding_init(gen, max_len, hid_dim, device),
         "layers": layers,
         "classifier": L.linear_init(gen, hid_dim, num_tokens, device),
     }
+
+
+def transformer_decoder_init(gen, num_tokens, hid_dim=512, n_layers=6,
+                             pf_dim=2048, max_len=128, device="cuda"):
+    """Random cross-attention decoder parameters (same tree as the JAX
+    ``transformer_decoder_init``)."""
+    return _stack_init(gen, num_tokens, hid_dim, n_layers, pf_dim, max_len,
+                       True, device)
+
+
+def self_attn_decoder_init(gen, num_tokens, hid_dim=512, n_layers=6,
+                           pf_dim=2048, max_len=128, device="cuda"):
+    """Random decoder-only parameters (same tree as the JAX
+    ``self_attn_decoder_init``: no ``enc_attn`` in the layers)."""
+    return _stack_init(gen, num_tokens, hid_dim, n_layers, pf_dim, max_len,
+                       False, device)
 
 
 def init_cache(params, bs, max_positions, dtype=torch.float32):
@@ -104,7 +121,7 @@ def pff_apply(params, x):
 
 
 def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
-                n_heads, cross, enc_key_mask=None, anc=None, p_eff=None,
+                n_heads, cross=None, enc_key_mask=None, anc=None, p_eff=None,
                 return_hidden=False, live_items=None, canon=None,
                 cross_t_real=None, pack_items=None):
     """One incremental decode position; writes K/V at ``pos`` in place.
@@ -115,8 +132,9 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
         pos: int absolute position.
         cache: list from :func:`init_cache`, updated in place.
         self_key_valid: bool ``[bs, max_positions]``.
-        cross: list from :func:`precompute_cross_attention`; its batch
-            may be ``bs`` or ``bs / beam`` groups.
+        cross: list from :func:`precompute_cross_attention`, its batch
+            ``bs`` or ``bs / beam`` groups; None for the decoder-only
+            stack, whose layers have no ``enc_attn``.
         enc_key_mask: optional bool ``[groups, T]``, True = masked.
         anc: optional ``[B, beam, max_positions]`` ancestry table; given,
             self-attention runs the K1 ancestry kernel over unshuffled
@@ -148,20 +166,24 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
         (logits ``[bs, V]`` or hidden ``[bs, D]``, cache)
     """
     x = token_emb_scaled + params["pos_embedding"]["weight"][pos]
-    # a tile-padded cross store holds rows past cross_t_real: widen the
-    # encoder mask so that every cross path masks them
-    t_cross = cross[0]["ek"].shape[1]
-    if enc_key_mask is not None and enc_key_mask.shape[-1] < t_cross:
-        enc_key_mask = F.pad(enc_key_mask,
-                             (0, t_cross - enc_key_mask.shape[-1]),
-                             value=True)
-    groups = cross[0]["ek"].shape[0]
-    pack = None
-    if (pack_items is not None and pack_items > 1 and anc is not None
-            and cross_t_real is not None and groups % pack_items == 0
-            and t_cross % 8 == 0
-            and n_heads * (x.shape[0] // groups) % 8 == 0):
-        pack = pack_items
+    pack = cross_bias = None
+    if cross is not None:
+        # a tile-padded cross store holds rows past cross_t_real: widen the
+        # encoder mask so that every cross path masks them
+        t_cross = cross[0]["ek"].shape[1]
+        if enc_key_mask is not None and enc_key_mask.shape[-1] < t_cross:
+            enc_key_mask = F.pad(enc_key_mask,
+                                 (0, t_cross - enc_key_mask.shape[-1]),
+                                 value=True)
+        groups = cross[0]["ek"].shape[0]
+        if (pack_items is not None and pack_items > 1 and anc is not None
+                and cross_t_real is not None and groups % pack_items == 0
+                and t_cross % 8 == 0
+                and n_heads * (x.shape[0] // groups) % 8 == 0):
+            pack = pack_items
+        if enc_key_mask is not None:
+            cross_bias = torch.where(enc_key_mask[:, None, :], MASK_FILL,
+                                     0.0).to(torch.float32)
     p_cache = cache[0]["k"].shape[1]
     pad = p_cache - self_key_valid.shape[-1]
     valid = F.pad(self_key_valid, (0, pad))
@@ -174,10 +196,6 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
             c = canon["c"]
             pe = p_cache if p_eff is None else min(p_eff, p_cache)
             bias_win = ancestry_bias(anc[:, :, c:pe], valid[:, c:pe], pe - c)
-    cross_bias = None
-    if enc_key_mask is not None:
-        cross_bias = torch.where(enc_key_mask[:, None, :], MASK_FILL,
-                                 0.0).to(torch.float32)
     d = x.shape[-1]
     for i, layer in enumerate(params["layers"]):
         sa = layer["self_attn"]
@@ -208,12 +226,14 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
             attn = _cached_attention(q, ck, cv, n_heads, ~valid)
         x = L.layer_norm(layer["self_attn_ln"], x + L.linear(sa["fc_o"], attn))
 
-        ea = layer["enc_attn"]
-        attn = grouped_cross_attention(
-            L.linear(ea["fc_q"], x), cross[i]["ek"], cross[i]["ev"],
-            cross_bias, n_heads=n_heads, live_items=live_items,
-            pack_items=pack, t_real=cross_t_real if pack else None)
-        x = L.layer_norm(layer["enc_attn_ln"], x + L.linear(ea["fc_o"], attn))
+        if "enc_attn" in layer:
+            ea = layer["enc_attn"]
+            attn = grouped_cross_attention(
+                L.linear(ea["fc_q"], x), cross[i]["ek"], cross[i]["ev"],
+                cross_bias, n_heads=n_heads, live_items=live_items,
+                pack_items=pack, t_real=cross_t_real if pack else None)
+            x = L.layer_norm(layer["enc_attn_ln"],
+                             x + L.linear(ea["fc_o"], attn))
         x = L.layer_norm(layer["pf_ln"], x + pff_apply(layer["pf"], x))
     if return_hidden:
         return x, cache

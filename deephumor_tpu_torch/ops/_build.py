@@ -43,6 +43,9 @@ LAUNCHES = {
     "ancestry_attention_ids": 0,
     "cross_attention_packed": 0,
     "fused_survivor_update": 0,
+    "ancestry_attention": 0,
+    "ancestry_attention_update_flash": 0,
+    "cache_column_write": 0,
 }
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
@@ -79,6 +82,18 @@ _SIGNATURES = {
     # beam, L, P, pos, eos, pad, stream
     "dh_fused_survivor_update":
         [*[_P] * 9, *[_I] * 8, _P],
+    # dtype, q, cache_k, cache_v, bias, out, items, beam, P, p_eff, D, H,
+    # inv_scale, stream
+    "dh_ancestry_attention":
+        [_I, *[_P] * 5, *[_I] * 6, _F, _P],
+    # dtype, q, cache_k, cache_v, k_new, v_new, bias, out, items, beam, P,
+    # D, H, pos, inv_scale, stream
+    "dh_ancestry_attention_update_flash":
+        [_I, *[_P] * 7, *[_I] * 6, _F, _P],
+    # cache dtype, new dtype, cache_k, cache_v, k_new, v_new, rows, P, D,
+    # pos, stream
+    "dh_cache_column_write":
+        [_I, _I, *[_P] * 4, *[_I] * 4, _P],
 }
 
 def reset_launch_counts():

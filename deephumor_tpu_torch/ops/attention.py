@@ -1,5 +1,5 @@
-"""Decode-time attention: the K1, K2, K5, K6 and K9 kernel wrappers and
-their twins.
+"""Decode-time attention: the K1, K2, K5, K6, K7, K8 and K9 kernel
+wrappers and their twins.
 
 Counterparts of deephumor_tpu/ops/pallas_attention.py. Each wrapper
 launches its CUDA kernel (ops/csrc/) for CUDA tensors and runs its plain
@@ -14,8 +14,11 @@ import torch
 
 from deephumor_tpu_torch.ops import _build
 
-__all__ = ["MASK_FILL", "ancestry_bias", "ancestry_attention_update",
+__all__ = ["MASK_FILL", "ancestry_bias", "ancestry_attention",
+           "ancestry_attention_plain", "ancestry_attention_update",
            "ancestry_attention_update_plain",
+           "ancestry_attention_update_flash",
+           "ancestry_attention_update_flash_plain",
            "ancestry_attention_update_canon",
            "ancestry_attention_update_canon_plain", "ancestry_attention_ids",
            "ancestry_attention_ids_plain", "grouped_cross_attention",
@@ -90,6 +93,71 @@ def _attend(q, cache_k, cache_v, bias, *, beam, n_heads, pe):
     return out.reshape(rows, d).to(q.dtype)
 
 
+_IMPLS = ("native4d", "grouped", "blockdiag")
+
+
+def _read_length(p, impl, p_eff):
+    """The cache positions K7 reads: ``p_eff`` limits only the native4d
+    layout (a multiple of 8, or P), as in the JAX package."""
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
+    pe = p if impl != "native4d" or p_eff is None else min(p_eff, p)
+    if pe != p and pe % 8:
+        raise ValueError(f"p_eff {pe} must be a multiple of 8 or P ({p})")
+    return pe
+
+
+def ancestry_attention_plain(q, cache_k, cache_v, bias, *, beam, n_heads,
+                             block_items=None, impl="native4d", p_eff=None):
+    """Plain PyTorch twin of :func:`ancestry_attention`."""
+    pe = _read_length(cache_k.shape[1], impl, p_eff)
+    return _attend(q, cache_k, cache_v, bias, beam=beam, n_heads=n_heads,
+                   pe=pe)
+
+
+def ancestry_attention(q, cache_k, cache_v, bias, *, beam, n_heads,
+                       block_items=None, impl="native4d", p_eff=None):
+    """K7: read-only ancestry attention (K1 without the cache write).
+
+    Each branch j of an item attends, per head, over every (slot i,
+    position p) of its item's caches with ``bias`` added to the scaled
+    energies. ``impl`` names the JAX package's three TPU layouts of this
+    one function; all three launch the same kernel here, and only
+    "native4d" honours ``p_eff`` (the other two read all P positions, as
+    in the JAX package). ``block_items`` is the TPU grid's block size,
+    accepted for the signature and without effect.
+
+    Args:
+        q: ``[B*beam, D]``.
+        cache_k, cache_v: ``[B*beam, P, D]``, the dtype of ``q``; only
+            read.
+        bias: f32 ``[B, beam, beam*P]`` (:func:`ancestry_bias`).
+        p_eff: with "native4d", read only the first ``p_eff`` positions (a
+            multiple of 8, or P; every valid position must lie below it).
+
+    Returns:
+        attention output ``[B*beam, D]`` (before the output projection).
+    """
+    name = "ancestry_attention"
+    _check_update(q, cache_k, cache_v, None, None, bias, None, beam,
+                  n_heads)
+    rows, p, d = cache_k.shape
+    pe = _read_length(p, impl, p_eff)
+    kw = dict(beam=beam, n_heads=n_heads, impl=impl, p_eff=p_eff)
+    if not _build.on_kernel_device(name, q, cache_k, cache_v, bias):
+        return ancestry_attention_plain(q, cache_k, cache_v, bias, **kw)
+    _build.check_vector_rows(name, d // n_heads, cache_k, cache_v)
+    out = torch.empty_like(q)
+    err = _build.library().dh_ancestry_attention(
+        _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
+        cache_v.data_ptr(), bias.data_ptr(), out.data_ptr(), rows // beam,
+        beam, p, pe, d, n_heads, 1.0 / math.sqrt(d // n_heads),
+        _build.stream_of(q))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
 def ancestry_attention_update_plain(q, cache_k, cache_v, k_new, v_new, bias,
                                     pos, *, beam, n_heads, p_eff=None,
                                     live_items=None):
@@ -148,6 +216,63 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
         cache_v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         bias.data_ptr(), out.data_ptr(), rows // beam,
         _build.live_count(rows // beam, live_items), beam, p, pe, d, n_heads,
+        pos, 1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def ancestry_attention_update_flash_plain(q, cache_k, cache_v, k_new,
+                                          v_new, bias, pos, *, beam, n_heads,
+                                          block_items=16):
+    """Plain PyTorch twin of :func:`ancestry_attention_update_flash`: K1's
+    twin over the tiles through ``pos // 8``."""
+    return ancestry_attention_update_plain(
+        q, cache_k, cache_v, k_new, v_new, bias, pos, beam=beam,
+        n_heads=n_heads, p_eff=8 * (pos // 8 + 1))
+
+
+def ancestry_attention_update_flash(q, cache_k, cache_v, k_new, v_new, bias,
+                                    pos, *, beam, n_heads, block_items=16):
+    """K8: :func:`ancestry_attention_update` with the caches read in
+    8-position tiles through the one holding ``pos`` and the softmax
+    accumulated across tiles (flash style).
+
+    The caches are updated IN PLACE at ``pos``. Every valid position must
+    be at most ``pos``; tiles past ``pos // 8`` are never read. The JAX
+    package keeps its TPU form as a measured negative result; here it
+    stands beside K1 for the same comparison. ``block_items`` is the TPU
+    grid's block size, accepted for the signature and without effect.
+
+    Args:
+        q, k_new, v_new: ``[B*beam, D]``.
+        cache_k, cache_v: ``[B*beam, P, D]``, P a multiple of 8, the dtype
+            of ``q``.
+        bias: f32 ``[B, beam, beam*P]``.
+        pos: int decode position, ``0 <= pos < P``.
+
+    Returns:
+        attention output ``[B*beam, D]`` (before the output projection).
+    """
+    name = "ancestry_attention_update_flash"
+    _check_update(q, cache_k, cache_v, k_new, v_new, bias, pos, beam,
+                  n_heads)
+    rows, p, d = cache_k.shape
+    if p % 8:
+        raise ValueError(f"{name}: the cache length {p} is not a multiple "
+                         f"of 8")
+    kw = dict(beam=beam, n_heads=n_heads)
+    if not _build.on_kernel_device(name, q, cache_k, cache_v, k_new, v_new,
+                                   bias):
+        return ancestry_attention_update_flash_plain(
+            q, cache_k, cache_v, k_new, v_new, bias, pos, **kw)
+    _build.check_vector_rows(name, d // n_heads, cache_k, cache_v, k_new,
+                             v_new)
+    out = torch.empty_like(q)
+    err = _build.library().dh_ancestry_attention_update_flash(
+        _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
+        cache_v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), rows // beam, beam, p, d, n_heads,
         pos, 1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1

@@ -1,8 +1,14 @@
-// K6: read-only full-width ancestry attention for a list of items.
+// K6: read-only full-width ancestry attention for a list of items, and K7:
+// the same attention for every item.
 //
-// Replaces deephumor_tpu/ops/pallas_attention.py:ancestry_attention_ids
+// K6 replaces deephumor_tpu/ops/pallas_attention.py:ancestry_attention_ids
 // (kernel _kernel_native4d_ids, whose body is the read-only
-// _kernel_native4d). The canonical-prefix path (K5) gives straggler items
+// _kernel_native4d). K7 replaces pallas_attention.py:ancestry_attention
+// (kernels _kernel_native4d, _kernel and _kernel_blockdiag: three TPU
+// layouts of one function, K1's attention without the cache write); its
+// entry point runs this kernel with no id list, one block per item, over
+// the first p_eff positions (the wrapper passes P for the layouts that read
+// the whole cache). The canonical-prefix path (K5) gives straggler items
 // -- live branches that still disagree below c -- outputs from a stale
 // shared path; this kernel recomputes exactly those items over the full
 // per-slot caches [0, p_eff) with the step's flat ancestry bias
@@ -18,7 +24,9 @@
 // a time and leaves every energy (beam x 896 f32 = 25 KB) in shared memory;
 // one softmax per branch follows, with weights rounded to the cache dtype;
 // pass 2 stages V tile by tile and each thread adds its own (branch,
-// column) sums in shared memory, in the same row order as K1.
+// column) sums in shared memory, in the same row order as K1. K7 reads the
+// same rows at the char shapes (beam 7 x P 136 = 952 rows for the layouts
+// that read the whole cache), so it takes this kernel, not K1's.
 
 #include "common.cuh"
 
@@ -55,7 +63,8 @@ __global__ void __launch_bounds__(kThreads) ancestry_attention_ids_kernel(
   float* qs = reinterpret_cast<float*>(ts + tile * ld);    // [beam][hd]
   float* acc = qs + beam * hd;                             // [beam][hd]
   float* e = acc + beam * hd;                              // [beam][n]
-  const int item = ids[blockIdx.x];
+  // K7 passes no id list: block x computes item x
+  const int item = ids ? ids[blockIdx.x] : (int)blockIdx.x;
   if (item < 0 || item >= items) return;
   const size_t row0 = (size_t)item * beam;
   const int col0 = blockIdx.y * hd;
@@ -136,4 +145,17 @@ extern "C" int dh_ancestry_attention_ids(
                                  beam, P, pe, D, H, inv_scale, s);
   return launch<float>(q, ck, cv, bias, ids, out, items, n_sel, beam, P, pe,
                        D, H, inv_scale, s);
+}
+
+extern "C" int dh_ancestry_attention(int dtype, const void* q, const void* ck,
+                                     const void* cv, const void* bias,
+                                     void* out, int items, int beam, int P,
+                                     int pe, int D, int H, float inv_scale,
+                                     void* stream) {
+  auto s = (cudaStream_t)stream;
+  if (dtype == dh::kBFloat16)
+    return launch<__nv_bfloat16>(q, ck, cv, bias, nullptr, out, items, items,
+                                 beam, P, pe, D, H, inv_scale, s);
+  return launch<float>(q, ck, cv, bias, nullptr, out, items, items, beam, P,
+                       pe, D, H, inv_scale, s);
 }

@@ -10,6 +10,7 @@ import torch
 
 from deephumor_tpu_torch.ops import LAUNCHES, reset_launch_counts
 from deephumor_tpu_torch.ops import attention as A
+from deephumor_tpu_torch.ops import cache as C
 from deephumor_tpu_torch.ops import sampler as S
 from deephumor_tpu_torch.ops.testing import canon_state
 
@@ -263,3 +264,73 @@ def test_fused_survivor_update_matches_twin(cuda, beam, live_items):
     assert LAUNCHES["fused_survivor_update"] == 1
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+
+
+def _attention_inputs(cuda, dtype, seed, items, beam, p, d, pos):
+    rows = items * beam
+    g = torch.Generator(cuda).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)  # noqa
+    anc = torch.randint(0, beam, (items, beam, p), generator=g, device=cuda)
+    valid = torch.rand(rows, p, generator=g, device=cuda) < 0.7
+    valid[:, pos + 1:] = False
+    valid[:, 0] = valid[:, pos] = True
+    return (rnd(rows, d), rnd(rows, p, d), rnd(rows, p, d), rnd(rows, d),
+            rnd(rows, d), A.ancestry_bias(anc, valid, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("impl,p_eff,beam,p", [
+    ("native4d", None, 3, 24), ("native4d", 16, 3, 24),
+    ("grouped", 16, 3, 24), ("blockdiag", None, 7, 136)])
+def test_ancestry_attention_matches_twin(cuda, dtype, impl, p_eff, beam, p):
+    # beam 7 x P 136 is 952 (slot, position) rows: staged in tiles
+    q, ck, cv, _, _, bias = _attention_inputs(cuda, dtype, 9, 5, beam, p,
+                                              128, 13)
+    kw = dict(beam=beam, n_heads=4, impl=impl, p_eff=p_eff)
+    reset_launch_counts()
+    got = A.ancestry_attention(q, ck, cv, bias, **kw)
+    want = A.ancestry_attention_plain(q, ck, cv, bias, **kw)
+    assert LAUNCHES["ancestry_attention"] == 1
+    torch.testing.assert_close(got, want, atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pos,beam,p", [(0, 3, 24), (7, 3, 24), (13, 5, 40),
+                                        (127, 7, 136)])
+def test_ancestry_attention_update_flash_matches_twin(cuda, dtype, pos, beam,
+                                                      p):
+    q, ck, cv, kn, vn, bias = _attention_inputs(cuda, dtype, 10, 5, beam, p,
+                                                128, pos)
+    caches = [(ck.clone(), cv.clone()) for _ in range(2)]
+    kw = dict(beam=beam, n_heads=4)
+    reset_launch_counts()
+    got = A.ancestry_attention_update_flash(q, *caches[0], kn, vn, bias, pos,
+                                            **kw)
+    want = A.ancestry_attention_update_flash_plain(q, *caches[1], kn, vn,
+                                                   bias, pos, **kw)
+    assert LAUNCHES["ancestry_attention_update_flash"] == 1
+    torch.testing.assert_close(got, want, atol=_tol(dtype), rtol=_tol(dtype))
+    assert torch.equal(caches[0][0], caches[1][0])
+    assert torch.equal(caches[0][1], caches[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype,new_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("rows,pos", [(325, 4), (12, 0), (8960, 39)])
+def test_cache_column_write_matches_twin(cuda, cache_dtype, new_dtype, rows,
+                                         pos):
+    g = torch.Generator(cuda).manual_seed(11)
+    ck, cv = (torch.randn(rows, 40, 64, generator=g, device=cuda).to(
+        cache_dtype) for _ in range(2))
+    kn, vn = (torch.randn(rows, 64, generator=g, device=cuda).to(new_dtype)
+              for _ in range(2))
+    want = C.cache_column_write_plain(ck.clone(), cv.clone(), kn, vn, pos)
+    reset_launch_counts()
+    got = C.cache_column_write(ck, cv, kn, vn, pos)
+    assert LAUNCHES["cache_column_write"] == 1
+    assert got[0] is ck and got[1] is cv
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
