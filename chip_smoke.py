@@ -35,7 +35,9 @@ generation through the kernels (for CaptioningTransformer also with both
 switches) against the plain path on the CPU, then runs each leg once with
 every launch count at zero and fails if one of its kernels was not
 launched or one off its leg was. word_fused and base_fused must give
-their default legs' sequences and scores exactly. torch.profiler tables
+their default legs' sequences and scores exactly. After the char leg, K6
+is held against its twin and timed at each straggler count that leg
+showed (K5 and K6 are timed with the device queued). torch.profiler tables
 (kernel time by name, the device's idle share) follow the base,
 base_fused and lstm legs, and end the char path: one more call without
 and one with both switches.
@@ -183,10 +185,13 @@ def ancestry_sdpa_ms(q, k, v, bias, items, beam, p, pe):
 
 
 def k1_bytes(live, beam, pe, elt):
-    """K/V prefix, q, k_new, v_new, out and the two written columns, plus
-    the bias over the read positions."""
+    """K/V prefix without the column at pos (pe - 1 positions: pos lies
+    inside the prefix, and the kernels read it from k_new / v_new), q,
+    k_new, v_new, out and the two written columns, plus the bias over the
+    read positions."""
     lr = live * beam
-    return (2 * lr * pe * HID + 6 * lr * HID) * elt + lr * beam * pe * 4
+    return (2 * lr * (pe - 1) * HID + 6 * lr * HID) * elt \
+        + lr * beam * pe * 4
 
 
 def check_k1(A, dev, gen, *, items, beam, p, pes, dt, live_items=None,
@@ -547,13 +552,16 @@ def check_k4(S, dev, gen):
 
 def check_k5_k6(A, dev, gen):
     """K5 (pe 120: c 104, w 16; pe 128: c 120, w 8) and K6 (pe 128) at the
-    char shapes, and K5 + K6 merged == K1's full-width twin."""
+    char shapes, and K5 + K6 merged == K1's full-width twin. K5 is timed
+    at both canon shapes (the row reports pe 120), K6 at 96 items, both on
+    the device alone (queued)."""
     from deephumor_tpu_torch.ops.testing import canon_state
 
     dt, items, beam = torch.bfloat16, C_BATCH, C_BEAM
     n = 96  # stragglers: the first n items, then the rest in order
     strag_ids = torch.arange(items, device=dev, dtype=torch.int32)
     err5 = err6 = 0.0
+    ms5 = {}
     for c, pe, live in ((104, 120, None), (120, 128, None), (104, 120, 500)):
         s = canon_state(items=items, beam=beam, p=C_P, c=c, pe=pe, d=HID,
                         dtype=dt, generator=gen, stragglers=range(n))
@@ -598,11 +606,13 @@ def check_k5_k6(A, dev, gen):
         log(f"  K6 p_eff={pe} {n} stragglers: max|out-twin|="
             f"{e:.3e}; K5+K6 merged vs K1 twin full width: max|diff|="
             f"{em:.3e} (atol=rtol={TOL})")
+        ms5[pe] = cuda_ms(lambda: A.ancestry_attention_update_canon(
+            s["q"], ck, cv, *args, **kw), queued=True)
+        log(f"  K5 c={c} p_eff={pe} (joined support {c + beam * (pe - c)} "
+            f"rows): {ms5[pe]:.4f} ms")
         if pe == 120:
             k5_state = (s, caches[0], args, kw)
     s, (ck, cv), args, kw = k5_state
-    ms5 = cuda_ms(lambda: A.ancestry_attention_update_canon(
-        s["q"], ck, cv, *args, **kw))
     plain5 = cuda_ms(lambda: A.ancestry_attention_update_canon_plain(
         s["q"], ck, cv, *args, **kw), iters=3)
     c, pe, w = kw["c"], kw["p_eff"], kw["p_eff"] - kw["c"]
@@ -613,9 +623,13 @@ def check_k5_k6(A, dev, gen):
     mask = torch.cat([s["bias_sh"].expand(items, beam, c), s["bias_win"]],
                      dim=-1)[:, None].contiguous()
     rows = items * beam
-    nbytes5 = (2 * items * c * HID + 2 * rows * w * HID + 6 * rows * HID) * 2 \
+    # K+V: shared rows, the window's w - 1 cached positions, k_new / v_new
+    # read and written at pos (inside the window); q and the output; biases
+    nbytes5 = (2 * items * c * HID + 2 * rows * (w - 1) * HID
+               + 4 * rows * HID + 2 * rows * HID) * 2 \
         + items * c * 4 + items * beam * beam * w * 4
-    k5 = dict(max_abs_err=err5, ms=ms5, plain_ms=plain5,
+    k5 = dict(max_abs_err=err5, ms=ms5[120], ms_pe128=ms5[128],
+              plain_ms=plain5,
               library_ms=library_ms(lambda: sdpa(qh, kh, vh, mask)),
               **bound(nbytes5, 4 * rows * (c + beam * w) * HID, dt))
     # K6 at pe 128 on the last state that ran it
@@ -623,7 +637,8 @@ def check_k5_k6(A, dev, gen):
     s6 = canon_state(items=items, beam=beam, p=C_P, c=120, pe=128, d=HID,
                      dtype=dt, generator=gen, stragglers=range(n))
     ms6 = cuda_ms(lambda: A.ancestry_attention_ids(
-        s6["q"], s6["ck"], s6["cv"], s6["bias"], strag_ids, n, **k6kw))
+        s6["q"], s6["ck"], s6["cv"], s6["bias"], strag_ids, n, **k6kw),
+        queued=True)
     plain6 = cuda_ms(lambda: A.ancestry_attention_ids_plain(
         s6["q"], s6["ck"], s6["cv"], s6["bias"], strag_ids, n, **k6kw),
         iters=3)
@@ -639,6 +654,41 @@ def check_k5_k6(A, dev, gen):
               library_ms=library_ms(lambda: sdpa(qh, kh, vh, mask)),
               **bound(nbytes6, 4 * n * beam * beam * 128 * HID, dt))
     return k5, k6
+
+
+def check_k6_leg(A, dev, gen, boundaries, k6):
+    """K6 at the straggler counts the char leg showed: at each canon
+    boundary with stragglers, held against its twin and timed on the
+    device alone (queued: a launch is shorter than its wrapper's host time)
+    over that many items at the p_eff of the phase after it (the
+    boundary's + 8, at most 128). Adds the times to ``k6``."""
+    from deephumor_tpu_torch.ops.testing import canon_state
+
+    counts = [(min(pe + 8, 128), n) for pe, _, n in boundaries if n]
+    if not counts:
+        raise AssertionError("char leg: no canon boundary had stragglers")
+    dt, items, beam = torch.bfloat16, C_BATCH, C_BEAM
+    s = canon_state(items=items, beam=beam, p=C_P, c=120, pe=128, d=HID,
+                    dtype=dt, generator=gen,
+                    stragglers=range(max(n for _, n in counts)))
+    ids = torch.arange(items, device=dev, dtype=torch.int32)
+    args = (s["q"], s["ck"], s["cv"], s["bias"], ids)
+    kw = dict(beam=beam, n_heads=HEADS)
+    k6["ms_leg"] = []
+    for pe, n in counts:
+        got = A.ancestry_attention_ids(*args, n, p_eff=pe, **kw)
+        want = A.ancestry_attention_ids_plain(*args, n, p_eff=pe, **kw)
+        sel = slice(0, n * beam)
+        torch.testing.assert_close(got[sel], want[sel], atol=TOL, rtol=TOL)
+        e = (got[sel].float() - want[sel].float()).abs().max().item()
+        k6["max_abs_err"] = max(k6["max_abs_err"], e)
+        ms = cuda_ms(lambda: A.ancestry_attention_ids(*args, n, p_eff=pe,
+                                                      **kw), queued=True)
+        k6["ms_leg"].append([pe, n, ms])
+    log(f"  K6 at the char leg's straggler counts, each within atol=rtol="
+        f"{TOL} of its twin: (p_eff, stragglers, ms) "
+        f"{[(pe, n, round(ms, 4)) for pe, n, ms in k6['ms_leg']]}; 96 items "
+        f"at p_eff 128: {k6['ms']:.4f} ms")
 
 
 def make_model(CaptioningTransformer, dtype, dev, char):
@@ -1089,6 +1139,7 @@ def main():
     check_output(out, C_BATCH, C_VOCAB, C_BEAM, C_LEN)
     log(f"  boundaries (p_eff, live items after compaction, stragglers): "
         f"{marks(out)}")
+    check_k6_leg(A, dev, gen, marks(out), rows["ancestry_attention_ids"])
     profile_call(model, params, enc, kw, name_limit, "char", 25)
     out, legs["char_packed_fused"] = drive(
         model, params, enc, _build, kw, name_limit, "char_packed_fused",
@@ -1143,7 +1194,9 @@ def main():
             "launches_by_path": {k: leg[name] for k, leg in legs.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            # K5 at its second canon shape; K6 at the leg's straggler counts
+            **{k: row[k] for k in ("ms_pe128", "ms_leg") if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {name_limit}")
     print(json.dumps({"ok": True, "device": {

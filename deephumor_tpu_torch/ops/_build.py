@@ -27,7 +27,8 @@ import subprocess
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "library", "check",
            "BUILD_DIR", "dtype_code", "on_kernel_device",
-           "check_vector_rows", "live_count", "stream_of"]
+           "check_vector_rows", "check_mma_tiles", "live_count",
+           "stream_of"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parents[2] / "build" / "deephumor_tpu_torch"
@@ -202,6 +203,18 @@ def check_vector_rows(name, head_dim, *tensors):
                          f"multiple of 16")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+def check_mma_tiles(name, head_dim, t):
+    """The bf16 kernels of K5, K6 and K7 multiply in 16 x 8 x 16 tensor-core
+    tiles: head_dim a multiple of 16 up to 256 (any beam: a block takes up
+    to 32 branches). Their f32 kernels take what ``check_vector_rows``
+    does."""
+    import torch
+
+    if t.dtype == torch.bfloat16 and (head_dim % 16 or head_dim > 256):
+        raise ValueError(f"{name}: head_dim {head_dim} in bfloat16 is not a "
+                         f"multiple of 16 up to 256")
 
 
 def live_count(n, live):

@@ -147,6 +147,7 @@ def ancestry_attention(q, cache_k, cache_v, bias, *, beam, n_heads,
     if not _build.on_kernel_device(name, q, cache_k, cache_v, bias):
         return ancestry_attention_plain(q, cache_k, cache_v, bias, **kw)
     _build.check_vector_rows(name, d // n_heads, cache_k, cache_v)
+    _build.check_mma_tiles(name, d // n_heads, q)
     out = torch.empty_like(q)
     err = _build.library().dh_ancestry_attention(
         _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
@@ -376,6 +377,7 @@ def ancestry_attention_update_canon(q, cache_k, cache_v, shared_k, shared_v,
             bias_shared, bias_win, pos, **kw)
     _build.check_vector_rows(name, d // n_heads, cache_k, cache_v, shared_k,
                              shared_v, k_new, v_new)
+    _build.check_mma_tiles(name, d // n_heads, q)
     out = torch.empty_like(q)
     err = _build.library().dh_ancestry_attention_update_canon(
         _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
@@ -442,6 +444,7 @@ def ancestry_attention_ids(q, cache_k, cache_v, bias, item_ids, n_sel, *,
         return ancestry_attention_ids_plain(q, cache_k, cache_v, bias,
                                             item_ids, n_sel, **kw)
     _build.check_vector_rows(name, d // n_heads, cache_k, cache_v)
+    _build.check_mma_tiles(name, d // n_heads, q)
     pe = p if p_eff is None else min(p_eff, p)
     sel = _selected(item_ids, n_sel, rows // beam).to(torch.int32)
     out = torch.empty_like(q)

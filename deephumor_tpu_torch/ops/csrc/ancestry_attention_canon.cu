@@ -22,102 +22,80 @@
 // and no cache write.
 //
 // Bound on the H100: bytes. At the char serving shape at p_eff 120
-// (c 104, w 16, 768 items, beam 7, D 512, bf16) one launch reads ~164 MB
-// of shared K+V and ~176 MB of window K+V, against 1.32 GB for K1 at the
-// same p_eff. Design: K1's, over c + beam * w rows: one block per
-// (item, head) stages the shared and the window rows of its head in shared
-// memory with coalesced 16-byte loads, so each byte leaves device memory
-// once, and writes its own slots' columns at `pos`; no block reads what
-// another writes.
+// (c 104, w 16, 768 items, beam 7, D 512, bf16) one launch must move
+// ~364 MB (shared K+V 164 MB, the window's w - 1 cached positions K+V
+// 165 MB, k_new / v_new read and written at `pos` 22 MB, q and the output
+// 11 MB, the biases 3 MB): 0.109 ms at 3.35 TB/s. Its 6.2 GFLOP take the
+// tensor cores ~6 us.
+//
+// bf16 (the serving dtype): the tensor-core body of attention_mma.cuh, one
+// block of four warps per (item, head) over the c + beam * w rows (per chunk of
+// 32 branches, for a beam above 32). The shared-load limit of a scalar design
+// (each energy a 64-long dot of f32 q against bf16 K read one element at a
+// time, each output a loop over every V row, a few hundred shared loads per 16
+// rows) goes: each 16 rows cost one ldmatrix.x4 and one mma per 16 of head_dim
+// in each product. Rows arrive by 16-byte cp.async into a ring of three 64-row
+// tiles, so loads overlap the products and the softmax; a table of row codes
+// keeps the divisions by w out of the copy loops. ~37 KB of shared memory at
+// this shape keeps six blocks on an SM, and the grid (6144 blocks) fills the
+// card many times over, so no cluster is needed. Heads vary fastest in the
+// grid, so an item's eight heads read its 1 KB rows together. The block writes
+// its own slots' columns at `pos` after its reads; no block reads what another
+// writes.
+//
+// f32: exact f32 arithmetic on the CUDA cores (TF32 tensor cores would
+// round q and K to 10 bits): one block per (item, head) stages the joined
+// support in shared memory at an odd word stride and computes each energy
+// and output element as a scalar loop.
 
+#include "attention_mma.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 256;  // the f32 kernel's block
 
-// Row r of one (item, head)'s joined support, as 16-byte vectors: r < c is
-// shared position r; r >= c is window row (slot i, position c + p') with
-// r - c = i * w + p'. Position `pos` of the window comes from `fresh`.
+// The joined support of one (item, head) and its biases, as both kernels
+// read them. Row r < c is shared position r; row r >= c is window row
+// (slot i, position c + p') with r - c = i * w + p', and position `pos` of
+// the window comes from k_new / v_new. A row's code is its row in the
+// shared caches [items * cs], in the per-slot caches [rows * P] (tag
+// kCache) or in k_new / v_new [rows] (tag kFresh); the launcher refuses
+// rows * P of 2^30 or more. `qrow0` is the row of the block's first query
+// (the bf16 blocks take the branches in chunks).
+constexpr uint32_t kCache = 1u << 30, kFresh = 2u << 30;
 template <typename T>
-struct CanonRows {
-  const T* shared;
-  const T* cache;
-  const T* fresh;
-  size_t item, row0;
-  int cs, c, w, P, D, col0, pos;
-  __device__ const uint4* operator()(int r) const {
-    const T* base;
-    if (r < c) {
-      base = shared + (item * cs + r) * D;
-    } else {
-      const int i = (r - c) / w, p = c + (r - c) % w;
-      base = p == pos ? fresh + (row0 + i) * D
-                      : cache + ((row0 + i) * P + p) * D;
-    }
-    return reinterpret_cast<const uint4*>(base + col0);
+struct CanonSupport {
+  const T *sk, *sv, *ck, *cv, *knew, *vnew;
+  const float *bias_sh, *bias_win;
+  size_t item, row0, qrow0;
+  int cs, c, w, P, D, col0, pos, bw;  // bw = beam * w
+  __device__ uint32_t index(int r) const {
+    if (r < c) return (uint32_t)(item * cs + r);
+    const int i = (r - c) / w, p = c + (r - c) - i * w;
+    return p == pos ? kFresh | (uint32_t)(row0 + i)
+                    : kCache | (uint32_t)((row0 + i) * P + p);
+  }
+  __device__ const T* pick(const T* shared, const T* cache, const T* fresh,
+                           uint32_t x) const {
+    const T* base = x >= kFresh ? fresh : x >= kCache ? cache : shared;
+    return base + (size_t)(x & (kCache - 1)) * D + col0;
+  }
+  __device__ const T* k(uint32_t x) const { return pick(sk, ck, knew, x); }
+  __device__ const T* v(uint32_t x) const { return pick(sv, cv, vnew, x); }
+  __device__ const float* bias(int j, int r, uint32_t) const {
+    return r < c ? bias_sh + item * c + r
+                 : bias_win + (qrow0 + j) * bw + (r - c);
   }
 };
 
+// Writes the block's slots' columns at `pos` from k_new / v_new.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) canon_attention_update_kernel(
-    const T* __restrict__ q, T* __restrict__ ck, T* __restrict__ cv,
-    const T* __restrict__ sk, const T* __restrict__ sv,
-    const T* __restrict__ knew, const T* __restrict__ vnew,
-    const float* __restrict__ bias_sh, const float* __restrict__ bias_win,
-    T* __restrict__ out, int live, int beam, int P, int cs, int c, int w,
-    int D, int hd, int pos, float inv_scale) {
-  extern __shared__ __align__(16) uint32_t smem_w[];
-  const int n = c + beam * w;               // joined support
-  const int wpr = hd * (int)sizeof(T) / 4;  // 4-byte words per row
-  const int ld = wpr + 1;                   // odd: conflict-free columns
-  uint32_t* ks = smem_w;                    // [n][ld]
-  uint32_t* vs = ks + n * ld;               // [n][ld]
-  float* qs = reinterpret_cast<float*>(vs + n * ld);  // [beam][hd]
-  float* e = qs + beam * hd;                // [beam][n]
-  const size_t item = blockIdx.x, row0 = item * beam;
-  const int col0 = blockIdx.y * hd;
-  if ((int)item >= live) {
-    dh::zero_rows(out + row0 * D + col0, beam, hd, D);
-    return;
-  }
-
-  dh::stage_rows(ks, ld, n, wpr / 4,
-                 CanonRows<T>{sk, ck, knew, item, row0, cs, c, w, P, D, col0,
-                              pos});
-  dh::stage_rows(vs, ld, n, wpr / 4,
-                 CanonRows<T>{sv, cv, vnew, item, row0, cs, c, w, P, D, col0,
-                              pos});
-  for (int t = threadIdx.x; t < beam * hd; t += blockDim.x)
-    qs[t] = dh::to_f32(q[(row0 + t / hd) * D + col0 + t % hd]);
-  __syncthreads();
-
-  const int bw = beam * w;
-  for (int t = threadIdx.x; t < beam * n; t += blockDim.x) {
-    const int j = t / n, r = t % n;
-    const T* krow = reinterpret_cast<const T*>(ks + r * ld);
-    const float s = dh::dot(qs + j * hd, krow, hd) * inv_scale;
-    e[t] = s + (r < c ? bias_sh[item * c + r]
-                      : bias_win[(row0 + j) * bw + (r - c)]);
-  }
-  __syncthreads();
-
-  for (int j = threadIdx.x >> 5; j < beam; j += blockDim.x >> 5)
-    dh::warp_softmax_round<T>(e + j * n, n);
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < beam * hd; t += blockDim.x) {
-    const int j = t / hd, d = t % hd;
-    const float* wt = e + j * n;
-    float acc = 0.f;
-    for (int r = 0; r < n; ++r)
-      acc = fmaf(wt[r],
-                 dh::to_f32(reinterpret_cast<const T*>(vs + r * ld)[d]), acc);
-    out[(row0 + j) * D + col0 + d] = dh::from_f32<T>(acc);
-  }
-
-  // the cache column at `pos` was never read above (it came from k_new /
-  // v_new), so the write needs no barrier
+__device__ __forceinline__ void write_column(T* ck, T* cv, const T* knew,
+                                             const T* vnew, size_t row0,
+                                             int beam, int P, int D, int hd,
+                                             int col0, int pos) {
   for (int t = threadIdx.x; t < beam * hd; t += blockDim.x) {
     const int i = t / hd, d = t % hd;
     const size_t src = (row0 + i) * D + col0 + d;
@@ -127,27 +105,135 @@ __global__ void __launch_bounds__(kThreads) canon_attention_update_kernel(
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, void* ck, void* cv, const void* sk,
-                   const void* sv, const void* kn, const void* vn,
-                   const void* bias_sh, const void* bias_win, void* out,
-                   int items, int live, int beam, int P, int cs, int c,
-                   int pe, int D, int H, int pos, float inv_scale,
-                   cudaStream_t stream) {
+template <int NT>
+__global__ void __launch_bounds__(dh::mma_attn::kThreads)
+    canon_attention_mma_kernel(
+        const bf16* __restrict__ q, bf16* __restrict__ ck,
+        bf16* __restrict__ cv, const bf16* __restrict__ sk,
+        const bf16* __restrict__ sv, const bf16* __restrict__ knew,
+        const bf16* __restrict__ vnew, const float* __restrict__ bias_sh,
+        const float* __restrict__ bias_win, bf16* __restrict__ out,
+        int live, int beam, int P, int cs, int c, int w, int D, int hd,
+        int pos, float inv_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // heads vary fastest, so an item's heads read its 1 KB rows together;
+  // then the item's chunks of at most kMaxBeam branches
+  const int H = D / hd, col0 = blockIdx.x % H * hd;
+  const dh::mma_attn::Chunk<NT> ch(blockIdx.x, H, beam);
+  const int nq = ch.nq;
+  const size_t item = ch.sel, row0 = item * beam, qrow0 = row0 + ch.j0;
+  if ((int)item >= live) {
+    dh::zero_rows(out + qrow0 * D + col0, nq, hd, D);
+    return;
+  }
+  const CanonSupport<bf16> rows{sk, sv, ck, cv, knew, vnew, bias_sh,
+                                bias_win, item, row0, qrow0, cs, c, w, P, D,
+                                col0, pos, beam * w};
+  dh::mma_attn::attend<NT>(rows, q + qrow0 * D + col0, D,
+                           out + qrow0 * D + col0, D, c + beam * w, nq, hd,
+                           inv_scale, 1, smem);
+  // the cache column at `pos` was never read (it came from k_new / v_new)
+  write_column(ck, cv, knew, vnew, qrow0, nq, P, D, hd, col0, pos);
+}
+
+__global__ void __launch_bounds__(kThreads) canon_attention_f32_kernel(
+    const float* __restrict__ q, float* __restrict__ ck,
+    float* __restrict__ cv, const float* __restrict__ sk,
+    const float* __restrict__ sv, const float* __restrict__ knew,
+    const float* __restrict__ vnew, const float* __restrict__ bias_sh,
+    const float* __restrict__ bias_win, float* __restrict__ out, int live,
+    int beam, int P, int cs, int c, int w, int D, int hd, int pos,
+    float inv_scale) {
+  extern __shared__ __align__(16) uint32_t smem_w[];
+  const int n = c + beam * w;  // joined support
+  const int ld = hd + 1;       // odd: conflict-free columns
+  uint32_t* ks = smem_w;       // [n][ld]
+  uint32_t* vs = ks + n * ld;  // [n][ld]
+  float* qs = reinterpret_cast<float*>(vs + n * ld);  // [beam][hd]
+  float* e = qs + beam * hd;                          // [beam][n]
+  const size_t item = blockIdx.x, row0 = item * beam;
+  const int col0 = blockIdx.y * hd;
+  if ((int)item >= live) {
+    dh::zero_rows(out + row0 * D + col0, beam, hd, D);
+    return;
+  }
+
+  const CanonSupport<float> rows{sk, sv, ck, cv, knew, vnew, bias_sh,
+                                 bias_win, item, row0, row0, cs, c, w, P, D,
+                                 col0, pos, beam * w};
+  dh::stage_rows(ks, ld, n, hd / 4, [&](int r) {
+    return reinterpret_cast<const uint4*>(rows.k(rows.index(r)));
+  });
+  dh::stage_rows(vs, ld, n, hd / 4, [&](int r) {
+    return reinterpret_cast<const uint4*>(rows.v(rows.index(r)));
+  });
+  for (int t = threadIdx.x; t < beam * hd; t += blockDim.x)
+    qs[t] = q[(row0 + t / hd) * D + col0 + t % hd];
+  __syncthreads();
+
+  for (int t = threadIdx.x; t < beam * n; t += blockDim.x) {
+    const int j = t / n, r = t % n;
+    const float* krow = reinterpret_cast<const float*>(ks + r * ld);
+    const float s = dh::dot(qs + j * hd, krow, hd) * inv_scale;
+    e[t] = s + *rows.bias(j, r, 0);
+  }
+  __syncthreads();
+
+  for (int j = threadIdx.x >> 5; j < beam; j += blockDim.x >> 5)
+    dh::warp_softmax_round<float>(e + j * n, n);
+  __syncthreads();
+
+  for (int t = threadIdx.x; t < beam * hd; t += blockDim.x) {
+    const int j = t / hd, d = t % hd;
+    const float* wt = e + j * n;
+    float acc = 0.f;
+    for (int r = 0; r < n; ++r)
+      acc = fmaf(wt[r], reinterpret_cast<const float*>(vs + r * ld)[d], acc);
+    out[(row0 + j) * D + col0 + d] = acc;
+  }
+  // the cache column at `pos` was never read above, so the write needs no
+  // barrier
+  write_column(ck, cv, knew, vnew, row0, beam, P, D, hd, col0, pos);
+}
+
+template <int NT>
+cudaError_t launch_mma(const void* q, void* ck, void* cv, const void* sk,
+                       const void* sv, const void* kn, const void* vn,
+                       const void* bias_sh, const void* bias_win, void* out,
+                       int items, int live, int beam, int P, int cs, int c,
+                       int pe, int D, int H, int pos, float inv_scale,
+                       cudaStream_t stream) {
+  namespace ma = dh::mma_attn;
+  const int hd = D / H, w = pe - c, n = c + beam * w;
+  return ma::launch<&canon_attention_mma_kernel<NT>>(
+      items * H * ma::beam_chunks(beam), 1,
+      ma::smem_bytes(n, 1, ma::chunk_beam(beam), hd, NT), stream,
+      (const bf16*)q, (bf16*)ck, (bf16*)cv, (const bf16*)sk, (const bf16*)sv,
+      (const bf16*)kn, (const bf16*)vn, (const float*)bias_sh,
+      (const float*)bias_win, (bf16*)out, live, beam, P, cs, c, w, D, hd,
+      pos, inv_scale);
+}
+
+cudaError_t launch_f32(const void* q, void* ck, void* cv, const void* sk,
+                       const void* sv, const void* kn, const void* vn,
+                       const void* bias_sh, const void* bias_win, void* out,
+                       int items, int live, int beam, int P, int cs, int c,
+                       int pe, int D, int H, int pos, float inv_scale,
+                       cudaStream_t stream) {
   const int hd = D / H, w = pe - c;
   const size_t n = (size_t)c + (size_t)beam * w;
-  const size_t smem = 4 * (2 * n * (hd * sizeof(T) / 4 + 1) + beam * hd
-                           + beam * n);
-  auto kernel = canon_attention_update_kernel<T>;
+  const size_t smem = 4 * (2 * n * (hd + 1) + beam * hd + beam * n);
+  auto kernel = canon_attention_f32_kernel;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   kernel<<<dim3(items, H), kThreads, smem, stream>>>(
-      (const T*)q, (T*)ck, (T*)cv, (const T*)sk, (const T*)sv, (const T*)kn,
-      (const T*)vn, (const float*)bias_sh, (const float*)bias_win, (T*)out,
-      live, beam, P, cs, c, w, D, hd, pos, inv_scale);
+      (const float*)q, (float*)ck, (float*)cv, (const float*)sk,
+      (const float*)sv, (const float*)kn, (const float*)vn,
+      (const float*)bias_sh, (const float*)bias_win, (float*)out, live, beam,
+      P, cs, c, w, D, hd, pos, inv_scale);
   return cudaGetLastError();
 }
 
@@ -160,11 +246,14 @@ extern "C" int dh_ancestry_attention_update_canon(
     int cs, int c, int pe, int D, int H, int pos, float inv_scale,
     void* stream) {
   auto s = (cudaStream_t)stream;
-  if (dtype == dh::kBFloat16)
-    return launch<__nv_bfloat16>(q, ck, cv, sk, sv, kn, vn, bias_sh,
-                                 bias_win, out, items, live, beam, P, cs, c,
-                                 pe, D, H, pos, inv_scale, s);
-  return launch<float>(q, ck, cv, sk, sv, kn, vn, bias_sh, bias_win, out,
-                       items, live, beam, P, cs, c, pe, D, H, pos,
-                       inv_scale, s);
+  if (dtype != dh::kBFloat16)
+    return launch_f32(q, ck, cv, sk, sv, kn, vn, bias_sh, bias_win, out,
+                      items, live, beam, P, cs, c, pe, D, H, pos, inv_scale,
+                      s);
+  if ((size_t)items * beam * P >= kCache) return cudaErrorInvalidValue;
+  return dh::mma_attn::dispatch(beam, D / H, [&](auto nt) {
+    return launch_mma<decltype(nt)::value>(
+        q, ck, cv, sk, sv, kn, vn, bias_sh, bias_win, out, items, live, beam,
+        P, cs, c, pe, D, H, pos, inv_scale, s);
+  });
 }

@@ -6,131 +6,225 @@
 // _kernel_native4d). K7 replaces pallas_attention.py:ancestry_attention
 // (kernels _kernel_native4d, _kernel and _kernel_blockdiag: three TPU
 // layouts of one function, K1's attention without the cache write); its
-// entry point runs this kernel with no id list, one block per item, over
-// the first p_eff positions (the wrapper passes P for the layouts that read
-// the whole cache). The canonical-prefix path (K5) gives straggler items
-// -- live branches that still disagree below c -- outputs from a stale
-// shared path; this kernel recomputes exactly those items over the full
-// per-slot caches [0, p_eff) with the step's flat ancestry bias
-// [items, beam, beam * P]. The grid walks the first max(n_sel, 1) entries
-// of an item-id list (the TPU grid is clamped the same way); rows of other
-// items are not written.
+// entry point, dh_ancestry_attention, runs K6's kernels (the same bf16
+// body) with no id list, over the first p_eff positions of every item (the
+// wrapper passes P for the layouts that read the whole cache). The
+// canonical-prefix path (K5) gives straggler items -- live branches that
+// still disagree below c -- outputs from a stale shared path; K6
+// recomputes exactly those items over the full per-slot caches
+// [0, p_eff) with the step's flat ancestry bias [items, beam, beam * P].
+// The grid walks the first max(n_sel, 1) entries of an item-id list (the
+// TPU grid is clamped the same way); rows of other items are not written.
 //
-// Bound on the H100: bytes (at the char config's last phase, beam 7 x
-// p_eff 128 x D 512 bf16, ~1.8 MB of K+V per item). Design: K1's
-// (item, head) blocks cannot stage all beam * p_eff rows here (896 rows:
-// ~257 KB in bf16, ~480 KB in f32, over the 227 KB a block may use), so
-// the positions are tiled in two passes. Pass 1 stages K a tile of rows at
-// a time and leaves every energy (beam x 896 f32 = 25 KB) in shared memory;
-// one softmax per branch follows, with weights rounded to the cache dtype;
-// pass 2 stages V tile by tile and each thread adds its own (branch,
-// column) sums in shared memory, in the same row order as K1. K7 reads the
-// same rows at the char shapes (beam 7 x P 136 = 952 rows for the layouts
-// that read the whole cache), so it takes this kernel, not K1's.
+// Bound on the H100: bytes. At the char config's last phase (beam 7 x
+// p_eff 128 x D 512, bf16) each item moves ~1.87 MB: K+V 1.84 MB, its
+// bias 25 KB, q and the output. 96 items: 180 MB, 0.054 ms at 3.35 TB/s;
+// K7 over all 768 items: 1.44 GB, 0.430 ms (1.53 GB, 0.456 ms, for the
+// layouts that read all 136 positions).
+//
+// bf16 (the serving dtype): the tensor-core body of attention_mma.cuh over an
+// item's beam * p_eff rows (per chunk of 32 branches, for a beam above 32). The
+// shared-load limit of a scalar design goes: each 16 rows cost one ldmatrix.x4
+// and one mma per 16 of head_dim in each product, where the scalar loops spent
+// a few hundred shared loads. K then V stream through a ring of three 64-row
+// cp.async tiles, loads overlapping the products and the softmax, while every
+// energy (<= 7 x 964 f32 = 27 KB) stays in shared memory for the exact two-pass
+// softmax: ~56 KB a block at this shape. The grid is small on the real path:
+// the char leg launches K6 for 2-10 stragglers, n_sel x 8 blocks on 132 SMs,
+// each block walking 28 tiles in turn. So a small grid spreads each (item,
+// head) over a cluster of up to four blocks on four SMs, each taking a quarter
+// of the tiles; the blocks exchange each branch's max and sum through
+// distributed shared memory (weights still normalised before rounding), then
+// their partial outputs. K7's grids fill the card and keep one block per (item,
+// head).
+//
+// f32: exact f32 arithmetic on the CUDA cores (TF32 tensor cores would
+// round q and K to 10 bits). The rows cannot all be staged (beam 7 x
+// p_eff 128 in f32 is ~460 KB), so the positions are tiled in two passes:
+// pass 1 stages K a tile of rows at a time and leaves every energy in
+// shared memory; one softmax per branch follows; pass 2 stages V tile by
+// tile and each thread adds its own (branch, column) sums in shared
+// memory.
 
+#include "attention_mma.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 256;  // the f32 kernel's block
 constexpr int kTileRows = 256;
 
-// Row r0 + r of one item's (slot, position) rows in one head's columns:
-// slot (r0 + r) / pe, position (r0 + r) % pe.
+// Row r of one item's (slot, position) rows in one head's columns: slot
+// i = r / pe, position r % pe; its code is its row (row0 + i) * P + r % pe
+// of the caches [rows * P] (the launcher refuses 2^32 or more). `anc` is
+// the flat ancestry bias [items, beam, beam * P]; `qrow0` is the row of
+// the block's first query (the bf16 blocks take the branches in chunks).
 template <typename T>
-struct TileRows {
-  const T* cache;
-  size_t row0;
-  int r0, P, pe, D, col0;
-  __device__ const uint4* operator()(int r) const {
-    const int i = (r0 + r) / pe, p = (r0 + r) % pe;
-    return reinterpret_cast<const uint4*>(
-        cache + ((row0 + i) * P + p) * D + col0);
+struct CacheRows {
+  const T* ck;
+  const T* cv;
+  const float* anc;
+  size_t row0, qrow0;
+  int beam, P, pe, D, col0;
+  __device__ uint32_t index(int r) const {
+    const int i = r / pe;
+    return (uint32_t)((row0 + i) * P + (r - i * pe));
+  }
+  __device__ const T* k(uint32_t x) const { return ck + (size_t)x * D + col0; }
+  __device__ const T* v(uint32_t x) const { return cv + (size_t)x * D + col0; }
+  __device__ const float* bias(int j, int r, uint32_t x) const {
+    return anc + (qrow0 + j) * beam * P + (x - row0 * P);
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ancestry_attention_ids_kernel(
-    const T* __restrict__ q, const T* __restrict__ ck,
-    const T* __restrict__ cv, const float* __restrict__ bias,
-    const int* __restrict__ ids, T* __restrict__ out, int items, int beam,
-    int P, int pe, int D, int hd, int tile, float inv_scale) {
+// The item of block b (the b-th of the list, or item b for K7's NULL
+// list) and its head, heads varying fastest so that an item's heads read
+// its 1 KB rows together.
+__device__ __forceinline__ int block_item(const int* ids, int H) {
+  const int b = blockIdx.x / H;
+  return ids ? ids[b] : b;
+}
+
+// Clusters of `cs` consecutive blocks share one (item, head, chunk of at
+// most kMaxBeam branches), heads varying fastest, then chunks.
+template <int NT>
+__global__ void __launch_bounds__(dh::mma_attn::kThreads)
+    ancestry_attention_mma_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ ck,
+        const bf16* __restrict__ cv, const float* __restrict__ bias,
+        const int* __restrict__ ids, bf16* __restrict__ out, int items,
+        int beam, int P, int pe, int D, int hd, float inv_scale, int cs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = D / hd, b = blockIdx.x / cs, col0 = b % H * hd;
+  const dh::mma_attn::Chunk<NT> ch(b, H, beam);
+  const int item = ids ? ids[ch.sel] : ch.sel, nq = ch.nq;
+  if (item < 0 || item >= items) return;  // the whole cluster returns
+  const size_t row0 = (size_t)item * beam, qrow0 = row0 + ch.j0;
+  const CacheRows<bf16> rows{ck,   cv, bias, row0, qrow0,
+                             beam, P,  pe,   D,    col0};
+  dh::mma_attn::attend<NT>(rows, q + qrow0 * D + col0, D,
+                           out + qrow0 * D + col0, D, beam * pe, nq, hd,
+                           inv_scale, cs, smem);
+}
+
+__global__ void __launch_bounds__(kThreads) ancestry_attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ ck,
+    const float* __restrict__ cv, const float* __restrict__ bias,
+    const int* __restrict__ ids, float* __restrict__ out, int items,
+    int beam, int P, int pe, int D, int hd, int tile, float inv_scale) {
   extern __shared__ __align__(16) uint32_t smem_w[];
   const int n = beam * pe;
-  const int wpr = hd * (int)sizeof(T) / 4;
-  const int ld = wpr + 1;
+  const int ld = hd + 1;  // odd: conflict-free columns
   uint32_t* ts = smem_w;                                   // [tile][ld]
   float* qs = reinterpret_cast<float*>(ts + tile * ld);    // [beam][hd]
   float* acc = qs + beam * hd;                             // [beam][hd]
   float* e = acc + beam * hd;                              // [beam][n]
-  // K7 passes no id list: block x computes item x
-  const int item = ids ? ids[blockIdx.x] : (int)blockIdx.x;
+  const int item = block_item(ids, D / hd);
   if (item < 0 || item >= items) return;
   const size_t row0 = (size_t)item * beam;
-  const int col0 = blockIdx.y * hd;
+  const int col0 = blockIdx.x % (D / hd) * hd;
+  const CacheRows<float> rows{ck,   cv, bias, row0, row0,
+                              beam, P,  pe,   D,    col0};
 
   for (int t = threadIdx.x; t < beam * hd; t += blockDim.x) {
-    qs[t] = dh::to_f32(q[(row0 + t / hd) * D + col0 + t % hd]);
+    qs[t] = q[(row0 + t / hd) * D + col0 + t % hd];
     acc[t] = 0.f;
   }
   for (int r0 = 0; r0 < n; r0 += tile) {
     const int nt = min(tile, n - r0);
     __syncthreads();  // the previous tile is consumed; q is staged
-    dh::stage_rows(ts, ld, nt, wpr / 4,
-                   TileRows<T>{ck, row0, r0, P, pe, D, col0});
+    dh::stage_rows(ts, ld, nt, hd / 4, [&](int r) {
+      return reinterpret_cast<const uint4*>(rows.k(rows.index(r0 + r)));
+    });
     __syncthreads();
     for (int t = threadIdx.x; t < beam * nt; t += blockDim.x) {
-      const int j = t / nt, r = r0 + t % nt, i = r / pe, p = r % pe;
-      const T* krow = reinterpret_cast<const T*>(ts + (t % nt) * ld);
-      const float s = dh::dot(qs + j * hd, krow, hd) * inv_scale;
-      e[j * n + r] = s + bias[((row0 + j) * beam + i) * P + p];
+      const int j = t / nt, r = r0 + t % nt;
+      const float* krow = reinterpret_cast<const float*>(ts + (t % nt) * ld);
+      e[j * n + r] =
+          dh::dot(qs + j * hd, krow, hd) * inv_scale
+          + *rows.bias(j, r, rows.index(r));
     }
   }
   __syncthreads();
 
   for (int j = threadIdx.x >> 5; j < beam; j += blockDim.x >> 5)
-    dh::warp_softmax_round<T>(e + j * n, n);
+    dh::warp_softmax_round<float>(e + j * n, n);
 
   for (int r0 = 0; r0 < n; r0 += tile) {
     const int nt = min(tile, n - r0);
     __syncthreads();  // weights are final; the previous tile is consumed
-    dh::stage_rows(ts, ld, nt, wpr / 4,
-                   TileRows<T>{cv, row0, r0, P, pe, D, col0});
+    dh::stage_rows(ts, ld, nt, hd / 4, [&](int r) {
+      return reinterpret_cast<const uint4*>(rows.v(rows.index(r0 + r)));
+    });
     __syncthreads();
     for (int t = threadIdx.x; t < beam * hd; t += blockDim.x) {
       const int j = t / hd, d = t % hd;
       const float* wt = e + j * n + r0;
       float a = acc[t];
       for (int r = 0; r < nt; ++r)
-        a = fmaf(wt[r], dh::to_f32(reinterpret_cast<const T*>(ts + r * ld)[d]),
-                 a);
+        a = fmaf(wt[r], reinterpret_cast<const float*>(ts + r * ld)[d], a);
       acc[t] = a;
     }
   }
   // each thread wrote only its own acc entries
   for (int t = threadIdx.x; t < beam * hd; t += blockDim.x)
-    out[(row0 + t / hd) * D + col0 + t % hd] = dh::from_f32<T>(acc[t]);
+    out[(row0 + t / hd) * D + col0 + t % hd] = acc[t];
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* ck, const void* cv,
-                   const void* bias, const void* ids, void* out, int items,
-                   int n_sel, int beam, int P, int pe, int D, int H,
-                   float inv_scale, cudaStream_t stream) {
+template <int NT>
+cudaError_t launch_mma(const void* q, const void* ck, const void* cv,
+                       const void* bias, const void* ids, void* out,
+                       int items, int n_sel, int beam, int P, int pe, int D,
+                       int H, float inv_scale, cudaStream_t stream) {
+  namespace ma = dh::mma_attn;
+  const int hd = D / H, n = beam * pe;
+  const int blocks = n_sel * H * ma::beam_chunks(beam);
+  const int cs = ma::cluster_size(blocks, n);
+  return ma::launch<&ancestry_attention_mma_kernel<NT>>(
+      blocks * cs, cs, ma::smem_bytes(n, cs, ma::chunk_beam(beam), hd, NT),
+      stream, (const bf16*)q, (const bf16*)ck, (const bf16*)cv,
+      (const float*)bias, (const int*)ids, (bf16*)out, items, beam, P, pe, D,
+      hd, inv_scale, cs);
+}
+
+cudaError_t launch_f32(const void* q, const void* ck, const void* cv,
+                       const void* bias, const void* ids, void* out,
+                       int items, int n_sel, int beam, int P, int pe, int D,
+                       int H, float inv_scale, cudaStream_t stream) {
   const int hd = D / H, n = beam * pe;
   const int tile = n < kTileRows ? n : kTileRows;
-  const size_t smem = 4 * ((size_t)tile * (hd * sizeof(T) / 4 + 1)
-                           + 2 * (size_t)beam * hd + (size_t)beam * n);
-  auto kernel = ancestry_attention_ids_kernel<T>;
+  const size_t smem = 4 * ((size_t)tile * (hd + 1) + 2 * (size_t)beam * hd
+                           + (size_t)beam * n);
+  auto kernel = ancestry_attention_f32_kernel;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(n_sel, H), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)ck, (const T*)cv, (const float*)bias,
-      (const int*)ids, (T*)out, items, beam, P, pe, D, hd, tile, inv_scale);
+  kernel<<<n_sel * H, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)ck, (const float*)cv,
+      (const float*)bias, (const int*)ids, (float*)out, items, beam, P, pe,
+      D, hd, tile, inv_scale);
   return cudaGetLastError();
+}
+
+// bf16 through the tensor-core kernel (n-tiles by beam), f32 through the
+// CUDA-core kernel; `ids` NULL for K7.
+int launch(int dtype, const void* q, const void* ck, const void* cv,
+           const void* bias, const void* ids, void* out, int items,
+           int n_sel, int beam, int P, int pe, int D, int H, float inv_scale,
+           void* stream) {
+  auto s = (cudaStream_t)stream;
+  if (dtype != dh::kBFloat16)
+    return launch_f32(q, ck, cv, bias, ids, out, items, n_sel, beam, P, pe,
+                      D, H, inv_scale, s);
+  if ((size_t)items * beam * P > UINT32_MAX) return cudaErrorInvalidValue;
+  return dh::mma_attn::dispatch(beam, D / H, [&](auto nt) {
+    return launch_mma<decltype(nt)::value>(q, ck, cv, bias, ids, out, items,
+                                           n_sel, beam, P, pe, D, H,
+                                           inv_scale, s);
+  });
 }
 
 }  // namespace
@@ -139,23 +233,16 @@ extern "C" int dh_ancestry_attention_ids(
     int dtype, const void* q, const void* ck, const void* cv,
     const void* bias, const void* ids, void* out, int items, int n_sel,
     int beam, int P, int pe, int D, int H, float inv_scale, void* stream) {
-  auto s = (cudaStream_t)stream;
-  if (dtype == dh::kBFloat16)
-    return launch<__nv_bfloat16>(q, ck, cv, bias, ids, out, items, n_sel,
-                                 beam, P, pe, D, H, inv_scale, s);
-  return launch<float>(q, ck, cv, bias, ids, out, items, n_sel, beam, P, pe,
-                       D, H, inv_scale, s);
+  return launch(dtype, q, ck, cv, bias, ids, out, items, n_sel, beam, P, pe,
+                D, H, inv_scale, stream);
 }
 
+// K7: the same kernels over every item (block x computes item x).
 extern "C" int dh_ancestry_attention(int dtype, const void* q, const void* ck,
                                      const void* cv, const void* bias,
                                      void* out, int items, int beam, int P,
                                      int pe, int D, int H, float inv_scale,
                                      void* stream) {
-  auto s = (cudaStream_t)stream;
-  if (dtype == dh::kBFloat16)
-    return launch<__nv_bfloat16>(q, ck, cv, bias, nullptr, out, items, items,
-                                 beam, P, pe, D, H, inv_scale, s);
-  return launch<float>(q, ck, cv, bias, nullptr, out, items, items, beam, P,
-                       pe, D, H, inv_scale, s);
+  return launch(dtype, q, ck, cv, bias, nullptr, out, items, items, beam, P,
+                pe, D, H, inv_scale, stream);
 }

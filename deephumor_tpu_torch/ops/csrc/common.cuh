@@ -1,6 +1,7 @@
 // Shared helpers for the deephumor_tpu_torch kernels: element loads in
-// either storage type, warp/block reductions, and the dtype codes the
-// Python wrappers pass (0 = float32, 1 = bfloat16).
+// either storage type, warp/block reductions, the dtype codes the Python
+// wrappers pass (0 = float32, 1 = bfloat16), and the cp.async, ldmatrix
+// and mma.sync wrappers of the tensor-core kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -164,5 +165,82 @@ __device__ __forceinline__ float dot(const float* a, const T* b, int n) {
   for (int d = 0; d < n; ++d) acc = fmaf(a[d], to_f32(b[d]), acc);
   return acc;
 }
+
+// ---- Tensor-core and asynchronous-copy primitives (sm_80 and later) ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy from device to shared memory (both 16-byte
+// aligned), bypassing L1. With `valid` false nothing is read and the 16
+// bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4-byte asynchronous copy from device to shared memory (through L1).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ldmatrix: lanes 8i..8i+7 give the 16-byte row addresses of 8x8 bf16
+// matrix i; lane l receives row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1
+// of each matrix (of its transpose with .trans), one 32-bit register each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a * b on the tensor cores: a 16x16 bf16 (row-major fragments), b
+// 16x8 bf16 (column-major), d 16x8 f32. Lane l = 4 g + t holds d rows g
+// and g + 8, columns 2t and 2t + 1, as {d[0], d[1]} and {d[2], d[3]}.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The shared-memory row stride, in bf16 values, of a staged tile of
+// `hd`-wide rows (hd a multiple of 8): 16 bytes of padding put the eight
+// row addresses of an ldmatrix (or eight cp.async destinations) in eight
+// distinct groups of four banks, and keep every row 16-byte aligned.
+__host__ __device__ __forceinline__ int padded_ld(int hd) { return hd + 8; }
 
 }  // namespace dh

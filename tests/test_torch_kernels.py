@@ -100,17 +100,41 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     kv = torch.randn(2, 5, 8, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 16"):
         A.grouped_cross_attention(q, kv, kv, None, n_heads=4)
+    # head_dim 8 in bf16: 16-byte rows, but narrower than the 16-wide
+    # tensor-core tiles of the K5, K6 and K7 kernels
+    g = torch.Generator(cuda).manual_seed(12)
+    s = canon_state(items=2, beam=3, p=8, c=4, pe=8, d=16,
+                    dtype=torch.bfloat16, generator=g, stragglers=[0])
+    args = (s["q"], s["ck"], s["cv"])
+    ids = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        A.ancestry_attention(*args, s["bias"], beam=3, n_heads=2)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        A.ancestry_attention_ids(*args, s["bias"], ids, 1, beam=3, n_heads=2)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        A.ancestry_attention_update_canon(
+            *args, s["sk"], s["sv"], s["kn"], s["vn"], s["bias_sh"],
+            s["bias_win"], s["pos"], beam=3, n_heads=2, c=4, p_eff=8)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("live_items", [None, 5])
-def test_canon_update_matches_twin(cuda, dtype, live_items):
-    items, beam, p, c, pe, d, heads = 9, 7, 40, 24, 40, 128, 2
+@pytest.mark.parametrize("beam,c,pe,pos", [
+    (7, 24, 40, 33),     # joined support n = c + beam * w = 136
+    (3, 21, 29, 25),     # w 8, narrower than a 16-row tile; n 45
+    (5, 37, 45, 44),     # n 77: neither c nor n a multiple of 16
+    (7, 13, 40, 20),     # n 202: four 64-row tiles, the last ragged
+    (7, 120, 128, 127),  # the char leg's last phase: w 8, n 176
+    (12, 30, 38, 33),    # beam 12: two 8-wide n-tiles in bf16; n 126
+    (40, 10, 14, 12)])   # beam 40: bf16 blocks of 32 and 8 branches; n 170
+def test_canon_update_matches_twin(cuda, dtype, live_items, beam, c, pe,
+                                   pos):
+    items, p, d, heads = 9, 136, 128, 2
     g = torch.Generator(cuda).manual_seed(3)
     s = canon_state(items=items, beam=beam, p=p, c=c, pe=pe, d=d,
                     dtype=dtype, generator=g, stragglers=range(1, items, 2),
-                    pos=33)
+                    pos=pos)
     caches = [(s["ck"].clone(), s["cv"].clone()) for _ in range(2)]
     args = (s["sk"], s["sv"], s["kn"], s["vn"], s["bias_sh"], s["bias_win"],
             s["pos"])
@@ -127,17 +151,27 @@ def test_canon_update_matches_twin(cuda, dtype, live_items):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("beam,pe,n_sel", [(3, 24, 2), (7, 128, 3),
-                                           (7, 128, 0)])
-def test_ids_matches_twin(cuda, dtype, beam, pe, n_sel):
+@pytest.mark.parametrize("beam,pe,n_sel,items,heads", [
+    (3, 24, 2, 6, 2), (5, 40, 1, 6, 2), (7, 128, 3, 6, 2),
+    (7, 128, 0, 6, 2), (5, 33, 4, 6, 2),
+    # beam 12 and 20: two and four 8-wide n-tiles in bf16
+    (12, 24, 3, 6, 2), (20, 24, 2, 6, 2),
+    # beam 40: two bf16 blocks (32 and 8 branches) per (item, head)
+    (40, 20, 2, 6, 2),
+    # 80 items x 8 heads: more blocks than the SMs hold at once
+    (7, 128, 80, 96, 8)])
+def test_ids_matches_twin(cuda, dtype, beam, pe, n_sel, items, heads):
     # beam 7 x p_eff 128 is 896 (slot, position) rows: more than one block
-    # could stage at once, in f32 above all, so the kernel tiles them
-    items, p, d, heads = 6, 136, 128, 2
+    # could stage at once, in f32 above all, so the kernels tile them; a
+    # few items spread each (item, head) over a cluster of bf16 blocks (3
+    # items: four blocks take 3, 4, 3 and 4 of the 14 tiles); beam 5 x
+    # p_eff 33 is 165 rows, a ragged last tile
+    p, d = 136, 64 * heads
     g = torch.Generator(cuda).manual_seed(4)
     s = canon_state(items=items, beam=beam, p=p, c=16, pe=pe, d=d,
                     dtype=dtype, generator=g, stragglers=range(1, items, 2))
     args = (s["q"], s["ck"], s["cv"], s["bias"])
-    ids = torch.tensor([4, 1, 5, 0, 2, 3], dtype=torch.int32, device=cuda)
+    ids = torch.randperm(items, generator=g, device=cuda).to(torch.int32)
     kw = dict(beam=beam, n_heads=heads, p_eff=pe)
     got = A.ancestry_attention_ids(*args, ids, n_sel, **kw)
     want = A.ancestry_attention_ids_plain(*args, ids, n_sel, **kw)
@@ -282,9 +316,12 @@ def _attention_inputs(cuda, dtype, seed, items, beam, p, d, pos):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("impl,p_eff,beam,p", [
     ("native4d", None, 3, 24), ("native4d", 16, 3, 24),
-    ("grouped", 16, 3, 24), ("blockdiag", None, 7, 136)])
+    ("grouped", 16, 3, 24), ("native4d", 32, 5, 40),
+    ("grouped", None, 7, 136), ("blockdiag", None, 7, 136),
+    ("native4d", None, 36, 16)])
 def test_ancestry_attention_matches_twin(cuda, dtype, impl, p_eff, beam, p):
-    # beam 7 x P 136 is 952 (slot, position) rows: staged in tiles
+    # beam 7 x P 136 is 952 (slot, position) rows: staged in tiles (the
+    # grouped and blockdiag layouts read all P, whatever p_eff says)
     q, ck, cv, _, _, bias = _attention_inputs(cuda, dtype, 9, 5, beam, p,
                                               128, 13)
     kw = dict(beam=beam, n_heads=4, impl=impl, p_eff=p_eff)
