@@ -9,7 +9,9 @@ held against their plain PyTorch twins at that path's shapes:
   K3);
 * char: the same widths at V=128, beam 7, len 128, top_k 50, temperature
   1.1, EOS bias 1.0, batch 768 (K1, K2, K3 for the first draw, K4, K5, K6;
-  early-EOS compaction and canonical-prefix attention on by default).
+  early-EOS compaction and canonical-prefix attention on by default). K1
+  is also held against its twin at the char length with canon off
+  (p_eff 128), in bf16 and f32, and at head_dim 24 (its CUDA-core kernel).
 
 Each path also runs with the two kernel-selecting switches:
 DH_FUSED_SURVIVOR=1 (the survivor update in K10) and DH_CROSS_PACK=4
@@ -32,13 +34,14 @@ times on every leg.
 
 Weights are random from a seed. For each model it checks greedy f32
 generation through the kernels (for CaptioningTransformer also with both
-switches) against the plain path on the CPU, then runs each leg once with
+switches, and char also with canon off) against the plain path on the
+CPU, then runs each leg once with
 every launch count at zero and fails if one of its kernels was not
 launched or one off its leg was. word_fused and base_fused must give
 their default legs' sequences and scores exactly. After the char leg, K6
 is held against its twin and timed at each straggler count that leg
 showed (K5 and K6 are timed with the device queued). torch.profiler tables
-(kernel time by name, the device's idle share) follow the base,
+(kernel time by name, the device's idle share) follow the word, base,
 base_fused and lstm legs, and end the char path: one more call without
 and one with both switches.
 
@@ -76,6 +79,7 @@ C_EOS_BIAS, C_TEMP = 1.0, 1.1
 C_GREEDY_EOS_BIASES = (0.0, 0.25, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
 C_ROWS, C_P = C_BATCH * C_BEAM, 136  # 129 positions, padded to 8
 TOL = 2e-2  # bf16 kernel vs twin: one bf16 rounding of each output
+TOL_F32 = 1e-5  # f32 kernel vs twin: the summation order only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SPIN_CYCLES = 50_000_000  # ~25 ms of the device's clock: outlasts an enqueue
@@ -195,16 +199,16 @@ def k1_bytes(live, beam, pe, elt):
 
 
 def check_k1(A, dev, gen, *, items, beam, p, pes, dt, live_items=None,
-             label="K1"):
-    """K1 vs twin for each p_eff; caches bit-equal. Returns the last
-    p_eff's measurements."""
+             label="K1", d=HID, heads=HEADS, timed=True):
+    """K1 vs twin for each p_eff; caches bit-equal, rows past live_items
+    zero. Returns the last p_eff's measurements (with ``timed``)."""
     rows = items * beam
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)  # noqa
-    ck, cv = rnd(rows, p, HID), rnd(rows, p, HID)
+    ck, cv = rnd(rows, p, d), rnd(rows, p, d)
     err = 0.0
     for pe in pes:
         pos = pe - 1
-        q, kn, vn = rnd(rows, HID), rnd(rows, HID), rnd(rows, HID)
+        q, kn, vn = rnd(rows, d), rnd(rows, d), rnd(rows, d)
         anc = torch.randint(0, beam, (items, beam, p), generator=gen,
                             device=dev)
         valid = torch.rand(rows, p, generator=gen, device=dev) < 0.8
@@ -212,7 +216,7 @@ def check_k1(A, dev, gen, *, items, beam, p, pes, dt, live_items=None,
         valid[:, 0] = valid[:, pos] = True
         bias = A.ancestry_bias(anc, valid, p)
         caches = [(ck.clone(), cv.clone()) for _ in range(2)]
-        kw = dict(beam=beam, n_heads=HEADS, p_eff=pe, live_items=live_items)
+        kw = dict(beam=beam, n_heads=heads, p_eff=pe, live_items=live_items)
         got = A.ancestry_attention_update(q, *caches[0], kn, vn, bias, pos,
                                           **kw)
         want = A.ancestry_attention_update_plain(q, *caches[1], kn, vn,
@@ -221,11 +225,17 @@ def check_k1(A, dev, gen, *, items, beam, p, pes, dt, live_items=None,
         if not (torch.equal(caches[0][0], caches[1][0])
                 and torch.equal(caches[0][1], caches[1][1])):
             raise AssertionError(f"{label} p_eff={pe}: written caches differ")
-        torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+        tol = TOL if dt == torch.bfloat16 else TOL_F32
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        if live_items is not None and got[live_items * beam:].any():
+            raise AssertionError(f"{label}: rows past live_items are not 0")
         e = (got.float() - want.float()).abs().max().item()
         err = max(err, e)
-        log(f"  {label} p_eff={pe} live_items={live_items}: caches "
-            f"bit-equal, max|out-twin|={e:.3e} (atol=rtol={TOL})")
+        log(f"  {label} {str(dt)[6:]} head_dim {d // heads} p_eff={pe} "
+            f"live_items={live_items}: caches bit-equal, max|out-twin|="
+            f"{e:.3e} (atol=rtol={tol})")
+    if not timed:
+        return None
     k, v = caches[0]
     ms = cuda_ms(lambda: A.ancestry_attention_update(
         q, k, v, kn, vn, bias, pos, **kw))
@@ -270,10 +280,10 @@ def check_k7(A, dev, gen, *, items, beam, p, cases, label):
     return dict(row, max_abs_err=err)
 
 
-def check_k8(A, dev, gen, *, items, beam, p, positions, k1_pe, label):
+def check_k8(A, dev, gen, *, items, beam, p, positions, label):
     """K8 vs its twin at each decode position (written caches bit-equal),
-    timed beside K1 at the same read length where K1 can stage it;
-    returns the last position's measurements."""
+    timed beside K1 at the same read length; returns the last position's
+    measurements."""
     dt = torch.bfloat16
     err = 0.0
     for pos in positions:
@@ -296,14 +306,11 @@ def check_k8(A, dev, gen, *, items, beam, p, positions, k1_pe, label):
         ms = cuda_ms(lambda: A.ancestry_attention_update_flash(
             q, k, v, kn, vn, bias, pos, **kw))
         pe = 8 * (pos // 8 + 1)
-        k1 = "K1 cannot stage these rows"
-        if pe <= k1_pe:
-            k1_ms = cuda_ms(lambda: A.ancestry_attention_update(
-                q, k, v, kn, vn, bias, pos, p_eff=pe, **kw))
-            k1 = f"K1 at p_eff {pe}: {k1_ms:.4f} ms"
+        k1_ms = cuda_ms(lambda: A.ancestry_attention_update(
+            q, k, v, kn, vn, bias, pos, p_eff=pe, **kw))
         log(f"  {label} pos={pos} (tiles through p_eff {pe}): caches "
             f"bit-equal, max|out-twin|={e:.3e} (atol=rtol={TOL}), "
-            f"{ms:.4f} ms; {k1}")
+            f"{ms:.4f} ms; K1 at p_eff {pe}: {k1_ms:.4f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=cuda_ms(
         lambda: A.ancestry_attention_update_flash_plain(
             q, k, v, kn, vn, bias, pos, **kw), iters=3),
@@ -508,6 +515,21 @@ def check_k3(S, dev, gen, *, rows, vocab, top_k, draws, inv_t, label):
                                                      **kw)
     check_draws(ids, ids_p, logits, top_k, label)
     err = (vals - vals_p).abs().max().item()
+    # half the rows live: those draw what they drew, the others id 0, value 0
+    half = rows // 2
+    ids_h, vals_h = S.fused_topk_gumbel_sample(logits, 12345, inv_t,
+                                               live_rows=half, **kw)
+    ids_hp, vals_hp = S.fused_topk_gumbel_sample_plain(
+        logits, 12345, inv_t, live_rows=half, **kw)
+    check_draws(ids_h[:half], ids_hp[:half], logits[:half], top_k,
+                f"{label} live_rows={half}")
+    if ids_h[half:].any() or vals_h[half:].any() or ids_hp[half:].any():
+        raise AssertionError(f"{label}: rows past live_rows are not 0")
+    if not (torch.equal(ids_h[:half], ids[:half])
+            and torch.equal(vals_h[:half], vals[:half])):
+        raise AssertionError(f"{label}: live rows differ from the full call")
+    log(f"  {label} live_rows={half}: live rows equal to the full call's, "
+        f"the rest 0")
     ms = cuda_ms(lambda: S.fused_topk_gumbel_sample(logits, 7, inv_t, **kw))
     plain_ms = cuda_ms(lambda: S.fused_topk_gumbel_sample_plain(
         logits, 7, inv_t, **kw), iters=2, warmup=1)
@@ -740,7 +762,8 @@ def check_greedy(CaptioningTransformer, tree_map, _build, dev, char):
     switches (K9 and K10 then launch), vs the plain path on the CPU
     without switches at the serving widths (char: 32 items at several
     feature scales, compaction and canon on by the defaults, many items
-    retired early, and the same boundaries on all three)."""
+    retired early, and the same boundaries on all three; then once more
+    on the card with canon off)."""
     model, params = make_model(CaptioningTransformer, "float32", dev, char)
     n = 32 if char else 64
     enc = features(n, dev, 1)
@@ -776,6 +799,26 @@ def check_greedy(CaptioningTransformer, tree_map, _build, dev, char):
         if char and g["boundaries"] != want["boundaries"]:
             raise AssertionError(f"greedy char, {label}: boundaries differ "
                                  f"from the CPU path's")
+    if not char:
+        return
+    # canon off: K1 reads every per-slot row, through p_eff 128. Canon
+    # changes no greedy token (K5 + K6 attend over the same rows as K1), so
+    # the CPU plain path's tokens above are the reference, and the
+    # compaction boundaries must be its
+    _build.reset_launch_counts()
+    got = model.generate_from_emb(params, enc, greedy=True, canon=False, **kw)
+    k1, k5 = (_build.LAUNCHES[k] for k in ("ancestry_attention_update",
+                                            "ancestry_attention_update_canon"))
+    same = (got["chosen"].cpu() == want["chosen"]).all(dim=1).float().mean()
+    compactions = [[(pe, live) for pe, live, _ in marks(o) if live is not None]
+                   for o in (got, want)]
+    log(f"  greedy f32, {n} items, canon off (K1 {k1}, K5 {k5} launches): "
+        f"kernel path == CPU plain path on {same.item():.4f} of items (>= "
+        f"0.99); compactions (p_eff, live) {compactions[0]}; (CPU) "
+        f"{compactions[1]}")
+    if k5 or not k1 or same < 0.99 or compactions[0] != compactions[1]:
+        raise AssertionError("greedy char, canon off: disagrees with the "
+                             "plain path or ran canon")
 
 
 def make_lstm(cls, dtype, dev):
@@ -962,7 +1005,7 @@ def main():
     log(f"    K8 rows {ROWS}, P {P}, pos 7, 39, 31, beside K1")
     rows["ancestry_attention_update_flash"] = check_k8(
         A, dev, gen, items=BATCH, beam=BEAM, p=P, positions=(7, 39, 31),
-        k1_pe=P, label="K8")
+        label="K8")
     log(f"    K11 rows {ROWS}, P {P}, D {HID}")
     rows["cache_column_write"] = check_k11(C, dev, gen, rows=ROWS, p=P,
                                            positions=(0, 17, 39), label="K11")
@@ -988,6 +1031,7 @@ def main():
     out, legs["word"] = drive(model, params, enc, _build, kw, name_limit,
                               "word", word_kernels)
     check_output(out, BATCH, VOCAB, BEAM, MAX_LEN)
+    profile_call(model, params, enc, kw, name_limit, "word", 12)
     fused, legs["word_fused"] = drive(
         model, params, enc, _build, kw, name_limit, "word_fused",
         word_kernels + ("fused_survivor_update",), fused=True)
@@ -1083,17 +1127,26 @@ def main():
     char_k3 = check_k3(S, dev, gen, rows=C_BATCH, vocab=C_VOCAB,
                        top_k=C_TOP_K, draws=C_BEAM, inv_t=1 / C_TEMP,
                        label="K3 char")
-    log("    K1/K2 at the char shapes, all items live and 500 live")
+    log("    K1/K2 at the char shapes, all items live and 500 live; K1 to "
+        "p_eff 128 (canon off) in bf16 and f32, and at head_dim 24")
     for live in (None, 500):
         char_k1 = check_k1(A, dev, gen, items=C_BATCH, beam=C_BEAM, p=C_P,
-                           pes=(40,), dt=torch.bfloat16, live_items=live,
+                           pes=(40, 128), dt=torch.bfloat16, live_items=live,
                            label="K1 char")
+        check_k1(A, dev, gen, items=C_BATCH, beam=C_BEAM, p=C_P, pes=(128,),
+                 dt=torch.float32, live_items=live, label="K1 char",
+                 timed=False)
         char_k2 = check_k2(A, dev, gen, items=C_BATCH, beam=C_BEAM,
                            live_items=live)
-        for name, r in (("K1 (p_eff 40)", char_k1), ("K2", char_k2)):
+        for name, r in (("K1 (p_eff 128)", char_k1), ("K2", char_k2)):
             log(f"    {name} at the char shape, live items {live}: "
                 f"{r['ms']:.4f} ms (twin {r['plain_ms']:.4f} ms, SDPA "
                 f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms)")
+        if live is None:
+            rows["ancestry_attention_update"]["ms_char_pe128"] = char_k1["ms"]
+    # head_dim 24: bf16 off the tensor cores, on the CUDA-core kernel
+    check_k1(A, dev, gen, items=C_BATCH, beam=C_BEAM, p=C_P, pes=(128,),
+             dt=torch.bfloat16, label="K1 char", d=24 * HEADS, timed=False)
     log(f"    K3 at the char shape: {char_k3['ms']:.4f} ms (twin "
         f"{char_k3['plain_ms']:.4f} ms, bound {char_k3['bound_ms']:.4f} ms)")
     log("    K9 and K10 at the char shapes, all items live and 500 live")
@@ -1112,7 +1165,7 @@ def main():
                        cases=(("native4d", 128), ("grouped", None)),
                        label="K7 char")
     char_k8 = check_k8(A, dev, gen, items=C_BATCH, beam=C_BEAM, p=C_P,
-                       positions=(127,), k1_pe=0, label="K8 char")
+                       positions=(127,), label="K8 char")
     char_k11 = check_k11(C, dev, gen, rows=C_ROWS, p=C_P,
                          positions=(0, 64, 127), label="K11 char")
     for name, r in (("K7 (native4d, p_eff 128)", char_k7),
@@ -1195,8 +1248,10 @@ def main():
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            # K5 at its second canon shape; K6 at the leg's straggler counts
-            **{k: row[k] for k in ("ms_pe128", "ms_leg") if k in row}})
+            # K5 at its second canon shape; K6 at the leg's straggler
+            # counts; K1 at the char shape, p_eff 128
+            **{k: row[k] for k in ("ms_pe128", "ms_leg", "ms_char_pe128")
+               if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {name_limit}")
     print(json.dumps({"ok": True, "device": {

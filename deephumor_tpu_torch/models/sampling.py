@@ -76,14 +76,13 @@ def _topk_space_draw(gen, logits, top_k, k, inv_t, greedy, unk_index,
     """One vocab-wide top-k selection, then the k-token draw in the
     reduced space. Returns (token ids ``[..., k]``, scores ``[..., k]``).
 
-    ``sampler="pallas"`` (stochastic only) runs the sampler kernels. With
-    ``classifier``, ``logits`` is the pre-classifier hidden state: up to
-    ``FUSED_CLASSIFIER_MAX_V`` the K4 kernel
-    (ops.fused_classifier_topk_gumbel_sample) computes the classifier
-    inside the draw and skips rows at or past ``live_rows``; above it the
-    classifier is a plain bf16 matmul before K3
-    (ops.fused_topk_gumbel_sample). ``"exact"`` (and greedy) sorts the f32
-    logits."""
+    ``sampler="pallas"`` (stochastic only) runs the sampler kernels, which
+    skip rows at or past ``live_rows``. With ``classifier``, ``logits`` is
+    the pre-classifier hidden state: up to ``FUSED_CLASSIFIER_MAX_V`` the K4
+    kernel (ops.fused_classifier_topk_gumbel_sample) computes the
+    classifier inside the draw; above it the classifier is a plain bf16
+    matmul before K3 (ops.fused_topk_gumbel_sample). ``"exact"`` (and
+    greedy) sorts the f32 logits."""
     if sampler == "pallas" and not greedy:
         if classifier is not None and (
                 classifier[0].shape[0] <= FUSED_CLASSIFIER_MAX_V):
@@ -99,7 +98,7 @@ def _topk_space_draw(gen, logits, top_k, k, inv_t, greedy, unk_index,
                                                 b.to(bf))
         tokens, vals = fused_topk_gumbel_sample(
             logits, seed, inv_t, top_k=top_k, num_draws=k,
-            unk_index=unk_index)
+            unk_index=unk_index, live_rows=live_rows)
         return tokens, _log_softmax_scores(vals)
 
     vals, idx = _top_k(logits.float(), top_k)

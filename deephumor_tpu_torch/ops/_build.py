@@ -27,8 +27,8 @@ import subprocess
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "library", "check",
            "BUILD_DIR", "dtype_code", "on_kernel_device",
-           "check_vector_rows", "check_mma_tiles", "live_count",
-           "stream_of"]
+           "check_vector_rows", "check_mma_tiles", "check_smem",
+           "smem_need", "live_count", "stream_of"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parents[2] / "build" / "deephumor_tpu_torch"
@@ -59,7 +59,8 @@ _SIGNATURES = {
     # inv_scale, stream
     "dh_grouped_cross_attention":
         [_I, *[_P] * 5, *[_I] * 6, _F, _P],
-    # dtype, logits, ids, rows, V, top_k, num_draws, unk, seed, invT, stream
+    # dtype, logits, ids, live_rows, V, top_k, num_draws, unk, seed, invT,
+    # stream
     "dh_topk_gumbel_sample":
         [_I, _P, _P, _I, _I, _I, _I, _I, _U, _F, _P],
     # x, w, b, ids, vals, rows, live_rows, V, D, top_k, num_draws, unk,
@@ -95,6 +96,15 @@ _SIGNATURES = {
     # pos, stream
     "dh_cache_column_write":
         [_I, _I, *[_P] * 4, *[_I] * 4, _P],
+}
+# entry points that return a size, not an error
+_SIZES = {
+    # dtype, items, beam, p_eff, D, H -> bytes of dynamic shared memory
+    "dh_ancestry_attention_update_smem": ([_I] * 6, ctypes.c_longlong),
+    # dtype, beam, D, H -> bytes of dynamic shared memory
+    "dh_ancestry_attention_update_flash_smem": ([_I] * 4, ctypes.c_longlong),
+    # device -> the opt-in limit of a block's dynamic shared memory
+    "dh_smem_optin": ([_I], ctypes.c_int),
 }
 
 def reset_launch_counts():
@@ -140,6 +150,10 @@ def library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, (argtypes, restype) in _SIZES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     lib.dh_error_string.argtypes = [_I]
     lib.dh_error_string.restype = ctypes.c_char_p
     return lib
@@ -215,6 +229,29 @@ def check_mma_tiles(name, head_dim, t):
     if t.dtype == torch.bfloat16 and (head_dim % 16 or head_dim > 256):
         raise ValueError(f"{name}: head_dim {head_dim} in bfloat16 is not a "
                          f"multiple of 16 up to 256")
+
+
+@functools.lru_cache(maxsize=None)
+def smem_need(entry, *shape):
+    """The dynamic shared memory (bytes) that a block of the kernel behind
+    the C entry point ``entry`` needs at ``shape``, as that entry point's
+    launcher computes it."""
+    return getattr(library(), entry)(*shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(device_index):
+    return library().dh_smem_optin(device_index)
+
+
+def check_smem(name, need, t):
+    """Raises ValueError, before any launch, when a block needs more
+    dynamic shared memory than the card of ``t`` lets one block take."""
+    limit = _smem_optin(t.device.index)
+    if need > limit:
+        raise ValueError(f"{name}: a block needs {need} bytes of shared "
+                         f"memory at this shape, above the card's limit of "
+                         f"{limit} bytes a block")
 
 
 def live_count(n, live):

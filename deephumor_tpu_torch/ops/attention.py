@@ -198,6 +198,12 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
 
     Returns:
         attention output ``[B*beam, D]`` (before the output projection).
+
+    On the card, bf16 at a head_dim that is a multiple of 16 up to 256 runs
+    the tensor-core kernel; f32 and any other head_dim run the CUDA-core
+    kernel. Only the f32 energies grow with ``p_eff``; a shape whose block
+    would need more shared memory than the card has raises ``ValueError``
+    before the launch.
     """
     name = "ancestry_attention_update"
     _check_update(q, cache_k, cache_v, k_new, v_new, bias, pos, beam,
@@ -211,9 +217,13 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
     _build.check_vector_rows(name, d // n_heads, cache_k, cache_v, k_new,
                              v_new)
     pe = p if p_eff is None else min(p_eff, p)
+    code = _build.dtype_code(q, name)
+    _build.check_smem(name, _build.smem_need(
+        "dh_ancestry_attention_update_smem", code, rows // beam, beam, pe, d,
+        n_heads), q)
     out = torch.empty_like(q)
     err = _build.library().dh_ancestry_attention_update(
-        _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
+        code, q.data_ptr(), cache_k.data_ptr(),
         cache_v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         bias.data_ptr(), out.data_ptr(), rows // beam,
         _build.live_count(rows // beam, live_items), beam, p, pe, d, n_heads,
@@ -254,6 +264,13 @@ def ancestry_attention_update_flash(q, cache_k, cache_v, k_new, v_new, bias,
 
     Returns:
         attention output ``[B*beam, D]`` (before the output projection).
+
+    On the card, bf16 at a head_dim that is a multiple of 16 up to 256 runs
+    the one-pass tensor-core kernel, f32 and any other head_dim the
+    CUDA-core kernel; neither keeps energies past their tile, so shared
+    memory does not grow with ``pos``. The weights are rounded to the cache
+    dtype before they are normalised (the TPU kernel's order; the twin
+    normalises first, which differs by at most one rounding).
     """
     name = "ancestry_attention_update_flash"
     _check_update(q, cache_k, cache_v, k_new, v_new, bias, pos, beam,
@@ -269,9 +286,12 @@ def ancestry_attention_update_flash(q, cache_k, cache_v, k_new, v_new, bias,
             q, cache_k, cache_v, k_new, v_new, bias, pos, **kw)
     _build.check_vector_rows(name, d // n_heads, cache_k, cache_v, k_new,
                              v_new)
+    code = _build.dtype_code(q, name)
+    _build.check_smem(name, _build.smem_need(
+        "dh_ancestry_attention_update_flash_smem", code, beam, d, n_heads), q)
     out = torch.empty_like(q)
     err = _build.library().dh_ancestry_attention_update_flash(
-        _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
+        code, q.data_ptr(), cache_k.data_ptr(),
         cache_v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         bias.data_ptr(), out.data_ptr(), rows // beam, beam, p, d, n_heads,
         pos, 1.0 / math.sqrt(d // n_heads), _build.stream_of(q))

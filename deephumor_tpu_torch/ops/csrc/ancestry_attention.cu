@@ -7,132 +7,133 @@
 // (slot i, position p < p_eff) of its item, and an additive f32 bias
 // [items, beam, beam * P] (0 or -1e8, shared by all layers) selects the
 // ancestor slot per position and masks invalid positions. Softmax runs in
-// f32 over the flat (slot, position) axis; the weights are rounded to the
-// cache dtype before the AV product, as the TPU kernel does.
+// f32 over the flat (slot, position) axis; the weights are normalised and
+// then rounded to the cache dtype before the AV product, as the TPU kernel
+// does. The fresh column at `pos` is taken from k_new / v_new (never from
+// the cache row), so each block writes its slots' columns into the caches
+// in place before its reads; no block reads what another writes.
 //
-// Bound on the H100: bytes. At the serving shape (8960 rows, p_eff 32,
-// D 512, bf16) one launch reads ~587 MB of K + V; the arithmetic is
-// ~0.2 GFLOP. Design: one block per (item, head) owns the item's beam
-// slots in that head's columns, so the blocks partition the caches and
-// no block ever reads what another writes. The fresh column at `pos` is
-// taken from k_new / v_new (never from the cache row), and the block
-// writes it into the caches in place. The block first copies its K and V
-// tiles (beam * p_eff rows of head_dim) into shared memory with
-// coalesced loads, so each cache byte leaves device memory once; energies
-// and weights stay in shared memory too. wgmma / TMA staging is later
-// work.
+// Bound on the H100: bytes. At the word serving shape (8960 rows, p_eff
+// 32, D 512, bf16) one launch must move ~630 MB (K + V of 31 cached
+// positions 569 MB, q, k_new, v_new, the output and the two written
+// columns 55 MB, the biases 5.7 MB): 0.188 ms at 3.35 TB/s; the arithmetic
+// is ~0.2 GFLOP.
+//
+// bf16 (the serving dtype) at a head_dim of 16k up to 256: the tensor-core
+// body `attend` of attention_mma.cuh (ancestry_attention_update_mma_kernel
+// in a profile) over the beam * p_eff rows of one (item, head, chunk of
+// at most 32 branches), its rows named by `UpdateRows` (ancestry_update.cuh:
+// K7's rows with the column at `pos` tagged as a fresh row). K and V
+// stream through a ring of three 64-row cp.async tiles, both products run
+// as mma.sync on ldmatrix fragments, and only the f32 energies (7 x 900 x
+// 4 bytes at char p_eff 128) stay in shared memory, so the shared memory
+// of a block grows with the prefix by 4 bytes per (branch, row), not by
+// its rows of K and V (~57 KB a block at that shape). Heads vary fastest
+// in the grid, so an item's heads read its 1 KB rows together; a grid too
+// small to fill the card spreads each (item, head) over a cluster of 2-4
+// blocks.
+//
+// f32, and bf16 at any other head_dim: the two-pass CUDA-core body of
+// attention_simt.cuh (ancestry_attention_update_simt_kernel), exact f32
+// arithmetic, K and V staged 256 rows at a time. The launcher picks the
+// kernel by dtype and head_dim before any launch.
 //
 // Early-EOS compaction keeps the live items first: blocks of items at or
 // past `live` write zero output rows and neither read nor write the
 // caches (the TPU kernel shrinks its grid and leaves those rows stale).
 
-#include "common.cuh"
+#include "ancestry_update.cuh"
+#include "attention_mma.cuh"
+#include "attention_simt.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using bf16 = __nv_bfloat16;
+namespace ma = dh::mma_attn;
 
-// Row r = (slot r / pe, position r % pe) of one item's cache in one head's
-// columns, as 16-byte vectors; position `pos` comes from `fresh`.
-template <typename T>
-struct CacheRows {
-  const T* cache;
-  const T* fresh;
-  size_t row0;
-  int P, pe, D, col0, pos;
-  __device__ const uint4* operator()(int r) const {
-    const int i = r / pe, p = r % pe;
-    const T* base = p == pos ? fresh + (row0 + i) * D
-                             : cache + ((row0 + i) * P + p) * D;
-    return reinterpret_cast<const uint4*>(base + col0);
-  }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ancestry_attention_update_kernel(
-    const T* __restrict__ q, T* __restrict__ ck, T* __restrict__ cv,
-    const T* __restrict__ knew, const T* __restrict__ vnew,
-    const float* __restrict__ bias, T* __restrict__ out, int live, int beam,
-    int P, int pe, int D, int hd, int pos, float inv_scale) {
-  extern __shared__ __align__(16) uint32_t smem_w[];
-  const int n = beam * pe;                  // (slot, position) rows
-  const int wpr = hd * (int)sizeof(T) / 4;  // 4-byte words per row
-  const int ld = wpr + 1;  // odd row stride: row-parallel reads hit
-                           // distinct banks
-  uint32_t* ks = smem_w;                    // [n][ld]
-  uint32_t* vs = ks + n * ld;               // [n][ld]
-  float* qs = reinterpret_cast<float*>(vs + n * ld);  // [beam][hd]
-  float* e = qs + beam * hd;                // [beam][n]
-  const size_t row0 = (size_t)blockIdx.x * beam;
-  const int col0 = blockIdx.y * hd;
-  if ((int)blockIdx.x >= live) {
-    dh::zero_rows(out + row0 * D + col0, beam, hd, D);
+// Clusters of `cs` consecutive blocks share one (item, head, chunk of at
+// most kMaxBeam branches), heads varying fastest, then chunks.
+template <int NT>
+__global__ void __launch_bounds__(ma::kThreads)
+    ancestry_attention_update_mma_kernel(
+        const bf16* __restrict__ q, bf16* __restrict__ ck,
+        bf16* __restrict__ cv, const bf16* __restrict__ knew,
+        const bf16* __restrict__ vnew, const float* __restrict__ bias,
+        bf16* __restrict__ out, int live, int beam, int P, int pe, int D,
+        int hd, int pos, float inv_scale, int cs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  namespace cg = cooperative_groups;
+  const int H = D / hd, b = blockIdx.x / cs, col0 = b % H * hd;
+  const ma::Chunk<NT> ch(b, H, beam);
+  const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const size_t row0 = (size_t)ch.sel * beam, qrow0 = row0 + ch.j0;
+  if (ch.sel >= live) {  // the whole cluster returns
+    if (rank == 0) dh::zero_rows(out + qrow0 * D + col0, ch.nq, hd, D);
     return;
   }
-
-  // stage this (item, head)'s K/V rows; the fresh column comes from
-  // k_new / v_new
-  dh::stage_rows(ks, ld, n, wpr / 4,
-                 CacheRows<T>{ck, knew, row0, P, pe, D, col0, pos});
-  dh::stage_rows(vs, ld, n, wpr / 4,
-                 CacheRows<T>{cv, vnew, row0, P, pe, D, col0, pos});
-  for (int t = threadIdx.x; t < beam * hd; t += blockDim.x)
-    qs[t] = dh::to_f32(q[(row0 + t / hd) * D + col0 + t % hd]);
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < beam * n; t += blockDim.x) {
-    const int j = t / n, r = t % n, i = r / pe, p = r % pe;
-    const T* krow = reinterpret_cast<const T*>(ks + r * ld);
-    const float s = dh::dot(qs + j * hd, krow, hd) * inv_scale;
-    e[t] = s + bias[((row0 + j) * beam + i) * P + p];
-  }
-  __syncthreads();
-
-  for (int j = threadIdx.x >> 5; j < beam; j += blockDim.x >> 5)
-    dh::warp_softmax_round<T>(e + j * n, n);
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < beam * hd; t += blockDim.x) {
-    const int j = t / hd, d = t % hd;
-    const float* w = e + j * n;
-    float acc = 0.f;
-    for (int r = 0; r < n; ++r)
-      acc = fmaf(w[r], dh::to_f32(reinterpret_cast<const T*>(vs + r * ld)[d]),
-                 acc);
-    out[(row0 + j) * D + col0 + d] = dh::from_f32<T>(acc);
-  }
-
-  // the cache column at `pos` was never read above, so the write needs
-  // no barrier
-  for (int t = threadIdx.x; t < beam * hd; t += blockDim.x) {
-    const int i = t / hd, d = t % hd;
-    const size_t src = (row0 + i) * D + col0 + d;
-    const size_t dst = ((row0 + i) * P + pos) * D + col0 + d;
-    ck[dst] = knew[src];
-    cv[dst] = vnew[src];
-  }
+  // the cache column at `pos` is never read (it comes from k_new / v_new),
+  // so it is written first, its latency under the reads
+  dh::write_column(ck, cv, knew, vnew, qrow0, ch.nq, P, D, hd, col0, pos,
+                   rank, cs);
+  const dh::UpdateRows<bf16> rows{ck,    cv, knew, vnew, bias, row0, qrow0,
+                                  beam,  P,  pe,   D,    col0, pos};
+  ma::attend<NT>(rows, q + qrow0 * D + col0, D, out + qrow0 * D + col0, D,
+                 beam * pe, ch.nq, hd, inv_scale, cs, smem);
 }
 
 template <typename T>
-cudaError_t launch(const void* q, void* ck, void* cv, const void* kn,
-                   const void* vn, const void* bias, void* out, int items,
-                   int live, int beam, int P, int pe, int D, int H, int pos,
-                   float inv_scale, cudaStream_t stream) {
-  const int hd = D / H;
-  const size_t n = (size_t)beam * pe;
-  const size_t smem = 4 * (2 * n * (hd * sizeof(T) / 4 + 1) + beam * hd
-                           + beam * n);
-  auto kernel = ancestry_attention_update_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+__global__ void __launch_bounds__(dh::simt::kThreads)
+    ancestry_attention_update_simt_kernel(
+        const T* __restrict__ q, T* __restrict__ ck, T* __restrict__ cv,
+        const T* __restrict__ knew, const T* __restrict__ vnew,
+        const float* __restrict__ bias, T* __restrict__ out, int live,
+        int beam, int P, int pe, int D, int hd, int pos, float inv_scale) {
+  extern __shared__ __align__(16) uint32_t smem_w[];
+  const int H = D / hd, item = blockIdx.x / H, col0 = blockIdx.x % H * hd;
+  const size_t row0 = (size_t)item * beam;
+  if (item >= live) {
+    dh::zero_rows(out + row0 * D + col0, beam, hd, D);
+    return;
   }
-  kernel<<<dim3(items, H), kThreads, smem, stream>>>(
-      (const T*)q, (T*)ck, (T*)cv, (const T*)kn, (const T*)vn,
-      (const float*)bias, (T*)out, live, beam, P, pe, D, hd, pos,
-      inv_scale);
-  return cudaGetLastError();
+  dh::write_column(ck, cv, knew, vnew, row0, beam, P, D, hd, col0, pos);
+  const dh::UpdateRows<T> rows{ck,   cv, knew, vnew, bias, row0, row0,
+                               beam, P,  pe,   D,    col0, pos};
+  dh::simt::attend<T>(rows, q + row0 * D + col0, D, out + row0 * D + col0, D,
+                      beam * pe, beam, hd, inv_scale, smem_w);
+}
+
+bool use_mma(int dtype, int hd) {
+  return dtype == dh::kBFloat16 && ma::takes(hd);
+}
+
+// The blocks (heads fastest) and cluster size of the tensor-core kernel.
+void mma_grid(int items, int beam, int pe, int H, int* blocks, int* cs) {
+  *blocks = items * H * ma::beam_chunks(beam);
+  *cs = ma::cluster_size(*blocks, beam * pe);
+}
+
+size_t smem_bytes(int dtype, int items, int beam, int pe, int D, int H) {
+  const int hd = D / H;
+  if (!use_mma(dtype, hd))
+    return dh::simt::smem_bytes(beam * pe, beam, hd,
+                                dtype == dh::kBFloat16 ? 2 : 4);
+  int blocks, cs;
+  mma_grid(items, beam, pe, H, &blocks, &cs);
+  return ma::smem_bytes(beam * pe, cs, ma::chunk_beam(beam), hd,
+                        ma::n_tiles(beam));
+}
+
+template <typename T>
+cudaError_t launch_simt(const void* q, void* ck, void* cv, const void* kn,
+                        const void* vn, const void* bias, void* out,
+                        int items, int live, int beam, int P, int pe, int D,
+                        int H, int pos, float inv_scale, cudaStream_t stream) {
+  const int hd = D / H;
+  return ma::launch<&ancestry_attention_update_simt_kernel<T>,
+                    dh::simt::kThreads>(
+      items * H, 1, dh::simt::smem_bytes(beam * pe, beam, hd, sizeof(T)),
+      stream, (const T*)q, (T*)ck, (T*)cv, (const T*)kn, (const T*)vn,
+      (const float*)bias, (T*)out, live, beam, P, pe, D, hd, pos, inv_scale);
 }
 
 }  // namespace
@@ -143,9 +144,32 @@ extern "C" int dh_ancestry_attention_update(
     int beam, int P, int pe, int D, int H, int pos, float inv_scale,
     void* stream) {
   auto s = (cudaStream_t)stream;
-  if (dtype == dh::kBFloat16)
-    return launch<__nv_bfloat16>(q, ck, cv, kn, vn, bias, out, items, live,
-                                 beam, P, pe, D, H, pos, inv_scale, s);
-  return launch<float>(q, ck, cv, kn, vn, bias, out, items, live, beam, P,
-                       pe, D, H, pos, inv_scale, s);
+  if ((size_t)items * beam * P >= dh::kFresh) return cudaErrorInvalidValue;
+  if (!use_mma(dtype, D / H)) {
+    if (dtype == dh::kBFloat16)
+      return launch_simt<bf16>(q, ck, cv, kn, vn, bias, out, items, live,
+                               beam, P, pe, D, H, pos, inv_scale, s);
+    return launch_simt<float>(q, ck, cv, kn, vn, bias, out, items, live, beam,
+                              P, pe, D, H, pos, inv_scale, s);
+  }
+  return ma::dispatch(beam, D / H, [&](auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    int blocks, cs;
+    mma_grid(items, beam, pe, H, &blocks, &cs);
+    return ma::launch<&ancestry_attention_update_mma_kernel<NT>>(
+        blocks * cs, cs,
+        ma::smem_bytes(beam * pe, cs, ma::chunk_beam(beam), D / H, NT), s,
+        (const bf16*)q, (bf16*)ck, (bf16*)cv, (const bf16*)kn,
+        (const bf16*)vn, (const float*)bias, (bf16*)out, live, beam, P, pe,
+        D, D / H, pos, inv_scale, cs);
+  });
+}
+
+// The dynamic shared memory a block of dh_ancestry_attention_update needs
+// at this shape (the wrapper compares it with the card's opt-in limit
+// before the launch).
+extern "C" long long dh_ancestry_attention_update_smem(int dtype, int items,
+                                                       int beam, int pe,
+                                                       int D, int H) {
+  return (long long)smem_bytes(dtype, items, beam, pe, D, H);
 }

@@ -48,8 +48,8 @@
 // support in shared memory at an odd word stride and computes each energy
 // and output element as a scalar loop.
 
+#include "ancestry_update.cuh"
 #include "attention_mma.cuh"
-#include "common.cuh"
 
 namespace {
 
@@ -90,21 +90,6 @@ struct CanonSupport {
   }
 };
 
-// Writes the block's slots' columns at `pos` from k_new / v_new.
-template <typename T>
-__device__ __forceinline__ void write_column(T* ck, T* cv, const T* knew,
-                                             const T* vnew, size_t row0,
-                                             int beam, int P, int D, int hd,
-                                             int col0, int pos) {
-  for (int t = threadIdx.x; t < beam * hd; t += blockDim.x) {
-    const int i = t / hd, d = t % hd;
-    const size_t src = (row0 + i) * D + col0 + d;
-    const size_t dst = ((row0 + i) * P + pos) * D + col0 + d;
-    ck[dst] = knew[src];
-    cv[dst] = vnew[src];
-  }
-}
-
 template <int NT>
 __global__ void __launch_bounds__(dh::mma_attn::kThreads)
     canon_attention_mma_kernel(
@@ -133,7 +118,7 @@ __global__ void __launch_bounds__(dh::mma_attn::kThreads)
                            out + qrow0 * D + col0, D, c + beam * w, nq, hd,
                            inv_scale, 1, smem);
   // the cache column at `pos` was never read (it came from k_new / v_new)
-  write_column(ck, cv, knew, vnew, qrow0, nq, P, D, hd, col0, pos);
+  dh::write_column(ck, cv, knew, vnew, qrow0, nq, P, D, hd, col0, pos);
 }
 
 __global__ void __launch_bounds__(kThreads) canon_attention_f32_kernel(
@@ -193,7 +178,7 @@ __global__ void __launch_bounds__(kThreads) canon_attention_f32_kernel(
   }
   // the cache column at `pos` was never read above, so the write needs no
   // barrier
-  write_column(ck, cv, knew, vnew, row0, beam, P, D, hd, col0, pos);
+  dh::write_column(ck, cv, knew, vnew, row0, beam, P, D, hd, col0, pos);
 }
 
 template <int NT>

@@ -38,22 +38,16 @@
 // their partial outputs. K7's grids fill the card and keep one block per (item,
 // head).
 //
-// f32: exact f32 arithmetic on the CUDA cores (TF32 tensor cores would
-// round q and K to 10 bits). The rows cannot all be staged (beam 7 x
-// p_eff 128 in f32 is ~460 KB), so the positions are tiled in two passes:
-// pass 1 stages K a tile of rows at a time and leaves every energy in
-// shared memory; one softmax per branch follows; pass 2 stages V tile by
-// tile and each thread adds its own (branch, column) sums in shared
-// memory.
+// f32: the two-pass CUDA-core body of attention_simt.cuh
+// (ancestry_attention_f32_kernel): exact f32 arithmetic, K and V staged 256
+// rows at a time, every energy in shared memory.
 
 #include "attention_mma.cuh"
-#include "common.cuh"
+#include "attention_simt.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 256;  // the f32 kernel's block
-constexpr int kTileRows = 256;
 
 // Row r of one item's (slot, position) rows in one head's columns: slot
 // i = r / pe, position r % pe; its code is its row (row0 + i) * P + r % pe
@@ -108,68 +102,22 @@ __global__ void __launch_bounds__(dh::mma_attn::kThreads)
                            inv_scale, cs, smem);
 }
 
-__global__ void __launch_bounds__(kThreads) ancestry_attention_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ ck,
-    const float* __restrict__ cv, const float* __restrict__ bias,
-    const int* __restrict__ ids, float* __restrict__ out, int items,
-    int beam, int P, int pe, int D, int hd, int tile, float inv_scale) {
+__global__ void __launch_bounds__(dh::simt::kThreads)
+    ancestry_attention_f32_kernel(
+        const float* __restrict__ q, const float* __restrict__ ck,
+        const float* __restrict__ cv, const float* __restrict__ bias,
+        const int* __restrict__ ids, float* __restrict__ out, int items,
+        int beam, int P, int pe, int D, int hd, float inv_scale) {
   extern __shared__ __align__(16) uint32_t smem_w[];
-  const int n = beam * pe;
-  const int ld = hd + 1;  // odd: conflict-free columns
-  uint32_t* ts = smem_w;                                   // [tile][ld]
-  float* qs = reinterpret_cast<float*>(ts + tile * ld);    // [beam][hd]
-  float* acc = qs + beam * hd;                             // [beam][hd]
-  float* e = acc + beam * hd;                              // [beam][n]
   const int item = block_item(ids, D / hd);
   if (item < 0 || item >= items) return;
   const size_t row0 = (size_t)item * beam;
   const int col0 = blockIdx.x % (D / hd) * hd;
   const CacheRows<float> rows{ck,   cv, bias, row0, row0,
                               beam, P,  pe,   D,    col0};
-
-  for (int t = threadIdx.x; t < beam * hd; t += blockDim.x) {
-    qs[t] = q[(row0 + t / hd) * D + col0 + t % hd];
-    acc[t] = 0.f;
-  }
-  for (int r0 = 0; r0 < n; r0 += tile) {
-    const int nt = min(tile, n - r0);
-    __syncthreads();  // the previous tile is consumed; q is staged
-    dh::stage_rows(ts, ld, nt, hd / 4, [&](int r) {
-      return reinterpret_cast<const uint4*>(rows.k(rows.index(r0 + r)));
-    });
-    __syncthreads();
-    for (int t = threadIdx.x; t < beam * nt; t += blockDim.x) {
-      const int j = t / nt, r = r0 + t % nt;
-      const float* krow = reinterpret_cast<const float*>(ts + (t % nt) * ld);
-      e[j * n + r] =
-          dh::dot(qs + j * hd, krow, hd) * inv_scale
-          + *rows.bias(j, r, rows.index(r));
-    }
-  }
-  __syncthreads();
-
-  for (int j = threadIdx.x >> 5; j < beam; j += blockDim.x >> 5)
-    dh::warp_softmax_round<float>(e + j * n, n);
-
-  for (int r0 = 0; r0 < n; r0 += tile) {
-    const int nt = min(tile, n - r0);
-    __syncthreads();  // weights are final; the previous tile is consumed
-    dh::stage_rows(ts, ld, nt, hd / 4, [&](int r) {
-      return reinterpret_cast<const uint4*>(rows.v(rows.index(r0 + r)));
-    });
-    __syncthreads();
-    for (int t = threadIdx.x; t < beam * hd; t += blockDim.x) {
-      const int j = t / hd, d = t % hd;
-      const float* wt = e + j * n + r0;
-      float a = acc[t];
-      for (int r = 0; r < nt; ++r)
-        a = fmaf(wt[r], reinterpret_cast<const float*>(ts + r * ld)[d], a);
-      acc[t] = a;
-    }
-  }
-  // each thread wrote only its own acc entries
-  for (int t = threadIdx.x; t < beam * hd; t += blockDim.x)
-    out[(row0 + t / hd) * D + col0 + t % hd] = acc[t];
+  dh::simt::attend<float>(rows, q + row0 * D + col0, D,
+                          out + row0 * D + col0, D, beam * pe, beam, hd,
+                          inv_scale, smem_w);
 }
 
 template <int NT>
@@ -192,21 +140,13 @@ cudaError_t launch_f32(const void* q, const void* ck, const void* cv,
                        const void* bias, const void* ids, void* out,
                        int items, int n_sel, int beam, int P, int pe, int D,
                        int H, float inv_scale, cudaStream_t stream) {
-  const int hd = D / H, n = beam * pe;
-  const int tile = n < kTileRows ? n : kTileRows;
-  const size_t smem = 4 * ((size_t)tile * (hd + 1) + 2 * (size_t)beam * hd
-                           + (size_t)beam * n);
-  auto kernel = ancestry_attention_f32_kernel;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<n_sel * H, kThreads, smem, stream>>>(
+  const int hd = D / H;
+  return dh::mma_attn::launch<&ancestry_attention_f32_kernel,
+                              dh::simt::kThreads>(
+      n_sel * H, 1, dh::simt::smem_bytes(beam * pe, beam, hd, 4), stream,
       (const float*)q, (const float*)ck, (const float*)cv,
       (const float*)bias, (const int*)ids, (float*)out, items, beam, P, pe,
-      D, hd, tile, inv_scale);
-  return cudaGetLastError();
+      D, hd, inv_scale);
 }
 
 // bf16 through the tensor-core kernel (n-tiles by beam), f32 through the
@@ -216,10 +156,10 @@ int launch(int dtype, const void* q, const void* ck, const void* cv,
            int n_sel, int beam, int P, int pe, int D, int H, float inv_scale,
            void* stream) {
   auto s = (cudaStream_t)stream;
+  if ((size_t)items * beam * P > UINT32_MAX) return cudaErrorInvalidValue;
   if (dtype != dh::kBFloat16)
     return launch_f32(q, ck, cv, bias, ids, out, items, n_sel, beam, P, pe,
                       D, H, inv_scale, s);
-  if ((size_t)items * beam * P > UINT32_MAX) return cudaErrorInvalidValue;
   return dh::mma_attn::dispatch(beam, D / H, [&](auto nt) {
     return launch_mma<decltype(nt)::value>(q, ck, cv, bias, ids, out, items,
                                            n_sel, beam, P, pe, D, H,

@@ -121,3 +121,12 @@ extern "C" int dh_grouped_cross_attention(int dtype, const void* q,
 extern "C" const char* dh_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+
+// The most dynamic shared memory a block may take on `device` (0 if the
+// attribute cannot be read).
+extern "C" int dh_smem_optin(int device) {
+  int optin = 0;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  return optin;
+}

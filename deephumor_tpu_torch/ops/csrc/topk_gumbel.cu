@@ -27,6 +27,11 @@
 // that list (over the whole row only if the list overflows, e.g. for
 // massive ties). Noise is computed for kept columns only, since non-kept
 // columns can never win.
+//
+// Early-EOS compaction keeps the live rows first: the grid covers only the
+// first `live_rows` rows (the wrapper gives the others id 0 and value 0).
+// The noise hashes the global row, so a live row draws the same tokens
+// whatever `live_rows` is.
 
 #include "common.cuh"
 
@@ -132,9 +137,9 @@ __global__ void __launch_bounds__(kThreads) topk_gumbel_kernel(
 }
 
 template <typename T>
-cudaError_t launch(const void* logits, void* ids, int rows, int V, int top_k,
-                   int num_draws, int unk, uint32_t seed, float invt,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* logits, void* ids, int live_rows, int V,
+                   int top_k, int num_draws, int unk, uint32_t seed,
+                   float invt, cudaStream_t stream) {
   const size_t smem = sizeof(T) * (size_t)V;
   const int low_bit = sizeof(T) == 2 ? 15 : 0;
   int col_bits = 13;
@@ -145,22 +150,22 @@ cudaError_t launch(const void* logits, void* ids, int rows, int V, int top_k,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<rows, kThreads, smem, stream>>>((const T*)logits, (int*)ids, V,
-                                           top_k, num_draws, unk, seed, invt,
-                                           low_bit, col_bits);
+  kernel<<<live_rows, kThreads, smem, stream>>>(
+      (const T*)logits, (int*)ids, V, top_k, num_draws, unk, seed, invt,
+      low_bit, col_bits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int dh_topk_gumbel_sample(int dtype, const void* logits, void* ids,
-                                     int rows, int V, int top_k,
+                                     int live_rows, int V, int top_k,
                                      int num_draws, int unk, unsigned seed,
                                      float invt, void* stream) {
   auto s = (cudaStream_t)stream;
   if (dtype == dh::kBFloat16)
-    return launch<__nv_bfloat16>(logits, ids, rows, V, top_k, num_draws, unk,
-                                 seed, invt, s);
-  return launch<float>(logits, ids, rows, V, top_k, num_draws, unk, seed,
+    return launch<__nv_bfloat16>(logits, ids, live_rows, V, top_k, num_draws,
+                                 unk, seed, invt, s);
+  return launch<float>(logits, ids, live_rows, V, top_k, num_draws, unk, seed,
                        invt, s);
 }

@@ -87,22 +87,30 @@ def _plain_rows(x, row0, seed, invt, top_k, num_draws, unk, low_bit):
 
 
 def fused_topk_gumbel_sample_plain(logits, seed, inv_temperature, *, top_k,
-                                   num_draws, unk_index=UNK):
+                                   num_draws, unk_index=UNK, live_rows=None):
     """Plain PyTorch twin of :func:`fused_topk_gumbel_sample`."""
     _check(logits, top_k, num_draws)
     invt = float(np.float32(inv_temperature))
     low_bit = 15 if logits.dtype == torch.bfloat16 else 0
-    x = logits.float()
-    ids = torch.cat([
-        _plain_rows(x[r0:r0 + _CHUNK_ROWS], r0, int(seed), invt, top_k,
-                    num_draws, unk_index, low_bit)
-        for r0 in range(0, x.shape[0], _CHUNK_ROWS)
-    ]).to(torch.int64)
-    return ids, x.gather(1, ids)
+    rows = logits.shape[0]
+    live = _build.live_count(rows, live_rows)
+    x = logits[:live].float()
+    ids = torch.zeros((rows, num_draws), dtype=torch.int64,
+                      device=logits.device)
+    vals = torch.zeros((rows, num_draws), dtype=torch.float32,
+                       device=logits.device)
+    if live:
+        ids[:live] = torch.cat([
+            _plain_rows(x[r0:r0 + _CHUNK_ROWS], r0, int(seed), invt, top_k,
+                        num_draws, unk_index, low_bit)
+            for r0 in range(0, live, _CHUNK_ROWS)
+        ])
+        vals[:live] = x.gather(1, ids[:live])
+    return ids, vals
 
 
 def fused_topk_gumbel_sample(logits, seed, inv_temperature, *, top_k,
-                             num_draws, unk_index=UNK):
+                             num_draws, unk_index=UNK, live_rows=None):
     """K3: draws ``num_draws`` tokens per row, without replacement, from
     softmax(top_k_filter(logits) * inv_temperature).
 
@@ -114,6 +122,10 @@ def fused_topk_gumbel_sample(logits, seed, inv_temperature, *, top_k,
         logits: ``[rows, V]`` float32 or bfloat16 (scored in f32).
         seed: int in ``[0, 2**31)``; a fixed seed gives fixed draws.
         inv_temperature: float (rounded to f32).
+        live_rows: optional host int; rows at or past it are not computed
+            and get id 0 and value 0 (early-EOS compaction keeps the live
+            rows first). The noise hashes the global row, so a row draws
+            the same tokens whatever ``live_rows`` is.
 
     Returns:
         (ids ``[rows, num_draws]`` int64, vals ``[rows, num_draws]`` f32 --
@@ -126,18 +138,23 @@ def fused_topk_gumbel_sample(logits, seed, inv_temperature, *, top_k,
     if not _build.on_kernel_device(name, logits):
         return fused_topk_gumbel_sample_plain(
             logits, seed, inv_temperature, top_k=top_k,
-            num_draws=num_draws, unk_index=unk_index)
+            num_draws=num_draws, unk_index=unk_index, live_rows=live_rows)
     rows, v = logits.shape
-    ids = torch.empty((rows, num_draws), dtype=torch.int32,
-                      device=logits.device)
-    err = _build.library().dh_topk_gumbel_sample(
-        _build.dtype_code(logits, name), logits.data_ptr(), ids.data_ptr(),
-        rows, v, top_k, num_draws, unk_index, int(seed),
-        float(np.float32(inv_temperature)), _build.stream_of(logits))
-    _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    live = _build.live_count(rows, live_rows)
+    ids = (torch.empty if live == rows else torch.zeros)(
+        (rows, num_draws), dtype=torch.int32, device=logits.device)
+    if live:
+        err = _build.library().dh_topk_gumbel_sample(
+            _build.dtype_code(logits, name), logits.data_ptr(),
+            ids.data_ptr(), live, v, top_k, num_draws, unk_index, int(seed),
+            float(np.float32(inv_temperature)), _build.stream_of(logits))
+        _build.check(err, name)
+        _build.LAUNCHES[name] += 1
     ids = ids.to(torch.int64)
-    return ids, logits.gather(1, ids).float()
+    vals = logits.gather(1, ids).float()
+    if live < rows:
+        vals[live:] = 0.0
+    return ids, vals
 
 
 def classifier_logits(x, w, b):

@@ -58,6 +58,37 @@ def test_ancestry_attention_update_twin_matches_jax(pos, p_eff):
     np.testing.assert_array_equal(cv_t.numpy(), np.asarray(cv_j))
 
 
+@pytest.mark.parametrize("items,pos", [(2, 127), (3, 64)])
+def test_ancestry_attention_update_twin_matches_jax_at_char_length(items,
+                                                                   pos):
+    # the char settings with canon off: beam 7, cache length 136 read
+    # through p_eff 128 (896 (slot, position) rows an item), two heads
+    beam, p, p_eff, heads = 7, 136, 128, 2
+    rows = items * beam
+    rng = np.random.default_rng(30 + items)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    q, ck, cv, kn, vn = f(rows, D), f(rows, p, D), f(rows, p, D), f(rows, D), \
+        f(rows, D)
+    anc = rng.integers(0, beam, size=(items, beam, p)).astype(np.int32)
+    valid = np.zeros((rows, p), bool)
+    valid[:, :pos + 1] = rng.random((rows, pos + 1)) < 0.8
+    valid[:, 0] = valid[:, pos] = True
+    bias = pa.ancestry_bias(jnp.asarray(anc), jnp.asarray(valid), p)
+    out_j, ck_j, cv_j = pa.ancestry_attention_update(
+        jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(kn),
+        jnp.asarray(vn), bias, pos, beam=beam, n_heads=heads, interpret=True,
+        p_eff=p_eff)
+    ck_t, cv_t = torch.from_numpy(ck), torch.from_numpy(cv)
+    out_t = A.ancestry_attention_update(
+        torch.from_numpy(q), ck_t, cv_t, torch.from_numpy(kn),
+        torch.from_numpy(vn), torch.tensor(np.asarray(bias)), pos,
+        beam=beam, n_heads=heads, p_eff=p_eff)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-5,
+                               rtol=1e-4)
+    np.testing.assert_array_equal(ck_t.numpy(), np.asarray(ck_j))
+    np.testing.assert_array_equal(cv_t.numpy(), np.asarray(cv_j))
+
+
 def _cross_inputs(seed, masked_group):
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(G * R, D)).astype(np.float32)

@@ -142,3 +142,44 @@ def test_generation_with_fused_survivor_equals_default(monkeypatch, sampler,
     assert want["ended"].any() and not want["ended"].all()
     for key in ("sequences", "chosen", "scores", "ended"):
         assert torch.equal(got[key], want[key]), key
+
+
+def test_generation_passes_live_rows_to_the_k3_path(monkeypatch):
+    # V above the fused-classifier limit: the classifier is a bf16 matmul
+    # and K3 draws; after the compaction at p_eff 24 three of the eight
+    # items are live, and the draw skips the other rows. Dead items ignore
+    # their draws, so the outputs equal those of draws over every row.
+    from deephumor_tpu_torch.models import sampling
+
+    hp = dict(num_tokens=16400, hid_dim=32, n_layers=2, n_heads=2, pf_dim=64,
+              max_len=42)
+    tm = CaptioningTransformer(**hp)
+    tp = tm.init(torch.Generator().manual_seed(4), device="cpu")
+    tp["decoder"]["classifier"]["bias"][3] = 1.0
+    rng = np.random.default_rng(4)
+    enc = (torch.from_numpy(rng.normal(size=(8, 32)).astype(np.float32)),
+           torch.from_numpy(rng.normal(size=(8, 49, 32)).astype(np.float32)))
+    real = sampling.fused_topk_gumbel_sample
+    calls = []
+
+    def run(drop_live_rows):
+        def spy(logits, *a, **k):
+            calls.append((logits.shape[0], k.get("live_rows")))
+            if drop_live_rows:
+                k.pop("live_rows", None)
+            return real(logits, *a, **k)
+
+        monkeypatch.setattr(sampling, "fused_topk_gumbel_sample", spy)
+        return tm.generate_from_emb(
+            tp, enc, generator=torch.Generator().manual_seed(7), max_len=40,
+            beam_size=3, top_k=8, temperature=1.0, sampler="pallas",
+            compact=True)
+
+    got = run(False)
+    assert got["boundaries"][0]["live"] == 3
+    assert (24, 9) in calls  # 8 items x beam 3 rows, 3 x 3 of them live
+    calls.clear()
+    want = run(True)
+    assert (24, 9) in calls
+    for key in ("sequences", "chosen", "scores", "ended"):
+        assert torch.equal(got[key], want[key]), key

@@ -58,6 +58,51 @@ def test_ancestry_attention_update_matches_twin(cuda, dtype, p_eff):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("beam,p,p_eff,pos,heads,d,live_items", [
+    # the char settings with canon off: 7 x 128 (slot, position) rows,
+    # more than a kernel staging the whole prefix could hold in either dtype
+    (7, 136, 128, 127, 2, 128, None), (7, 136, 128, 127, 2, 128, 3),
+    (7, 136, 120, 100, 8, 512, None),
+    # beam 36: bf16 blocks of 32 and 4 branches
+    (36, 16, None, 13, 4, 128, None), (36, 16, None, 13, 4, 128, 2),
+    # head_dim 24 (D 96): bf16 off the tensor cores, on the CUDA-core kernel
+    (5, 40, 32, 31, 4, 96, None), (5, 40, 32, 31, 4, 96, 4)])
+def test_ancestry_attention_update_at_wide_shapes(cuda, dtype, beam, p, p_eff,
+                                                  pos, heads, d, live_items):
+    items = 5
+    q, ck, cv, kn, vn, bias = _attention_inputs(cuda, dtype, 14, items, beam,
+                                                p, d, pos)
+    caches = [(ck.clone(), cv.clone()) for _ in range(2)]
+    kw = dict(beam=beam, n_heads=heads, p_eff=p_eff, live_items=live_items)
+    reset_launch_counts()
+    got = A.ancestry_attention_update(q, *caches[0], kn, vn, bias, pos, **kw)
+    want = A.ancestry_attention_update_plain(q, *caches[1], kn, vn, bias,
+                                             pos, **kw)
+    assert LAUNCHES["ancestry_attention_update"] == 1
+    torch.testing.assert_close(got, want, atol=_tol(dtype), rtol=_tol(dtype))
+    assert torch.equal(caches[0][0], caches[1][0])
+    assert torch.equal(caches[0][1], caches[1][1])
+    if live_items is not None:
+        assert not got[live_items * beam:].any()
+        assert torch.equal(caches[0][0][live_items * beam:],
+                           ck[live_items * beam:])
+
+
+@pytest.mark.cuda
+def test_ancestry_attention_update_refuses_what_no_block_holds(cuda):
+    # f32, beam 32 x 2048 positions: the energies alone (8 MB) are far past
+    # any block's shared memory; the wrapper raises before the launch
+    q, ck, cv, kn, vn, bias = _attention_inputs(cuda, torch.float32, 15, 1,
+                                                32, 2048, 64, 5)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        A.ancestry_attention_update(q, ck, cv, kn, vn, bias, 5, beam=32,
+                                    n_heads=2)
+    assert LAUNCHES["ancestry_attention_update"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_grouped_cross_attention_matches_twin(cuda, dtype):
     groups, r, t, d, heads = 9, 5, 49, 256, 4
     g = torch.Generator(cuda).manual_seed(1)
@@ -88,6 +133,27 @@ def test_topk_gumbel_sample_matches_twin(cuda, dtype, vocab):
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
     assert not (got[0] == 1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("live_rows", [32, 1, 0])
+def test_topk_gumbel_sample_live_rows_match_twin(cuda, dtype, live_rows):
+    # rows at or past live_rows get id 0 and value 0; a live row draws what
+    # it draws in the full call (the noise hashes the global row)
+    g = torch.Generator(cuda).manual_seed(13)
+    logits = torch.randn(64, 3001, generator=g, device=cuda).to(dtype)
+    logits[:8, 1] = 50.0  # UNK on top
+    kw = dict(top_k=32, num_draws=5, live_rows=live_rows)
+    reset_launch_counts()
+    got = S.fused_topk_gumbel_sample(logits, 9, 0.8, **kw)
+    assert LAUNCHES["fused_topk_gumbel_sample"] == (1 if live_rows else 0)
+    want = S.fused_topk_gumbel_sample_plain(logits, 9, 0.8, **kw)
+    full = S.fused_topk_gumbel_sample(logits, 9, 0.8, top_k=32, num_draws=5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not got[0][live_rows:].any() and not got[1][live_rows:].any()
+    assert torch.equal(got[0][:live_rows], full[0][:live_rows])
+    assert torch.equal(got[1][:live_rows], full[1][:live_rows])
 
 
 @pytest.mark.cuda
@@ -335,13 +401,28 @@ def test_ancestry_attention_matches_twin(cuda, dtype, impl, p_eff, beam, p):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("pos,beam,p", [(0, 3, 24), (7, 3, 24), (13, 5, 40),
-                                        (127, 7, 136)])
+                                        (127, 7, 136),
+                                        # the char shape at its first tiles;
+                                        # beam 36: bf16 blocks of 32 and 4
+                                        (0, 7, 136), (8, 7, 136),
+                                        (15, 36, 16)])
 def test_ancestry_attention_update_flash_matches_twin(cuda, dtype, pos, beam,
                                                       p):
+    _check_flash(cuda, dtype, pos, beam, p, 128, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ancestry_attention_update_flash_off_the_tensor_cores(cuda, dtype):
+    # head_dim 24: bf16 runs the CUDA-core kernel, as f32 does
+    _check_flash(cuda, dtype, 31, 5, 40, 96, 4)
+
+
+def _check_flash(cuda, dtype, pos, beam, p, d, heads):
     q, ck, cv, kn, vn, bias = _attention_inputs(cuda, dtype, 10, 5, beam, p,
-                                                128, pos)
+                                                d, pos)
     caches = [(ck.clone(), cv.clone()) for _ in range(2)]
-    kw = dict(beam=beam, n_heads=4)
+    kw = dict(beam=beam, n_heads=heads)
     reset_launch_counts()
     got = A.ancestry_attention_update_flash(q, *caches[0], kn, vn, bias, pos,
                                             **kw)

@@ -1,5 +1,6 @@
 """deephumor_tpu_torch's K3 sampler twin: the support of its draws against
-the JAX package's ``filter_top_k``, its distribution, and its noise hash."""
+the JAX package's ``filter_top_k`` and its K3 kernel (interpreted), its
+distribution, its noise hash, and its ``live_rows``."""
 
 import numpy as np
 import pytest
@@ -8,6 +9,7 @@ import torch
 import jax.numpy as jnp
 
 from deephumor_tpu.models.sampling import filter_top_k
+from deephumor_tpu.ops.pallas_sampler import fused_topk_gumbel_sample
 from deephumor_tpu_torch.ops import sampler as S
 
 R, V, K, D = 16, 512, 16, 4
@@ -130,3 +132,31 @@ def test_filter_top_k_matches_jax():
     x[:4, 100:130] = 3.0  # ties at the threshold
     want = np.asarray(filter_top_k(jnp.asarray(x), K))
     np.testing.assert_array_equal(port(torch.from_numpy(x), K).numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("live_rows", [6, 1, 0])
+def test_live_rows_draw_from_the_support_of_the_jax_kernel(dtype, live_rows):
+    # rows past live_rows are not computed (id 0, value 0); a live row
+    # draws what it draws without live_rows; the JAX kernel, interpreted
+    # with the same live_rows, draws its live rows from the same exact
+    # top-k support
+    x = np.random.default_rng(6).normal(size=(R, V)).astype(np.float32)
+    x[:, 1] = 100.0  # UNK on top of every row
+    logits = torch.from_numpy(x).to(dtype)
+    ref = logits.float().numpy()
+    ids, vals = S.fused_topk_gumbel_sample(logits, 9, 1.0, top_k=K,
+                                           num_draws=D, live_rows=live_rows)
+    full_ids, full_vals = S.fused_topk_gumbel_sample(logits, 9, 1.0, top_k=K,
+                                                     num_draws=D)
+    assert torch.equal(ids[:live_rows], full_ids[:live_rows])
+    assert torch.equal(vals[:live_rows], full_vals[:live_rows])
+    assert not ids[live_rows:].any() and not vals[live_rows:].any()
+    jax_ids, _ = fused_topk_gumbel_sample(
+        jnp.asarray(ref), 9, 1.0, top_k=K, num_draws=D, block_rows=4,
+        interpret=True, live_rows=jnp.int32(live_rows))
+    jax_ids = np.asarray(jax_ids)
+    support = _jax_support(ref, K)
+    for r in range(live_rows):
+        assert set(ids[r].tolist()) <= support[r] and 1 not in ids[r]
+        assert set(jax_ids[r].tolist()) <= support[r]
