@@ -13,6 +13,15 @@ held against their plain PyTorch twins at that path's shapes:
   is also held against its twin at the char length with canon off
   (p_eff 128), in bf16 and f32, and at head_dim 24 (its CUDA-core kernel).
 
+K2 is also held against its twin at the word shape in f32, without a
+bias, at head_dim 24 (bf16 and f32: its CUDA-core kernel) and with 0 and
+500 live items; K3 on rows planted with UNK as the maximum, one value
+throughout, 2048 logits tied at the top (its candidate list overflows)
+and ties at the threshold, at top_k == num_draws, with live_rows 0, 1 and
+half, in f32 at V 29184 and 52000 (rows too long for its vector table),
+and at V 3001 (rows that start unaligned), and timed beside torch.topk
+alone (a partial yardstick).
+
 Each path also runs with the two kernel-selecting switches:
 DH_FUSED_SURVIVOR=1 (the survivor update in K10) and DH_CROSS_PACK=4
 (decode cross-attention in K9, four items per block, over a store padded
@@ -361,30 +370,43 @@ def check_k11(C, dev, gen, *, rows, p, positions, label):
     return row
 
 
-def check_k2(A, dev, gen, *, items, beam, live_items=None):
-    dt = torch.bfloat16
-    q = torch.randn(items * beam, HID, generator=gen, device=dev).to(dt)
-    ek, ev = (torch.randn(items, T_ENC, HID, generator=gen,
-                          device=dev).to(dt) for _ in range(2))
-    mask = torch.rand(items, T_ENC, generator=gen, device=dev) < 0.1
-    mask[0] = True  # one item with every encoder row masked
-    bias = torch.where(mask[:, None, :], A.MASK_FILL, 0.0).float()
+def check_k2(A, dev, gen, *, items, beam, live_items=None,
+             dt=torch.bfloat16, d=HID, masked=True, timed=True):
+    """K2 vs its twin with item 0's encoder rows all masked (or no bias),
+    finite, rows past live_items zero. With ``timed``: the kernel, the
+    twin and SDPA."""
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)  # noqa
+    q, ek, ev = rnd(items * beam, d), rnd(items, T_ENC, d), rnd(
+        items, T_ENC, d)
+    bias = None
+    if masked:
+        mask = torch.rand(items, T_ENC, generator=gen, device=dev) < 0.1
+        mask[0] = True  # one item with every encoder row masked
+        bias = torch.where(mask[:, None, :], A.MASK_FILL, 0.0).float()
     kw = dict(n_heads=HEADS, live_items=live_items)
     got = A.grouped_cross_attention(q, ek, ev, bias, **kw)
     want = A.grouped_cross_attention_plain(q, ek, ev, bias, **kw)
-    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
-    if not torch.isfinite(got[:beam].float()).all():
-        raise AssertionError("K2: all-masked group is not finite")
+    tol = TOL if dt == torch.bfloat16 else TOL_F32
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    live = items if live_items is None else live_items
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("K2: output not finite (item 0 fully masked)")
+    if got[live * beam:].any():
+        raise AssertionError("K2: rows past live_items are not 0")
     err = (got.float() - want.float()).abs().max().item()
-    log(f"  K2 G={items} (item 0 fully masked) live_items={live_items}: "
-        f"max|out-twin|={err:.3e} (atol=rtol={TOL})")
-    ms = cuda_ms(lambda: A.grouped_cross_attention(q, ek, ev, bias, **kw))
+    log(f"  K2 {str(dt)[6:]} head_dim {d // HEADS} G={items} r={beam} bias="
+        f"{'item 0 fully masked' if masked else None} live_items="
+        f"{live_items}: max|out-twin|={err:.3e} (atol=rtol={tol})")
+    if not timed:
+        return None
+    ms = cuda_ms(lambda: A.grouped_cross_attention(q, ek, ev, bias, **kw),
+                 queued=True)
     plain_ms = cuda_ms(lambda: A.grouped_cross_attention_plain(
         q, ek, ev, bias, **kw), iters=3)
+    log(f"  K2 G={items} r={beam}: {ms:.4f} ms (device alone)")
     qh = q.reshape(items, beam, HEADS, -1).transpose(1, 2)
     kh, vh = (heads(x, items, T_ENC) for x in (ek, ev))
     m4 = bias.reshape(items, 1, 1, T_ENC)
-    live = items if live_items is None else live_items
     nbytes = (2 * live * T_ENC * HID + 2 * live * beam * HID) * 2 + (
         live * T_ENC * 4)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -506,38 +528,76 @@ def check_draws(ids, ids_p, logits, top_k, label):
                              f"support")
 
 
-def check_k3(S, dev, gen, *, rows, vocab, top_k, draws, inv_t, label):
-    logits = torch.randn(rows, vocab, generator=gen, device=dev).to(
-        torch.bfloat16)
+def check_k3(S, dev, gen, *, rows, vocab, top_k, draws, inv_t, label,
+             dt=torch.bfloat16, timed=True):
+    """K3 vs its twin. Timed first on random logits (with ``timed``); then
+    checked on them with rows planted that the kernel treats apart: UNK as
+    the row's maximum, rows of one value and, at a vocabulary of 2048 or
+    more, 2048 logits tied at the top (the candidate list overflows to the
+    whole-row search), ties across the threshold; also at top_k ==
+    num_draws, and with live_rows 0, 1 and half the rows."""
+    logits = torch.randn(rows, vocab, generator=gen, device=dev).to(dt)
     kw = dict(top_k=top_k, num_draws=draws)
+    row = None
+    if timed:
+        ms = cuda_ms(lambda: S.fused_topk_gumbel_sample(logits, 7, inv_t,
+                                                        **kw), queued=True)
+        plain_ms = cuda_ms(lambda: S.fused_topk_gumbel_sample_plain(
+            logits, 7, inv_t, **kw), iters=2, warmup=1)
+        topk_ms = cuda_ms(lambda: torch.topk(logits, top_k, dim=1),
+                          queued=True)
+        # reads the logits once, writes the ids; its integer compares have
+        # no peak rate in the table, so the bytes bound it
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                   topk_ms=topk_ms, **bound(
+                       rows * vocab * logits.element_size()
+                       + rows * draws * 4, 0, torch.bfloat16))
+        log(f"  {label} [{rows}, {vocab}] {str(dt)[6:]}: {ms:.4f} ms (device "
+            f"alone), twin {plain_ms:.4f} ms, torch.topk(k={top_k}) alone "
+            f"{topk_ms:.4f} ms (a partial yardstick), bound "
+            f"{row['bound_ms']:.4f} ms")
+    logits[:8, 1] = logits[:8].float().max() + 1.0  # UNK on top
+    logits[8:16] = 0.5  # one value: every column kept
+    if vocab >= 2048:
+        logits[16:24, :2048] = 7.0  # 2048 tied at the top
+    # 40 logits tied with the row's k-th largest: ties across the threshold
+    c0 = min(100, vocab - 40)
+    logits[24:32, c0:c0 + 40] = logits[24:32].float().topk(
+        top_k, dim=1).values[:, -1:].to(dt)
     ids, vals = S.fused_topk_gumbel_sample(logits, 12345, inv_t, **kw)
     ids_p, vals_p = S.fused_topk_gumbel_sample_plain(logits, 12345, inv_t,
                                                      **kw)
     check_draws(ids, ids_p, logits, top_k, label)
     err = (vals - vals_p).abs().max().item()
-    # half the rows live: those draw what they drew, the others id 0, value 0
-    half = rows // 2
-    ids_h, vals_h = S.fused_topk_gumbel_sample(logits, 12345, inv_t,
-                                               live_rows=half, **kw)
-    ids_hp, vals_hp = S.fused_topk_gumbel_sample_plain(
-        logits, 12345, inv_t, live_rows=half, **kw)
-    check_draws(ids_h[:half], ids_hp[:half], logits[:half], top_k,
-                f"{label} live_rows={half}")
-    if ids_h[half:].any() or vals_h[half:].any() or ids_hp[half:].any():
-        raise AssertionError(f"{label}: rows past live_rows are not 0")
-    if not (torch.equal(ids_h[:half], ids[:half])
-            and torch.equal(vals_h[:half], vals[:half])):
-        raise AssertionError(f"{label}: live rows differ from the full call")
-    log(f"  {label} live_rows={half}: live rows equal to the full call's, "
-        f"the rest 0")
-    ms = cuda_ms(lambda: S.fused_topk_gumbel_sample(logits, 7, inv_t, **kw))
-    plain_ms = cuda_ms(lambda: S.fused_topk_gumbel_sample_plain(
-        logits, 7, inv_t, **kw), iters=2, warmup=1)
-    # reads the logits once, writes the ids; its integer compares have no
-    # peak rate in the table, so the bytes bound it
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound(rows * vocab * 2 + rows * draws * 4, 0,
-                        torch.bfloat16))
+    # top_k == num_draws: a row with UNK inside its top k exhausts its
+    # support and draws column 0, so those rows are held to the twin alone
+    ids_k, _ = S.fused_topk_gumbel_sample(logits, 5, inv_t, top_k=draws,
+                                          num_draws=draws)
+    ids_kp, _ = S.fused_topk_gumbel_sample_plain(logits, 5, inv_t,
+                                                 top_k=draws, num_draws=draws)
+    x = logits.float()
+    clean = x[:, 1] < x.topk(draws, dim=1).values[:, -1]
+    check_draws(ids_k[clean], ids_kp[clean], logits[clean], draws,
+                f"{label} top_k=num_draws={draws}")
+    if not torch.equal(ids_k[~clean], ids_kp[~clean]):
+        raise AssertionError(f"{label}: top_k == num_draws, rows with UNK "
+                             f"in the top k differ from the twin")
+    # live rows draw what they drew, the others id 0, value 0
+    for live in (0, 1, rows // 2):
+        ids_h, vals_h = S.fused_topk_gumbel_sample(logits, 12345, inv_t,
+                                                   live_rows=live, **kw)
+        ids_hp, _ = S.fused_topk_gumbel_sample_plain(
+            logits, 12345, inv_t, live_rows=live, **kw)
+        if ids_h[live:].any() or vals_h[live:].any() or ids_hp[live:].any():
+            raise AssertionError(f"{label}: rows past live_rows are not 0")
+        if not (torch.equal(ids_h[:live], ids[:live])
+                and torch.equal(vals_h[:live], vals[:live])
+                and torch.equal(ids_hp[:live], ids_p[:live])):
+            raise AssertionError(f"{label}: live rows differ from the full "
+                                 f"call")
+    log(f"  {label} live_rows 0, 1, {rows // 2}: live rows equal to the "
+        f"full call's, the rest 0")
+    return None if row is None else dict(row, max_abs_err=err)
 
 
 def check_k4(S, dev, gen):
@@ -982,13 +1042,28 @@ def main():
     rows["ancestry_attention_update"] = check_k1(
         A, dev, gen, items=BATCH, beam=BEAM, p=P, pes=(16, 24, 32),
         dt=torch.bfloat16)
-    log(f"    K2 G {BATCH}, r {BEAM}, T {T_ENC}")
+    log(f"    K2 G {BATCH}, r {BEAM}, T {T_ENC}: bf16 timed; f32, no bias, "
+        f"head_dim 24 (bf16, f32), 0 and 500 live items")
     rows["grouped_cross_attention"] = check_k2(A, dev, gen, items=BATCH,
                                                beam=BEAM)
-    log(f"    K3 [{ROWS}, {VOCAB}] bf16, top_k {TOP_K}, draws {BEAM}")
+    f32 = torch.float32
+    for k2 in (dict(dt=f32), dict(masked=False), dict(d=24 * HEADS),
+               dict(d=24 * HEADS, dt=f32), dict(live_items=0),
+               dict(live_items=500)):
+        check_k2(A, dev, gen, items=BATCH, beam=BEAM, timed=False, **k2)
+    log(f"    K3 [{ROWS}, {VOCAB}] bf16, top_k {TOP_K}, draws {BEAM}; f32; "
+        f"V 3001 (rows start unaligned); f32 at V 52000 (no vector table)")
     rows["fused_topk_gumbel_sample"] = check_k3(
         S, dev, gen, rows=ROWS, vocab=VOCAB, top_k=TOP_K, draws=BEAM,
         inv_t=1.0, label="K3")
+    rows["fused_topk_gumbel_sample"]["ms_f32"] = check_k3(
+        S, dev, gen, rows=ROWS, vocab=VOCAB, top_k=TOP_K, draws=BEAM,
+        inv_t=1.0, label="K3 f32", dt=f32)["ms"]
+    check_k3(S, dev, gen, rows=ROWS, vocab=3001, top_k=TOP_K, draws=BEAM,
+             inv_t=1.0, label="K3 V 3001", timed=False)
+    # rows too long for the vector table beside a full candidate list
+    check_k3(S, dev, gen, rows=1000, vocab=52000, top_k=TOP_K, draws=BEAM,
+             inv_t=1.0, label="K3 f32 V 52000", dt=f32, timed=False)
     log(f"    K9 G {BATCH}, r {BEAM}, T {T_ENC} padded to {T_PAD}, ng 2, 4, 8"
         f" (K2 at this shape: {rows['grouped_cross_attention']['ms']:.4f} ms)")
     rows["cross_attention_packed"] = check_k9(A, dev, gen, items=BATCH,
@@ -1144,11 +1219,14 @@ def main():
                 f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms)")
         if live is None:
             rows["ancestry_attention_update"]["ms_char_pe128"] = char_k1["ms"]
+            rows["grouped_cross_attention"].update(
+                ms_char=char_k2["ms"], bound_ms_char=char_k2["bound_ms"])
+    check_k2(A, dev, gen, items=C_BATCH, beam=C_BEAM, dt=torch.float32,
+             timed=False)
     # head_dim 24: bf16 off the tensor cores, on the CUDA-core kernel
     check_k1(A, dev, gen, items=C_BATCH, beam=C_BEAM, p=C_P, pes=(128,),
              dt=torch.bfloat16, label="K1 char", d=24 * HEADS, timed=False)
-    log(f"    K3 at the char shape: {char_k3['ms']:.4f} ms (twin "
-        f"{char_k3['plain_ms']:.4f} ms, bound {char_k3['bound_ms']:.4f} ms)")
+    rows["fused_topk_gumbel_sample"]["ms_char"] = char_k3["ms"]
     log("    K9 and K10 at the char shapes, all items live and 500 live")
     for live in (None, 500):
         char_k9 = check_k9(A, dev, gen, items=C_BATCH, beam=C_BEAM,
@@ -1249,9 +1327,12 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             # K5 at its second canon shape; K6 at the leg's straggler
-            # counts; K1 at the char shape, p_eff 128
-            **{k: row[k] for k in ("ms_pe128", "ms_leg", "ms_char_pe128")
-               if k in row}})
+            # counts; K1 at the char shape, p_eff 128; K2 at the char
+            # shape; K3 at the char shape, in f32, and torch.topk alone
+            # (a partial yardstick)
+            **{k: row[k] for k in (
+                "ms_pe128", "ms_leg", "ms_char_pe128", "ms_char",
+                "bound_ms_char", "ms_f32", "topk_ms") if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {name_limit}")
     print(json.dumps({"ok": True, "device": {

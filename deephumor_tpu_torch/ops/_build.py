@@ -103,6 +103,10 @@ _SIZES = {
     "dh_ancestry_attention_update_smem": ([_I] * 6, ctypes.c_longlong),
     # dtype, beam, D, H -> bytes of dynamic shared memory
     "dh_ancestry_attention_update_flash_smem": ([_I] * 4, ctypes.c_longlong),
+    # dtype, r, T, D, H -> bytes of dynamic shared memory
+    "dh_grouped_cross_attention_smem": ([_I] * 5, ctypes.c_longlong),
+    # dtype, V -> bytes of dynamic shared memory of a block of one team
+    "dh_topk_gumbel_sample_smem": ([_I] * 2, ctypes.c_longlong),
     # device -> the opt-in limit of a block's dynamic shared memory
     "dh_smem_optin": ([_I], ctypes.c_int),
 }

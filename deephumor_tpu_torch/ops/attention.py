@@ -585,13 +585,16 @@ def grouped_cross_attention(q, ek, ev, bias, *, n_heads, live_items=None,
         return grouped_cross_attention_plain(q, ek, ev, bias,
                                              n_heads=n_heads,
                                              live_items=live_items)
-    _build.check_vector_rows(name, d // n_heads, ek, ev)
+    _build.check_vector_rows(name, d // n_heads, q, ek, ev)
+    code, r = _build.dtype_code(q, name), q.shape[0] // g
+    _build.check_smem(name, _build.smem_need(
+        "dh_grouped_cross_attention_smem", code, r, t, d, n_heads), q)
     out = torch.empty_like(q)
     err = _build.library().dh_grouped_cross_attention(
-        _build.dtype_code(q, name), q.data_ptr(), ek.data_ptr(),
-        ev.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), g, _build.live_count(g, live_items), q.shape[0] // g,
-        t, d, n_heads, 1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
+        code, q.data_ptr(), ek.data_ptr(), ev.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), g,
+        _build.live_count(g, live_items), r, t, d, n_heads,
+        1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

@@ -1,5 +1,5 @@
-// The bf16 tensor-core bodies of the ancestry attention kernels: the
-// two-pass `attend` (K1 in ancestry_attention.cu, K5 in
+// The bf16 tensor-core bodies of the attention kernels: the two-pass
+// `attend` (K1 in ancestry_attention.cu, K2 in cross_attention.cu, K5 in
 // ancestry_attention_canon.cu, K6 and K7 in ancestry_attention_ids.cu) and
 // the one-pass `attend_online` (K8 in ancestry_attention_flash.cu). One
 // (item, head) per block of four warps, or per cluster of 2-4 such blocks,
@@ -9,7 +9,8 @@
 // `beam` branches in chunks of kMaxBeam, one chunk per block) over `n` rows
 // that a `Rows` source names one at a time, so one body serves K5's three
 // row sources (shared cache, per-slot window, fresh column), K6's item
-// list and K1's and K8's per-slot caches with the fresh column at `pos`:
+// list, K2's encoder rows and K1's and K8's per-slot caches with the fresh
+// column at `pos`:
 //   rows.index(r)          a 32-bit code of row r (its source and row in
 //                          it); `attend` computes it once per row into
 //                          shared memory, so the integer divisions it may
@@ -54,7 +55,6 @@
 
 #include <cooperative_groups.h>
 
-#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
@@ -132,9 +132,10 @@ __host__ __device__ inline int energy_ld(int tiles) {
 // the ring, q (8 rows per n-tile), each branch's max and sum (at the same
 // offset in every block of a cluster, which reads the others'), then, for
 // the block's share of the tiles, the row codes and the energies.
-inline size_t smem_bytes(int n, int cs, int beam, int hd, int nt) {
+inline size_t smem_bytes(int n, int cs, int beam, int hd, int nt,
+                         int stages = kStages) {
   const int tiles = (tiles_of(n) + cs - 1) / cs;
-  return 2 * (size_t)padded_ld(hd) * (kStages * kTile + 8 * nt)
+  return 2 * (size_t)padded_ld(hd) * (stages * kTile + 8 * nt)
          + 4 * 2 * kMaxBeam + 4 * (size_t)tiles * kTile
          + 4 * (size_t)beam * energy_ld(tiles);
 }
@@ -158,14 +159,9 @@ inline size_t smem_bytes_online(int hd, int nt) {
 // blocks per SM and each block keeps at least one tile. A small grid (a
 // few straggler items) then spreads each (item, head) over 2-4 SMs; a
 // grid that fills the card keeps one block per (item, head) and no
-// exchange. The SM count is read once (it only tunes the size).
+// exchange.
 inline int cluster_size(int blocks, int n) {
-  static const int sms = [] {
-    int dev = 0, count = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count;
-  }();
+  const int sms = sm_count();
   int cs = 1;
   while (2 * cs <= kMaxCluster && 2 * cs <= tiles_of(n)
          && (long long)blocks * 2 * cs <= 4LL * sms)
@@ -176,12 +172,12 @@ inline int cluster_size(int blocks, int n) {
 // Attention of the queries q[j * ldq + d] (j < beam <= kMaxBeam, d < hd) over
 // the `n` rows of `rows`; writes out[j * ldo + d]. Called by all kThreads
 // threads of each block of a cluster of `cs` (1: no cluster) with `smem` of
-// smem_bytes(n, cs, beam, hd, NT) bytes. Block rank k of the cluster takes the
-// tiles [k T / cs, (k + 1) T / cs) of the T = tiles_of(n); the blocks exchange
-// each branch's max and sum, so the weights are normalised over all n rows
-// before they are rounded, then their partial outputs, which are summed in rank
-// order.
-template <int NT, typename Rows>
+// smem_bytes(n, cs, beam, hd, NT, Stages) bytes (a ring of Stages tiles).
+// Block rank k of the cluster takes the tiles [k T / cs, (k + 1) T / cs) of
+// the T = tiles_of(n); the blocks exchange each branch's max and sum, so the
+// weights are normalised over all n rows before they are rounded, then their
+// partial outputs, which are summed in rank order.
+template <int NT, int Stages = kStages, typename Rows>
 __device__ __forceinline__ void attend(const Rows& rows,
                                        const __nv_bfloat16* q, int ldq,
                                        __nv_bfloat16* out, int ldo, int n,
@@ -198,8 +194,8 @@ __device__ __forceinline__ void attend(const Rows& rows,
   const int base = t0 * kTile;                    // this block's first row
   const int nl = min(n - base, tiles * kTile);    // and its row count
   const int lde = energy_ld(tiles);
-  bf16* ring = reinterpret_cast<bf16*>(smem);      // [kStages][kTile][ld]
-  bf16* qs = ring + kStages * kTile * ld;          // [8 NT][ld]
+  bf16* ring = reinterpret_cast<bf16*>(smem);      // [Stages][kTile][ld]
+  bf16* qs = ring + Stages * kTile * ld;           // [8 NT][ld]
   float* stat = reinterpret_cast<float*>(qs + 8 * NT * ld);  // max, sum
   uint32_t* code = reinterpret_cast<uint32_t*>(stat + 2 * kMaxBeam);
   float* e = reinterpret_cast<float*>(code + tiles * kTile);  // [beam][lde]
@@ -230,7 +226,7 @@ __device__ __forceinline__ void attend(const Rows& rows,
   auto load = [&](int step) {
     const bool is_v = step >= tiles;
     const int r0 = (is_v ? step - tiles : step) * kTile;
-    bf16* dst = ring + step % kStages * kTile * ld + lcol;
+    bf16* dst = ring + step % Stages * kTile * ld + lcol;
     if (lrow < rpp)
       for (int rr = lrow; rr < kTile; rr += rpp) {
         const uint32_t x = code[r0 + rr];
@@ -246,7 +242,7 @@ __device__ __forceinline__ void attend(const Rows& rows,
   load(0);
   cp_async_commit();
 #pragma unroll
-  for (int s = 1; s < kStages - 1; ++s) {
+  for (int s = 1; s < Stages - 1; ++s) {
     if (s < steps) load(s);
     cp_async_commit();
   }
@@ -261,11 +257,11 @@ __device__ __forceinline__ void attend(const Rows& rows,
       for (int h = 0; h < 4; ++h) acc[mi][nt][h] = 0.f;
 
   for (int step = 0; step < steps; ++step) {
-    if (step + kStages - 1 < steps) load(step + kStages - 1);
+    if (step + Stages - 1 < steps) load(step + Stages - 1);
     cp_async_commit();  // an empty group past the last load keeps the count
-    cp_async_wait<kStages - 1>();
+    cp_async_wait<Stages - 1>();
     __syncthreads();  // this step's tile (and q) has landed for every thread
-    const bf16* tile = ring + step % kStages * kTile * ld;
+    const bf16* tile = ring + step % Stages * kTile * ld;
     if (step < tiles) {
       // Sᵀ for this warp's 16 rows of the tile, added to their biases
       const int r0 = step * kTile + 16 * warp;
@@ -714,33 +710,13 @@ __device__ __forceinline__ void attend_online(const Rows& rows,
 }
 
 // Launches `Kernel` (a kernel of `Threads` threads taking `smem` bytes of
-// dynamic shared memory) on `blocks` blocks in clusters of `cs`. Once per
-// kernel and device (the first 32 devices; past them on every launch) it
-// prefers the whole of the SM's unified memory as shared memory (several
-// blocks fit) and raises the block's limit to the device's opt-in maximum,
-// so later launches set no attribute.
+// dynamic shared memory) on `blocks` blocks in clusters of `cs`, after
+// prepare<Kernel>().
 template <auto Kernel, int Threads = kThreads, typename... Args>
 cudaError_t launch(int blocks, int cs, size_t smem, cudaStream_t stream,
                    Args... args) {
-  static std::atomic<uint32_t> ready{0};  // a bit per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = prepare<Kernel>();
   if (err != cudaSuccess) return err;
-  const uint32_t bit = dev < 32 ? 1u << dev : 0u;
-  if (!(ready.load(std::memory_order_acquire) & bit)) {
-    int optin = 0;
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          Kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-          cudaSharedmemCarveoutMaxShared);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err != cudaSuccess) return err;
-    ready.fetch_or(bit, std::memory_order_release);
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(Threads);

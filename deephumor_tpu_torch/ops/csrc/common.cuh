@@ -1,13 +1,17 @@
 // Shared helpers for the deephumor_tpu_torch kernels: element loads in
-// either storage type, warp/block reductions, the dtype codes the Python
-// wrappers pass (0 = float32, 1 = bfloat16), and the cp.async, ldmatrix
-// and mma.sync wrappers of the tensor-core kernels.
+// either storage type, warp reductions, the dtype codes the Python
+// wrappers pass (0 = float32, 1 = bfloat16), the cp.async, ldmatrix and
+// mma.sync wrappers of the tensor-core kernels, the bulk copies and
+// mbarriers of K3, and the launch preparation (SM count, shared-memory
+// limits) of the kernels that size their own grids.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace dh {
 
@@ -34,32 +38,6 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Block-wide reductions over blockDim.x threads (a multiple of 32, at most
-// 1024). `scratch` holds 32 ints; every thread gets the result. Both end
-// with a barrier, so `scratch` may be reused by the next call.
-__device__ __forceinline__ int block_sum(int v, int* scratch) {
-  v = __reduce_add_sync(0xffffffffu, v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  int t = lane < nwarps ? scratch[lane] : 0;
-  t = __reduce_add_sync(0xffffffffu, t);
-  __syncthreads();
-  return t;
-}
-__device__ __forceinline__ int block_max(int v, int* scratch) {
-  v = __reduce_max_sync(0xffffffffu, v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  int t = lane < nwarps ? scratch[lane] : INT32_MIN;
-  t = __reduce_max_sync(0xffffffffu, t);
-  __syncthreads();
-  return t;
 }
 
 // Softmax of one row of `n` f32 energies in place, by one warp. Each
@@ -198,6 +176,56 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ---- Bulk copies and mbarriers (sm_90) ----
+
+// Initialises the mbarrier at `bar` for `count` arrivals; then a fence makes
+// the initialisation visible to the bulk-copy unit (a barrier must follow
+// before other threads use it).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], %1;\n"
+      "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar)),
+      "r"(count)
+      : "memory");
+}
+// One arrival that also announces `bytes` of bulk copies to complete in
+// the current phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits until the phase of parity `parity` has completed; the bytes its
+// bulk copies wrote are then visible to the waiting thread.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// Bulk copy of `bytes` (a multiple of 16) from device memory to shared
+// memory, both 16-byte aligned, completing on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// Orders this thread's earlier shared-memory writes before later bulk
+// copies into the same memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ldmatrix: lanes 8i..8i+7 give the 16-byte row addresses of 8x8 bf16
 // matrix i; lane l receives row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1
 // of each matrix (of its transpose with .trans), one 32-bit register each.
@@ -242,5 +270,42 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
 // row addresses of an ldmatrix (or eight cp.async destinations) in eight
 // distinct groups of four banks, and keep every row 16-byte aligned.
 __host__ __device__ __forceinline__ int padded_ld(int hd) { return hd + 8; }
+
+// The SM count of the current device, read once (it only sizes grids).
+inline int sm_count() {
+  static const int sms = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return sms;
+}
+
+// Once per kernel and device (the first 32 devices; past them on every
+// call) prefers the whole of the SM's unified memory as shared memory
+// (several blocks fit) and raises the block's limit to the device's opt-in
+// maximum, so later launches set no attribute.
+template <auto Kernel>
+cudaError_t prepare() {
+  static std::atomic<uint32_t> ready{0};  // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint32_t bit = dev < 32 ? 1u << dev : 0u;
+  if (ready.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(Kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess) ready.fetch_or(bit, std::memory_order_release);
+  return err;
+}
 
 }  // namespace dh

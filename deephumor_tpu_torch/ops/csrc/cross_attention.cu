@@ -4,102 +4,162 @@
 // (kernel _kernel_cross). The r = beam query rows of item g attend to
 // item g's encoder keys/values [T, D] (pre-projected once per
 // generation), with an optional additive f32 mask bias [G, 1, T] (0 or
-// -1e8 for masked encoder rows). A group whose rows are all masked gets
-// the uniform average: -1e8 is a fill, not -inf, so the softmax never
-// sees an all--inf row and gives no NaN.
+// -1e8 for masked encoder rows). The softmax runs in f32 and the weights
+// are normalised, then rounded to the value dtype, as the TPU kernel does.
+// A group whose rows are all masked gets the uniform average: -1e8 is a
+// fill, not -inf, so the softmax never sees an all--inf row and gives no
+// NaN. Groups at or past `live` (compacted, all-ended items) write zero
+// rows and read nothing.
 //
-// Bound on the H100: bytes. At the serving shape (1792 items, T 49,
-// D 512, bf16) one launch reads ~180 MB of ek + ev and does ~0.1 GFLOP.
-// Design: one block per (item, head) copies the item's T x head_dim K and
-// V tiles into shared memory once, with batched 16-byte loads (rows padded
-// by one word against bank conflicts), and serves all r query rows from
-// there, so each encoder byte leaves device memory once per launch.
-// Groups at or past `live` (compacted, all-ended items) write zero rows
-// and read nothing.
+// Bound on the H100: bytes. At the word serving shape (1792 items, T 49,
+// D 512, bf16) one launch must read ~180 MB of ek + ev (0.059 ms at 3.35
+// TB/s) for ~0.1 GFLOP. Each (item, head) is small: 49 rows of K and of V,
+// 6 KB each, so the time goes to keeping enough of those loads in flight
+// and to the work between them, not to arithmetic.
+//
+// bf16 at a head_dim of 16k up to 256 (grouped_cross_attention_mma_kernel
+// in a profile): the two-pass tensor-core body `attend` of
+// attention_mma.cuh over the item's T rows (`EncoderRows`): T in M as
+// 16-row tiles (rows past T zero-filled, weight 0), the beam in N (5 or 7,
+// padded to 8), both products mma.sync on ldmatrix fragments of cp.async
+// tiles. One block per (item, head, chunk of <= 32 branches), heads
+// fastest; its ring holds two tiles, so at T 49 the K tile and the V tile
+// are both in flight from the start and V lands while Sᵀ and the softmax
+// run. A block is short and its two loads are all it keeps in flight, so
+// the design packs blocks: ~21 KB of shared memory and registers capped
+// so that eight share an SM. (A persistent grid, each block walking pairs
+// and asking L2 for its next pair's rows, was slower on the H100; PERF.md
+// keeps its times.)
+//
+// f32, and bf16 at any other head_dim (grouped_cross_attention_simt_kernel):
+// the two-pass CUDA-core body of attention_simt.cuh over the same rows, one
+// block per (item, head), exact f32 arithmetic. The launcher picks the
+// kernel by dtype and head_dim before any launch.
 
-#include "common.cuh"
+#include "attention_mma.cuh"
+#include "attention_simt.cuh"
 
 namespace {
 
-// Row t of group g's encoder keys or values in one head's columns, as
-// 16-byte vectors.
+using bf16 = __nv_bfloat16;
+namespace ma = dh::mma_attn;
+
+// The bias of every row when the caller passes none.
+__device__ float kZeroBias = 0.f;
+
+// Row r of one item's encoder rows in one head's columns: its code is r;
+// `k0` / `v0` point at the item's row 0 at the head's first column, `b0`
+// at the item's bias row (stride 1) or at kZeroBias (stride 0).
 template <typename T>
 struct EncoderRows {
-  const T* base;  // group g's first row, at the head's first column
-  int D;
-  __device__ const uint4* operator()(int t) const {
-    return reinterpret_cast<const uint4*>(base + (size_t)t * D);
+  const T *k0, *v0;
+  const float* b0;
+  int bstride, D;
+  __device__ uint32_t index(int r) const { return (uint32_t)r; }
+  __device__ const T* k(uint32_t x) const { return k0 + (size_t)x * D; }
+  __device__ const T* v(uint32_t x) const { return v0 + (size_t)x * D; }
+  __device__ const float* bias(int, int, uint32_t x) const {
+    return b0 + (size_t)x * bstride;
   }
 };
 
 template <typename T>
-__global__ void __launch_bounds__(128) grouped_cross_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ ek,
-    const T* __restrict__ ev, const float* __restrict__ bias,
-    T* __restrict__ out, int live, int r, int Tn, int D, int hd,
-    float inv_scale) {
-  extern __shared__ __align__(16) uint32_t smem_w[];
-  const int wpr = hd * (int)sizeof(T) / 4;  // 4-byte words per row
-  const int ld = wpr + 1;                   // odd: conflict-free columns
-  uint32_t* ks = smem_w;                    // [Tn][ld]
-  uint32_t* vs = ks + Tn * ld;              // [Tn][ld]
-  float* qs = reinterpret_cast<float*>(vs + Tn * ld);  // [r][hd]
-  float* e = qs + r * hd;                   // [r][Tn]
-  const int g = blockIdx.x, col0 = blockIdx.y * hd;
+__device__ __forceinline__ EncoderRows<T> encoder_rows(
+    const T* ek, const T* ev, const float* bias, int g, int Tn, int D,
+    int col0) {
   const size_t kv0 = (size_t)g * Tn * D + col0;
-  const size_t q0 = (size_t)g * r;
-  if (g >= live) {
-    dh::zero_rows(out + q0 * D + col0, r, hd, D);
+  return {ek + kv0, ev + kv0, bias ? bias + (size_t)g * Tn : &kZeroBias,
+          bias ? 1 : 0, D};
+}
+
+// The ring of `attend` holds two tiles: an item's rows are one tile at
+// the serving shape (T 49), so K and V are both in flight from the start.
+// A tensor-core kernel of one n-tile (a beam up to 8) keeps at least
+// kMinBlocks blocks on an SM (its registers capped to fit, ~21 KB of shared
+// memory each): a block is short and its two loads are all it keeps in
+// flight, so more blocks keep more bytes in flight. Wider beams keep the
+// compiler's choice.
+constexpr int kRingTiles = 2;
+template <int NT>
+constexpr int kMinBlocks = NT == 1 ? 8 : 1;
+
+// One block per pair b = blockIdx.x (heads fastest, then chunks of at most
+// kMaxBeam branches, then items).
+template <int NT>
+__global__ void __launch_bounds__(ma::kThreads, kMinBlocks<NT>)
+    grouped_cross_attention_mma_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ ek,
+        const bf16* __restrict__ ev, const float* __restrict__ bias,
+        bf16* __restrict__ out, int live, int r, int Tn, int D, int hd,
+        float inv_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = D / hd, b = blockIdx.x;
+  const ma::Chunk<NT> ch(b, H, r);
+  const int col0 = b % H * hd;
+  const size_t qrow0 = (size_t)ch.sel * r + ch.j0;
+  if (ch.sel >= live) {
+    dh::zero_rows(out + qrow0 * D + col0, ch.nq, hd, D);
     return;
   }
-
-  dh::stage_rows(ks, ld, Tn, wpr / 4, EncoderRows<T>{ek + kv0, D});
-  dh::stage_rows(vs, ld, Tn, wpr / 4, EncoderRows<T>{ev + kv0, D});
-  for (int t = threadIdx.x; t < r * hd; t += blockDim.x)
-    qs[t] = dh::to_f32(q[(q0 + t / hd) * D + col0 + t % hd]);
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < r * Tn; t += blockDim.x) {
-    const int j = t / Tn, tt = t % Tn;
-    const T* krow = reinterpret_cast<const T*>(ks + tt * ld);
-    const float s = dh::dot(qs + j * hd, krow, hd) * inv_scale;
-    e[t] = s + (bias ? bias[(size_t)g * Tn + tt] : 0.f);
-  }
-  __syncthreads();
-
-  for (int j = threadIdx.x >> 5; j < r; j += blockDim.x >> 5)
-    dh::warp_softmax_round<T>(e + j * Tn, Tn);
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < r * hd; t += blockDim.x) {
-    const int j = t / hd, d = t % hd;
-    float acc = 0.f;
-    for (int tt = 0; tt < Tn; ++tt)
-      acc = fmaf(e[j * Tn + tt],
-                 dh::to_f32(reinterpret_cast<const T*>(vs + tt * ld)[d]),
-                 acc);
-    out[(q0 + j) * D + col0 + d] = dh::from_f32<T>(acc);
-  }
+  ma::attend<NT, kRingTiles>(
+      encoder_rows(ek, ev, bias, ch.sel, Tn, D, col0), q + qrow0 * D + col0,
+      D, out + qrow0 * D + col0, D, Tn, ch.nq, hd, inv_scale, 1, smem);
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* ek, const void* ev,
-                   const void* bias, void* out, int G, int live, int r,
-                   int Tn, int D, int H, float inv_scale,
-                   cudaStream_t stream) {
-  const int hd = D / H;
-  const size_t smem = 4 * ((size_t)2 * Tn * (hd * sizeof(T) / 4 + 1) +
-                           (size_t)r * (hd + Tn));
-  auto kernel = grouped_cross_attention_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+__global__ void __launch_bounds__(dh::simt::kThreads)
+    grouped_cross_attention_simt_kernel(
+        const T* __restrict__ q, const T* __restrict__ ek,
+        const T* __restrict__ ev, const float* __restrict__ bias,
+        T* __restrict__ out, int live, int r, int Tn, int D, int hd,
+        float inv_scale) {
+  extern __shared__ __align__(16) uint32_t smem_w[];
+  const int H = D / hd, g = blockIdx.x / H, col0 = blockIdx.x % H * hd;
+  const size_t q0 = (size_t)g * r * D + col0;
+  if (g >= live) {
+    dh::zero_rows(out + q0, r, hd, D);
+    return;
   }
-  kernel<<<dim3(G, H), 128, smem, stream>>>(
+  dh::simt::attend<T>(encoder_rows(ek, ev, bias, g, Tn, D, col0), q + q0, D,
+                      out + q0, D, Tn, r, hd, inv_scale, smem_w);
+}
+
+bool use_mma(int dtype, int hd) {
+  return dtype == dh::kBFloat16 && ma::takes(hd);
+}
+
+size_t smem_bytes(int dtype, int r, int Tn, int D, int H) {
+  const int hd = D / H;
+  if (!use_mma(dtype, hd))
+    return dh::simt::smem_bytes(Tn, r, hd, dtype == dh::kBFloat16 ? 2 : 4);
+  return ma::smem_bytes(Tn, 1, ma::chunk_beam(r), hd, ma::n_tiles(r),
+                        kRingTiles);
+}
+
+template <typename T>
+cudaError_t launch_simt(const void* q, const void* ek, const void* ev,
+                        const void* bias, void* out, int G, int live, int r,
+                        int Tn, int D, int H, float inv_scale,
+                        cudaStream_t stream) {
+  const int hd = D / H;
+  return ma::launch<&grouped_cross_attention_simt_kernel<T>,
+                    dh::simt::kThreads>(
+      G * H, 1, dh::simt::smem_bytes(Tn, r, hd, sizeof(T)), stream,
       (const T*)q, (const T*)ek, (const T*)ev, (const float*)bias, (T*)out,
       live, r, Tn, D, hd, inv_scale);
-  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_mma(const void* q, const void* ek, const void* ev,
+                       const void* bias, void* out, int G, int live, int r,
+                       int Tn, int D, int H, float inv_scale,
+                       cudaStream_t stream) {
+  const int hd = D / H;
+  return ma::launch<&grouped_cross_attention_mma_kernel<NT>>(
+      G * H * ma::beam_chunks(r), 1,
+      ma::smem_bytes(Tn, 1, ma::chunk_beam(r), hd, NT, kRingTiles), stream,
+      (const bf16*)q, (const bf16*)ek, (const bf16*)ev, (const float*)bias,
+      (bf16*)out, live, r, Tn, D, hd, inv_scale);
 }
 
 }  // namespace
@@ -111,11 +171,25 @@ extern "C" int dh_grouped_cross_attention(int dtype, const void* q,
                                           int H, float inv_scale,
                                           void* stream) {
   auto s = (cudaStream_t)stream;
-  if (dtype == dh::kBFloat16)
-    return launch<__nv_bfloat16>(q, ek, ev, bias, out, G, live, r, Tn, D, H,
-                                 inv_scale, s);
-  return launch<float>(q, ek, ev, bias, out, G, live, r, Tn, D, H, inv_scale,
-                       s);
+  if (!use_mma(dtype, D / H)) {
+    if (dtype == dh::kBFloat16)
+      return launch_simt<bf16>(q, ek, ev, bias, out, G, live, r, Tn, D, H,
+                               inv_scale, s);
+    return launch_simt<float>(q, ek, ev, bias, out, G, live, r, Tn, D, H,
+                              inv_scale, s);
+  }
+  return ma::dispatch(r, D / H, [&](auto nt) {
+    return launch_mma<decltype(nt)::value>(q, ek, ev, bias, out, G, live, r,
+                                           Tn, D, H, inv_scale, s);
+  });
+}
+
+// The dynamic shared memory a block of dh_grouped_cross_attention needs at
+// this shape (the wrapper compares it with the card's opt-in limit before
+// the launch).
+extern "C" long long dh_grouped_cross_attention_smem(int dtype, int r, int Tn,
+                                                     int D, int H) {
+  return (long long)smem_bytes(dtype, r, Tn, D, H);
 }
 
 extern "C" const char* dh_error_string(int err) {

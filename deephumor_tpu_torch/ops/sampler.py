@@ -141,11 +141,14 @@ def fused_topk_gumbel_sample(logits, seed, inv_temperature, *, top_k,
             num_draws=num_draws, unk_index=unk_index, live_rows=live_rows)
     rows, v = logits.shape
     live = _build.live_count(rows, live_rows)
+    code = _build.dtype_code(logits, name)
+    _build.check_smem(name, _build.smem_need(
+        "dh_topk_gumbel_sample_smem", code, v), logits)
     ids = (torch.empty if live == rows else torch.zeros)(
         (rows, num_draws), dtype=torch.int32, device=logits.device)
     if live:
         err = _build.library().dh_topk_gumbel_sample(
-            _build.dtype_code(logits, name), logits.data_ptr(),
+            code, logits.data_ptr(),
             ids.data_ptr(), live, v, top_k, num_draws, unk_index, int(seed),
             float(np.float32(inv_temperature)), _build.stream_of(logits))
         _build.check(err, name)

@@ -89,12 +89,12 @@ def test_ancestry_attention_update_twin_matches_jax_at_char_length(items,
     np.testing.assert_array_equal(cv_t.numpy(), np.asarray(cv_j))
 
 
-def _cross_inputs(seed, masked_group):
+def _cross_inputs(seed, masked_group, g=G, r=R, t=T):
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(G * R, D)).astype(np.float32)
-    ek = rng.normal(size=(G, T, D)).astype(np.float32)
-    ev = rng.normal(size=(G, T, D)).astype(np.float32)
-    mask = rng.random((G, T)) < 0.3
+    q = rng.normal(size=(g * r, D)).astype(np.float32)
+    ek = rng.normal(size=(g, t, D)).astype(np.float32)
+    ev = rng.normal(size=(g, t, D)).astype(np.float32)
+    mask = rng.random((g, t)) < 0.3
     mask[:, 0] = False
     if masked_group:
         mask[1] = True  # every encoder row of group 1 masked
@@ -117,6 +117,30 @@ def test_grouped_cross_attention_twin_matches_jax(masked_group):
         uniform = ev[1].mean(axis=0)
         for j in range(R):
             np.testing.assert_allclose(got[R + j], uniform, atol=1e-5)
+
+
+@pytest.mark.parametrize("live_items", [None, 3, 0])
+def test_grouped_cross_attention_twin_matches_jax_at_beam_7(live_items):
+    # the char serving shape, narrow: beam 7 over 49 encoder rows (a 7 x 7
+    # feature map), group 1's rows all masked; groups at or past live_items
+    # get zero rows here (the JAX kernel skips their blocks)
+    g, r, t = 5, 7, 49
+    q, ek, ev, bias = _cross_inputs(4, True, g=g, r=r, t=t)
+    want = np.asarray(pa.grouped_cross_attention(
+        jnp.asarray(q), jnp.asarray(ek), jnp.asarray(ev), jnp.asarray(bias),
+        groups=g, n_heads=H, interpret=True,
+        live_items=None if live_items is None else jnp.int32(live_items)))
+    got = A.grouped_cross_attention(
+        torch.from_numpy(q), torch.from_numpy(ek), torch.from_numpy(ev),
+        torch.from_numpy(bias), n_heads=H, live_items=live_items).numpy()
+    live = g if live_items is None else live_items
+    np.testing.assert_allclose(got[:live * r], want[:live * r], atol=1e-5,
+                               rtol=1e-4)
+    assert not got[live * r:].any()
+    if live > 1:
+        for j in range(r):
+            np.testing.assert_allclose(got[r + j], ev[1].mean(axis=0),
+                                       atol=1e-5)
 
 
 def test_grouped_cross_attention_without_bias_matches_jax():

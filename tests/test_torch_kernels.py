@@ -103,19 +103,77 @@ def test_ancestry_attention_update_refuses_what_no_block_holds(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_grouped_cross_attention_matches_twin(cuda, dtype):
-    groups, r, t, d, heads = 9, 5, 49, 256, 4
+@pytest.mark.parametrize("groups,beam,d,heads", [
+    (9, 5, 256, 4), (600, 5, 512, 8), (600, 7, 512, 8), (600, 7, 192, 8)])
+@pytest.mark.parametrize("live_items", [None, 0, 500])
+@pytest.mark.parametrize("masked", [True, False])
+def test_grouped_cross_attention_matches_twin(cuda, dtype, groups, beam, d,
+                                              heads, live_items, masked):
+    # T 49 (a 7 x 7 feature map); head_dim 64 (bf16 on the tensor cores) or
+    # 24 (the CUDA-core kernel); item 2's rows all masked, or no bias;
+    # items at or past live_items zero
+    t = 49
     g = torch.Generator(cuda).manual_seed(1)
     rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)  # noqa
-    q, ek, ev = rnd(groups * r, d), rnd(groups, t, d), rnd(groups, t, d)
-    mask = torch.rand(groups, t, generator=g, device=cuda) < 0.3
-    mask[2] = True
-    bias = torch.where(mask[:, None, :], A.MASK_FILL, 0.0).float()
-    for b in (bias, None):
-        got = A.grouped_cross_attention(q, ek, ev, b, n_heads=heads)
-        want = A.grouped_cross_attention_plain(q, ek, ev, b, n_heads=heads)
-        torch.testing.assert_close(got, want, atol=_tol(dtype),
-                                   rtol=_tol(dtype))
+    q, ek, ev = rnd(groups * beam, d), rnd(groups, t, d), rnd(groups, t, d)
+    bias = None
+    if masked:
+        mask = torch.rand(groups, t, generator=g, device=cuda) < 0.3
+        mask[2] = True
+        bias = torch.where(mask[:, None, :], A.MASK_FILL, 0.0).float()
+    kw = dict(n_heads=heads, live_items=live_items)
+    reset_launch_counts()
+    got = A.grouped_cross_attention(q, ek, ev, bias, **kw)
+    assert LAUNCHES["grouped_cross_attention"] == 1
+    want = A.grouped_cross_attention_plain(q, ek, ev, bias, **kw)
+    torch.testing.assert_close(got, want, atol=_tol(dtype), rtol=_tol(dtype))
+    assert torch.isfinite(got.float()).all()
+    live = groups if live_items is None else min(live_items, groups)
+    assert not got[live * beam:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,vocab,top_k,draws", [
+    *((dt, *c) for dt in DTYPES for c in (
+        (29184, 64, 5), (29184, 5, 5), (3001, 7, 7), (100, 50, 7),
+        (128, 50, 7))),
+    (torch.float32, 52000, 64, 5), (torch.float32, 56031, 64, 5),
+    (torch.bfloat16, 104000, 64, 5), (torch.bfloat16, 112062, 64, 5)])
+def test_topk_gumbel_sample_planted_rows_match_twin(cuda, dtype, vocab,
+                                                    top_k, draws):
+    # 1000 rows: each team of the kernel walks several; planted rows: UNK
+    # the row's maximum, one value throughout, 2048 tied at the top (the
+    # candidate list overflows), ties at the k-th largest. Rows of 52000
+    # f32 or 104000 bf16 logits and longer leave no room for the vector
+    # table beside a full list; 56031 f32 and 112062 bf16 (224 KB) leave a
+    # block under 8 KB for the rest
+    g = torch.Generator(cuda).manual_seed(17)
+    logits = torch.randn(1000, vocab, generator=g, device=cuda).to(dtype)
+    logits[:8, 1] = 50.0
+    logits[8:16] = 0.5
+    if vocab >= 2048:
+        logits[16:24, :2048] = 7.0
+    c0 = min(100, vocab - 40)
+    logits[24:32, c0:c0 + 40] = logits[24:32].float().topk(
+        top_k, dim=1).values[:, -1:].to(dtype)
+    kw = dict(top_k=top_k, num_draws=draws)
+    reset_launch_counts()
+    got = S.fused_topk_gumbel_sample(logits, 21, 0.9, **kw)
+    assert LAUNCHES["fused_topk_gumbel_sample"] == 1
+    want = S.fused_topk_gumbel_sample_plain(logits, 21, 0.9, **kw)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert not (got[0] == 1).any()
+
+
+@pytest.mark.cuda
+def test_topk_gumbel_sample_refuses_what_no_block_holds(cuda):
+    # one f32 row of 2**17 logits (512 KB) is past any block's shared memory
+    logits = torch.zeros(2, 2 ** 17, device=cuda)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        S.fused_topk_gumbel_sample(logits, 1, 1.0, top_k=4, num_draws=2)
+    assert LAUNCHES["fused_topk_gumbel_sample"] == 0
 
 
 @pytest.mark.cuda

@@ -160,3 +160,36 @@ def test_live_rows_draw_from_the_support_of_the_jax_kernel(dtype, live_rows):
     for r in range(live_rows):
         assert set(ids[r].tolist()) <= support[r] and 1 not in ids[r]
         assert set(jax_ids[r].tolist()) <= support[r]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ties_past_the_list", "odd_vocab",
+                                  "unk_on_top"])
+def test_special_rows_draw_from_the_support_of_the_jax_kernel(dtype, case):
+    # rows the CUDA kernel treats apart: 1500 logits tied at the top (more
+    # than its 1024-key candidate list, so it searches the whole row), an
+    # odd V (rows start off 16-byte alignment), UNK the row's maximum. The
+    # twin and the interpreted JAX kernel draw from the same exact support
+    rng = np.random.default_rng(8)
+    v = {"ties_past_the_list": 2048, "odd_vocab": 3001, "unk_on_top": V}[case]
+    x = rng.normal(size=(R, v)).astype(np.float32)
+    if case == "ties_past_the_list":
+        x[:, 100:1600] = 4.0
+    if case == "unk_on_top":
+        x[:, 1] = x.max() + 1.0
+    logits = torch.from_numpy(x).to(dtype)
+    ref = logits.float().numpy()
+    ids, vals = _sample(logits, seed=9)
+    jax_ids, _ = fused_topk_gumbel_sample(
+        jnp.asarray(ref), 9, 1.0, top_k=K, num_draws=D, block_rows=4,
+        interpret=True)
+    jax_ids = np.asarray(jax_ids)
+    support = _jax_support(ref, K)
+    for r in range(R):
+        assert set(ids[r]) <= support[r] and 1 not in ids[r]
+        assert len(set(ids[r])) == D
+        np.testing.assert_array_equal(vals[r], ref[r, ids[r]])
+        assert set(jax_ids[r].tolist()) <= support[r]
+        assert 1 not in jax_ids[r]
+    if case == "ties_past_the_list":
+        assert all(len(s) == 1500 for s in support)
