@@ -24,7 +24,7 @@ alone (a partial yardstick).
 
 Each path also runs with the two kernel-selecting switches:
 DH_FUSED_SURVIVOR=1 (the survivor update in K10) and DH_CROSS_PACK=4
-(decode cross-attention in K9, four items per block, over a store padded
+(decode cross-attention in K9, in groups of four items, over a store padded
 to 56 rows; prefill stays on K2). Between the two paths, the other two
 caption families run at the word settings: CaptioningTransformerBase
 (decoder-only, global embedding; K1, K3) without and with
@@ -49,12 +49,21 @@ every launch count at zero and fails if one of its kernels was not
 launched or one off its leg was. word_fused and base_fused must give
 their default legs' sequences and scores exactly. After the char leg, K6
 is held against its twin and timed at each straggler count that leg
-showed (K5 and K6 are timed with the device queued). torch.profiler tables
-(kernel time by name, the device's idle share) follow the word, base,
-base_fused and lstm legs, and end the char path: one more call without
-and one with both switches.
+showed. Kernels shorter than their wrapper's host work (K2, K3, K4, K5,
+K6, K9, K10, K11) are timed with the device queued: K4 at all char rows
+and at C_LIVE live rows, beside bf16 F.linear + K3 (the unfused route) and
+F.linear alone; K9 at the word and char shapes beside K2 on the same rows.
+torch.profiler tables (kernel time by name, the device's idle share)
+follow the word, word_packed_fused, base, base_fused and lstm legs, and
+end the char path: one more call without and one with both switches.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times [ROOT]
+
+The second form only times K4 (all char rows, C_LIVE live), K9 (ng 2, 4,
+8) and K2 on K9's rows, queued, through the deephumor_tpu_torch of the
+tree at ROOT (default: this one), and prints one JSON line: run beside
+a parent tree's root, it times the parent's kernels on the same inputs.
 
 Exits non-zero, printing no result, without a CUDA device. Its last line
 is ``{"ok": true, "device": {...}}``; the line before it gives the card's
@@ -87,6 +96,7 @@ C_EOS_BIAS, C_TEMP = 1.0, 1.1
 # boundary still has stragglers
 C_GREEDY_EOS_BIASES = (0.0, 0.25, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
 C_ROWS, C_P = C_BATCH * C_BEAM, 136  # 129 positions, padded to 8
+C_LIVE = 160 * C_BEAM  # K4's rows in a late char step (~160 live items)
 TOL = 2e-2  # bf16 kernel vs twin: one bf16 rounding of each output
 TOL_F32 = 1e-5  # f32 kernel vs twin: the summation order only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -414,10 +424,10 @@ def check_k2(A, dev, gen, *, items, beam, live_items=None,
                 **bound(nbytes, 4 * live * beam * T_ENC * HID, dt))
 
 
-def check_k9(A, dev, gen, *, items, beam, ngs, live_items=None):
-    """K9 vs its twin for each ng on a store padded from T_ENC to T_PAD
-    rows (pad rows random, their bias columns 0, so only t_real keeps them
-    out), item 0 fully masked. Returns the measurements at ng = PACK."""
+def k9_inputs(A, dev, gen, items, beam):
+    """q, a store padded from T_ENC to T_PAD rows (pad rows random, their
+    bias columns 0, so only t_real keeps them out) and its bias, item 0
+    fully masked."""
     dt = torch.bfloat16
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)  # noqa
     q, ek, ev = rnd(items * beam, HID), rnd(items, T_PAD, HID), rnd(
@@ -425,7 +435,23 @@ def check_k9(A, dev, gen, *, items, beam, ngs, live_items=None):
     mask = torch.rand(items, T_PAD, generator=gen, device=dev) < 0.1
     mask[0] = True
     mask[:, T_ENC:] = False
-    bias = torch.where(mask[:, None, :], A.MASK_FILL, 0.0).float()
+    return q, ek, ev, torch.where(mask[:, None, :], A.MASK_FILL, 0.0).float()
+
+
+def k2_on_k9_rows(A, q, ek, ev, bias, live_items):
+    """K2's device time (queued) over the rows K9 reads: the first T_ENC
+    rows of each item, in an unpadded store."""
+    ek2, ev2 = (x[:, :T_ENC].contiguous() for x in (ek, ev))
+    b2 = bias[..., :T_ENC].contiguous()
+    return cuda_ms(lambda: A.grouped_cross_attention(
+        q, ek2, ev2, b2, n_heads=HEADS, live_items=live_items), queued=True)
+
+
+def check_k9(A, dev, gen, *, items, beam, ngs, live_items=None):
+    """K9 vs its twin for each ng, timed with the device queued, beside K2
+    on the same rows. Returns the measurements at ng = PACK."""
+    dt = torch.bfloat16
+    q, ek, ev, bias = k9_inputs(A, dev, gen, items, beam)
     live = items if live_items is None else live_items
     err, row = 0.0, None
     for ng in ngs:
@@ -440,14 +466,18 @@ def check_k9(A, dev, gen, *, items, beam, ngs, live_items=None):
             raise AssertionError("K9: rows past live_items are not 0")
         e = (got.float() - want.float()).abs().max().item()
         err = max(err, e)
-        ms = cuda_ms(lambda: A.grouped_cross_attention(q, ek, ev, bias, **kw))
+        ms = cuda_ms(lambda: A.grouped_cross_attention(q, ek, ev, bias, **kw),
+                     queued=True)
         log(f"  K9 G={items} r={beam} T {T_ENC} of {T_PAD} ng={ng} "
             f"live_items={live_items}: max|out-twin|={e:.3e} (atol=rtol="
-            f"{TOL}), {ms:.4f} ms")
+            f"{TOL}), {ms:.4f} ms (device alone)")
         if ng == PACK:
             row = dict(ms=ms, plain_ms=cuda_ms(
                 lambda: A.cross_attention_packed_plain(q, ek, ev, bias, **kw),
                 iters=3))
+    row["k2_ms"] = k2_on_k9_rows(A, q, ek, ev, bias, live_items)
+    log(f"  K2 on the same rows: {row['k2_ms']:.4f} ms; K9 (ng {PACK}) / K2 "
+        f"= {row['ms'] / row['k2_ms']:.3f}")
     qh = q.reshape(items, beam, HEADS, -1).transpose(1, 2)
     kh, vh = (heads(x[:, :T_ENC], items, T_ENC) for x in (ek, ev))
     m4 = bias[..., :T_ENC].reshape(items, 1, 1, T_ENC)
@@ -600,16 +630,33 @@ def check_k3(S, dev, gen, *, rows, vocab, top_k, draws, inv_t, label,
     return None if row is None else dict(row, max_abs_err=err)
 
 
-def check_k4(S, dev, gen):
-    """K4 at the char shapes: x [5376, 512], W [128, 512] bf16."""
+def k4_inputs(dev, gen):
+    """x [5376, 512], W [128, 512] bf16 and an f32 bias with UNK on top of
+    every row (it must never be drawn)."""
     bf = torch.bfloat16
     x = torch.randn(C_ROWS, HID, generator=gen, device=dev).to(bf)
     w = (torch.randn(C_VOCAB, HID, generator=gen, device=dev) / 8).to(bf)
     b = torch.randn(C_VOCAB, generator=gen, device=dev)
-    b[1] = 30.0  # UNK on top of every row: it must never be drawn
+    b[1] = 30.0
+    return x, w, b
+
+
+def k4_bytes(live):
+    """x's live rows, W and b read; every row's ids (int64) and values
+    (f32) written."""
+    return live * HID * 2 + C_VOCAB * HID * 2 + C_VOCAB * 4 + (
+        C_ROWS * C_BEAM * 12)
+
+
+def check_k4(S, dev, gen):
+    """K4 at the char shapes, all rows live and C_LIVE live (and 3000),
+    timed with the device queued beside the unfused route (bf16 F.linear,
+    then K3) and F.linear alone (partial yardsticks)."""
+    bf = torch.bfloat16
+    x, w, b = k4_inputs(dev, gen)
     kw = dict(top_k=C_TOP_K, num_draws=C_BEAM)
     err = 0.0
-    for live in (None, 3000):
+    for live in (None, 3000, C_LIVE):
         ids, vals = S.fused_classifier_topk_gumbel_sample(
             x, w, b, 4321, 1 / C_TEMP, live_rows=live, **kw)
         ids_p, vals_p = S.fused_classifier_topk_gumbel_sample_plain(
@@ -622,14 +669,31 @@ def check_k4(S, dev, gen):
                     f"K4 live_rows={live}")
         eq = (ids == ids_p).all(dim=1)
         err = max(err, (vals[eq] - vals_p[eq]).abs().max().item())
-    ms = cuda_ms(lambda: S.fused_classifier_topk_gumbel_sample(
-        x, w, b, 7, 1 / C_TEMP, **kw))
+    row = {}
+    for key, live in (("", None), ("_live", C_LIVE)):
+        row["ms" + key] = cuda_ms(
+            lambda: S.fused_classifier_topk_gumbel_sample(
+                x, w, b, 7, 1 / C_TEMP, live_rows=live, **kw), queued=True)
+        row["linear_k3_ms" + key] = cuda_ms(
+            lambda: S.fused_topk_gumbel_sample(
+                torch.nn.functional.linear(x, w, b.to(bf)), 7, 1 / C_TEMP,
+                live_rows=live, **kw), queued=True)
+        row["bound_ms" + key] = bound(
+            k4_bytes(live or C_ROWS), 2 * (live or C_ROWS) * C_VOCAB * HID,
+            bf)["bound_ms"]
+    row["linear_ms"] = cuda_ms(
+        lambda: torch.nn.functional.linear(x, w, b.to(bf)), queued=True)
     plain_ms = cuda_ms(lambda: S.fused_classifier_topk_gumbel_sample_plain(
         x, w, b, 7, 1 / C_TEMP, **kw), iters=2, warmup=1)
-    nbytes = C_ROWS * HID * 2 + C_VOCAB * HID * 2 + C_VOCAB * 4 + (
-        C_ROWS * C_BEAM * 8)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound(nbytes, 2 * C_ROWS * C_VOCAB * HID, bf))
+    log(f"  K4 [{C_ROWS}, {HID}] x [{C_VOCAB}, {HID}]: {row['ms']:.4f} ms "
+        f"(device alone; {C_LIVE} live rows {row['ms_live']:.4f} ms), twin "
+        f"{plain_ms:.4f} ms; F.linear + K3 {row['linear_k3_ms']:.4f} ms "
+        f"({C_LIVE} live {row['linear_k3_ms_live']:.4f} ms), F.linear alone "
+        f"{row['linear_ms']:.4f} ms (partial yardsticks); bound "
+        f"{row['bound_ms']:.4f} / {row['bound_ms_live']:.4f} ms")
+    return dict(row, max_abs_err=err, plain_ms=plain_ms, library_ms=None,
+                bound_by=bound(k4_bytes(C_ROWS),
+                               2 * C_ROWS * C_VOCAB * HID, bf)["bound_by"])
 
 
 def check_k5_k6(A, dev, gen):
@@ -1001,9 +1065,42 @@ def check_leg_launches(label, launches, packed, steps):
         raise AssertionError(f"{label}: K2/K9/K10 launch counts")
 
 
+def kernel_times(root):
+    """Device times (queued) of K4 at the char shape, all rows and C_LIVE
+    live, and of K9 (ng PACK) beside K2 on the same rows at the word and
+    char shapes, through the deephumor_tpu_torch of the tree at ``root``:
+    given another tree's root, it times that tree's kernels on the same
+    inputs (a change beside its parent, in one call). Prints one JSON
+    line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops import sampler as S
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(0)
+    out = {"tree": root, "card": card()}
+    x, w, b = k4_inputs(dev, gen)
+    kw = dict(top_k=C_TOP_K, num_draws=C_BEAM)
+    for key, live in (("k4_ms", None), ("k4_ms_live", C_LIVE)):
+        out[key] = cuda_ms(lambda: S.fused_classifier_topk_gumbel_sample(
+            x, w, b, 7, 1 / C_TEMP, live_rows=live, **kw), queued=True)
+    for label, items, beam in (("word", BATCH, BEAM),
+                               ("char", C_BATCH, C_BEAM)):
+        q, ek, ev, bias = k9_inputs(A, dev, gen, items, beam)
+        for ng in (2, PACK, 8):
+            kw9 = dict(n_heads=HEADS, pack_items=ng, t_real=T_ENC)
+            out[f"k9_ms_{label}_ng{ng}"] = cuda_ms(
+                lambda: A.grouped_cross_attention(q, ek, ev, bias, **kw9),
+                queued=True)
+        out[f"k2_ms_{label}"] = k2_on_k9_rows(A, q, ek, ev, bias, None)
+    print(json.dumps(out), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing is run")
+    if sys.argv[1:2] == ["--kernel-times"]:
+        return kernel_times(sys.argv[2] if len(sys.argv) > 2 else ".")
     from deephumor_tpu_torch.models import (CaptioningLSTM,
                                             CaptioningLSTMWithLabels,
                                             CaptioningTransformer,
@@ -1064,8 +1161,7 @@ def main():
     # rows too long for the vector table beside a full candidate list
     check_k3(S, dev, gen, rows=1000, vocab=52000, top_k=TOP_K, draws=BEAM,
              inv_t=1.0, label="K3 f32 V 52000", dt=f32, timed=False)
-    log(f"    K9 G {BATCH}, r {BEAM}, T {T_ENC} padded to {T_PAD}, ng 2, 4, 8"
-        f" (K2 at this shape: {rows['grouped_cross_attention']['ms']:.4f} ms)")
+    log(f"    K9 G {BATCH}, r {BEAM}, T {T_ENC} padded to {T_PAD}, ng 2, 4, 8")
     rows["cross_attention_packed"] = check_k9(A, dev, gen, items=BATCH,
                                               beam=BEAM, ngs=(2, 4, 8))
     log(f"    K10 items {BATCH}, beam {BEAM}, L {MAX_LEN}, P {MAX_LEN + 1}")
@@ -1127,6 +1223,8 @@ def main():
     check_leg_launches(
         "word_packed_fused", legs["word_packed_fused"], True,
         legs["word_packed_fused"]["fused_topk_gumbel_sample"] - 1)
+    profile_call(model, params, enc, kw, name_limit, "word_packed_fused", 12,
+                 pack=PACK, fused=True)
     del model, params, out, fused, enc
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
 
@@ -1233,6 +1331,10 @@ def main():
                            ngs=(PACK,), live_items=live)
         char_k10 = check_k10(E, dev, gen, items=C_BATCH, beam=C_BEAM,
                              length=C_LEN, live_items=live)
+        if live is None:
+            rows["cross_attention_packed"].update(
+                ms_char=char_k9["ms"], k2_ms_char=char_k9["k2_ms"],
+                bound_ms_char=char_k9["bound_ms"])
         for name, r in (("K9 (ng 4)", char_k9), ("K10", char_k10)):
             log(f"    {name} at the char shape, live items {live}: "
                 f"{r['ms']:.4f} ms (twin {r['plain_ms']:.4f} ms, SDPA "
@@ -1304,7 +1406,7 @@ def main():
         "ancestry_attention_ids": (
             "ancestry_attention_ids.cu", "pallas_attention.py:1015"),
         "cross_attention_packed": (
-            "cross_attention_packed.cu", "pallas_attention.py:1275"),
+            "cross_attention.cu", "pallas_attention.py:1275"),
         "fused_survivor_update": (
             "survivor_update.cu", "pallas_engine.py:154"),
         "ancestry_attention": (
@@ -1327,12 +1429,15 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             # K5 at its second canon shape; K6 at the leg's straggler
-            # counts; K1 at the char shape, p_eff 128; K2 at the char
-            # shape; K3 at the char shape, in f32, and torch.topk alone
-            # (a partial yardstick)
+            # counts; K1 at the char shape, p_eff 128; K2 and K9 at the
+            # char shape, K9 beside K2 on the same rows; K3 at the char
+            # shape, in f32, and torch.topk alone; K4 at C_LIVE live rows,
+            # beside F.linear + K3 and F.linear alone (partial yardsticks)
             **{k: row[k] for k in (
                 "ms_pe128", "ms_leg", "ms_char_pe128", "ms_char",
-                "bound_ms_char", "ms_f32", "topk_ms") if k in row}})
+                "bound_ms_char", "k2_ms", "k2_ms_char", "ms_f32", "topk_ms",
+                "ms_live", "bound_ms_live", "linear_ms", "linear_k3_ms",
+                "linear_k3_ms_live") if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {name_limit}")
     print(json.dumps({"ok": True, "device": {

@@ -76,10 +76,10 @@ _SIGNATURES = {
     # P, p_eff, D, H, inv_scale, stream
     "dh_ancestry_attention_ids":
         [_I, *[_P] * 6, *[_I] * 7, _F, _P],
-    # dtype, q, ek, ev, bias (or NULL), out, G, live, r, Tp, t_real, ng, D,
-    # H, inv_scale, stream
+    # dtype, q, ek, ev, bias (or NULL), out, G, live, r, Tp, t_real, D, H,
+    # inv_scale, stream
     "dh_cross_attention_packed":
-        [_I, *[_P] * 5, *[_I] * 8, _F, _P],
+        [_I, *[_P] * 5, *[_I] * 7, _F, _P],
     # new_idx, new_val, surv, ended, val, seq, anc, valid, chosen, B, live,
     # beam, L, P, pos, eos, pad, stream
     "dh_fused_survivor_update":
@@ -103,7 +103,7 @@ _SIZES = {
     "dh_ancestry_attention_update_smem": ([_I] * 6, ctypes.c_longlong),
     # dtype, beam, D, H -> bytes of dynamic shared memory
     "dh_ancestry_attention_update_flash_smem": ([_I] * 4, ctypes.c_longlong),
-    # dtype, r, T, D, H -> bytes of dynamic shared memory
+    # dtype, r, T (K9: t_real), D, H -> bytes of dynamic shared memory
     "dh_grouped_cross_attention_smem": ([_I] * 5, ctypes.c_longlong),
     # dtype, V -> bytes of dynamic shared memory of a block of one team
     "dh_topk_gumbel_sample_smem": ([_I] * 2, ctypes.c_longlong),

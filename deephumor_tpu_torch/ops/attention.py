@@ -510,8 +510,10 @@ def cross_attention_packed_plain(q, ek, ev, bias, *, n_heads, pack_items,
 
 def cross_attention_packed(q, ek, ev, bias, *, n_heads, pack_items, t_real,
                            live_items=None):
-    """K9: :func:`grouped_cross_attention` with ``pack_items`` items per
-    block over a tile-padded store; the caller goes through
+    """K9: :func:`grouped_cross_attention` over the first ``t_real`` rows
+    of each item of a tile-padded store, in groups of ``pack_items`` items
+    (the TPU kernel's block-diagonal packing; on the card a group's blocks
+    are neighbours in the grid). The caller goes through
     ``grouped_cross_attention(..., pack_items=, t_real=)``, which checks
     the arguments."""
     name = "cross_attention_packed"
@@ -522,13 +524,15 @@ def cross_attention_packed(q, ek, ev, bias, *, n_heads, pack_items, t_real,
         return cross_attention_packed_plain(q, ek, ev, bias, **kw)
     g, t, d = ek.shape
     _build.check_vector_rows(name, d // n_heads, q, ek, ev)
+    code, r = _build.dtype_code(q, name), q.shape[0] // g
+    _build.check_smem(name, _build.smem_need(
+        "dh_grouped_cross_attention_smem", code, r, t_real, d, n_heads), q)
     out = torch.empty_like(q)
     err = _build.library().dh_cross_attention_packed(
-        _build.dtype_code(q, name), q.data_ptr(), ek.data_ptr(),
-        ev.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), g, _build.live_count(g, live_items), q.shape[0] // g,
-        t, t_real, pack_items, d, n_heads, 1.0 / math.sqrt(d // n_heads),
-        _build.stream_of(q))
+        code, q.data_ptr(), ek.data_ptr(), ev.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), g,
+        _build.live_count(g, live_items), r, t, t_real, d, n_heads,
+        1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

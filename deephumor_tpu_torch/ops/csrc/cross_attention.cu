@@ -1,4 +1,5 @@
-// K2: grouped single-query cross-attention.
+// K2: grouped single-query cross-attention; and K9, its form over a
+// tile-padded store.
 //
 // Replaces deephumor_tpu/ops/pallas_attention.py:grouped_cross_attention
 // (kernel _kernel_cross). The r = beam query rows of item g attend to
@@ -35,6 +36,21 @@
 // the two-pass CUDA-core body of attention_simt.cuh over the same rows, one
 // block per (item, head), exact f32 arithmetic. The launcher picks the
 // kernel by dtype and head_dim before any launch.
+//
+// K9 (dh_cross_attention_packed) replaces
+// deephumor_tpu/ops/pallas_attention.py:_cross_packed (kernel
+// _kernel_cross_packed), the DH_CROSS_PACK form: the same function over
+// each item's first t_real rows of a store padded to Tp rows (its bias
+// [G, 1, Tp]); the pad rows and every other item's rows get zero weight.
+// The TPU kernel fuses ng items into one block-diagonal product, masking
+// the cross-item energies, so that its matrix unit sees full tiles; on
+// Hopper an mma tile's M already runs over an item's rows, so K9 runs K2's
+// kernels with the rows read in place at a stride of Tp and stopping at
+// t_real: one block per (item, head, chunk), a group's ng items neighbours
+// in the grid, and ng sizes nothing. (A block per (group of ng items,
+// head), walking its items through one ring of four tiles so that the
+// next item's K and V land while the current item computes, was slower at
+// every ng on the H100; PERF.md keeps its times.)
 
 #include "attention_mma.cuh"
 #include "attention_simt.cuh"
@@ -49,7 +65,8 @@ __device__ float kZeroBias = 0.f;
 
 // Row r of one item's encoder rows in one head's columns: its code is r;
 // `k0` / `v0` point at the item's row 0 at the head's first column, `b0`
-// at the item's bias row (stride 1) or at kZeroBias (stride 0).
+// at the item's bias row (stride 1) or at kZeroBias (stride 0). Items lie
+// Tn rows apart (K2: T; K9: the padded Tp).
 template <typename T>
 struct EncoderRows {
   const T *k0, *v0;
@@ -90,8 +107,8 @@ __global__ void __launch_bounds__(ma::kThreads, kMinBlocks<NT>)
     grouped_cross_attention_mma_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ ek,
         const bf16* __restrict__ ev, const float* __restrict__ bias,
-        bf16* __restrict__ out, int live, int r, int Tn, int D, int hd,
-        float inv_scale) {
+        bf16* __restrict__ out, int live, int r, int Tn, int n, int D,
+        int hd, float inv_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = D / hd, b = blockIdx.x;
   const ma::Chunk<NT> ch(b, H, r);
@@ -103,7 +120,7 @@ __global__ void __launch_bounds__(ma::kThreads, kMinBlocks<NT>)
   }
   ma::attend<NT, kRingTiles>(
       encoder_rows(ek, ev, bias, ch.sel, Tn, D, col0), q + qrow0 * D + col0,
-      D, out + qrow0 * D + col0, D, Tn, ch.nq, hd, inv_scale, 1, smem);
+      D, out + qrow0 * D + col0, D, n, ch.nq, hd, inv_scale, 1, smem);
 }
 
 template <typename T>
@@ -111,7 +128,7 @@ __global__ void __launch_bounds__(dh::simt::kThreads)
     grouped_cross_attention_simt_kernel(
         const T* __restrict__ q, const T* __restrict__ ek,
         const T* __restrict__ ev, const float* __restrict__ bias,
-        T* __restrict__ out, int live, int r, int Tn, int D, int hd,
+        T* __restrict__ out, int live, int r, int Tn, int n, int D, int hd,
         float inv_scale) {
   extern __shared__ __align__(16) uint32_t smem_w[];
   const int H = D / hd, g = blockIdx.x / H, col0 = blockIdx.x % H * hd;
@@ -121,45 +138,64 @@ __global__ void __launch_bounds__(dh::simt::kThreads)
     return;
   }
   dh::simt::attend<T>(encoder_rows(ek, ev, bias, g, Tn, D, col0), q + q0, D,
-                      out + q0, D, Tn, r, hd, inv_scale, smem_w);
+                      out + q0, D, n, r, hd, inv_scale, smem_w);
 }
 
 bool use_mma(int dtype, int hd) {
   return dtype == dh::kBFloat16 && ma::takes(hd);
 }
 
-size_t smem_bytes(int dtype, int r, int Tn, int D, int H) {
+// A block's dynamic shared memory over n rows.
+size_t smem_bytes(int dtype, int r, int n, int D, int H) {
   const int hd = D / H;
   if (!use_mma(dtype, hd))
-    return dh::simt::smem_bytes(Tn, r, hd, dtype == dh::kBFloat16 ? 2 : 4);
-  return ma::smem_bytes(Tn, 1, ma::chunk_beam(r), hd, ma::n_tiles(r),
+    return dh::simt::smem_bytes(n, r, hd, dtype == dh::kBFloat16 ? 2 : 4);
+  return ma::smem_bytes(n, 1, ma::chunk_beam(r), hd, ma::n_tiles(r),
                         kRingTiles);
 }
 
 template <typename T>
 cudaError_t launch_simt(const void* q, const void* ek, const void* ev,
                         const void* bias, void* out, int G, int live, int r,
-                        int Tn, int D, int H, float inv_scale,
+                        int Tn, int n, int D, int H, float inv_scale,
                         cudaStream_t stream) {
   const int hd = D / H;
   return ma::launch<&grouped_cross_attention_simt_kernel<T>,
                     dh::simt::kThreads>(
-      G * H, 1, dh::simt::smem_bytes(Tn, r, hd, sizeof(T)), stream,
+      G * H, 1, dh::simt::smem_bytes(n, r, hd, sizeof(T)), stream,
       (const T*)q, (const T*)ek, (const T*)ev, (const float*)bias, (T*)out,
-      live, r, Tn, D, hd, inv_scale);
+      live, r, Tn, n, D, hd, inv_scale);
 }
 
 template <int NT>
 cudaError_t launch_mma(const void* q, const void* ek, const void* ev,
                        const void* bias, void* out, int G, int live, int r,
-                       int Tn, int D, int H, float inv_scale,
+                       int Tn, int n, int D, int H, float inv_scale,
                        cudaStream_t stream) {
   const int hd = D / H;
   return ma::launch<&grouped_cross_attention_mma_kernel<NT>>(
       G * H * ma::beam_chunks(r), 1,
-      ma::smem_bytes(Tn, 1, ma::chunk_beam(r), hd, NT, kRingTiles), stream,
+      ma::smem_bytes(n, 1, ma::chunk_beam(r), hd, NT, kRingTiles), stream,
       (const bf16*)q, (const bf16*)ek, (const bf16*)ev, (const float*)bias,
-      (bf16*)out, live, r, Tn, D, hd, inv_scale);
+      (bf16*)out, live, r, Tn, n, D, hd, inv_scale);
+}
+
+// Items Tn rows apart, each attending over its first n rows.
+cudaError_t launch(int dtype, const void* q, const void* ek, const void* ev,
+                   const void* bias, void* out, int G, int live, int r,
+                   int Tn, int n, int D, int H, float inv_scale,
+                   cudaStream_t s) {
+  if (!use_mma(dtype, D / H)) {
+    if (dtype == dh::kBFloat16)
+      return launch_simt<bf16>(q, ek, ev, bias, out, G, live, r, Tn, n, D, H,
+                               inv_scale, s);
+    return launch_simt<float>(q, ek, ev, bias, out, G, live, r, Tn, n, D, H,
+                              inv_scale, s);
+  }
+  return ma::dispatch(r, D / H, [&](auto nt) {
+    return launch_mma<decltype(nt)::value>(q, ek, ev, bias, out, G, live, r,
+                                           Tn, n, D, H, inv_scale, s);
+  });
 }
 
 }  // namespace
@@ -170,26 +206,26 @@ extern "C" int dh_grouped_cross_attention(int dtype, const void* q,
                                           int live, int r, int Tn, int D,
                                           int H, float inv_scale,
                                           void* stream) {
-  auto s = (cudaStream_t)stream;
-  if (!use_mma(dtype, D / H)) {
-    if (dtype == dh::kBFloat16)
-      return launch_simt<bf16>(q, ek, ev, bias, out, G, live, r, Tn, D, H,
-                               inv_scale, s);
-    return launch_simt<float>(q, ek, ev, bias, out, G, live, r, Tn, D, H,
-                              inv_scale, s);
-  }
-  return ma::dispatch(r, D / H, [&](auto nt) {
-    return launch_mma<decltype(nt)::value>(q, ek, ev, bias, out, G, live, r,
-                                           Tn, D, H, inv_scale, s);
-  });
+  return launch(dtype, q, ek, ev, bias, out, G, live, r, Tn, Tn, D, H,
+                inv_scale, (cudaStream_t)stream);
 }
 
-// The dynamic shared memory a block of dh_grouped_cross_attention needs at
-// this shape (the wrapper compares it with the card's opt-in limit before
-// the launch).
-extern "C" long long dh_grouped_cross_attention_smem(int dtype, int r, int Tn,
+extern "C" int dh_cross_attention_packed(int dtype, const void* q,
+                                         const void* ek, const void* ev,
+                                         const void* bias, void* out, int G,
+                                         int live, int r, int Tp, int t_real,
+                                         int D, int H, float inv_scale,
+                                         void* stream) {
+  return launch(dtype, q, ek, ev, bias, out, G, live, r, Tp, t_real, D, H,
+                inv_scale, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory a block of dh_grouped_cross_attention (or of
+// dh_cross_attention_packed, n = t_real) needs at this shape (the wrappers
+// compare it with the card's opt-in limit before the launch).
+extern "C" long long dh_grouped_cross_attention_smem(int dtype, int r, int n,
                                                      int D, int H) {
-  return (long long)smem_bytes(dtype, r, Tn, D, H);
+  return (long long)smem_bytes(dtype, r, n, D, H);
 }
 
 extern "C" const char* dh_error_string(int err) {

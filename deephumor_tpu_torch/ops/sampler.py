@@ -232,13 +232,14 @@ def fused_classifier_topk_gumbel_sample(x, w, b, seed, inv_temperature, *,
     bf = torch.bfloat16
     rows, v = x.shape[0], w.shape[0]
     xb, bb = x.to(bf), b.float().contiguous()
-    # the kernel's tensor-core product reads W in 16-row fragments
+    # the kernel that streams W reads it in 16-row fragments (the one that
+    # keeps W resident reads its V rows)
     wb = w.to(bf) if v % 16 == 0 else torch.nn.functional.pad(
         w.to(bf), (0, 0, 0, -v % 16))
     _build.check_vector_rows(name, x.shape[1], xb, wb)
     if wb.data_ptr() % 32:
         raise ValueError(f"{name}: w must be 32-byte aligned")
-    ids = torch.empty((rows, num_draws), dtype=torch.int32, device=x.device)
+    ids = torch.empty((rows, num_draws), dtype=torch.int64, device=x.device)
     vals = torch.empty((rows, num_draws), dtype=torch.float32,
                        device=x.device)
     err = _build.library().dh_classifier_topk_gumbel_sample(
@@ -248,4 +249,4 @@ def fused_classifier_topk_gumbel_sample(x, w, b, seed, inv_temperature, *,
         float(np.float32(inv_temperature)), _build.stream_of(x))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
-    return ids.to(torch.int64), vals
+    return ids, vals

@@ -335,12 +335,11 @@ def test_live_items_in_k1_and_k2(cuda, dtype):
     assert not got[lr:].any()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("vocab,live_rows", [(128, None), (128, 300),
-                                             (1000, None), (8192, 300)])
-def test_classifier_topk_gumbel_matches_twin(cuda, dtype, vocab, live_rows):
-    rows, d, top_k, draws = 448, 512, 50, 7
+def _classifier_case(cuda, dtype, rows, d, vocab, live_rows):
+    """K4 and its twin on seeded inputs (UNK on top of every row); checks
+    the launch, the dead rows and the draws, and returns what the vals
+    checks need."""
+    top_k, draws = 50, 7
     g = torch.Generator(cuda).manual_seed(6)
     x = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
     w = (torch.randn(vocab, d, generator=g, device=cuda) / 8).to(dtype)
@@ -352,6 +351,7 @@ def test_classifier_topk_gumbel_matches_twin(cuda, dtype, vocab, live_rows):
     ids_p, vals_p = S.fused_classifier_topk_gumbel_sample_plain(
         x, w, b, 11, 0.9, **kw)
     assert LAUNCHES["fused_classifier_topk_gumbel_sample"] == 1
+    assert ids.dtype == torch.int64 and ids.shape == (rows, draws)
     live = rows if live_rows is None else live_rows
     assert not ids[live:].any() and not vals[live:].any()
     # the product's summation order may move a bf16 rounding by one ulp
@@ -364,17 +364,77 @@ def test_classifier_topk_gumbel_matches_twin(cuda, dtype, vocab, live_rows):
     srt = ids[:live].sort(dim=1).values
     assert (srt[:, 1:] != srt[:, :-1]).all()
     eq = (ids == ids_p).all(dim=1)
+    return x, w, b, ids, vals, vals_p, eq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d,vocab,live_rows", [
+    (448, 512, 128, None), (448, 512, 128, 300), (448, 512, 1000, None),
+    (448, 512, 8192, 300),
+    # V past the resident path (W streamed), at FUSED_CLASSIFIER_MAX_V
+    (64, 512, 16384, 50),
+    # V not a multiple of 16 (W's pad rows), and the largest resident V
+    (448, 512, 100, None), (448, 256, 256, 300),
+    # D 256 (two blocks an SM)
+    (448, 256, 128, None),
+    # fewer rows than one 16-row tile; no live row; a row past a tile
+    # boundary, in rows and in live_rows
+    (5, 512, 128, None), (448, 512, 128, 0), (33, 512, 128, None),
+    (448, 512, 128, 17)])
+def test_classifier_topk_gumbel_matches_twin(cuda, dtype, rows, d, vocab,
+                                             live_rows):
+    _, _, _, _, vals, vals_p, eq = _classifier_case(cuda, dtype, rows, d,
+                                                    vocab, live_rows)
     assert torch.equal(vals[eq], vals_p[eq])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("r,ng,live_items", [(5, 2, None), (7, 4, None),
-                                             (7, 4, 6), (3, 8, None),
-                                             (10, 2, 3)])
-def test_cross_attention_packed_matches_twin(cuda, dtype, r, ng, live_items):
-    # T 49 padded to 56; one item fully masked; r 10 takes two row chunks
-    groups, t_real, tp, d, heads = 16, 49, 56, 256, 4
+@pytest.mark.parametrize("rows,d,vocab,live_rows", [
+    # the char step: blocks walk several tiles through both x buffers; a
+    # late step's 1,120 live rows; D 768 (W too large to stay resident)
+    (5376, 512, 128, None), (5376, 512, 128, 1120), (448, 768, 128, 300)])
+def test_classifier_topk_gumbel_at_serving_rows(cuda, dtype, rows, d, vocab,
+                                                live_rows):
+    # ~1e-4 of the logits round to the other bf16 neighbour under another
+    # f32 summation order, so over 37,632 draws some drawn value does: where
+    # ids are equal, vals equal the twin's but where the twin's f32 sum lies
+    # within the summation-order error (16 f32 roundings of the sum of the
+    # products' magnitudes) of a bf16 rounding midpoint; there they are one
+    # bf16 ulp apart, and such values are rare
+    x, w, b, ids, vals, vals_p, eq = _classifier_case(cuda, dtype, rows, d,
+                                                      vocab, live_rows)
+    bf = torch.bfloat16
+    xf, wf = x.to(bf).float(), w.to(bf).float()
+    n = int(eq.sum())
+    pick = ids[eq]
+    z = (xf[eq] @ wf.T + b).gather(1, pick)
+    mag = (xf[eq].abs() @ wf.abs().T).gather(1, pick)
+    r = z.to(bf).float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r)[1] - 8)
+    mid = r + torch.where(z >= r, ulp, -ulp) / 2
+    near = (z - mid).abs() <= 16 * 2.0 ** -24 * mag
+    same = vals[eq] == vals_p[eq]
+    one_ulp = near & ((vals[eq] - vals_p[eq]).abs() <= ulp)
+    assert (same | one_ulp).all()
+    assert (~same).sum().item() <= max(1, n * ids.shape[1] // 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("r,ng,live_items,tp,d,heads", [
+    (5, 2, None, 56, 256, 4), (7, 4, None, 56, 256, 4),
+    (7, 4, 6, 56, 256, 4), (3, 8, None, 56, 256, 4), (10, 2, 3, 56, 256, 4),
+    (5, 8, None, 56, 256, 4), (5, 4, 0, 56, 256, 4),
+    # t_real == Tp: no pad rows
+    (7, 4, None, 49, 256, 4),
+    # head_dim 24: bf16 off the tensor cores
+    (5, 4, 5, 56, 192, 8)])
+def test_cross_attention_packed_matches_twin(cuda, dtype, r, ng, live_items,
+                                             tp, d, heads):
+    # T 49 (of tp); one item fully masked; r 10 takes two row chunks
+    groups, t_real = 16, 49
     g = torch.Generator(cuda).manual_seed(7)
     rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)  # noqa
     q, ek, ev = rnd(groups * r, d), rnd(groups, tp, d), rnd(groups, tp, d)
