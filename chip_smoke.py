@@ -57,6 +57,20 @@ torch.profiler tables (kernel time by name, the device's idle share)
 follow the word, word_packed_fused, base, base_fused and lstm legs, and
 end the char path: one more call without and one with both switches.
 
+After the legs, a serving phase drives the product path at the word
+width: a 29,184-token vocabulary, 256 random 300x400 uint8 templates
+preprocessed on the card (held to their CPU run, atol 1e-4) and encoded
+through the ResNet-50 trunk into the pipeline's store (one template held
+to the f32 encoder on the CPU), token ids decoded to text and re-encoded
+to the same ids, then, with every launch count at zero, the HTTP server
+(64 concurrent /caption requests, /captions with an unknown id, /meme,
+/healthz) and 2,048 requests from 8 threads through the dynamic batcher
+(max_batch 256, the "auto" bucket ladder: captions/s, p50 and p99
+latency), and two batchers of one seed fed the same ids one by one. Only
+K1, K2 and K3 may launch there, and no plain twin may see a CUDA tensor.
+A subprocess then shows that two batchers' first calls, made together in
+a cold process, build the kernel library once.
+
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [ROOT]
 
@@ -77,8 +91,10 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
+import numpy as np
 import torch
 
 # word serving config (the JAX package's bench.py headline leg)
@@ -97,6 +113,19 @@ C_EOS_BIAS, C_TEMP = 1.0, 1.1
 C_GREEDY_EOS_BIASES = (0.0, 0.25, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
 C_ROWS, C_P = C_BATCH * C_BEAM, 136  # 129 positions, padded to 8
 C_LIVE = 160 * C_BEAM  # K4's rows in a late char step (~160 live items)
+# the serving phase: templates, their size, the encoder's batch; the
+# batcher's largest batch, the requests through it and their threads, and
+# the concurrent HTTP requests
+S_TEMPLATES, S_HW, S_CHUNK = 256, (300, 400), 32
+S_MAX_BATCH, S_REQUESTS, S_THREADS, S_HTTP = 256, 2048, 8, 64
+# a random classifier can draw PAD and, at the word legs' EOS bias, ends
+# some captions at their first token; a trained captioner does neither.
+# The served model pushes PAD down and takes an EOS bias that rarely ends
+# a caption, so that the checks of the answers (non-empty, no PAD) test
+# the serving path; the id round trip runs at both EOS biases
+S_EOS_BIAS, S_PAD_BIAS = 0.5, -1e4
+S_PRE_TOL = 1e-4  # preprocess_batch on the card vs on the CPU
+S_ENC_TOL = 1e-3  # f32 encoder on the card (cuDNN, no TF32) vs the CPU
 TOL = 2e-2  # bf16 kernel vs twin: one bf16 rounding of each output
 TOL_F32 = 1e-5  # f32 kernel vs twin: the summation order only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -1065,6 +1094,419 @@ def check_leg_launches(label, launches, packed, steps):
         raise AssertionError(f"{label}: K2/K9/K10 launch counts")
 
 
+def twin_guard(modules):
+    """Wraps every plain twin of the kernel modules so that a call with a
+    CUDA tensor is recorded (a wrapper takes its twin for CPU tensors
+    only); returns the record and a function that puts the twins back."""
+    hits, saved = [], []
+    for mod in modules:
+        for name in dir(mod):
+            fn = getattr(mod, name)
+            if not (name.endswith("_plain") and callable(fn)):
+                continue
+
+            def guard(*args, _fn=fn, _name=name, **kwargs):
+                if any(isinstance(x, torch.Tensor) and x.is_cuda
+                       for x in (*args, *kwargs.values())):
+                    hits.append(_name)
+                return _fn(*args, **kwargs)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, guard)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return hits, restore
+
+
+def host_ms(fn, iters=10):
+    """Mean host time of ``fn`` (ms), the device synchronised around."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def check_caption(text, vocab, where):
+    """A served caption: non-empty, every token in the vocabulary, no UNK
+    and no PAD."""
+    tokens = text.split(" ")
+    if not text or any(t not in vocab.stoi for t in tokens) or (
+            {"<unk>", "<pad>"} & set(tokens)):
+        raise AssertionError(f"{where}: bad caption {text!r}")
+
+
+def id_round_trip(model, params, pipe, ids, kw, seed):
+    """Generates for ``ids`` on the card and decodes each chosen row to
+    text; re-encoding the text gives the row's ids up to its first EOS.
+    Returns the captions that ended early and those that are empty."""
+    from deephumor_tpu_torch.data import EOS_ID, WordPunctTokenizer
+    from deephumor_tpu_torch.experiments.inference import (seq_to_text,
+                                                           text_to_seq)
+
+    out = model.generate_from_emb(
+        params, pipe._stack_features(ids),
+        generator=torch.Generator(pipe.device).manual_seed(seed), **kw)
+    tok, ended, empty = WordPunctTokenizer(), 0, 0
+    for row in out["chosen"].cpu().numpy():
+        eos = np.flatnonzero(row == EOS_ID)
+        n = int(eos[0]) if eos.size else row.size
+        back = text_to_seq(seq_to_text(row, pipe.vocab), pipe.vocab, tok)[0]
+        if not np.array_equal(back, row[:n]):
+            raise AssertionError(f"decoding: ids {row[:n]} -> text -> {back}")
+        ended += n < row.size
+        empty += n == 0
+    return ended, empty
+
+
+def http_phase(pipe, kw):
+    """Serves ``pipe`` over HTTP on 127.0.0.1:0 through the port's
+    ``serve`` and checks every answer."""
+    import concurrent.futures
+    import importlib.util
+    import urllib.error
+    import urllib.request
+    from urllib.parse import urlencode
+
+    from deephumor_tpu_torch import serve as serve_mod
+
+    ev = threading.Event()
+    server = threading.Thread(target=serve_mod.serve, args=(pipe, kw),
+                              kwargs=dict(port=0, max_batch=S_MAX_BATCH,
+                                          buckets="auto", ready_event=ev),
+                              daemon=True)
+    server.start()
+    if not ev.wait(timeout=300):
+        raise AssertionError("serving: the HTTP server did not come up")
+    base = f"http://127.0.0.1:{ev.httpd.server_address[1]}"
+
+    def get(route):
+        try:
+            with urllib.request.urlopen(base + route, timeout=120) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    ids = list(pipe._row)
+    try:
+        reqs = [ids[(37 * i) % len(ids)] for i in range(S_HTTP)]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(S_HTTP) as ex:
+            answers = list(ex.map(
+                lambda t: get("/caption?" + urlencode({"template": t})),
+                reqs))
+        secs = time.perf_counter() - t0
+        for (status, body), t in zip(answers, reqs):
+            if status != 200:
+                raise AssertionError(f"/caption {t}: {status} {body[:200]}")
+            check_caption(body.decode(), pipe.vocab, f"/caption {t}")
+        status, body = get("/captions?" + urlencode(
+            [("template", ids[1]), ("template", "no-such-template"),
+             ("template", ids[2])], doseq=True))
+        rows = json.loads(body)
+        if status != 200 or [r["template"] for r in rows] != [
+                ids[1], "no-such-template", ids[2]] or rows[1].get(
+                "error_type") != "KeyError":
+            raise AssertionError(f"/captions: {status} {rows}")
+        for r in (rows[0], rows[2]):
+            check_caption(r.get("caption", ""), pipe.vocab, "/captions")
+        status, body = get("/meme?" + urlencode({"template": ids[0]}))
+        # no Pillow: the route says so; with it, no template has an image
+        want = 404 if importlib.util.find_spec("PIL") else 501
+        if status != want:
+            raise AssertionError(f"/meme: {status} {body[:200]} (want "
+                                 f"{want})")
+        status, body = get("/healthz")
+        health = json.loads(body)
+        if (status != 200 or not health["ok"]
+                or health["requests"] < S_HTTP + 2):
+            raise AssertionError(f"/healthz: {status} {health}")
+        srv = ev.caption_srv
+        log(f"  HTTP: {S_HTTP} concurrent /caption answered 200 in "
+            f"{secs:.3f} s (batches {srv.batch_sizes}, padded to "
+            f"{srv.pad_sizes}); /captions: two captions and {rows[1]}; "
+            f"/meme {want}; /healthz {health}")
+    finally:
+        ev.httpd.shutdown()
+        server.join(timeout=60)
+    if server.is_alive():
+        raise AssertionError("serving: the HTTP server did not stop")
+
+
+def batcher_phase(pipe, kw, name_limit):
+    """S_REQUESTS submits from S_THREADS threads through a
+    DynamicBatcher: captions/s from the first submit to the last answer,
+    and the latency of each request from its submit to its answer."""
+    from deephumor_tpu_torch.serving import DynamicBatcher
+
+    ids = list(pipe._row)
+    n = S_REQUESTS
+    t_sub, t_done, futs = [0.0] * n, [0.0] * n, [None] * n
+    barrier = threading.Barrier(S_THREADS)
+
+    with DynamicBatcher(pipe, max_batch=S_MAX_BATCH, buckets="auto", seed=2,
+                        **kw) as srv:
+        def client(k):
+            barrier.wait()
+            for i in range(k, n, S_THREADS):
+                t_sub[i] = time.perf_counter()
+                f = srv.submit(ids[i % len(ids)])
+                f.add_done_callback(
+                    lambda _, i=i: t_done.__setitem__(i, time.perf_counter()))
+                futs[i] = f
+
+        clients = [threading.Thread(target=client, args=(k,))
+                   for k in range(S_THREADS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        texts = [f.result(timeout=300) for f in futs]
+    for i, text in enumerate(texts):
+        check_caption(text, pipe.vocab, f"batcher request {i}")
+    wall = max(t_done) - min(t_sub)
+    lat = np.array(t_done) - np.array(t_sub)
+    stats = {
+        "requests": srv.requests_served, "batches": srv.batches_dispatched,
+        "batch_sizes": srv.batch_sizes, "buckets": sorted(set(srv.pad_sizes)),
+        "captions_per_s": n / wall,
+        "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "p99_ms": float(np.percentile(lat, 99)) * 1e3, "card": name_limit}
+    if stats["requests"] != n:
+        raise AssertionError(f"batcher: served {stats['requests']} of {n}")
+    log(f"  batcher: {n} requests from {S_THREADS} threads in "
+        f"{stats['batches']} batches (sizes {stats['batch_sizes']}, buckets "
+        f"{stats['buckets']}): {stats['captions_per_s']:.1f} captions/s, p50 "
+        f"{stats['p50_ms']:.1f} ms, p99 {stats['p99_ms']:.1f} ms | "
+        f"{name_limit}")
+    return stats
+
+
+def check_serving(CaptioningTransformer, tree_map, _build, modules, dev,
+                  name_limit):
+    """The serving phase (see the module docstring). Returns the launches
+    of its main path and its numbers."""
+    from deephumor_tpu_torch.data import Vocab
+    from deephumor_tpu_torch.experiments.inference import seq_to_text
+    from deephumor_tpu_torch.ops.image_ops import preprocess_batch
+    from deephumor_tpu_torch.pipeline import MemeGenerationPipeline
+    from deephumor_tpu_torch.serving import DynamicBatcher
+
+    model, params = make_model(CaptioningTransformer, "bfloat16", dev, False)
+    bias = params["decoder"]["classifier"]["bias"]
+    bias[0], bias[3] = S_PAD_BIAS, S_EOS_BIAS
+    vocab = Vocab([f"word{i}" for i in range(VOCAB - 6)])
+    if len(vocab) != VOCAB:
+        raise AssertionError(f"vocabulary of {len(vocab)} tokens")
+    pipe = MemeGenerationPipeline(model, params, vocab)
+    u8 = torch.randint(0, 256, (S_TEMPLATES, *S_HW, 3), dtype=torch.uint8,
+                       device=dev,
+                       generator=torch.Generator(dev).manual_seed(8))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images = preprocess_batch(u8)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    err = (images.cpu() - preprocess_batch(u8.cpu())).abs().max().item()
+    log(f"  preprocess_batch: {S_TEMPLATES} x {S_HW} uint8 -> "
+        f"{tuple(images.shape)} f32 on the card in {t_pre * 1e3:.1f} ms; "
+        f"max|card-CPU| {err:.3e} (atol {S_PRE_TOL})")
+    if not err <= S_PRE_TOL:
+        raise AssertionError("preprocess_batch: card and CPU disagree")
+    ids = [f"t{i:03d}" for i in range(S_TEMPLATES)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.add_templates(ids, images, batch_size=S_CHUNK)
+    pipe._stack_features(ids[:1])
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    k = 7
+    got = pipe._stack_features([ids[k]])
+    want = model.encode({"encoder": tree_map(lambda t: t.cpu(),
+                                             params["encoder"])},
+                        images[k:k + 1].cpu())
+    errs = []
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=S_ENC_TOL, rtol=S_ENC_TOL)
+        errs.append(((g.cpu() - w).abs().max().item(),
+                     w.abs().max().item()))
+    log(f"  add_templates: {S_TEMPLATES} templates in chunks of {S_CHUNK} "
+        f"through ResNet-50 (f32) in {t_enc:.3f} s; template {k}'s (global, "
+        f"spatial) encoding vs the CPU encoder: (max|diff|, max|value|) "
+        f"{[(f'{e:.2e}', f'{m:.2e}') for e, m in errs]} (atol=rtol "
+        f"{S_ENC_TOL})")
+
+    kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K, temperature=1.0,
+              sampler="pallas")
+    for eos_bias in (EOS_BIAS, S_EOS_BIAS):
+        bias[3] = eos_bias
+        ended, empty = id_round_trip(model, params, pipe, ids, kw, 9)
+        log(f"  ids -> text -> ids equal up to the first EOS on all "
+            f"{S_TEMPLATES} captions at EOS bias {eos_bias} ({ended} ended "
+            f"early, {empty} empty)")
+    # the batcher's largest call, alone and through the pipeline
+    rows = ids[:S_MAX_BATCH]
+    enc = pipe._stack_features(rows)
+    rates = {}
+    for label, fn in (
+            ("generate_from_emb", lambda g: model.generate_from_emb(
+                params, enc, generator=g, **kw)),
+            ("pipeline.generate_captions",
+             lambda g: pipe.generate_captions(rows, g, **kw))):
+        secs = []
+        for seed in (10, 11, 12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(torch.Generator(dev).manual_seed(seed))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        rates[label] = [S_MAX_BATCH / s for s in secs]
+        log(f"  {label}, {S_MAX_BATCH} items: "
+            f"{', '.join(f'{r:.1f}' for r in rates[label])} captions/s")
+    # the pipeline's own work around that call: the gather from the
+    # store, the chosen ids' copy to the host, the text decoding
+    chosen = model.generate_from_emb(
+        params, enc, generator=torch.Generator(dev).manual_seed(13),
+        **kw)["chosen"]
+    rows_np = chosen.cpu().numpy()
+    own = {"gather_ms": host_ms(lambda: pipe._stack_features(rows)),
+           "to_host_ms": host_ms(lambda: chosen.cpu()),
+           "decode_ms": host_ms(lambda: [seq_to_text(r, vocab)
+                                         for r in rows_np])}
+    log(f"  the pipeline's own work at {S_MAX_BATCH} items (ms): {own}")
+
+    hits, restore = twin_guard(modules)
+    _build.reset_launch_counts()
+    try:
+        http_phase(pipe, kw)
+        stats = batcher_phase(pipe, kw, name_limit)
+        runs = []
+        for _ in range(2):
+            with DynamicBatcher(pipe, max_batch=S_MAX_BATCH, buckets="auto",
+                                seed=5, **kw) as srv:
+                runs.append([srv.submit(t).result(timeout=120)
+                             for t in ids[:8]])
+    finally:
+        restore()
+    launches = dict(_build.LAUNCHES)
+    if runs[0] != runs[1]:
+        raise AssertionError("batchers of one seed fed the same ids one by "
+                             "one gave different texts")
+    log(f"  two batchers of seed 5, 8 ids one by one: equal texts "
+        f"({len(set(runs[0]))} distinct)")
+    word = ("ancestry_attention_update", "grouped_cross_attention",
+            "fused_topk_gumbel_sample")
+    missing = [k for k in word if launches[k] < 1]
+    extra = [k for k, v in launches.items() if v and k not in word]
+    log(f"  serving launches {launches}; plain twins called with CUDA "
+        f"tensors: {sorted(set(hits))}")
+    if missing or extra or hits:
+        raise AssertionError(f"serving: kernels not launched {missing}, "
+                             f"launched off the path {extra}, twins on the "
+                             f"card {sorted(set(hits))}")
+    stats.update(own, preprocess_ms=t_pre * 1e3, encode_s=t_enc,
+                 generate_from_emb_per_s=rates["generate_from_emb"],
+                 pipeline_per_s=rates["pipeline.generate_captions"])
+    return launches, stats
+
+
+def cold_build():
+    """``--cold-build``: two batchers' first calls, made together in this
+    cold process, over a small model on the card, with the kernel library
+    built into a fresh directory. Prints one JSON line: the nvcc runs,
+    the library loads, and when each thread first asked for the library
+    (seconds from the start of the build)."""
+    import ctypes
+    import shutil
+
+    from deephumor_tpu_torch.data import Vocab
+    from deephumor_tpu_torch.models import CaptioningTransformer
+    from deephumor_tpu_torch.ops import _build
+    from deephumor_tpu_torch.pipeline import MemeGenerationPipeline
+    from deephumor_tpu_torch.serving import DynamicBatcher
+
+    dev = torch.device("cuda", 0)
+    _build.BUILD_DIR = _build.BUILD_DIR / f"cold-{os.getpid()}"
+    runs, loads, first = [], [], {}
+    run_all, library, cdll = _build._run_all, _build.library, ctypes.CDLL
+
+    def counted_run_all(cmds, log_):
+        start = time.perf_counter()
+        run_all(cmds, log_)
+        runs.append(("link" if "-shared" in cmds[0] else "compile", start,
+                     time.perf_counter()))
+
+    def recorded_library():
+        first.setdefault(threading.get_ident(), time.perf_counter())
+        return library()
+
+    def counted_cdll(name, *args, **kwargs):
+        if "libdh_kernels" in str(name):  # torch loads libraries too
+            loads.append(name)
+        return cdll(name, *args, **kwargs)
+
+    _build._run_all, _build.library = counted_run_all, recorded_library
+    ctypes.CDLL = counted_cdll
+    try:
+        vocab = Vocab([f"word{i}" for i in range(58)])
+        model = CaptioningTransformer(num_tokens=len(vocab), hid_dim=64,
+                                      n_layers=1, n_heads=4, pf_dim=128,
+                                      max_len=18, compute_dtype="bfloat16")
+        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        pipe = MemeGenerationPipeline(model, params, vocab)
+        pipe.add_templates(["a", "b"], torch.randn(
+            2, 64, 64, 3, device=dev,
+            generator=torch.Generator(dev).manual_seed(1)))
+        kw = dict(max_len=8, beam_size=2, top_k=8, sampler="pallas")
+        barrier, texts = threading.Barrier(2), []
+        with DynamicBatcher(pipe, max_batch=4, seed=0, **kw) as one, \
+                DynamicBatcher(pipe, max_batch=4, seed=1, **kw) as two:
+            def request(srv, tid):
+                barrier.wait()
+                texts.append(srv.submit(tid).result(timeout=600))
+
+            threads = [threading.Thread(target=request, args=a)
+                       for a in ((one, "a"), (two, "b"))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+    finally:
+        ctypes.CDLL = cdll
+        shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+    start = min((r[1] for r in runs), default=0.0)
+    end = max((r[2] for r in runs), default=0.0)
+    print(json.dumps({
+        "compile_runs": sum(r[0] == "compile" for r in runs),
+        "link_runs": sum(r[0] == "link" for r in runs),
+        "loads": len(loads), "answers": len(texts),
+        "first_calls_s": sorted(t - start for t in first.values()),
+        "build_s": end - start}), flush=True)
+
+
+def check_cold_build():
+    """Runs ``--cold-build`` in a subprocess and checks its line: one
+    compile run, one link, one load, and both batchers' threads asked for
+    the library before the build had ended."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--cold-build"],
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"cold build phase failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  cold process, two batchers' first calls together: {got}")
+    if not (got["compile_runs"] == got["link_runs"] == got["loads"] == 1
+            and got["answers"] == 2 and len(got["first_calls_s"]) == 2
+            and max(got["first_calls_s"]) < got["build_s"]):
+        raise AssertionError("cold build: the library was not built once "
+                             "for two threads that asked at once")
+
+
 def kernel_times(root):
     """Device times (queued) of K4 at the char shape, all rows and C_LIVE
     live, and of K9 (ng PACK) beside K2 on the same rows at the word and
@@ -1101,6 +1543,8 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; nothing is run")
     if sys.argv[1:2] == ["--kernel-times"]:
         return kernel_times(sys.argv[2] if len(sys.argv) > 2 else ".")
+    if sys.argv[1:2] == ["--cold-build"]:
+        return cold_build()
     from deephumor_tpu_torch.models import (CaptioningLSTM,
                                             CaptioningLSTMWithLabels,
                                             CaptioningTransformer,
@@ -1390,6 +1834,18 @@ def main():
     for leg in ("char", "char_packed_fused"):
         if legs[leg]["fused_topk_gumbel_sample"] != 1:
             raise AssertionError(f"{leg}: K3 runs the first draw only")
+    del model, params, out, enc
+    log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
+
+    log(f"[10] serving: the word model (bf16, sampler='pallas') behind the "
+        f"pipeline, the HTTP server and the dynamic batcher (max_batch "
+        f"{S_MAX_BATCH}, buckets 'auto')")
+    legs["serving"], serving = check_serving(
+        CaptioningTransformer, tree_map, _build, (A, C, E, S), dev,
+        name_limit)
+    log("serving: " + json.dumps(serving))
+    log("[11] kernel library build lock")
+    check_cold_build()
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
 
     sources = {

@@ -37,7 +37,8 @@ import os
 import torch
 
 from deephumor_tpu_torch import EOS
-from deephumor_tpu_torch.convert.jax_params import params_from_jax
+from deephumor_tpu_torch.convert.jax_params import (params_from_jax,
+                                                    params_to_jax)
 from deephumor_tpu_torch.models import layers as L
 from deephumor_tpu_torch.models import transformer as tfm
 from deephumor_tpu_torch.models.encoders import (
@@ -48,7 +49,8 @@ from deephumor_tpu_torch.models.lstm import (lstm_decoder_init, lstm_forward,
 from deephumor_tpu_torch.models.sampling import beam_search
 from deephumor_tpu_torch.ops.attention import MASK_FILL
 from deephumor_tpu_torch.ops.engine import fused_survivor_update
-from deephumor_tpu_torch.utils.pytree import load_params, tree_map
+from deephumor_tpu_torch.utils.pytree import (load_params, save_params,
+                                              tree_map)
 
 __all__ = ["CaptioningLSTM", "CaptioningLSTMWithLabels",
            "CaptioningTransformerBase", "CaptioningTransformer",
@@ -75,7 +77,33 @@ def _cast(tree, dtype_name):
 
 
 class _Captioner:
-    """Loading shared by the four models."""
+    """Loading and saving shared by the four models."""
+
+    def hp(self):
+        """The hyperparameters a checkpoint records (``compute_dtype``
+        only when it is not float32, as the JAX package writes them)."""
+        hp = dataclasses.asdict(self)
+        if hp.get("compute_dtype") == "float32":
+            hp.pop("compute_dtype")
+        return hp
+
+    def save(self, params, path):
+        """Writes ``params`` as the JAX package's ``.npz`` + ``.json``
+        checkpoint (its layout, float32), which its ``load_params`` and
+        ``from_pretrained`` read, and so does :meth:`from_pretrained`."""
+        save_params(path, params_to_jax(params),
+                    {"model_type": self.model_type, **self.hp()})
+
+    @classmethod
+    def from_torch(cls, path, device="cuda"):
+        """Loads a reference ``.pth`` checkpoint (``{'model': state_dict,
+        'hp': dict}``) of this class; returns ``(model, params)``."""
+        from deephumor_tpu_torch.convert.torch_import import (
+            load_torch_checkpoint)
+
+        tree, hp = load_torch_checkpoint(path, cls.model_type)
+        params = tree_map(lambda t: t.to(device), params_from_jax(tree))
+        return cls(**hp), params
 
     @classmethod
     def from_pretrained(cls, path, device="cuda"):

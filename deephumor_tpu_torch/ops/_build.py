@@ -24,6 +24,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "library", "check",
            "BUILD_DIR", "dtype_code", "on_kernel_device",
@@ -124,9 +125,23 @@ def _nvcc():
     return path
 
 
+# serialises the first build and load: threads of one process that make
+# their first kernel call together (a server's batchers) would otherwise
+# all run nvcc into the same object files
+_LIBRARY_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def library():
-    """Compiles (if needed) and loads the kernel library."""
+    """Compiles (if needed) and loads the kernel library. The first
+    caller builds it; threads that call at the same time wait for that
+    build and share its library."""
+    with _LIBRARY_LOCK:
+        return _build_and_load()
+
+
+@functools.lru_cache(maxsize=None)
+def _build_and_load():
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):

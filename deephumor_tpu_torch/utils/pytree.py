@@ -1,15 +1,32 @@
-"""Reads the framework-native ``.npz`` + ``.json`` checkpoint format.
+"""Reads and writes the framework-native ``.npz`` + ``.json`` checkpoint
+format (deephumor_tpu/utils/pytree.py).
 
 A checkpoint is an ``.npz`` of '/'-joined flattened pytree keys (integer
 path segments are list indices) plus a JSON hyperparameter sidecar with
-the same base name. Only numpy is needed to read it.
+the same base name. Only numpy is needed; either package reads what the
+other wrote.
 """
 
 import json
 
 import numpy as np
 
-__all__ = ["unflatten_tree", "load_params", "tree_map"]
+__all__ = ["flatten_tree", "unflatten_tree", "save_params", "load_params",
+           "tree_map"]
+
+
+def flatten_tree(tree, prefix=""):
+    """Nested dict/list tree -> ``{'a/b/0/c': leaf}``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix.rstrip("/"): tree}
+    flat = {}
+    for k, v in items:
+        flat.update(flatten_tree(v, f"{prefix}{k}/"))
+    return flat
 
 
 def unflatten_tree(flat):
@@ -35,6 +52,17 @@ def unflatten_tree(flat):
 def _base(path):
     base = str(path)
     return base[: -len(".npz")] if base.endswith(".npz") else base
+
+
+def save_params(path, params, hp=None):
+    """Writes ``<base>.npz`` (the flattened leaves) and, with ``hp``,
+    ``<base>.json``, where ``base`` is ``path`` without a ``.npz``
+    suffix: the names :func:`load_params` reads back."""
+    flat = {k: np.asarray(v) for k, v in flatten_tree(params).items()}
+    np.savez(_base(path) + ".npz", **flat)
+    if hp is not None:
+        with open(_base(path) + ".json", "w") as f:
+            json.dump(hp, f, indent=2)
 
 
 def load_params(path):
