@@ -71,6 +71,25 @@ K1, K2 and K3 may launch there, and no plain twin may see a CUDA tensor.
 A subprocess then shows that two batchers' first calls, made together in
 a cold process, build the kernel library once.
 
+Last, a train phase ([12]) trains the word model at full width (the JAX
+package's train measurement config, benchmarks/train_ab.py: default
+dropouts, bf16 compute, batch 256, captions of 32 tokens + EOS, a cache
+of 300 random templates' trunk features) for 32 steps of
+``Trainer.run_epoch`` (prefetch 2) over ``BatchIterator`` batches of an
+in-memory dataset, with every launch count at zero: the loss must fall
+(the mean of the last 5 steps below that of the first 5), no kernel may
+launch, the ResNet and the batch-norm statistics must get no optimizer
+update and the statistics must move. It prints the median step time
+(CUDA events at each step's start, after 5 warm-up steps), examples/s,
+peak memory and the step's floor, then profiles 5 more steps (idle
+share, top device ops). The trained model is saved, loaded with
+``from_pretrained`` and served at batch 64 (greedy and sampled): K1, K2
+and K3 must launch and no plain twin may see a CUDA tensor. Then 3 steps
+from 224 x 224 images through the ResNet (batch 32; it takes no
+gradient), 3 f32 steps at 2 layers, batch 16, dropout 0 on the card and
+on the CPU (losses to rtol 1e-4, parameters to atol 2e-4), and 3 f32
+steps of each other captioner at small widths.
+
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [ROOT]
 
@@ -91,6 +110,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -126,6 +146,17 @@ S_MAX_BATCH, S_REQUESTS, S_THREADS, S_HTTP = 256, 2048, 8, 64
 S_EOS_BIAS, S_PAD_BIAS = 0.5, -1e4
 S_PRE_TOL = 1e-4  # preprocess_batch on the card vs on the CPU
 S_ENC_TOL = 1e-3  # f32 encoder on the card (cuDNN, no TF32) vs the CPU
+# the train phase: the JAX package's train measurement config
+# (benchmarks/train_ab.py:30-45): the word model at its default dropouts,
+# bf16 compute, batch 256, captions of 32 tokens + EOS, a trunk-feature
+# cache of 300 templates; a caption per template, so that the set can be
+# memorised. f32 parity with the CPU at 2 layers, batch 16; images through
+# the ResNet at batch 32; the other captioners at small widths
+T_BATCH, T_CAP, T_TEMPLATES, T_ITEMS = 256, 32, 300, 8192
+T_STEPS, T_WARM, T_PROFILED = 32, 5, 5
+T_PAR_LAYERS, T_PAR_BATCH, T_PAR_STEPS = 2, 16, 3
+T_IMG_BATCH, T_SERVE_BATCH = 32, 64
+T_PAR_RTOL, T_PAR_ATOL = 1e-4, 2e-4  # f32 card vs CPU: loss, parameters
 TOL = 2e-2  # bf16 kernel vs twin: one bf16 rounding of each output
 TOL_F32 = 1e-5  # f32 kernel vs twin: the summation order only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -1414,6 +1445,329 @@ def check_serving(CaptioningTransformer, tree_map, _build, modules, dev,
     return launches, stats
 
 
+class MemorySet:
+    """A dataset held in memory for ``BatchIterator``'s fast path: its id
+    matrices come from ``materialize`` as the lengths ask (one caption
+    per template, repeated), its images (if any) from ``images``."""
+
+    preload_images = True
+
+    def __init__(self, captions, keys, images=None):
+        self.captions, self.keys = captions, keys
+        self.images = images if images is not None else {}
+
+    def __len__(self):
+        return len(self.keys)
+
+    def materialize(self, max_caption_len, max_label_len):
+        from deephumor_tpu_torch.data.dataloaders import pad_ids
+
+        rows = [self.captions[k] for k in self.keys]
+        return {"captions": pad_ids(rows, max_caption_len),
+                "labels": pad_ids([[int(k[1:]) % 97 + 6] * 3
+                                   for k in self.keys], max_label_len),
+                "image_keys": self.keys}
+
+
+def memory_set(n_items, n_templates, vocab, seed, images=None):
+    """``n_items`` captions over ``n_templates`` templates, each template
+    with one caption of 8-32 tokens + EOS."""
+    from deephumor_tpu_torch.data import EOS_ID
+
+    rng = np.random.default_rng(seed)
+    keys = [f"t{i:03d}" for i in range(n_templates)]
+    captions = {k: list(rng.integers(6, vocab, rng.integers(8, T_CAP + 1)))
+                + [EOS_ID] for k in keys}
+    items = [keys[i] for i in rng.integers(0, n_templates, n_items)]
+    return MemorySet(captions, items, images), keys
+
+
+def train_step_cost(bs, seq, t_enc, d, layers, pf, vocab):
+    """Operations of one train step of the cross-attention model at the
+    padded length ``seq``: forward plus backward (2x) of every product,
+    the encoder head's linear without an input gradient; and the bytes
+    the step must move at least (the f32 masters, gradients and two
+    moments, read and written, and the gathered features)."""
+    per_pos = (layers * (8 * d * d + 2 * d * pf + 4 * seq * d)
+               + d * vocab)
+    head = bs * (t_enc + 1) * 2048 * d
+    flops = 2 * (3 * bs * seq * per_pos + 2 * head)
+    n_params = (2 * vocab * d + vocab + 50 * d + 2048 * d
+                + layers * (8 * d * d + 2 * d * pf))
+    nbytes = 4 * n_params * 7 + bs * t_enc * 2048 * 4
+    return flops, nbytes
+
+
+def train_epoch_timed(trainer, state, loader, gen):
+    """``run_epoch`` with a CUDA event at the start of every step (no
+    sync in between): the device-side period of each step, the epoch's
+    host time, and the peak memory."""
+    events = []
+    step = trainer._train_step
+
+    def timed(st, batch, g):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return step(st, batch, g)
+
+    trainer._train_step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state, loss, pp = trainer.run_epoch(state, loader, gen)
+    finally:
+        trainer._train_step = step
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events.append(end)
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return state, ms, wall, torch.cuda.max_memory_allocated()
+
+
+def check_train(CaptioningTransformer, tree_map, _build, modules, dev,
+                name_limit, logdir):
+    """The train phase (module docstring, [12]), writing its logs and
+    checkpoint under ``logdir``. Returns the launches of the trained
+    model's serving calls and the phase's numbers."""
+    import dataclasses
+    import itertools
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from deephumor_tpu_torch.data.dataloaders import BatchIterator
+    from deephumor_tpu_torch.experiments.trainer import Trainer
+    from deephumor_tpu_torch.models import (CaptioningLSTM,
+                                            CaptioningLSTMWithLabels,
+                                            CaptioningTransformerBase)
+    from deephumor_tpu_torch.models.encoders import image_encoder_apply
+    from deephumor_tpu_torch.utils.pytree import flatten_tree
+
+    out = {}
+    model = CaptioningTransformer(num_tokens=VOCAB, hid_dim=HID,
+                                  n_layers=LAYERS, n_heads=HEADS, pf_dim=PF,
+                                  max_len=50)
+    ds, _ = memory_set(T_ITEMS, T_TEMPLATES, VOCAB, 11)
+    loader = BatchIterator(ds, T_BATCH, max_caption_len=T_CAP + 1, seed=0,
+                           image_rows={f"t{i:03d}": i
+                                       for i in range(T_TEMPLATES)})
+    trainer = Trainer(model, "smoke", log_dir=logdir,
+                      compute_dtype="bfloat16", device=dev)
+    state = trainer.init_state(torch.Generator(dev).manual_seed(0))
+    # random unit-scale trunk features, as the JAX package's measurement
+    # (a random ResNet's features run ~30x hotter and stall the
+    # cross-attention model: its docstring)
+    trainer._trunk_cache = torch.randn(
+        T_TEMPLATES, 7, 7, 2048, device=dev,
+        generator=torch.Generator(dev).manual_seed(12))
+    # the frozen ResNet and the head's batch-norm statistics, before
+    flat0 = {k: v.clone() for k, v in flatten_tree(state["params"]).items()
+             if "resnet" in k or k.startswith("encoder/bn/running")}
+    gen = torch.Generator(dev).manual_seed(13)
+    steps = itertools.islice(itertools.chain.from_iterable(
+        loader for _ in range(T_STEPS // len(loader) + 1)), T_STEPS)
+    _build.reset_launch_counts()
+    state, ms, wall, peak = train_epoch_timed(trainer, state, steps, gen)
+    if any(_build.LAUNCHES.values()):
+        raise AssertionError(f"train steps launched kernels "
+                             f"{dict(_build.LAUNCHES)}")
+    losses = [json.loads(line)["value"] for line in open(os.path.join(
+        trainer.experiment_dir, "train", "metrics.jsonl"))
+        if '"train/batch_loss"' in line]
+    flat = flatten_tree(state["params"])
+    frozen_same = all(torch.equal(flat[k], v) for k, v in flat0.items()
+                      if "resnet" in k)
+    stats_moved = all(not torch.equal(flat[k], v) for k, v in flat0.items()
+                      if k.startswith("encoder/bn/"))
+    opt_keys = set(state["opt_state"]["mu"])
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    flops, nbytes = train_step_cost(T_BATCH, max(T_CAP + 1, T_ENC), T_ENC,
+                                    HID, LAYERS, PF, VOCAB)
+    floor = bound(nbytes, flops, torch.bfloat16)
+    med = float(np.median(ms[T_WARM:]))
+    out["word"] = {
+        "steps": len(losses), "loss_first5": first, "loss_last5": last,
+        "step_ms_median": med, "step_ms": [round(x, 3) for x in ms],
+        "examples_per_s": T_BATCH / med * 1e3,
+        "epoch_wall_s": wall, "host_ms_per_step": wall / len(ms) * 1e3,
+        "peak_mem_gib": peak / 2**30, "tflop_per_step": flops / 1e12,
+        "bound_ms": floor["bound_ms"], "bound_by": floor["bound_by"],
+        "floor_share": floor["bound_ms"] / med}
+    log(f"  word train, bf16, batch {T_BATCH}, {len(losses)} steps, "
+        f"prefetch 2 ({name_limit}): median step {med:.2f} ms after "
+        f"{T_WARM} warm-up steps, {T_BATCH / med * 1e3:.1f} examples/s, "
+        f"peak memory {peak / 2**30:.2f} GiB; floor {floor['bound_ms']:.3f} "
+        f"ms ({flops / 1e12:.3f} TFLOP, by {floor['bound_by']}) = "
+        f"{floor['bound_ms'] / med:.3f} of the step; loss first 5 "
+        f"{first:.4f} -> last 5 {last:.4f}; launches 0")
+    if not (len(losses) == T_STEPS and np.isfinite(losses).all()
+            and last < first):
+        raise AssertionError(f"word train: losses {losses}")
+    if not (frozen_same and stats_moved) or any(
+            "resnet" in k or "running" in k for k in opt_keys):
+        raise AssertionError("word train: the ResNet moved, the BN "
+                             "statistics did not, or either is trained")
+
+    # one profiled window of T_PROFILED steps
+    window = itertools.islice(iter(loader), T_PROFILED)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _, _ = trainer.run_epoch(state, window, gen)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    busy = sum(e.device_time_total for e in events) / 1e3
+    # cuBLAS products (nvjet / gemm kernels) against the rest
+    gemm = sum(e.device_time_total for e in events
+               if "nvjet" in e.key or "gemm" in e.key) / 1e3
+    events.sort(key=lambda e: -e.device_time_total)
+    out["word"]["profile"] = {
+        "wall_ms": pwall * 1e3, "device_ms": busy, "matmul_ms": gemm,
+        "idle_share": 1 - busy / (pwall * 1e3),
+        "idle_share_unprofiled": 1 - busy / T_PROFILED / med,
+        "top": [[e.key[:80], e.device_time_total / 1e3, e.count]
+                for e in events[:20]]}
+    log(f"  word train profile, {T_PROFILED} steps ({name_limit}): wall "
+        f"{pwall * 1e3:.1f} ms, device kernel time {busy:.1f} ms (matmuls "
+        f"{gemm:.1f} ms), idle share {1 - busy / (pwall * 1e3):.3f} under "
+        f"the profiler, {1 - busy / T_PROFILED / med:.3f} against the "
+        f"unprofiled median step")
+    for e in events[:20]:
+        log(f"  {e.device_time_total / 1e3:10.3f} ms {e.count:6d} calls  "
+            f"{e.key[:90]}")
+
+    # train, save, serve: the trained checkpoint through K1, K2 and K3
+    path = os.path.join(logdir, "trained")
+    model.save(state["params"], path)
+    served, sparams = CaptioningTransformer.from_pretrained(path, device=dev)
+    served = dataclasses.replace(served, compute_dtype="bfloat16")
+    with torch.inference_mode():
+        enc = image_encoder_apply(
+            sparams["encoder"], trainer._trunk_cache[:T_SERVE_BATCH],
+            spatial_features=True, from_trunk=True)
+    kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K)
+    hits, restore = twin_guard(modules)
+    _build.reset_launch_counts()
+    try:
+        outs = [served.generate_from_emb(sparams, enc, greedy=True, **kw),
+                served.generate_from_emb(
+                    sparams, enc, sampler="pallas",
+                    generator=torch.Generator(dev).manual_seed(14), **kw)]
+    finally:
+        restore()
+    launches = dict(_build.LAUNCHES)
+    for o in outs:
+        check_output(o, T_SERVE_BATCH, VOCAB, BEAM, MAX_LEN)
+    word = ("ancestry_attention_update", "grouped_cross_attention",
+            "fused_topk_gumbel_sample")
+    missing = [k for k in word if launches[k] < 1]
+    extra = [k for k, v in launches.items() if v and k not in word]
+    log(f"  trained model saved, loaded on the card, served at batch "
+        f"{T_SERVE_BATCH} (greedy, sampled): launches {launches}; plain "
+        f"twins called with CUDA tensors: {sorted(set(hits))}")
+    if missing or extra or hits:
+        raise AssertionError(f"train_serve: kernels not launched {missing}, "
+                             f"launched off the path {extra}, twins on the "
+                             f"card {sorted(set(hits))}")
+    del trainer, state, enc, outs, served, sparams
+
+    # from images: the ResNet at 224 x 224, no cache; the trunk takes no
+    # gradient
+    rng = np.random.default_rng(15)
+    images = {f"t{i:03d}": rng.normal(size=(224, 224, 3)).astype(np.float32)
+              for i in range(8)}
+    ids, _ = memory_set(3 * T_IMG_BATCH, 8, VOCAB, 16, images)
+    trainer = Trainer(model, "smoke_images", log_dir=logdir,
+                      compute_dtype="bfloat16", device=dev)
+    state = trainer.init_state(torch.Generator(dev).manual_seed(0))
+    resnet0 = {k: v.clone() for k, v in flatten_tree(state["params"]).items()
+               if "resnet" in k}
+    state, loss, _ = trainer.run_epoch(state, BatchIterator(
+        ids, T_IMG_BATCH, max_caption_len=T_CAP + 1, seed=0),
+        torch.Generator(dev).manual_seed(17))
+    flat = flatten_tree(state["params"])
+    grad_free = all(torch.equal(flat[k], v) and not flat[k].requires_grad
+                    for k, v in resnet0.items())
+    log(f"  word train from images (224 x 224, batch {T_IMG_BATCH}, 3 "
+        f"steps, the ResNet in each): mean loss {loss:.4f}; ResNet "
+        f"unchanged and without a gradient: {grad_free}")
+    if not (np.isfinite(loss) and grad_free and state["step"] == 3):
+        raise AssertionError("train from images")
+    out["images"] = {"loss": loss}
+    del trainer, state
+
+    # f32 parity: the same weights and batches, 3 steps on the card and on
+    # the CPU, dropout 0
+    pmodel = CaptioningTransformer(
+        num_tokens=VOCAB, hid_dim=HID, n_layers=T_PAR_LAYERS, n_heads=HEADS,
+        pf_dim=PF, max_len=50, enc_dropout=0.0, dec_dropout=0.0)
+    params = pmodel.init(torch.Generator().manual_seed(18), device="cpu")
+    feats = torch.randn(16, 7, 7, 2048,
+                        generator=torch.Generator().manual_seed(19))
+    pds, _ = memory_set(T_PAR_BATCH * T_PAR_STEPS, 16, VOCAB, 20)
+    pbatches = list(BatchIterator(pds, T_PAR_BATCH, max_caption_len=T_CAP + 1,
+                                  seed=0, image_rows={
+                                      f"t{i:03d}": i for i in range(16)}))
+    runs = {}
+    for i, where in enumerate(("cpu", dev)):
+        tr = Trainer(pmodel, f"parity{i}", log_dir=logdir, device=where,
+                     prefetch=0, log_flush_every=1)
+        st = tr.init_state(params=tree_map(
+            lambda t, w=where: t.clone().to(w), params))
+        tr._trunk_cache = feats.to(where)
+        st, _, _ = tr.run_epoch(st, pbatches, torch.Generator(where))
+        lines = open(os.path.join(tr.experiment_dir, "train",
+                                  "metrics.jsonl")).read().splitlines()
+        runs[i] = (
+            [json.loads(x)["value"] for x in lines
+             if '"train/batch_loss"' in x],
+            {k: v.cpu() for k, v in flatten_tree(st["params"]).items()})
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = runs[0], runs[1]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    param_err = max((p_gpu[k] - v).abs().max().item()
+                    for k, v in p_cpu.items())
+    log(f"  f32 parity, {T_PAR_LAYERS} layers, batch {T_PAR_BATCH}, "
+        f"{T_PAR_STEPS} steps: losses card {l_gpu} vs CPU {l_cpu} (max rel "
+        f"{loss_err:.2e}, rtol {T_PAR_RTOL}); parameters max|card-CPU| "
+        f"{param_err:.2e} (atol {T_PAR_ATOL})")
+    if not (len(l_gpu) == T_PAR_STEPS and loss_err <= T_PAR_RTOL
+            and param_err <= T_PAR_ATOL):
+        raise AssertionError("train f32 parity: card and CPU disagree")
+    out["parity"] = {"loss_rel_err": loss_err, "param_abs_err": param_err}
+
+    # the other three captioners, 3 f32 steps each at small widths
+    small = dict(num_tokens=1000)
+    for cls, hp in (
+            (CaptioningLSTM, dict(emb_dim=64, hidden_size=64, num_layers=2)),
+            (CaptioningLSTMWithLabels, dict(emb_dim=64, hidden_size=64,
+                                            num_layers=2)),
+            (CaptioningTransformerBase, dict(hid_dim=64, n_layers=2,
+                                             n_heads=4, pf_dim=128,
+                                             max_len=50))):
+        m = cls(**small, **hp)
+        tr = Trainer(m, "small", log_dir=logdir, device=dev)
+        st = tr.init_state(torch.Generator(dev).manual_seed(0))
+        tr._trunk_cache = feats[:8].to(dev)
+        sds, _ = memory_set(3 * 32, 8, 1000, 21)
+        st, loss, _ = tr.run_epoch(st, BatchIterator(
+            sds, 32, max_caption_len=T_CAP + 1, seed=0,
+            image_rows={f"t{i:03d}": i for i in range(8)}),
+            torch.Generator(dev).manual_seed(22))
+        log(f"  {cls.__name__}: 3 f32 steps from the trunk cache, mean "
+            f"loss {loss:.4f}")
+        if not (np.isfinite(loss) and st["step"] == 3):
+            raise AssertionError(f"{cls.__name__}: train steps")
+        out[cls.__name__] = {"loss": loss}
+    return launches, out
+
+
 def cold_build():
     """``--cold-build``: two batchers' first calls, made together in this
     cold process, over a small model on the card, with the kernel library
@@ -1847,6 +2201,18 @@ def main():
     log("[11] kernel library build lock")
     check_cold_build()
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
+    log(f"[12] train: the word model (V {VOCAB}, hid {HID}, {LAYERS} layers, "
+        f"bf16, batch {T_BATCH}) from a trunk cache of {T_TEMPLATES} "
+        f"templates; then from images, f32 parity with the CPU, the trained "
+        f"checkpoint served, and the other captioners")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as logdir:
+        legs["train_serve"], train = check_train(
+            CaptioningTransformer, tree_map, _build, (A, C, E, S), dev,
+            name_limit, logdir)
+    log("train: " + json.dumps(train))
+    log(f"    train phase {time.perf_counter() - t0:.1f} s; elapsed "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "ancestry_attention_update": (

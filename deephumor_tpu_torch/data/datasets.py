@@ -13,14 +13,17 @@ Counterpart of deephumor_tpu/data/datasets.py:
   numpy array (by default :func:`preprocess_pil`, preloaded once per
   template).
 
-Bulk pre-encoding of a split (the JAX package's ``materialize``) belongs
-to training and is not here.
+:meth:`MemeDataset.materialize` pre-encodes a whole split for
+``BatchIterator``'s fast path, in pure Python through the port's
+tokenizers (the JAX package may use its C++ scanner; the id matrices are
+the same).
 """
 
 import os
 
 import numpy as np
 
+from deephumor_tpu_torch.data.dataloaders import pad_ids
 from deephumor_tpu_torch.data.tokenizers import WordPunctTokenizer
 from deephumor_tpu_torch.data.vocab import SPECIAL_TOKENS
 
@@ -102,3 +105,24 @@ class MemeDataset:
 
     def __len__(self):
         return len(self.captions)
+
+    def materialize(self, max_caption_len, max_label_len):
+        """The whole split as padded id matrices, encoded once:
+        ``{"captions" [N, C], "labels" [N, L] int32, "image_keys" [N]}``
+        (each label encoded once per template). Cached per lengths."""
+        key = (max_caption_len, max_label_len)
+        cached = getattr(self, "_materialized", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        unique_labels = list(self.templates)
+        cap_ids = pad_ids([self._preprocess_text(c) for _, c in self.captions],
+                          max_caption_len)
+        lab_ids = pad_ids([self._preprocess_text(t) for t in unique_labels],
+                          max_label_len)
+        row = {label: i for i, label in enumerate(unique_labels)}
+        image_keys = [label for label, _ in self.captions]
+        result = {"captions": cap_ids,
+                  "labels": lab_ids[[row[k] for k in image_keys]],
+                  "image_keys": image_keys}
+        self._materialized = (key, result)
+        return result

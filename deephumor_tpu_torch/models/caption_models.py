@@ -1,4 +1,5 @@
-"""The four captioning models (inference).
+"""The four captioning models: teacher-forced training forwards and
+generation.
 
 Counterparts of deephumor_tpu/models/caption_models.py:
 
@@ -22,6 +23,12 @@ Canonical-prefix attention gathers each item's common ancestor path below
 ``c`` once into a shared cache, so the kernels read one row per position
 there instead of ``beam``.
 
+Training runs ``forward`` (teacher forcing, plain PyTorch ops, no
+kernel), never ``encode``: that runs under ``torch.inference_mode``,
+whose tensors refuse autograd. ``trunk`` gives the frozen ResNet-50's
+features, which a trainer caches per template and passes back with
+``from_trunk=True``.
+
 Each model is a frozen dataclass of hyperparameters; its parameters are
 a nested dict of tensors (``init``, ``from_pretrained``), on the card
 unless the caller asks for the CPU. Generation runs where the parameters
@@ -42,9 +49,10 @@ from deephumor_tpu_torch.convert.jax_params import (params_from_jax,
 from deephumor_tpu_torch.models import layers as L
 from deephumor_tpu_torch.models import transformer as tfm
 from deephumor_tpu_torch.models.encoders import (
-    image_encoder_apply, image_encoder_init, image_label_encoder_apply,
-    image_label_encoder_init)
-from deephumor_tpu_torch.models.lstm import (lstm_decoder_init, lstm_forward,
+    image_encoder_apply, image_encoder_init, image_encoder_trunk,
+    image_label_encoder_apply, image_label_encoder_init)
+from deephumor_tpu_torch.models.lstm import (lstm_decoder_forward,
+                                             lstm_decoder_init, lstm_forward,
                                              lstm_step)
 from deephumor_tpu_torch.models.sampling import beam_search
 from deephumor_tpu_torch.ops.attention import MASK_FILL
@@ -71,13 +79,35 @@ def _check_sampler(sampler):
 
 def _cast(tree, dtype_name):
     """``tree`` (decoder parameters, embeddings) in the model's compute
-    dtype."""
+    dtype: the encoder -> decoder seam of generation and of ``forward``
+    (the JAX package's ``_decoder_compute_cast``). Casting the parameters
+    alone would leave every product in f32, so the encoder's output is
+    cast too. The cast is differentiable: the gradients of f32 master
+    parameters come back in f32."""
     dt = getattr(torch, dtype_name)
     return tree if dt == torch.float32 else tree_map(lambda t: t.to(dt), tree)
 
 
 class _Captioner:
-    """Loading and saving shared by the four models."""
+    """Loading, saving and the training forward's tail, shared by the four
+    models."""
+
+    def _decoder(self, params):
+        return params["decoder"]
+
+    def _forward(self, params, encoded, train, decode):
+        """The tail of every ``forward``: ``encoded`` is the encoder's
+        output (in train mode ``(output, new encoder params)``), cast at
+        the seam with the decoder's parameters and fed to ``decode(dec,
+        encoded)``. Returns the logits, in train mode ``(logits,
+        new_params)`` with the encoder's batch-norm statistics
+        advanced."""
+        if train:
+            encoded, new_enc = encoded
+        dec, encoded = _cast((self._decoder(params), encoded),
+                             self.compute_dtype)
+        logits = decode(dec, encoded)
+        return (logits, dict(params, encoder=new_enc)) if train else logits
 
     def hp(self):
         """The hyperparameters a checkpoint records (``compute_dtype``
@@ -139,6 +169,7 @@ class CaptioningLSTM(_Captioner):
     compute_dtype: str = "float32"
 
     model_type = "captioning_lstm"
+    with_labels = False
 
     def init(self, gen, device="cuda"):
         """Random parameters drawn from ``gen`` (a ``torch.Generator`` on
@@ -150,14 +181,32 @@ class CaptioningLSTM(_Captioner):
                 self.num_layers, device),
         }
 
+    def trunk(self, params, images):
+        """Frozen-ResNet features ``[bs, 7, 7, 2048]`` of NHWC images, made
+        without a gradient and the same at every step: cache them and
+        train with ``forward(..., from_trunk=True)``
+        (``Trainer.build_trunk_cache``)."""
+        return image_encoder_trunk(params["encoder"], images)
+
+    def forward(self, params, images, captions, lengths=None, train=False,
+                gen=None, from_trunk=False):
+        """Teacher-forced logits ``[bs, T+1, num_tokens]`` of ``captions
+        [bs, T]`` (the image embedding is step 0). In train mode, with
+        dropout drawn from ``gen``, returns ``(logits, new_params)``.
+        ``lengths`` is not needed: a one-way LSTM's outputs before each
+        length are the same with or without the reference's packing."""
+        return self._forward(
+            params, image_encoder_apply(
+                params["encoder"], images, dropout=self.enc_dropout,
+                train=train, gen=gen, from_trunk=from_trunk), train,
+            lambda dec, emb: lstm_decoder_forward(
+                dec, emb, captions, self.dec_dropout, train, gen))
+
     @torch.inference_mode()
     def encode(self, params, images):
         """NHWC images -> global embedding ``[bs, emb_dim]`` (cacheable per
         template)."""
         return image_encoder_apply(params["encoder"], images)
-
-    def _decoder(self, params):
-        return params["decoder"]
 
     def _prefill(self, dec, emb, prefix):
         """Runs the image embedding (and the prefix tokens) through the
@@ -235,6 +284,7 @@ class CaptioningLSTMWithLabels(CaptioningLSTM):
     encoder."""
 
     model_type = "captioning_lstm_labels"
+    with_labels = True
 
     def init(self, gen, device="cuda"):
         dec = lstm_decoder_init(gen, self.num_tokens, self.emb_dim,
@@ -247,6 +297,20 @@ class CaptioningLSTMWithLabels(CaptioningLSTM):
     def _decoder(self, params):
         return dict(params["decoder"],
                     embedding=params["encoder"]["label_encoder"]["embedding"])
+
+    def trunk(self, params, images):
+        return image_encoder_trunk(params["encoder"]["image_encoder"], images)
+
+    def forward(self, params, images, captions, lengths=None, labels=None,
+                train=False, gen=None, from_trunk=False):
+        """As :meth:`CaptioningLSTM.forward`, conditioned on the label
+        tokens ``labels [bs, n]`` too."""
+        return self._forward(
+            params, image_label_encoder_apply(
+                params["encoder"], images, labels, dropout=self.enc_dropout,
+                train=train, gen=gen, from_trunk=from_trunk), train,
+            lambda dec, emb: lstm_decoder_forward(
+                dec, emb, captions, self.dec_dropout, train, gen))
 
     @torch.inference_mode()
     def encode(self, params, images, labels):
@@ -286,6 +350,7 @@ class CaptioningTransformerBase(_Captioner):
     compute_dtype: str = "float32"
 
     model_type = "captioning_transformer_base"
+    with_labels = False
     cross_attention = False
 
     def init(self, gen, device="cuda"):
@@ -299,6 +364,24 @@ class CaptioningTransformerBase(_Captioner):
                                self.n_layers, self.pf_dim, self.max_len,
                                device),
         }
+
+    def trunk(self, params, images):
+        """Frozen-ResNet features ``[bs, 7, 7, 2048]``; see
+        :meth:`CaptioningLSTM.trunk`."""
+        return image_encoder_trunk(params["encoder"], images)
+
+    def forward(self, params, images, captions, lengths=None, train=False,
+                gen=None, from_trunk=False):
+        """Teacher-forced logits ``[bs, T+1, num_tokens]`` of ``captions
+        [bs, T]`` after the global image embedding; in train mode
+        ``(logits, new_params)``, as :meth:`CaptioningLSTM.forward`."""
+        return self._forward(
+            params, image_encoder_apply(
+                params["encoder"], images, dropout=self.enc_dropout,
+                train=train, gen=gen, from_trunk=from_trunk), train,
+            lambda dec, emb: tfm.self_attn_decoder_forward(
+                dec, captions, emb, self.n_heads, self.pad_index,
+                self.dec_dropout, train, gen))
 
     @torch.inference_mode()
     def encode(self, params, images):
@@ -656,6 +739,22 @@ class CaptioningTransformer(CaptioningTransformerBase):
 
     model_type = "captioning_transformer"
     cross_attention = True
+
+    def forward(self, params, images, captions, lengths=None, train=False,
+                gen=None, from_trunk=False):
+        """Teacher-forced logits ``[bs, max(T+1, 49), num_tokens]`` of
+        ``captions [bs, T]``, with the reference's pad-to-common-length
+        quirk (``transformer_decoder_forward``: the loss slices the first
+        T+1 positions); in train mode ``(logits, new_params)``, as
+        :meth:`CaptioningLSTM.forward`."""
+        return self._forward(
+            params, image_encoder_apply(
+                params["encoder"], images, spatial_features=True,
+                dropout=self.enc_dropout, train=train, gen=gen,
+                from_trunk=from_trunk), train,
+            lambda dec, enc: tfm.transformer_decoder_forward(
+                dec, captions, enc[1], enc[0], self.n_heads, self.pad_index,
+                self.dec_dropout, train, gen))
 
     @torch.inference_mode()
     def encode(self, params, images):

@@ -5,7 +5,8 @@ names (see convert/jax_params.py): a linear layer is ``{"weight":
 [out, in], "bias": [out]}``, an embedding ``{"weight": [N, D]}``, a layer
 norm ``{"weight", "bias"}``, a batch norm ``{"weight", "bias",
 "running_mean", "running_var"}``. The ``*_init`` functions draw from the
-JAX package's distributions with an explicit ``torch.Generator``.
+JAX package's distributions with an explicit ``torch.Generator``; so does
+:func:`dropout`, whose draws come from the generator it is given.
 """
 
 import math
@@ -13,8 +14,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["linear", "embed", "layer_norm", "batch_norm", "linear_init",
-           "embedding_init", "layer_norm_init", "batch_norm_init"]
+__all__ = ["linear", "embed", "layer_norm", "batch_norm", "dropout",
+           "linear_init", "embedding_init", "layer_norm_init",
+           "batch_norm_init"]
 
 
 def linear(params, x):
@@ -30,11 +32,44 @@ def layer_norm(params, x, eps=1e-5):
                         eps)
 
 
-def batch_norm(params, x, eps=1e-5):
-    """Eval-mode batch norm over the last axis (running statistics)."""
-    y = (x - params["running_mean"]) * torch.rsqrt(params["running_var"]
-                                                   + eps)
-    return y * params["weight"] + params["bias"]
+def batch_norm(params, x, train=False, momentum=0.1, eps=1e-5):
+    """Batch norm over the last axis, PyTorch's semantics.
+
+    Eval mode normalises by the running statistics and returns ``y``.
+    Train mode normalises by the batch's biased variance and returns
+    ``(y, new_params)``: the running mean and the *unbiased* variance
+    advanced by ``momentum``, as new (detached) tensors. The statistics
+    leave the forward as parameters, not through autograd.
+    """
+    if not train:
+        y = (x - params["running_mean"]) * torch.rsqrt(
+            params["running_var"] + eps)
+        return y * params["weight"] + params["bias"]
+    dims = tuple(range(x.ndim - 1))
+    mean = x.mean(dim=dims)
+    var = x.var(dim=dims, unbiased=False)
+    n = x.numel() // x.shape[-1]
+    with torch.no_grad():
+        new_params = dict(
+            params,
+            running_mean=(1 - momentum) * params["running_mean"]
+            + momentum * mean,
+            running_var=(1 - momentum) * params["running_var"]
+            + momentum * var * n / max(n - 1, 1))
+    y = (x - mean) * torch.rsqrt(var + eps)
+    return y * params["weight"] + params["bias"], new_params
+
+
+def dropout(gen, x, rate, train):
+    """Inverted dropout drawing its mask from ``gen`` (a ``torch.Generator``
+    on ``x``'s device); the identity when not training or at rate 0."""
+    if not train or rate == 0.0:
+        return x
+    if gen is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 def _uniform(gen, shape, bound, device):

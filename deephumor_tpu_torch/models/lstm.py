@@ -1,4 +1,4 @@
-"""Multi-layer LSTM + token classifier decoder (inference).
+"""Multi-layer LSTM + token classifier decoder.
 
 Counterpart of deephumor_tpu/models/lstm.py. A layer is PyTorch's
 ``nn.LSTM`` layout: ``{"weight_ih" [4H, in], "weight_hh" [4H, H],
@@ -6,7 +6,9 @@ Counterpart of deephumor_tpu/models/lstm.py. A layer is PyTorch's
 (convert/jax_params.py transposes the JAX package's ``wi [in, 4H]`` and
 ``wh [H, 4H]``). The JAX package runs no Pallas kernel here, and neither
 does the port: the cell is two ``F.linear`` products and pointwise ops,
-the time loop a Python loop.
+the time loop a Python loop. The training forward
+(:func:`lstm_decoder_forward`) prepends the image embedding as the step-0
+input and applies PyTorch's inter-layer dropout in train mode.
 """
 
 import math
@@ -16,7 +18,8 @@ import torch.nn.functional as F
 
 from deephumor_tpu_torch.models import layers as L
 
-__all__ = ["lstm_init", "lstm_forward", "lstm_step", "lstm_decoder_init"]
+__all__ = ["lstm_init", "lstm_forward", "lstm_step", "lstm_decoder_init",
+           "lstm_decoder_forward"]
 
 
 def lstm_init(gen, input_dim, hidden_size, num_layers, device="cuda"):
@@ -43,8 +46,11 @@ def _cell(layer, x, h, c):
     return torch.sigmoid(o) * torch.tanh(c), c
 
 
-def lstm_forward(params, x, h0=None, c0=None):
-    """Full-sequence forward of ``x [bs, T, in]``, layer by layer.
+def lstm_forward(params, x, h0=None, c0=None, dropout=0.0, train=False,
+                 gen=None):
+    """Full-sequence forward of ``x [bs, T, in]``, layer by layer. In
+    train mode every layer's output but the last takes ``dropout`` (drawn
+    from ``gen``), as PyTorch's stacked LSTM does.
 
     Returns:
         (outputs ``[bs, T, H]``, (h ``[L, bs, H]``, c ``[L, bs, H]``))
@@ -63,6 +69,8 @@ def lstm_forward(params, x, h0=None, c0=None):
         seq = torch.stack(outs, dim=1)
         hs.append(h)
         cs.append(c)
+        if k < len(params) - 1:
+            seq = L.dropout(gen, seq, dropout, train)
     return seq, (torch.stack(hs), torch.stack(cs))
 
 
@@ -86,3 +94,15 @@ def lstm_decoder_init(gen, num_tokens, emb_dim=256, hidden_size=512,
         "lstm": lstm_init(gen, emb_dim, hidden_size, num_layers, device),
         "classifier": L.linear_init(gen, hidden_size, num_tokens, device),
     }
+
+
+def lstm_decoder_forward(params, image_emb, captions, dropout=0.0,
+                         train=False, gen=None):
+    """Teacher-forced forward: the image embedding ``[bs, emb_dim]`` is the
+    step-0 input and the caption tokens ``[bs, T]`` follow; returns logits
+    ``[bs, T+1, num_tokens]``."""
+    x = torch.cat([image_emb[:, None, :],
+                   L.embed(params["embedding"], captions)], dim=1)
+    outputs, _ = lstm_forward(params["lstm"], x, dropout=dropout, train=train,
+                              gen=gen)
+    return L.linear(params["classifier"], outputs)

@@ -1,8 +1,19 @@
-"""Incremental transformer decoding over KV caches (the decode half).
+"""Transformer decoders: the teacher-forced forward and incremental
+decoding over KV caches.
 
-Counterpart of the decode path of deephumor_tpu/models/transformer.py:
-post-LN blocks, learned positions, token embeddings divided by
-sqrt(hid_dim), -1e8 mask fills. During beam search the caches are never
+Counterpart of deephumor_tpu/models/transformer.py: post-LN blocks,
+learned positions, token embeddings divided by sqrt(hid_dim), -1e8 mask
+fills (a fully masked row gets uniform weights, as in the reference).
+
+The full-sequence side (training) is plain PyTorch, as the JAX package
+leaves it to XLA: :func:`mha_apply` with attention-weight dropout,
+:func:`transformer_decoder_forward` with the reference's
+pad-to-common-length quirk (decoder tokens and the 49 encoder rows padded
+to one length, the encoder key mask taken from all-zero rows after the
+padding), :func:`self_attn_decoder_forward`, and the repaired transformer
+encoder (:func:`transformer_encoder_forward`), which no captioner uses.
+
+During beam search the caches are never
 reordered: each branch carries an ancestry table and self-attention runs
 in the K1 kernel (ops.ancestry_attention_update), which also writes the
 position's K/V into the caches in place. Once the engine has set up a
@@ -28,9 +39,13 @@ from deephumor_tpu_torch.ops.attention import (
     MASK_FILL, ancestry_attention_ids, ancestry_attention_update,
     ancestry_attention_update_canon, ancestry_bias, grouped_cross_attention)
 
-__all__ = ["transformer_decoder_init", "self_attn_decoder_init",
-           "init_cache",
-           "precompute_cross_attention", "pff_apply", "decode_step"]
+__all__ = ["mha_apply", "pff_apply", "get_pad_mask",
+           "get_autoregressive_mask", "encoder_layer_init",
+           "encoder_layer_apply", "transformer_encoder_init",
+           "transformer_encoder_forward", "transformer_decoder_init",
+           "transformer_decoder_forward", "self_attn_decoder_init",
+           "self_attn_decoder_forward", "init_cache",
+           "precompute_cross_attention", "decode_step"]
 
 
 def _mha_init(gen, d, device):
@@ -38,19 +53,22 @@ def _mha_init(gen, d, device):
             for name in ("fc_q", "fc_k", "fc_v", "fc_o")}
 
 
+def _layer_init(gen, hid_dim, pf_dim, cross_attention, device):
+    layer = {"self_attn": _mha_init(gen, hid_dim, device),
+             "self_attn_ln": L.layer_norm_init(hid_dim, device)}
+    if cross_attention:
+        layer["enc_attn"] = _mha_init(gen, hid_dim, device)
+        layer["enc_attn_ln"] = L.layer_norm_init(hid_dim, device)
+    layer["pf"] = {"fc_1": L.linear_init(gen, hid_dim, pf_dim, device),
+                   "fc_2": L.linear_init(gen, pf_dim, hid_dim, device)}
+    layer["pf_ln"] = L.layer_norm_init(hid_dim, device)
+    return layer
+
+
 def _stack_init(gen, num_tokens, hid_dim, n_layers, pf_dim, max_len,
                 cross_attention, device):
-    layers = []
-    for _ in range(n_layers):
-        layer = {"self_attn": _mha_init(gen, hid_dim, device),
-                 "self_attn_ln": L.layer_norm_init(hid_dim, device)}
-        if cross_attention:
-            layer["enc_attn"] = _mha_init(gen, hid_dim, device)
-            layer["enc_attn_ln"] = L.layer_norm_init(hid_dim, device)
-        layer["pf"] = {"fc_1": L.linear_init(gen, hid_dim, pf_dim, device),
-                       "fc_2": L.linear_init(gen, pf_dim, hid_dim, device)}
-        layer["pf_ln"] = L.layer_norm_init(hid_dim, device)
-        layers.append(layer)
+    layers = [_layer_init(gen, hid_dim, pf_dim, cross_attention, device)
+              for _ in range(n_layers)]
     return {
         "tok_embedding": L.embedding_init(gen, num_tokens, hid_dim, device),
         "pos_embedding": L.embedding_init(gen, max_len, hid_dim, device),
@@ -73,6 +91,183 @@ def self_attn_decoder_init(gen, num_tokens, hid_dim=512, n_layers=6,
     ``self_attn_decoder_init``: no ``enc_attn`` in the layers)."""
     return _stack_init(gen, num_tokens, hid_dim, n_layers, pf_dim, max_len,
                        False, device)
+
+
+def mha_apply(params, query, key, value, n_heads, mask=None, dropout=0.0,
+              train=False, gen=None):
+    """Multi-head attention of ``query [bs, Tq, D]`` over ``key, value
+    [bs, Tk, D]``; ``mask`` bool ``[bs, Tq, Tk]``, True = masked (filled
+    with -1e8 before the softmax). In train mode the attention weights
+    take ``dropout``."""
+    bs, tq, d = query.shape
+    hd = d // n_heads
+
+    def split(x):
+        return x.reshape(bs, x.shape[1], n_heads, hd).transpose(1, 2)
+
+    q = split(L.linear(params["fc_q"], query))
+    k = split(L.linear(params["fc_k"], key))
+    v = split(L.linear(params["fc_v"], value))
+    energy = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
+    if mask is not None:
+        energy = energy.masked_fill(mask[:, None], MASK_FILL)
+    attn = L.dropout(gen, torch.softmax(energy, dim=-1), dropout, train)
+    out = (attn @ v).transpose(1, 2).reshape(bs, tq, d)
+    return L.linear(params["fc_o"], out)
+
+
+def pff_apply(params, x, dropout=0.0, train=False, gen=None):
+    h = L.dropout(gen, torch.relu(L.linear(params["fc_1"], x)), dropout,
+                  train)
+    return L.linear(params["fc_2"], h)
+
+
+def get_pad_mask(query_ids, key_ids, pad_index=0):
+    """Bool ``[bs, Tq, Tk]``: True where the key position is padding."""
+    return (key_ids == pad_index)[:, None, :].expand(
+        query_ids.shape[0], query_ids.shape[1], key_ids.shape[1])
+
+
+def get_autoregressive_mask(bs, seq_len, device):
+    """Bool ``[bs, T, T]``: True above the diagonal."""
+    tri = torch.ones((seq_len, seq_len), dtype=torch.bool,
+                     device=device).triu(1)
+    return tri[None].expand(bs, seq_len, seq_len)
+
+
+def _decoder_layer_apply(params, x, n_heads, enc_out=None, input_mask=None,
+                         enc_mask=None, dropout=0.0, train=False, gen=None):
+    """One post-LN block: self-attention, cross-attention where the layer
+    has it, feed-forward; each sublayer's output takes ``dropout`` before
+    its residual add in train mode."""
+    attn = mha_apply(params["self_attn"], x, x, x, n_heads, input_mask,
+                     dropout, train, gen)
+    x = L.layer_norm(params["self_attn_ln"],
+                     x + L.dropout(gen, attn, dropout, train))
+    if "enc_attn" in params:
+        attn = mha_apply(params["enc_attn"], x, enc_out, enc_out, n_heads,
+                         enc_mask, dropout, train, gen)
+        x = L.layer_norm(params["enc_attn_ln"],
+                         x + L.dropout(gen, attn, dropout, train))
+    ff = pff_apply(params["pf"], x, dropout, train, gen)
+    return L.layer_norm(params["pf_ln"], x + L.dropout(gen, ff, dropout,
+                                                      train))
+
+
+def encoder_layer_init(gen, hid_dim=512, pf_dim=2048, device="cuda"):
+    """Post-LN encoder block (the reference's EncoderLayer)."""
+    return _layer_init(gen, hid_dim, pf_dim, False, device)
+
+
+def encoder_layer_apply(params, x, n_heads, input_mask=None, dropout=0.0,
+                        train=False, gen=None):
+    return _decoder_layer_apply(params, x, n_heads, input_mask=input_mask,
+                                dropout=dropout, train=train, gen=gen)
+
+
+def transformer_encoder_init(gen, num_tokens, hid_dim=512, n_layers=6,
+                             pf_dim=2048, max_len=128, device="cuda"):
+    """Encoder stack parameters (same tree as the JAX
+    ``transformer_encoder_init``)."""
+    return {
+        "tok_embedding": L.embedding_init(gen, num_tokens, hid_dim, device),
+        "pos_embedding": L.embedding_init(gen, max_len, hid_dim, device),
+        "layers": [encoder_layer_init(gen, hid_dim, pf_dim, device)
+                   for _ in range(n_layers)],
+    }
+
+
+def transformer_encoder_forward(params, tokens, n_heads, pad_index=None,
+                                dropout=0.0, train=False, gen=None):
+    """Encodes ``tokens [bs, T]`` -> ``[bs, T, hid_dim]``: the working
+    form of the reference's encoder, whose forward fails with a mask.
+    Token embeddings are divided by sqrt(hid_dim), as the reference does;
+    ``pad_index=None`` masks nothing."""
+    t = tokens.shape[1]
+    table = params["tok_embedding"]["weight"]
+    pos_rows = params["pos_embedding"]["weight"].shape[0]
+    if t > pos_rows:
+        raise ValueError(
+            f"positional table has {pos_rows} rows but the sequence needs "
+            f"{t}; construct the encoder with max_len >= {t}")
+    emb = (L.embed(params["tok_embedding"], tokens) / math.sqrt(table.shape[1])
+           + params["pos_embedding"]["weight"][:t])
+    x = L.dropout(gen, emb, dropout, train)
+    mask = (None if pad_index is None
+            else get_pad_mask(tokens, tokens, pad_index))
+    for layer in params["layers"]:
+        x = encoder_layer_apply(layer, x, n_heads, mask, dropout, train, gen)
+    return x
+
+
+def _decoder_input(params, tokens, start_emb, pad_index, dropout, train,
+                   gen):
+    """The start embedding then the token embeddings, divided by
+    sqrt(hid_dim), plus positions (dropout in train mode); the ids with
+    the start position as a real token (id 1); and the self-attention
+    mask (pads and the future)."""
+    bs, t = tokens.shape
+    seq_len = t + 1
+    pos_rows = params["pos_embedding"]["weight"].shape[0]
+    if seq_len > pos_rows:
+        raise ValueError(
+            f"positional table has {pos_rows} rows but the sequence needs "
+            f"{seq_len}; construct the model with max_len >= {seq_len}")
+    emb = torch.cat([start_emb[:, None, :],
+                     L.embed(params["tok_embedding"], tokens)], dim=1)
+    emb = (emb / math.sqrt(start_emb.shape[-1])
+           + params["pos_embedding"]["weight"][:seq_len])
+    ids = torch.cat([torch.ones_like(tokens[:, :1]), tokens], dim=1)
+    mask = (get_pad_mask(ids, ids, pad_index)
+            | get_autoregressive_mask(bs, seq_len, tokens.device))
+    return L.dropout(gen, emb, dropout, train), ids, mask
+
+
+def transformer_decoder_forward(params, tokens, enc_out, start_emb, n_heads,
+                                pad_index=0, dropout=0.0, train=False,
+                                gen=None):
+    """Teacher-forced forward with cross-attention, as the reference runs
+    it: the tokens ``[bs, T]`` (after the start embedding ``[bs, D]`` at
+    position 0) and the encoder rows ``enc_out [bs, T_enc, D]`` are padded
+    to one length, ``max(T + 1, T_enc)``, and an encoder row counts as a
+    key only if every element of it is non-zero (taken after the padding,
+    in the decoder's dtype). Raises ``ValueError`` when the positional
+    table is shorter than the padded sequence.
+
+    Returns logits ``[bs, max(T + 1, T_enc), num_tokens]``.
+    """
+    t = tokens.shape[1]
+    enc_len = enc_out.shape[1]
+    seq_len = max(t + 1, enc_len)
+    pos_rows = params["pos_embedding"]["weight"].shape[0]
+    if seq_len > pos_rows:
+        raise ValueError(
+            f"positional table has {pos_rows} rows but the padded sequence "
+            f"needs {seq_len} (decoder {t + 1}, encoder {enc_len}); "
+            f"construct the model with max_len >= {seq_len}")
+    tokens = F.pad(tokens, (0, seq_len - t - 1), value=pad_index)
+    enc_out = F.pad(enc_out, (0, 0, 0, seq_len - enc_len))
+    x, ids, input_mask = _decoder_input(params, tokens, start_emb, pad_index,
+                                        dropout, train, gen)
+    enc_valid = (enc_out != 0).all(dim=-1).to(torch.int32)
+    enc_mask = get_pad_mask(ids, enc_valid, pad_index)
+    for layer in params["layers"]:
+        x = _decoder_layer_apply(layer, x, n_heads, enc_out, input_mask,
+                                 enc_mask, dropout, train, gen)
+    return L.linear(params["classifier"], x)
+
+
+def self_attn_decoder_forward(params, tokens, start_emb, n_heads,
+                              pad_index=0, dropout=0.0, train=False,
+                              gen=None):
+    """Teacher-forced forward of the decoder-only stack: logits
+    ``[bs, T + 1, num_tokens]``."""
+    x, _, input_mask = _decoder_input(params, tokens, start_emb, pad_index,
+                                      dropout, train, gen)
+    for layer in params["layers"]:
+        x = _decoder_layer_apply(layer, x, n_heads, input_mask=input_mask,
+                                 dropout=dropout, train=train, gen=gen)
+    return L.linear(params["classifier"], x)
 
 
 def init_cache(params, bs, max_positions, dtype=torch.float32):
@@ -116,8 +311,6 @@ def _cached_attention(q, cache_k, cache_v, n_heads, key_mask):
     return (torch.softmax(energy, dim=-1) @ v).reshape(bs, d)
 
 
-def pff_apply(params, x):
-    return L.linear(params["fc_2"], torch.relu(L.linear(params["fc_1"], x)))
 
 
 def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
