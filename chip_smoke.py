@@ -90,13 +90,50 @@ gradient), 3 f32 steps at 2 layers, batch 16, dropout 0 on the card and
 on the CPU (losses to rtol 1e-4, parameters to atol 2e-4), and 3 f32
 steps of each other captioner at small widths.
 
+Then a parallel phase ([13]) runs deephumor_tpu_torch.parallel on this
+one card: a one-rank NCCL group and ``make_mesh("cuda")`` (data 1).
+``dp_generate`` at the word leg's width and settings (batch 1792, from
+embeddings; greedy, then sampled twice with one seed), with every launch
+count at zero: K1, K2 and K3 must launch and no plain twin may see a CUDA
+tensor; greedy must be token-equal to ``generate_from_emb`` and the two
+sampled calls equal; sampled calls are then timed in turns beside
+``generate_from_emb``. The word Trainer takes 6 steps at full width
+(bf16, batch 256, the trunk cache) without and with ``mesh=`` (median
+step times; with the mesh, every ``all_reduce`` recorded: the BN moments
+twice a step and the gradients once, all over NCCL on the card), then
+72 mesh steps at the trainer's default log_flush_every (64): the device
+memory held after a step may not grow past one summed-gradient buffer on
+any rank. Then 3 f32 steps at 2 layers, batch 16, dropout 0, without and
+with the mesh (losses to rtol 1e-4, parameters to atol 2e-4, the first
+step's summed gradient within P_GRAD_RTOL of the plain one and of a
+plain step whose first forward takes the mesh's ReLU pattern, the first
+forward's ReLU inputs within P_RELU_RTOL). Last, a mesh pipeline
+behind a ``DynamicBatcher`` answers 64 greedy requests, equal to the
+pipeline without a mesh (K1 and K2 launch, no twin on the card), and the
+group is destroyed. The mesh spans one card here: the collectives are
+one-rank NCCL calls, and nothing in the phase measures scaling.
+
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [ROOT]
+    torchrun --nproc-per-node N chip_smoke.py --mesh-ranks
 
 The second form only times K4 (all char rows, C_LIVE live), K9 (ng 2, 4,
 8) and K2 on K9's rows, queued, through the deephumor_tpu_torch of the
 tree at ROOT (default: this one), and prints one JSON line: run beside
 a parent tree's root, it times the parent's kernels on the same inputs.
+The third runs [13]'s checks over N ranks, one per card: each
+dp_generate and mesh step does 1/N of the batch, timed beside a one-card
+plain call. Greedy outputs are held to plain calls on each rank's block
+(the same products; one call of the whole batch rounds its bf16
+products at other shapes, and its share of equal items is reported).
+The f32 mesh steps are held by their losses, ReLU inputs and the masked
+plain gradient as on one card; their first summed gradient within
+P_GRAD_RTOL_RANKS of the plain one (a ReLU input that rounds to the
+other side of 0 at the local shape moves a whole outer product of the
+gradients); at most a share P_PARAM_SHARE of the trained parameters past
+2e-4 (Adam turns gradients that are rounding noise into steps of up to
+lr). Mesh steps that take each shard's own means of the loss must fail
+the three gates: they see that fault.
 
 Exits non-zero, printing no result, without a CUDA device. Its last line
 is ``{"ok": true, "device": {...}}``; the line before it gives the card's
@@ -157,6 +194,22 @@ T_STEPS, T_WARM, T_PROFILED = 32, 5, 5
 T_PAR_LAYERS, T_PAR_BATCH, T_PAR_STEPS = 2, 16, 3
 T_IMG_BATCH, T_SERVE_BATCH = 32, 64
 T_PAR_RTOL, T_PAR_ATOL = 1e-4, 2e-4  # f32 card vs CPU: loss, parameters
+# the parallel phase: word train steps with and without the mesh, the
+# first P_WARM of them out of the median; the mesh batcher's requests
+# over its templates
+P_STEPS, P_WARM = 6, 2
+# the mesh's memory check: steps past the trainer's log_flush_every
+P_MEM_EXTRA = 8
+P_REQUESTS, P_TEMPLATES = 64, 32
+# f32, the mesh's steps vs the plain ones (parallel_train): the first
+# summed gradient (norm of the difference over the norm) against the plain
+# step's with the mesh's ReLU pattern, or on one rank the plain step's
+# (f32 rounding alone, ~1e-6), and over several ranks the plain step's
+# (where a ReLU input rounds to the other side of 0: 1.67e-4 at 2 H100s);
+# the first forward's ReLU inputs (largest gap over the largest input);
+# over several ranks, the share of trained parameters past T_PAR_ATOL
+P_GRAD_RTOL, P_GRAD_RTOL_RANKS = 1e-5, 1e-3
+P_RELU_RTOL, P_PARAM_SHARE = 1e-4, 1e-3
 TOL = 2e-2  # bf16 kernel vs twin: one bf16 rounding of each output
 TOL_F32 = 1e-5  # f32 kernel vs twin: the summation order only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -165,7 +218,9 @@ SPIN_CYCLES = 50_000_000  # ~25 ms of the device's clock: outlasts an enqueue
 
 
 def log(*args):
-    print(*args, flush=True)
+    # under torchrun (--mesh-ranks) only rank 0 speaks
+    if os.environ.get("RANK", "0") == "0":
+        print(*args, flush=True)
 
 
 @contextlib.contextmanager
@@ -1498,25 +1553,25 @@ def train_step_cost(bs, seq, t_enc, d, layers, pf, vocab):
     return flops, nbytes
 
 
-def train_epoch_timed(trainer, state, loader, gen):
+def train_epoch_timed(trainer, state, loader, gen, mesh=None):
     """``run_epoch`` with a CUDA event at the start of every step (no
     sync in between): the device-side period of each step, the epoch's
     host time, and the peak memory."""
     events = []
     step = trainer._train_step
 
-    def timed(st, batch, g):
+    def timed(st, batch, g, *group):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append(ev)
-        return step(st, batch, g)
+        return step(st, batch, g, *group)
 
     trainer._train_step = timed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        state, loss, pp = trainer.run_epoch(state, loader, gen)
+        state, loss, pp = trainer.run_epoch(state, loader, gen, mesh=mesh)
     finally:
         trainer._train_step = step
     end = torch.cuda.Event(enable_timing=True)
@@ -1768,6 +1823,551 @@ def check_train(CaptioningTransformer, tree_map, _build, modules, dev,
     return launches, out
 
 
+def recorded_all_reduce():
+    """Wraps ``torch.distributed.all_reduce`` (the port calls it through
+    the module) so that each call is recorded as (device type, elements,
+    backend of its group); returns the record and a function that puts the
+    original back."""
+    import torch.distributed as dist
+
+    seen, real = [], dist.all_reduce
+
+    def recording(tensor, *args, **kwargs):
+        seen.append((tensor.device.type, tensor.numel(),
+                     dist.get_backend(kwargs.get("group"))))
+        return real(tensor, *args, **kwargs)
+
+    dist.all_reduce = recording
+    return seen, lambda: setattr(dist, "all_reduce", real)
+
+
+def logged_losses(trainer):
+    """The per-step train losses that ``trainer`` logged."""
+    with open(os.path.join(trainer.experiment_dir, "train",
+                           "metrics.jsonl")) as f:
+        return [json.loads(line)["value"] for line in f
+                if '"train/batch_loss"' in line]
+
+
+def recorded_relu(limit, masks=None):
+    """Wraps ``torch.relu`` (the decoder calls it through the module): the
+    inputs of its first ``limit`` calls are kept and, with ``masks``,
+    those calls pass their inputs (and gradients) where the mask is true
+    instead of where the input is above 0. Returns the inputs and a
+    function that puts the original back."""
+    seen, real = [], torch.relu
+
+    def relu(x):
+        if len(seen) >= limit:
+            return real(x)
+        seen.append(x.detach().clone())
+        if masks is None:
+            return real(x)
+        return torch.where(masks[len(seen) - 1], x, 0.0)
+
+    torch.relu = relu
+    return seen, lambda: setattr(torch, "relu", real)
+
+
+def mesh_memory_held(trainer, state, loader, gen, mesh):
+    """``run_epoch`` over ``mesh``; returns the device memory allocated
+    after each step (read on the host: no sync)."""
+    held = []
+    step = trainer._train_step
+
+    def recorded(*args):
+        out = step(*args)
+        held.append(torch.cuda.memory_allocated())
+        return out
+
+    trainer._train_step = recorded
+    try:
+        trainer.run_epoch(state, loader, gen, mesh=mesh)
+    finally:
+        trainer._train_step = step
+    return held
+
+
+def parallel_train(CaptioningTransformer, tree_map, dev, name_limit, logdir,
+                   mesh):
+    """[13]'s training checks: the word model's bf16 steps at full width
+    with and without the mesh (each all-reduce recorded), then f32 steps
+    at 2 layers with and without it, which must agree."""
+    import torch.distributed as dist
+
+    from deephumor_tpu_torch.data.dataloaders import BatchIterator
+    from deephumor_tpu_torch.experiments.trainer import Trainer, frozen_mask
+    from deephumor_tpu_torch.parallel import replicate
+    from deephumor_tpu_torch.utils.pytree import flatten_tree
+
+    lead = dist.get_rank() == 0  # the mesh's metrics are rank 0's
+    out = {}
+    model = CaptioningTransformer(num_tokens=VOCAB, hid_dim=HID,
+                                  n_layers=LAYERS, n_heads=HEADS, pf_dim=PF,
+                                  max_len=50)
+    ds, _ = memory_set(T_BATCH * P_STEPS, T_TEMPLATES, VOCAB, 11)
+    rows = {f"t{i:03d}": i for i in range(T_TEMPLATES)}
+    loader = list(BatchIterator(ds, T_BATCH, max_caption_len=T_CAP + 1,
+                                seed=0, image_rows=rows))[:P_STEPS]
+    cache = torch.randn(T_TEMPLATES, 7, 7, 2048, device=dev,
+                        generator=torch.Generator(dev).manual_seed(12))
+    n_trainable = None
+    for label, m in (("plain", None), ("mesh", mesh)):
+        trainer = Trainer(model, f"par_{label}", log_dir=logdir,
+                          compute_dtype="bfloat16", device=dev,
+                          log_flush_every=1)
+        state = trainer.init_state(torch.Generator(dev).manual_seed(0))
+        if m is not None:
+            state = replicate(state, m)
+        trainer._trunk_cache = cache
+        n_trainable = sum(v.numel() for v in state["opt_state"]["mu"].values())
+        seen, restore = recorded_all_reduce()
+        try:
+            state, ms, wall, peak = train_epoch_timed(
+                trainer, state, loader, torch.Generator(dev).manual_seed(13),
+                m)
+        finally:
+            restore()
+        # the mesh's losses are logged on rank 0 only
+        losses = logged_losses(trainer) if m is None or lead else None
+        med = float(np.median(ms[P_WARM:]))
+        out[label] = {"losses": losses, "step_ms": ms, "step_ms_median": med,
+                      "peak_mem_gib": peak / 2**30,
+                      "all_reduces": len(seen)}
+        log(f"  word train, bf16, batch {T_BATCH}, {len(ms)} steps, "
+            f"{'with' if m is not None else 'without'} the mesh "
+            f"({name_limit}): median step {med:.2f} ms (steps "
+            f"{P_WARM + 1}-{len(ms)}; all: {[round(x, 2) for x in ms]}), "
+            f"peak {peak / 2**30:.2f} GiB, losses "
+            f"{losses and [round(x, 4) for x in losses]}; all-reduces "
+            f"{len(seen)}")
+        if (m is None or lead) and not (
+                len(losses) == P_STEPS and np.isfinite(losses).all()):
+            raise AssertionError(f"parallel train ({label}): losses {losses}")
+        if m is None and seen:
+            raise AssertionError("train without a mesh all-reduced")
+        if m is not None:
+            # per step: the BN moments (sums, sums of squares, count) in
+            # the forward and their gradient in the backward; the loss's
+            # token count and row weights; the gradients with the loss and
+            # perplexity, before the clip
+            bn = [x for x in seen if x[1] == 2 * HID + 1]
+            grad = [x for x in seen if x[1] == n_trainable + 2]
+            log(f"  mesh all-reduces: {len(bn)} of the BN moments "
+                f"({2 * HID + 1} elements), {len(grad)} of the gradients "
+                f"({n_trainable + 2} elements), on {sorted(set(seen))[:1]}"
+                f" ... ({len(seen)} in all)")
+            if not (len(bn) == 2 * P_STEPS and len(grad) == P_STEPS and all(
+                    d == "cuda" and b == "nccl" for d, _, b in seen)):
+                raise AssertionError(f"mesh train all-reduces: {seen}")
+        del trainer, state
+
+    # the mesh at the trainer's default log_flush_every, for more steps
+    # than it: what the deferred metrics hold must not grow with the
+    # steps on any rank (a metric that is a view of the summed-gradient
+    # buffer would keep the whole buffer alive)
+    trainer = Trainer(model, "par_memory", log_dir=logdir,
+                      compute_dtype="bfloat16", device=dev)
+    state = replicate(trainer.init_state(torch.Generator(dev).manual_seed(0)),
+                      mesh)
+    trainer._trunk_cache = cache
+    steps = trainer.log_flush_every + P_MEM_EXTRA
+    held = mesh_memory_held(
+        trainer, state, list(itertools.islice(itertools.cycle(loader),
+                                              steps)),
+        torch.Generator(dev).manual_seed(13), mesh)
+    growth = [None] * dist.get_world_size()
+    dist.all_gather_object(growth, max(held[P_WARM:]) - held[P_WARM])
+    grad_bytes = 4 * (n_trainable + 2)
+    out["memory"] = {"steps": len(held),
+                     "log_flush_every": trainer.log_flush_every,
+                     "growth_bytes_per_rank": growth,
+                     "gradient_buffer_bytes": grad_bytes}
+    log(f"  word train, bf16, batch {T_BATCH}, {len(held)} steps with the "
+        f"mesh at log_flush_every {trainer.log_flush_every}: device memory "
+        f"held after each step grew past step {P_WARM + 1}'s by at most "
+        f"{growth} bytes on the ranks (<= {grad_bytes}, one summed-gradient "
+        f"buffer)")
+    if len(held) != steps or max(growth) > grad_bytes:
+        raise AssertionError(f"mesh train memory grows with the steps: "
+                             f"{growth} bytes per rank")
+    del trainer, state
+
+    # f32, dropout 0: the mesh's steps are the plain steps. Beside them:
+    # the plain steps with the first forward's ReLUs set to the mesh's
+    # pattern (which units pass), so that only rounding tells the two
+    # first gradients apart; over several ranks, the mesh steps with each
+    # shard's own means (the normalisation fault that the gates must see)
+    from deephumor_tpu_torch.experiments import trainer as trainer_mod
+    from deephumor_tpu_torch.parallel.mesh import all_gather_rows, data_index
+
+    pmodel = CaptioningTransformer(
+        num_tokens=VOCAB, hid_dim=HID, n_layers=T_PAR_LAYERS, n_heads=HEADS,
+        pf_dim=PF, max_len=50, enc_dropout=0.0, dec_dropout=0.0)
+    params = pmodel.init(torch.Generator().manual_seed(18), device="cpu")
+    feats = torch.randn(16, 7, 7, 2048,
+                        generator=torch.Generator().manual_seed(19))
+    pds, _ = memory_set(T_PAR_BATCH * T_PAR_STEPS, 16, VOCAB, 20)
+    pbatches = list(BatchIterator(pds, T_PAR_BATCH, max_caption_len=T_CAP + 1,
+                                  seed=0, image_rows={
+                                      f"t{i:03d}": i for i in range(16)}))
+    own = trainer_mod.masked_ce_and_perplexity
+
+    def per_shard(*args, group=None, **kwargs):
+        return tuple(x / dist.get_world_size(group)
+                     for x in own(*args, **kwargs))
+
+    several = dist.get_world_size() > 1
+    group = mesh.get_group("data")
+    cases = [("plain", None, own), ("mesh", mesh, own)]
+    if several:  # on one rank the shard's means are the batch's
+        cases.append(("per_shard", mesh, per_shard))
+    cases.append(("masked", None, own))
+    runs, grads, pre = {}, {}, {}
+    for label, m, loss_fn in cases:
+        tr = Trainer(pmodel, f"par_f32_{label}", log_dir=logdir, device=dev,
+                     prefetch=0, log_flush_every=1)
+        st = tr.init_state(params=tree_map(lambda t: t.clone().to(dev),
+                                           params))
+        if m is not None:
+            st = replicate(st, m)
+        tr._trunk_cache = feats.to(dev)
+        update = tr._opt.update
+
+        def first_grads(leaves, g, keys, opt_state, _label=label,
+                        _update=update):
+            # the summed gradient of the first step, before the clip
+            grads.setdefault(_label, dict(zip(keys, (x.clone() for x in g))))
+            return _update(leaves, g, keys, opt_state)
+
+        tr._opt.update = first_grads
+        trainer_mod.masked_ce_and_perplexity = loss_fn
+        pre[label], restore = recorded_relu(
+            T_PAR_LAYERS, None if label != "masked" else
+            [all_gather_rows(x > 0, group) for x in pre["mesh"]])
+        try:
+            st, _, _ = tr.run_epoch(st, pbatches, torch.Generator(dev),
+                                    mesh=m)
+        finally:
+            restore()
+            trainer_mod.masked_ce_and_perplexity = own
+        runs[label] = (
+            # the mesh's losses are logged on rank 0 only
+            logged_losses(tr) if m is None or lead else None,
+            {k: v.cpu() for k, v in flatten_tree(st["params"]).items()})
+    trained = [k for k, m in flatten_tree(frozen_mask(params)).items() if m]
+    n_trained = sum(runs["plain"][1][k].numel() for k in trained)
+    l_plain, p_plain = runs["plain"]
+    g_norm = sum(v.norm().item() ** 2 for v in grads["plain"].values()) ** 0.5
+    rows = T_PAR_BATCH // dist.get_world_size()
+    block = slice(data_index(mesh) * rows, (data_index(mesh) + 1) * rows)
+
+    def grad_gap(label, ref):
+        """The first summed gradients of ``label`` and ``ref``: the norm
+        of the difference over the plain one's, and the three leaves
+        with the largest share of it."""
+        diff = sorted(((grads[label][k] - v).norm().item() / g_norm, k)
+                      for k, v in grads[ref].items())
+        return (sum(d ** 2 for d, _ in diff) ** 0.5,
+                [(k, d) for d, k in diff[-3:]])
+
+    def gaps(label):
+        """A mesh run against the plain one: the losses' largest relative
+        gap; the first forward's ReLU inputs against the plain ones on
+        this rank's rows, over the ranks: the units on the other side of
+        0, and the largest gap over the largest input; the first summed
+        gradients against the plain run's and the masked run's; the
+        parameters' largest gap, its leaves, and the share of trained
+        elements past T_PAR_ATOL."""
+        losses, p = runs[label]
+        flips, gap, top = 0, 0.0, 0.0
+        for x, ref in zip(pre[label], pre["plain"]):
+            flips += int(((x > 0) != (ref[block] > 0)).sum())
+            gap = max(gap, (x - ref[block]).abs().max().item())
+            top = max(top, ref.abs().max().item())
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, (flips, gap, top))
+        errs = sorted(((p[k] - v).abs().max().item(), k)
+                      for k, v in p_plain.items())
+        (g_err, g_worst), (m_err, m_worst) = (grad_gap(label, "plain"),
+                                              grad_gap(label, "masked"))
+        return {"n_losses": None if losses is None else len(losses),
+                "loss_rel_err": None if losses is None else max(
+                    abs(a - b) / abs(b) for a, b in zip(losses, l_plain)),
+                "relu_flips": sum(r[0] for r in ranks),
+                "relu_rel_gap": max(r[1] for r in ranks)
+                / max(r[2] for r in ranks),
+                "grad_rel_err": g_err, "grad_worst": g_worst,
+                "grad_rel_err_masked": m_err, "grad_worst_masked": m_worst,
+                "param_abs_err": errs[-1][0],
+                "param_worst": [(k, e) for e, k in errs[-3:]],
+                "share_past_atol": sum(
+                    int(((p[k] - p_plain[k]).abs() > T_PAR_ATOL).sum())
+                    for k in trained) / n_trained}
+
+    res = {label: gaps(label) for label, m, _ in cases if m is not None}
+
+    def fmt(worst):
+        return [(k, f"{e:.2e}") for k, e in worst]
+
+    for label, r in res.items():
+        log(f"  f32, {T_PAR_LAYERS} layers, batch {T_PAR_BATCH}, "
+            f"{T_PAR_STEPS} steps, {label} vs plain: losses max rel "
+            f"{r['loss_rel_err']}; first forward's ReLU inputs: "
+            f"{r['relu_flips']} on the other side of 0, largest gap "
+            f"{r['relu_rel_gap']:.3e} of the largest input; first step's "
+            f"gradient |{label}-plain|/|plain| {r['grad_rel_err']:.3e} "
+            f"(the largest leaves: {fmt(r['grad_worst'])}), "
+            f"|{label}-masked|/|plain| {r['grad_rel_err_masked']:.3e} "
+            f"({fmt(r['grad_worst_masked'])}); parameters "
+            f"max|{label}-plain| {r['param_abs_err']:.3e}, a share "
+            f"{r['share_past_atol']:.3e} of {n_trained} past {T_PAR_ATOL} "
+            f"(the largest: {fmt(r['param_worst'])})")
+    # with the mesh's ReLU pattern the plain step's first gradient is the
+    # mesh's within f32 rounding (P_GRAD_RTOL) at any world size. On one
+    # rank the mesh step does the plain step's arithmetic: its gradient
+    # within P_GRAD_RTOL of the plain one and every parameter within
+    # T_PAR_ATOL. Over several, each rank's products have other shapes and
+    # round otherwise (ReLU inputs within P_RELU_RTOL); one that rounds to
+    # the other side of 0 moves a whole outer product of the gradients
+    # (P_GRAD_RTOL_RANKS), and Adam scales gradients that are rounding
+    # noise up to steps of up to lr (a share P_PARAM_SHARE of the
+    # parameters may pass T_PAR_ATOL). The per-shard means must fail the
+    # three gates
+    mesh_r, fault = res["mesh"], res.get("per_shard")
+    grad_rtol = P_GRAD_RTOL_RANKS if several else P_GRAD_RTOL
+    share = P_PARAM_SHARE if several else 0.0
+    log(f"  f32 gates: mesh losses rtol {T_PAR_RTOL}, ReLU inputs' gap <= "
+        f"{P_RELU_RTOL}, gradient vs masked <= {P_GRAD_RTOL}, vs plain <= "
+        f"{grad_rtol}, a share <= {share} of the parameters past "
+        f"{T_PAR_ATOL}" + (
+            f"; the per-shard means read "
+            f"{fault['grad_rel_err_masked'] / P_GRAD_RTOL:.1f}, "
+            f"{fault['grad_rel_err'] / grad_rtol:.1f} and "
+            f"{fault['share_past_atol'] / share:.1f} times those three"
+            if fault else ""))
+    if not ((mesh_r["n_losses"] is None
+             or (mesh_r["n_losses"] == T_PAR_STEPS
+                 and mesh_r["loss_rel_err"] <= T_PAR_RTOL))
+            and mesh_r["relu_rel_gap"] <= P_RELU_RTOL
+            and mesh_r["grad_rel_err_masked"] <= P_GRAD_RTOL
+            and mesh_r["grad_rel_err"] <= grad_rtol
+            and mesh_r["share_past_atol"] <= share
+            and (several or mesh_r["param_abs_err"] <= T_PAR_ATOL)):
+        raise AssertionError("parallel train f32: mesh and plain disagree")
+    if fault is not None and not (fault["grad_rel_err_masked"] > P_GRAD_RTOL
+                                  and fault["grad_rel_err"] > grad_rtol
+                                  and fault["share_past_atol"] > share):
+        raise AssertionError("parallel train f32: the gates do not see the "
+                             "per-shard means")
+    out["f32"] = res
+    return out
+
+
+def parallel_serving(CaptioningTransformer, _build, modules, dev, mesh):
+    """[13]'s serving check: a mesh pipeline behind a DynamicBatcher
+    answers P_REQUESTS greedy requests, handed over in one submit_many
+    (one padded call, the composition of the plain pipeline's), equal to
+    the pipeline without a mesh. Returns the launches of the batcher's
+    run."""
+    import torch.distributed as dist
+
+    from deephumor_tpu_torch.data import Vocab
+    from deephumor_tpu_torch.pipeline import MemeGenerationPipeline
+    from deephumor_tpu_torch.serving import DynamicBatcher
+
+    model, params = make_model(CaptioningTransformer, "bfloat16", dev, False)
+    bias = params["decoder"]["classifier"]["bias"]
+    bias[0], bias[3] = S_PAD_BIAS, S_EOS_BIAS
+    vocab = Vocab([f"word{i}" for i in range(VOCAB - 6)])
+    images = torch.randn(P_TEMPLATES, 224, 224, 3, device=dev,
+                         generator=torch.Generator(dev).manual_seed(21))
+    ids = [f"p{i:02d}" for i in range(P_TEMPLATES)]
+    requests = [ids[(5 * i) % P_TEMPLATES] for i in range(P_REQUESTS)]
+    kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K, greedy=True)
+    lead = dist.get_rank() == 0
+    want = got = []
+    if lead:
+        # the plain pipeline on each rank's block of the one padded call
+        plain = MemeGenerationPipeline(model, params, vocab)
+        plain.add_templates(ids, images, batch_size=S_CHUNK)
+        n = P_REQUESTS // dist.get_world_size()
+        want = [t for i in range(0, P_REQUESTS, n)
+                for t in plain.generate_captions(requests[i:i + n], **kw)]
+    pipe = MemeGenerationPipeline(model, params, vocab, mesh=mesh)
+    pipe.add_templates(ids, images, batch_size=S_CHUNK)
+    hits, restore = twin_guard(modules)
+    _build.reset_launch_counts()
+    calls = 0
+    try:
+        if lead:
+            with DynamicBatcher(pipe, max_batch=P_REQUESTS, **kw) as srv:
+                got = [f.result(timeout=120)
+                       for f in srv.submit_many(requests)]
+            calls = srv.batches_dispatched
+        else:
+            pipe.follow()
+    finally:
+        restore()
+        pipe.close()
+    launches = dict(_build.LAUNCHES)
+    # greedy at this EOS bias may end a caption at once: texts may be
+    # empty, but hold no token outside the vocabulary, UNK or PAD
+    bad = [t for t in got if {"<unk>", "<pad>"} & set(t.split())
+           or any(w not in vocab.stoi for w in t.split())]
+    log(f"  mesh pipeline behind a DynamicBatcher: {len(got)} greedy "
+        f"requests in {calls} call(s), equal to the pipeline without a mesh "
+        f"(on each rank's block): {got == want}; launches {launches}; plain "
+        f"twins called with CUDA tensors: {sorted(set(hits))}")
+    word = ("ancestry_attention_update", "grouped_cross_attention")
+    if (lead and len(got) != P_REQUESTS) or got != want or bad or hits or any(
+            launches[k] < 1 for k in word) or any(
+            v for k, v in launches.items() if k not in word):
+        raise AssertionError("mesh serving: texts, launches or twins")
+    return launches
+
+
+def check_parallel(CaptioningTransformer, tree_map, _build, modules, dev,
+                   name_limit, logdir):
+    """The parallel phase (module docstring, [13]) on this one card, at
+    world size 1 over NCCL. Returns the launches of its dp_generate run
+    and of the mesh batcher's, and its numbers."""
+    import torch.distributed as dist
+
+    from deephumor_tpu_torch.parallel import dp_generate, make_mesh, replicate
+
+    mesh = make_mesh("cuda")
+    try:
+        backend = dist.get_backend(mesh.get_group("data"))
+        world = dist.get_world_size()
+        log(f"  mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: world "
+            f"size {world}, backend {backend}")
+        if backend != "nccl" or world != int(os.environ.get("WORLD_SIZE",
+                                                             1)):
+            raise AssertionError("the mesh is not one NCCL rank per card")
+        out = {"backend": backend, "world_size": world}
+
+        model, params = make_model(CaptioningTransformer, "bfloat16", dev,
+                                   False)
+        params = replicate(params, mesh)
+        enc = features(BATCH, dev, 4)
+        kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K,
+                  temperature=1.0, sampler="pallas")
+        hits, restore = twin_guard(modules)
+        _build.reset_launch_counts()
+        try:
+            greedy = dp_generate(model, params, enc, mesh, greedy=True, **kw)
+            sampled = [dp_generate(
+                model, params, enc, mesh,
+                generator=torch.Generator(dev).manual_seed(5), **kw)
+                for _ in range(2)]
+        finally:
+            restore()
+        launches = dict(_build.LAUNCHES)
+        for o in (greedy, *sampled):
+            check_output(o, BATCH, VOCAB, BEAM, MAX_LEN)
+        # the plain call on each rank's block: the very products (shapes)
+        # of that rank's call, so greedy is token-equal. The whole batch
+        # in one plain call rounds its bf16 products at other shapes, so
+        # over several ranks a near tie may go the other way: its share
+        # of equal items is reported
+        blocks = [model.generate_from_emb(
+            params, tuple(x.chunk(world)[i] for x in enc), greedy=True,
+            **kw) for i in range(world)]
+        plain = {k: torch.cat([b[k] for b in blocks])
+                 for k in ("sequences", "chosen", "ended")}
+        same = all(torch.equal(greedy[k], plain[k]) for k in plain)
+        whole = (plain if world == 1 else model.generate_from_emb(
+            params, enc, greedy=True, **kw))
+        share = (greedy["chosen"] == whole["chosen"]).all(dim=1).float()
+        share = share.mean().item()
+        repeat = all(torch.equal(sampled[0][k], sampled[1][k])
+                     for k in ("sequences", "chosen", "scores"))
+        word = ("ancestry_attention_update", "grouped_cross_attention",
+                "fused_topk_gumbel_sample")
+        missing = [k for k in word if launches[k] < 1]
+        extra = [k for k, v in launches.items() if v and k not in word]
+        out["greedy_equal_share_whole_batch"] = share
+        log(f"  dp_generate, batch {BATCH} (greedy, then sampled twice with "
+            f"seed 5): greedy token-equal to generate_from_emb on each "
+            f"rank's block of {BATCH // world}: {same} (to one call of all "
+            f"{BATCH}: {share:.4f} of items); the "
+            f"sampled calls equal: {repeat}; launches {launches}; plain "
+            f"twins called with CUDA tensors: {sorted(set(hits))}")
+        if missing or extra or hits or not (same and repeat):
+            raise AssertionError(f"dp_generate: kernels not launched "
+                                 f"{missing}, launched off the path {extra}, "
+                                 f"twins on the card {sorted(set(hits))}, "
+                                 f"greedy equal {same}, repeat {repeat}")
+        # sampled calls in turns: plain, dp_generate, dp_generate, plain
+        calls = {"plain": lambda g: model.generate_from_emb(
+                     params, enc, generator=g, **kw),
+                 "dp_generate": lambda g: dp_generate(
+                     model, params, enc, mesh, generator=g, **kw)}
+        secs = {k: [] for k in calls}
+        for i, label in enumerate(("plain", "dp_generate", "dp_generate",
+                                   "plain") * 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[label](torch.Generator(dev).manual_seed(30 + i))
+            torch.cuda.synchronize()
+            secs[label].append((time.perf_counter() - t0) * 1e3)
+        out["generate_ms"] = secs
+        log(f"  sampled call, batch {BATCH} ({name_limit}): dp_generate "
+            f"{[round(x, 1) for x in secs['dp_generate']]} ms, "
+            f"generate_from_emb {[round(x, 1) for x in secs['plain']]} ms")
+        del model, params, enc, greedy, sampled, plain, blocks, whole
+
+        out["train"] = parallel_train(CaptioningTransformer, tree_map, dev,
+                                      name_limit, logdir, mesh)
+        serving = parallel_serving(CaptioningTransformer, _build, modules,
+                                   dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    return launches, serving, out
+
+
+def mesh_ranks():
+    """``--mesh-ranks``, one process per card under ``torchrun``: [13]'s
+    checks and timings over every rank (module docstring). Rank 0 builds
+    the kernels while the others wait, then prints the phase's numbers."""
+    import torch.distributed as dist
+
+    from deephumor_tpu_torch.models import CaptioningTransformer
+    from deephumor_tpu_torch.ops import _build
+    from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops import cache as C
+    from deephumor_tpu_torch.ops import engine as E
+    from deephumor_tpu_torch.ops import sampler as S
+    from deephumor_tpu_torch.parallel import make_mesh
+    from deephumor_tpu_torch.utils.pytree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    make_mesh("cuda")
+    if dist.get_rank() == 0:
+        _build.library()
+    dist.barrier(device_ids=[torch.cuda.current_device()])
+    _build.library()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    name_limit = card()
+    log("cards: " + " | ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()))
+    log(f"[13] parallel over {dist.get_world_size()} ranks, one per card: "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | "
+        f"nvidia-smi: {name_limit} | torch {torch.__version__}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as logdir:
+        launches, serving, out = check_parallel(
+            CaptioningTransformer, tree_map, _build, (A, C, E, S), dev,
+            name_limit, logdir)
+    out.update(launches=launches, serving_launches=serving, card=name_limit,
+               seconds=time.perf_counter() - t0)
+    log("parallel: " + json.dumps(out))
+
+
 def cold_build():
     """``--cold-build``: two batchers' first calls, made together in this
     cold process, over a small model on the card, with the kernel library
@@ -1899,6 +2499,8 @@ def main():
         return kernel_times(sys.argv[2] if len(sys.argv) > 2 else ".")
     if sys.argv[1:2] == ["--cold-build"]:
         return cold_build()
+    if sys.argv[1:2] == ["--mesh-ranks"]:
+        return mesh_ranks()
     from deephumor_tpu_torch.models import (CaptioningLSTM,
                                             CaptioningLSTMWithLabels,
                                             CaptioningTransformer,
@@ -2212,6 +2814,19 @@ def main():
             name_limit, logdir)
     log("train: " + json.dumps(train))
     log(f"    train phase {time.perf_counter() - t0:.1f} s; elapsed "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(f"[13] parallel: a one-rank NCCL mesh on this card; dp_generate at "
+        f"the word leg's width (batch {BATCH}), the word Trainer with the "
+        f"mesh (bf16, batch {T_BATCH}; f32 parity at {T_PAR_LAYERS} "
+        f"layers), a mesh pipeline behind the batcher ({P_REQUESTS} "
+        f"requests)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as logdir:
+        legs["parallel"], legs["parallel_serving"], parallel = \
+            check_parallel(CaptioningTransformer, tree_map, _build,
+                           (A, C, E, S), dev, name_limit, logdir)
+    log("parallel: " + json.dumps(parallel))
+    log(f"    parallel phase {time.perf_counter() - t0:.1f} s; elapsed "
         f"{time.perf_counter() - t_start:.1f} s")
 
     sources = {

@@ -14,6 +14,16 @@ launches none of the port's kernels. It updates the state's parameter and
 moment tensors in place and returns the state (the JAX package's
 ``donate=True`` loop: ``state, metrics = step(state, ...)``).
 
+With a mesh (``run_epoch(..., mesh=)``, ``train(..., mesh=)``; the state
+replicated with ``parallel.replicate``) every rank runs the same steps on
+the same global batches, as ``torchrun`` starts one process per card:
+each takes its rows (``parallel.shard_batch``); the loss, the perplexity
+and the batch-norm moments are normalised by the global batch; the
+gradients are summed over the data axis before the clip, so that the
+global norm, the clip and the Adam update are the single-device ones on
+every rank; dropout draws from a generator per rank; only rank 0 writes
+metrics and checkpoints.
+
 The train state checkpoint is the JAX package's ``<path>.state.npz``
 layout, so either package resumes the other's: ``params/<flat JAX key>``,
 ``step``, then ``opt/<i>``, the optimizer state's leaves in optax's order
@@ -32,6 +42,7 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deephumor_tpu_torch.convert.jax_params import (params_from_jax,
                                                     params_to_jax)
@@ -195,6 +206,21 @@ class Adam:
         return state
 
 
+def _all_reduce_sum(tensors, group):
+    """``tensors`` summed over ``group``: one all-reduce of their f32
+    concatenation."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=group)
+    parts = flat.split([t.numel() for t in tensors])
+    return [p.view_as(t).to(t.dtype) for p, t in zip(parts, tensors)]
+
+
+def _leads(mesh):
+    """Whether this process writes logs and checkpoints: always without a
+    mesh, on rank 0 with one."""
+    return mesh is None or dist.get_rank() == 0
+
+
 class MetricsWriter:
     """Scalars as JSON lines in ``<log_dir>/metrics.jsonl``, and to
     TensorBoard where ``tensorboardX`` imports. Tag names as the
@@ -283,7 +309,8 @@ class Trainer:
     Args:
         model: a captioner of ``deephumor_tpu_torch.models``.
         log_dir: experiment root; a ``<title>@<timestamp>`` directory is
-            made in it, with one metrics directory per phase.
+            made in it, with one metrics directory per phase, at the
+            phase's first epoch (with a mesh: on rank 0 only).
         clip_norm: global-norm clip (the reference's 3.0).
         log_grad_norm: also log the pre-clip gradient norm.
         compute_dtype: ``"bfloat16"`` runs the decoder in bf16 (its
@@ -328,10 +355,14 @@ class Trainer:
         self.experiment_name = f"{experiment_title}@{stamp}"
         self.experiment_dir = os.path.join(log_dir, self.experiment_name)
         self.title = experiment_title
-        self.writers = {
-            phase: MetricsWriter(os.path.join(self.experiment_dir, phase))
-            for phase in phases}
+        self.writers = {}  # phase -> MetricsWriter, made at first use
         self._trunk_cache = None
+
+    def _writer(self, phase):
+        if phase not in self.writers:
+            self.writers[phase] = MetricsWriter(
+                os.path.join(self.experiment_dir, phase))
+        return self.writers[phase]
 
     # -- state -------------------------------------------------------------
     def init_state(self, gen=None, params=None):
@@ -362,10 +393,12 @@ class Trainer:
         return {k: i for i, k in enumerate(keys)}
 
     # -- steps ---------------------------------------------------------------
-    def _loss(self, params, batch, gen, train):
+    def _loss(self, params, batch, gen, train, group=None):
         """(loss, perplexity, new params) of one device batch. Rows that
         ``row_valid`` marks as padding become all-pad captions (out of the
-        loss) and weigh 0 in the perplexity."""
+        loss) and weigh 0 in the perplexity. With ``group`` (a mesh's data
+        axis), the batch is this rank's shard and the results are its
+        share of the global batch's (``experiments/metrics.py``)."""
         pad = self.pad_index
         captions = batch["captions"]
         row_valid = batch.get("row_valid")
@@ -380,35 +413,44 @@ class Trainer:
         else:
             images = batch["images"]
         out = self._step_model.forward(params, images, captions[:, :-1],
-                                       train=train, gen=gen, **kwargs)
+                                       train=train, gen=gen, group=group,
+                                       **kwargs)
         logits, new_params = out if train else (out, params)
         loss, pp = masked_ce_and_perplexity(
             logits[:, :captions.shape[1]], captions, lengths, pad,
-            row_weights=row_valid)
+            row_weights=row_valid, group=group)
         return loss, pp, new_params
 
-    def _train_step(self, state, batch, gen):
+    def _train_step(self, state, batch, gen, group=None):
         """Forward, loss, backward, clip and Adam on a device batch, with
         dropout drawn from ``gen``; the encoder's batch-norm statistics
-        come from the forward. Returns ``(state, metrics)``, the metrics
-        device scalars."""
+        come from the forward. With ``group`` (a mesh's data axis) the
+        batch is this rank's shard: the gradients, the loss and the
+        perplexity are summed over the group before the clip. Returns
+        ``(state, metrics)``, the metrics device scalars."""
         params = state["params"]
         flat = flatten_tree(params)
         keys = _trainable_paths(params)
         leaves = [flat[k].requires_grad_() for k in keys]
-        loss, pp, new_params = self._loss(params, batch, gen, True)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        norm = self._opt.update(leaves, list(grads), keys,
-                                state["opt_state"])
+        loss, pp, new_params = self._loss(params, batch, gen, True, group)
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                         materialize_grads=True))
+        loss, pp = loss.detach(), pp.detach()
+        if group is not None:
+            *grads, loss, pp = _all_reduce_sum(grads + [loss, pp], group)
+            # copies: as views, the metrics that run_epoch defers would
+            # each keep the whole summed-gradient buffer alive
+            loss, pp = loss.clone(), pp.clone()
+        norm = self._opt.update(leaves, grads, keys, state["opt_state"])
         state = {"params": new_params, "opt_state": state["opt_state"],
                  "step": state["step"] + 1}
-        return state, {"loss": loss.detach(), "perplexity": pp.detach(),
-                       "grad_norm": norm}
+        return state, {"loss": loss, "perplexity": pp, "grad_norm": norm}
 
     @torch.no_grad()
-    def _eval_step(self, params, batch):
-        loss, pp, _ = self._loss(params, batch, None, False)
+    def _eval_step(self, params, batch, group=None):
+        loss, pp, _ = self._loss(params, batch, None, False, group)
+        if group is not None:
+            loss, pp = _all_reduce_sum([loss, pp], group)
         return {"loss": loss, "perplexity": pp}
 
     # -- epochs --------------------------------------------------------------
@@ -426,14 +468,32 @@ class Trainer:
             out[k] = t.pin_memory() if self.device.type == "cuda" else t
         return out, n
 
-    def run_epoch(self, state, dataloader, gen, phase="train", epoch=0):
+    def run_epoch(self, state, dataloader, gen, phase="train", epoch=0,
+                  mesh=None):
         """One pass over ``dataloader`` (dict batches of numpy arrays:
         ``captions``, ``images`` or ``image_rows``, ``labels``,
         ``row_valid``); train steps draw dropout from ``gen``, a
         ``torch.Generator`` on the device. Returns ``(state, mean loss,
-        mean perplexity)``, each weighted by a batch's real rows."""
+        mean perplexity)``, each weighted by a batch's real rows.
+
+        With ``mesh`` (pure data-parallel, the state replicated on it),
+        every rank passes the same batches and ``gen``: each step takes
+        this rank's rows of the batch and sums the gradients over the
+        ``data`` axis before the clip; dropout draws from
+        ``parallel.mesh.shard_generator(gen, mesh)``; the returned and
+        logged loss and perplexity are the global batch's, and only rank
+        0 writes them."""
         is_train = phase == "train"
-        writer = self.writers.get(phase)
+        writer = (self._writer(phase)
+                  if phase in self.phases and _leads(mesh) else None)
+        step_args = ()  # with a mesh: the data axis's group
+        if mesh is not None:
+            from deephumor_tpu_torch.parallel.mesh import (shard_batch,
+                                                           shard_generator)
+
+            step_args = (mesh.get_group("data"),)
+            if is_train and gen is not None:
+                gen = shard_generator(gen, mesh)
         totals = {"loss": 0.0, "pp": 0.0, "n": 0}
         deferred = []
         step0 = state["step"] if is_train else 0
@@ -470,16 +530,19 @@ class Trainer:
         batches = (_prefetch_iter(dataloader, self._host_batch, self.prefetch)
                    if self.prefetch
                    else map(self._host_batch, dataloader))
-        flush_every = self.log_flush_every if writer is not None else 0
         for i, (host, n) in enumerate(batches):
-            batch = {k: v.to(self.device, non_blocking=True)
-                     for k, v in host.items()}
-            if is_train:
-                state, metrics = self._train_step(state, batch, gen)
+            if mesh is None:
+                batch = {k: v.to(self.device, non_blocking=True)
+                         for k, v in host.items()}
             else:
-                metrics = self._eval_step(state["params"], batch)
+                batch = shard_batch(host, mesh)
+            if is_train:
+                state, metrics = self._train_step(state, batch, gen,
+                                                  *step_args)
+            else:
+                metrics = self._eval_step(state["params"], batch, *step_args)
             deferred.append((step0 + i + is_train, metrics, n))
-            if flush_every and len(deferred) >= flush_every:
+            if len(deferred) >= self.log_flush_every:
                 flush()
         flush()
         epoch_loss = totals["loss"] / max(totals["n"], 1)
@@ -490,34 +553,40 @@ class Trainer:
         return state, epoch_loss, epoch_pp
 
     def train(self, state, dataloaders, n_epochs=50, gen=None,
-              save_every_epoch=True):
+              save_every_epoch=True, mesh=None):
         """The epoch loop: each phase in turn; the model with the best
         val loss saved as ``<title>.best`` (``model.save``), and the train
         state as ``<title>.e<epoch>`` after each epoch. ``gen`` (default:
-        seeded with 0 on the device) feeds every train step's dropout."""
+        seeded with 0 on the device) feeds every train step's dropout.
+        ``mesh``: data-parallel training over it (:meth:`run_epoch`); the
+        state should be replicated on it (``parallel.replicate``), and
+        only rank 0 prints and saves."""
         if gen is None:
             gen = torch.Generator(self.device).manual_seed(0)
+        leads = _leads(mesh)
+        say = print if leads else (lambda *a, **k: None)
         best_epoch, best_val_loss = 0, float("inf")
         history = []
         for epoch in range(1, n_epochs + 1):
             t0 = time.time()
-            print(f"Epoch {epoch:02d}/{n_epochs:02d}")
+            say(f"Epoch {epoch:02d}/{n_epochs:02d}")
             epoch_metrics = {}
             for phase in self.phases:
                 state, loss, pp = self.run_epoch(
-                    state, dataloaders[phase], gen, phase, epoch)
+                    state, dataloaders[phase], gen, phase, epoch, mesh)
                 epoch_metrics[phase] = (loss, pp)
-                print(f"  {phase:5s} loss: {loss:.5f}, perplexity: {pp:.3f}")
+                say(f"  {phase:5s} loss: {loss:.5f}, perplexity: {pp:.3f}")
                 if phase == "val" and loss < best_val_loss:
                     best_epoch, best_val_loss = epoch, loss
-                    self.model.save(state["params"], os.path.join(
-                        self.experiment_dir, f"{self.title}.best"))
-            if save_every_epoch:
+                    if leads:
+                        self.model.save(state["params"], os.path.join(
+                            self.experiment_dir, f"{self.title}.best"))
+            if save_every_epoch and leads:
                 self.save_checkpoint(state, os.path.join(
                     self.experiment_dir, f"{self.title}.e{epoch}"))
             history.append(epoch_metrics)
-            print(f"  epoch time: {time.time() - t0:.2f}s")
-        print(f"Best val_loss: {best_val_loss} (epoch: {best_epoch})")
+            say(f"  epoch time: {time.time() - t0:.2f}s")
+        say(f"Best val_loss: {best_val_loss} (epoch: {best_epoch})")
         return state, history
 
     # -- checkpoint / resume -------------------------------------------------

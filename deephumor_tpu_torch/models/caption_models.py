@@ -189,16 +189,19 @@ class CaptioningLSTM(_Captioner):
         return image_encoder_trunk(params["encoder"], images)
 
     def forward(self, params, images, captions, lengths=None, train=False,
-                gen=None, from_trunk=False):
+                gen=None, from_trunk=False, group=None):
         """Teacher-forced logits ``[bs, T+1, num_tokens]`` of ``captions
         [bs, T]`` (the image embedding is step 0). In train mode, with
-        dropout drawn from ``gen``, returns ``(logits, new_params)``.
+        dropout drawn from ``gen``, returns ``(logits, new_params)``;
+        ``group`` (a mesh's data axis, of whose global batch this is a
+        shard) pools the encoder's batch-norm moments.
         ``lengths`` is not needed: a one-way LSTM's outputs before each
         length are the same with or without the reference's packing."""
         return self._forward(
             params, image_encoder_apply(
                 params["encoder"], images, dropout=self.enc_dropout,
-                train=train, gen=gen, from_trunk=from_trunk), train,
+                train=train, gen=gen, from_trunk=from_trunk, group=group),
+            train,
             lambda dec, emb: lstm_decoder_forward(
                 dec, emb, captions, self.dec_dropout, train, gen))
 
@@ -302,13 +305,14 @@ class CaptioningLSTMWithLabels(CaptioningLSTM):
         return image_encoder_trunk(params["encoder"]["image_encoder"], images)
 
     def forward(self, params, images, captions, lengths=None, labels=None,
-                train=False, gen=None, from_trunk=False):
+                train=False, gen=None, from_trunk=False, group=None):
         """As :meth:`CaptioningLSTM.forward`, conditioned on the label
         tokens ``labels [bs, n]`` too."""
         return self._forward(
             params, image_label_encoder_apply(
                 params["encoder"], images, labels, dropout=self.enc_dropout,
-                train=train, gen=gen, from_trunk=from_trunk), train,
+                train=train, gen=gen, from_trunk=from_trunk, group=group),
+            train,
             lambda dec, emb: lstm_decoder_forward(
                 dec, emb, captions, self.dec_dropout, train, gen))
 
@@ -371,14 +375,15 @@ class CaptioningTransformerBase(_Captioner):
         return image_encoder_trunk(params["encoder"], images)
 
     def forward(self, params, images, captions, lengths=None, train=False,
-                gen=None, from_trunk=False):
+                gen=None, from_trunk=False, group=None):
         """Teacher-forced logits ``[bs, T+1, num_tokens]`` of ``captions
         [bs, T]`` after the global image embedding; in train mode
         ``(logits, new_params)``, as :meth:`CaptioningLSTM.forward`."""
         return self._forward(
             params, image_encoder_apply(
                 params["encoder"], images, dropout=self.enc_dropout,
-                train=train, gen=gen, from_trunk=from_trunk), train,
+                train=train, gen=gen, from_trunk=from_trunk, group=group),
+            train,
             lambda dec, emb: tfm.self_attn_decoder_forward(
                 dec, captions, emb, self.n_heads, self.pad_index,
                 self.dec_dropout, train, gen))
@@ -741,7 +746,7 @@ class CaptioningTransformer(CaptioningTransformerBase):
     cross_attention = True
 
     def forward(self, params, images, captions, lengths=None, train=False,
-                gen=None, from_trunk=False):
+                gen=None, from_trunk=False, group=None):
         """Teacher-forced logits ``[bs, max(T+1, 49), num_tokens]`` of
         ``captions [bs, T]``, with the reference's pad-to-common-length
         quirk (``transformer_decoder_forward``: the loss slices the first
@@ -751,7 +756,7 @@ class CaptioningTransformer(CaptioningTransformerBase):
             params, image_encoder_apply(
                 params["encoder"], images, spatial_features=True,
                 dropout=self.enc_dropout, train=train, gen=gen,
-                from_trunk=from_trunk), train,
+                from_trunk=from_trunk, group=group), train,
             lambda dec, enc: tfm.transformer_decoder_forward(
                 dec, captions, enc[1], enc[0], self.n_heads, self.pad_index,
                 self.dec_dropout, train, gen))

@@ -45,17 +45,20 @@ def image_encoder_trunk(params, images):
 
 
 def image_encoder_apply(params, images, *, spatial_features=False,
-                        dropout=0.2, train=False, gen=None, from_trunk=False):
+                        dropout=0.2, train=False, gen=None, from_trunk=False,
+                        group=None):
     """NHWC images (or, with ``from_trunk``, :func:`image_encoder_trunk`
     output) -> ``emb [bs, emb_dim]``, or ``(emb, spatial_emb [bs, 49,
     emb_dim])`` with ``spatial_features``; in train mode wrapped as
-    ``(out, new_params)``."""
+    ``(out, new_params)``, the batch norm's moments pooled over ``group``
+    (a mesh's data axis; ``layers.batch_norm``)."""
     feats = images if from_trunk else image_encoder_trunk(params, images)
     bs = feats.shape[0]
     emb = L.linear(params["linear"], feats.mean(dim=(1, 2)))
     new_params = params
     if train:
-        emb, new_bn = L.batch_norm(params["bn"], emb, train=True)
+        emb, new_bn = L.batch_norm(params["bn"], emb, train=True,
+                                   group=group)
         new_params = dict(params, bn=new_bn)
         emb = L.dropout(gen, emb, dropout, True)
     else:
@@ -90,12 +93,13 @@ def image_label_encoder_init(gen, num_tokens, emb_dim=256, device="cuda"):
 
 
 def image_label_encoder_apply(params, images, labels, *, dropout=0.2,
-                              train=False, gen=None, from_trunk=False):
+                              train=False, gen=None, from_trunk=False,
+                              group=None):
     """Joint image + label embedding ``[bs, emb_dim]``; in train mode
-    ``(emb, new_params)``."""
+    ``(emb, new_params)`` (``group`` as :func:`image_encoder_apply`)."""
     image_emb = image_encoder_apply(
         params["image_encoder"], images, dropout=dropout, train=train,
-        gen=gen, from_trunk=from_trunk)
+        gen=gen, from_trunk=from_trunk, group=group)
     new_params = params
     if train:
         image_emb, new_img = image_emb

@@ -12,6 +12,7 @@ JAX package's distributions with an explicit ``torch.Generator``; so does
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 __all__ = ["linear", "embed", "layer_norm", "batch_norm", "dropout",
@@ -32,30 +33,72 @@ def layer_norm(params, x, eps=1e-5):
                         eps)
 
 
-def batch_norm(params, x, train=False, momentum=0.1, eps=1e-5):
+class _GroupSum(torch.autograd.Function):
+    """``x`` summed over the ranks of ``group``; the backward sums the
+    gradient over them too (every rank's loss depends on every rank's
+    ``x``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def _global_moments(x, dims, group):
+    """Mean, biased variance and count (a 0-d tensor) of ``x`` over
+    ``dims`` and over every rank of ``group``: one all-reduce of the sums,
+    the sums of squares and the count, through which the gradient flows."""
+    n_local = torch.full((1,), x.numel() // x.shape[-1], dtype=x.dtype,
+                         device=x.device)
+    s = _GroupSum.apply(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims),
+                                   n_local]), group)
+    c = x.shape[-1]
+    n = s[2 * c]
+    mean = s[:c] / n
+    return mean, (s[c:2 * c] / n - mean * mean).clamp(min=0), n
+
+
+def batch_norm(params, x, train=False, momentum=0.1, eps=1e-5, group=None):
     """Batch norm over the last axis, PyTorch's semantics.
 
     Eval mode normalises by the running statistics and returns ``y``.
     Train mode normalises by the batch's biased variance and returns
     ``(y, new_params)``: the running mean and the *unbiased* variance
     advanced by ``momentum``, as new (detached) tensors. The statistics
-    leave the forward as parameters, not through autograd.
+    leave the forward as parameters, not through autograd. With ``group``
+    (a mesh's data axis) the batch is the global one, of which ``x`` is
+    this rank's shard: the moments and the count are summed over the
+    group, so that every rank's output and statistics are the
+    single-device ones.
     """
     if not train:
         y = (x - params["running_mean"]) * torch.rsqrt(
             params["running_var"] + eps)
         return y * params["weight"] + params["bias"]
     dims = tuple(range(x.ndim - 1))
-    mean = x.mean(dim=dims)
-    var = x.var(dim=dims, unbiased=False)
-    n = x.numel() // x.shape[-1]
+    if group is None:
+        mean = x.mean(dim=dims)
+        var = x.var(dim=dims, unbiased=False)
+        n = x.numel() // x.shape[-1]
+        n_minus_1 = max(n - 1, 1)
+    else:
+        mean, var, n = _global_moments(x, dims, group)
+        n_minus_1 = (n - 1).clamp(min=1)
     with torch.no_grad():
         new_params = dict(
             params,
             running_mean=(1 - momentum) * params["running_mean"]
             + momentum * mean,
             running_var=(1 - momentum) * params["running_var"]
-            + momentum * var * n / max(n - 1, 1))
+            + momentum * var * n / n_minus_1)
     y = (x - mean) * torch.rsqrt(var + eps)
     return y * params["weight"] + params["bias"], new_params
 

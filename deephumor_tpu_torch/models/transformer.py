@@ -206,7 +206,7 @@ def _decoder_input(params, tokens, start_emb, pad_index, dropout, train,
     sqrt(hid_dim), plus positions (dropout in train mode); the ids with
     the start position as a real token (id 1); and the self-attention
     mask (pads and the future)."""
-    bs, t = tokens.shape
+    t = tokens.shape[1]
     seq_len = t + 1
     pos_rows = params["pos_embedding"]["weight"].shape[0]
     if seq_len > pos_rows:
@@ -218,8 +218,10 @@ def _decoder_input(params, tokens, start_emb, pad_index, dropout, train,
     emb = (emb / math.sqrt(start_emb.shape[-1])
            + params["pos_embedding"]["weight"][:seq_len])
     ids = torch.cat([torch.ones_like(tokens[:, :1]), tokens], dim=1)
-    mask = (get_pad_mask(ids, ids, pad_index)
-            | get_autoregressive_mask(bs, seq_len, tokens.device))
+    # the causal part is made from ``ids`` (not a fresh tensor), so that
+    # with DTensor inputs (tensor parallelism) every operand is a DTensor
+    future = ids.new_ones((seq_len, seq_len), dtype=torch.bool).triu(1)
+    mask = get_pad_mask(ids, ids, pad_index) | future
     return L.dropout(gen, emb, dropout, train), ids, mask
 
 

@@ -1,7 +1,6 @@
 """End-to-end meme generation (the serving product path).
 
-Counterpart of deephumor_tpu/pipeline.py, on one device (its ``mesh``
-form, which shards the template store over chips, is not ported):
+Counterpart of deephumor_tpu/pipeline.py:
 
 - template images are encoded once into a store on the model's device:
   one stacked tensor per ``encode`` output (the global embedding and, for
@@ -16,6 +15,17 @@ form, which shards the template store over chips, is not ported):
 Sampling takes an explicit ``torch.Generator`` on the model's device
 where the JAX package takes a PRNG key; ``derive_seed`` stands in for its
 ``fold_in``.
+
+With a pure data-parallel ``mesh`` (``parallel.make_mesh(model=1)``; one
+process per card) generation scales over the cards: the parameters are
+replicated, each rank keeps its block of the store's rows (padded to a
+multiple of the data size), a request's rows are summed over the ranks
+from their owners, and ``parallel.dp_generate`` decodes each rank's block
+of the request. Every rank builds the pipeline and adds the same
+templates in the same order. Rank 0 leads: its ``generate_captions`` (and
+so a ``DynamicBatcher`` over it) first broadcasts the call's arguments;
+every other rank runs :meth:`MemeGenerationPipeline.follow`, which joins
+each call until rank 0 closes the pipeline.
 """
 
 import os
@@ -24,6 +34,7 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deephumor_tpu_torch.experiments.inference import (seq_to_text,
                                                        split_caption)
@@ -109,11 +120,28 @@ class MemeGenerationPipeline:
             pool of this size instead of threads; the workers take a
             snapshot of the template images when the pool is made (it is
             made again when the templates change). ``close()`` shuts it.
+        mesh: a pure data-parallel ``DeviceMesh`` to generate over (module
+            docstring); the parameters are replicated from rank 0.
     """
 
     def __init__(self, model, params, vocab, delimiter=" ", font_path=None,
-                 render_workers=8, render_processes=0):
+                 render_workers=8, render_processes=0, mesh=None):
         self.model = model
+        self.mesh = mesh
+        self._data_size = 1
+        if mesh is not None:
+            from deephumor_tpu_torch.parallel.mesh import data_size, replicate
+
+            shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+            if shape.get("model", 1) != 1:
+                raise ValueError(
+                    "pipeline mesh must be pure data-parallel (model=1); "
+                    "got %r" % shape)
+            self._data_size = data_size(mesh)
+            params = replicate(params, mesh)
+            self._released = False
+            # one leader call at a time: each is a sequence of collectives
+            self._call_lock = threading.Lock()
         self.params = params
         self.vocab = vocab
         self.delimiter = delimiter
@@ -134,6 +162,7 @@ class MemeGenerationPipeline:
         self._pair = None  # whether encode returns a (global, spatial) pair
         self._row = {}  # template id -> row in the stacked store
         self._n_rows = 0
+        self._n_stored = 0  # rows in ``_stacked`` (with a mesh: in all blocks)
         # batchers call generate_captions from their own threads
         self._lock = threading.Lock()
 
@@ -209,20 +238,69 @@ class MemeGenerationPipeline:
             self._n_rows += len(ids)
             self._pending.append(enc if pair else (enc,))
 
+    def _consolidate(self):
+        """Joins the pending encodings to the store (under ``_lock``). With
+        a mesh every rank does so in the same call, and keeps its block of
+        the rows, padded to a multiple of the data size; the earlier
+        blocks are gathered first, as the block bounds move."""
+        if not self._pending:
+            return
+        parts = self._pending
+        if self._stacked is not None:
+            parts = [self._full_store()] + parts
+        full = tuple(torch.cat(xs, dim=0) for xs in zip(*parts))
+        self._pending = []
+        self._n_stored = full[0].shape[0]
+        if self.mesh is None:
+            self._stacked = full
+            return
+        from deephumor_tpu_torch.parallel.mesh import data_index
+
+        n, i = self._data_size, data_index(self.mesh)
+        block = -(-self._n_stored // n)
+        self._stacked = tuple(
+            torch.cat([x, x.new_zeros((block * n - x.shape[0],)
+                                      + x.shape[1:])])[
+                i * block:(i + 1) * block].clone() for x in full)
+
+    def _full_store(self):
+        """Every stored row, in order: the store itself, or with a mesh its
+        blocks all-gathered over the data axis."""
+        if self.mesh is None:
+            return self._stacked
+        from deephumor_tpu_torch.parallel.mesh import all_gather_rows
+
+        group = self.mesh.get_group("data")
+        return tuple(all_gather_rows(x, group)[:self._n_stored]
+                     for x in self._stacked)
+
     def _stack_features(self, ids):
         """The stored encodings of ``ids``: one gather per store tensor.
-        Raises KeyError for an id that was never added."""
+        Raises KeyError for an id that was never added. With a mesh, each
+        rank fills the rows that its block holds, zeros elsewhere, and the
+        rows are summed over the data axis: every rank gets all of them,
+        equal to the single-device gather."""
         with self._lock:
             rows = [self._row[tid] for tid in ids]
-            if self._pending:
-                parts = ([self._stacked] if self._stacked is not None
-                         else []) + self._pending
-                self._stacked = tuple(torch.cat(xs, dim=0)
-                                      for xs in zip(*parts))
-                self._pending = []
+            self._consolidate()
             store = self._stacked
         idx = torch.tensor(rows, dtype=torch.long).to(self.device)
-        feats = tuple(x.index_select(0, idx) for x in store)
+        if self.mesh is None:
+            feats = tuple(x.index_select(0, idx) for x in store)
+        else:
+            from deephumor_tpu_torch.parallel.mesh import data_index
+
+            block = store[0].shape[0]
+            local = idx - data_index(self.mesh) * block
+            mine = (local >= 0) & (local < block)
+            feats = []
+            for x in store:
+                f = torch.where(
+                    mine.view((-1,) + (1,) * (x.ndim - 1)),
+                    x.index_select(0, local.clamp(0, block - 1)), 0.0)
+                dist.all_reduce(f, group=self.mesh.get_group("data"))
+                feats.append(f)
+            feats = tuple(feats)
         return feats if self._pair else feats[0]
 
     # -- generation ----------------------------------------------------------
@@ -234,20 +312,79 @@ class MemeGenerationPipeline:
         ``generator``: a ``torch.Generator`` on the model's device
         (default: seeded with 0). ``pad_to`` pads the request to this
         batch size by repeating its last id (the results are cut back),
-        so a server's calls keep a few fixed sizes.
+        so a server's calls keep a few fixed sizes. With a mesh, a request
+        is padded to a multiple of the data size (``pad_to`` must be one),
+        and only rank 0 calls this (module docstring).
         """
         n = len(template_ids)
         ids = list(template_ids)
-        if pad_to is not None and n < pad_to:
-            ids += [ids[-1]] * (pad_to - n)
+        ds = self._data_size
+        if pad_to is not None:
+            if pad_to % ds:
+                raise ValueError(
+                    f"pad_to={pad_to} must be a multiple of the mesh "
+                    f"data-axis size {ds}")
+            if n < pad_to:
+                ids += [ids[-1]] * (pad_to - n)
+        elif len(ids) % ds:
+            # dp_generate splits the batch evenly over the data axis
+            ids += [ids[-1]] * (-len(ids) % ds)
+        if self.mesh is None:
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(0)
+            return self._generate(ids, n, generator, generate_kwargs)
+        if dist.get_rank() != 0:
+            raise RuntimeError("on a mesh only rank 0 calls "
+                               "generate_captions; the others run follow()")
+        unknown = [tid for tid in ids if tid not in self._row]
+        if unknown:
+            raise KeyError(f"unknown templates {unknown!r}")
+        seed = 0 if generator is None else int(torch.randint(
+            0, 2 ** 62, (), generator=generator, device=generator.device))
+        with self._call_lock:
+            if self._released:
+                raise RuntimeError("the mesh pipeline is closed")
+            self._broadcast((ids, n, seed, generate_kwargs))
+            return self._generate(ids, n, seed, generate_kwargs)
+
+    def _generate(self, ids, n, generator, generate_kwargs):
+        """Texts of the first ``n`` of the (padded) request ``ids``; with a
+        mesh ``generator`` is the seed every rank was given."""
         enc = self._stack_features(ids)
-        if generator is None:
-            generator = torch.Generator(self.device).manual_seed(0)
-        result = self.model.generate_from_emb(
-            self.params, enc, generator=generator, **generate_kwargs)
+        if self.mesh is None:
+            result = self.model.generate_from_emb(
+                self.params, enc, generator=generator, **generate_kwargs)
+        else:
+            from deephumor_tpu_torch.parallel.mesh import dp_generate
+
+            result = dp_generate(
+                self.model, self.params, enc, self.mesh,
+                generator=torch.Generator(self.device).manual_seed(
+                    generator), **generate_kwargs)
         seqs = result["chosen"][:n].cpu().numpy()  # one copy to the host
         return [seq_to_text(seq, self.vocab, delimiter=self.delimiter)
                 for seq in seqs]
+
+    def _broadcast(self, obj):
+        """``obj`` of rank 0 on every rank of the mesh."""
+        box = [obj]
+        dist.broadcast_object_list(
+            box, src=0, group=self.mesh.get_group("data"),
+            device=self.device if self.device.type == "cuda" else None)
+        return box[0]
+
+    def follow(self):
+        """The loop of every rank but 0 of a mesh pipeline: joins each
+        generate call that rank 0 makes (its arguments come by broadcast),
+        and returns once rank 0 closes the pipeline."""
+        if self.mesh is None or dist.get_rank() == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0 of "
+                               "a mesh pipeline")
+        while True:
+            call = self._broadcast(None)
+            if call is None:
+                return
+            self._generate(*call)
 
     def _render_pool(self):
         """The persistent process pool, made again when the template
@@ -283,7 +420,13 @@ class MemeGenerationPipeline:
                 return
 
     def close(self):
-        """Shuts the render process pool down (no-op for threads)."""
+        """Shuts the render process pool down (no-op for threads). On rank
+        0 of a mesh, also ends the other ranks' :meth:`follow`."""
+        if self.mesh is not None and dist.get_rank() == 0:
+            with self._call_lock:
+                if not self._released:
+                    self._released = True
+                    self._broadcast(None)
         if self._proc_pool is not None:
             self._proc_pool.shutdown(wait=True)
             self._proc_pool = None

@@ -46,17 +46,27 @@ __all__ = ["DynamicBatcher", "bucket_ladder"]
 _BUCKET_FLOOR = 16
 
 
-def bucket_ladder(max_batch, buckets):
+def bucket_ladder(max_batch, buckets, data_size=1):
     """The padded call sizes for ``buckets``: None -> ``(max_batch,)``;
     ``"auto"`` -> halving sizes from ``max_batch`` down to 16 (256 -> 16,
     32, 64, 128, 256); a sequence of ints -> those sizes with
-    ``max_batch`` added."""
+    ``max_batch`` added. A mesh pipeline splits every call over its data
+    axis, so with ``data_size`` > 1 every size must be a multiple of it:
+    ``max_batch`` and given buckets are checked, and the "auto" ladder
+    stops at ``max(16, data_size)`` with each step rounded down to a
+    multiple."""
+    if max_batch % data_size:
+        raise ValueError(
+            f"max_batch={max_batch} must be a multiple of the pipeline "
+            f"mesh's data-axis size {data_size}")
     if buckets is None:
         return (max_batch,)
     if buckets == "auto":
+        floor = max(_BUCKET_FLOOR, data_size)
         ladder, b = {max_batch}, max_batch
-        while b > _BUCKET_FLOOR:
-            b = max(_BUCKET_FLOOR, b // 2)
+        while b > floor:
+            b = max(floor, b // 2)
+            b -= b % data_size  # keep ladder steps shardable
             ladder.add(b)
         return tuple(sorted(ladder))
     if isinstance(buckets, str):  # "128" would iterate per character
@@ -68,6 +78,11 @@ def bucket_ladder(max_batch, buckets):
     if max(ladder) > max_batch:
         raise ValueError(f"bucket {max(ladder)} exceeds max_batch "
                          f"{max_batch}")
+    bad = sorted(b for b in ladder if b % data_size)
+    if bad:
+        raise ValueError(
+            f"buckets {bad} not multiples of the pipeline mesh's "
+            f"data-axis size {data_size}")
     ladder.add(max_batch)  # a full batch must fit
     return tuple(sorted(ladder))
 
@@ -80,7 +95,8 @@ class DynamicBatcher:
                  render=False, seed=0, buckets=None, hysteresis=3,
                  **generate_kwargs):
         """Args:
-            pipeline: a ready ``MemeGenerationPipeline`` (templates added).
+            pipeline: a ready ``MemeGenerationPipeline`` (templates added;
+                with a mesh, on rank 0, while the other ranks follow).
             max_batch: the largest device batch.
             max_wait_ms: how long the collector holds the first request of
                 a batch while more arrive.
@@ -102,7 +118,8 @@ class DynamicBatcher:
         """
         self.pipeline = pipeline
         self.max_batch = int(max_batch)
-        self.buckets = bucket_ladder(self.max_batch, buckets)
+        self.buckets = bucket_ladder(self.max_batch, buckets,
+                                     getattr(pipeline, "_data_size", 1))
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.render = render
         self.generate_kwargs = generate_kwargs

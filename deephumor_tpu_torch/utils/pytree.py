@@ -78,9 +78,10 @@ def load_params(path):
 
 
 def tree_map(fn, tree):
-    """Applies ``fn`` to every leaf of a nested dict/list tree."""
+    """Applies ``fn`` to every leaf of a nested dict/list/tuple tree (the
+    containers keep their types)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
