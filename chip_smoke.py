@@ -113,17 +113,49 @@ pipeline without a mesh (K1 and K2 launch, no twin on the card), and the
 group is destroyed. The mesh spans one card here: the collectives are
 one-rank NCCL calls, and nothing in the phase measures scaling.
 
+Last, a tensor-parallel phase ([14]). K1 and K2 at the word leg's rows,
+K5, K6 and K4 at the char settings are held against their twins at the
+head-local shapes of the word model at model 2 (D 256, 4 heads) and
+model 4 (D 128, 2 heads), bf16, and timed beside their bounds; K3 at the
+rows of [14]'s calls. Then two processes on this card (``--tp-rank``; a
+gloo group, since NCCL takes one rank per card, whose all-reduce,
+broadcast and all-gather of CUDA tensors are checked first) form a data 1
+x model 2 mesh: ``generate_from_emb`` over ``make_param_shardings``
+parameters (``tp_generate``) greedy in f32 at TP_F32_LAYERS layers must
+be token-equal to one process's call; at the word leg's width in bf16
+(batch TP_BATCH) greedy must be token-equal on >= TP_GREEDY_SHARE of
+items, two sampled calls of one seed equal and equal on both ranks, and
+each rank must launch K1, K2 and K3 and no other kernel, no twin seeing a
+CUDA tensor (each rank's counts set to 0 before and read after); sampled
+calls are timed in turns beside one process's call; T_PAR_STEPS f32 DP x
+TP train steps at TP_F32_LAYERS layers, at the model's dropout, must give
+the losses of one process that draws from the data block's generator
+(rtol TP_TRAIN_RTOL), with at most a share TP_PARAM_SHARE of the trained
+parameters past 2e-4 (the leaves past it are listed with their first-step
+gradient and the rows that hold them). Each rank cuts its own shards of its equal copy and gathers
+with ``dist.all_gather``: gloo scatters no CUDA tensor for
+``distribute_tensor``, and ``full_tensor``'s functional collectives fail
+there. The phase says nothing of scaling: both ranks share the card and
+gloo stages each all-reduce through host memory.
+
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [ROOT]
-    torchrun --nproc-per-node N chip_smoke.py --mesh-ranks
+    python3 chip_smoke.py --tp
+    torchrun --nproc-per-node N chip_smoke.py --mesh-ranks [tp]
 
 The second form only times K4 (all char rows, C_LIVE live), K9 (ng 2, 4,
 8) and K2 on K9's rows, queued, through the deephumor_tpu_torch of the
 tree at ROOT (default: this one), and prints one JSON line: run beside
 a parent tree's root, it times the parent's kernels on the same inputs.
-The third runs [13]'s checks over N ranks, one per card: each
-dp_generate and mesh step does 1/N of the batch, timed beside a one-card
-plain call. Greedy outputs are held to plain calls on each rank's block
+The third builds the kernels and runs [14] alone. The fourth runs over N
+ranks, one per card (N = 2 or 4): first [14]'s data N/2 x model 2 NCCL
+mesh, ``tp_generate`` at the word leg (batch BATCH; greedy on >=
+TP_GREEDY_SHARE of items equal to one card's call, sampled repeatable,
+K1-K3 launched, no twin) timed in turns beside one card's call, and the
+DP x TP train step (bf16, batch T_BATCH) beside the data-parallel step
+over the same cards; then, unless given ``tp``, [13]'s checks over N
+ranks: each dp_generate and mesh step does 1/N of the batch, timed beside
+a one-card plain call. Greedy outputs are held to plain calls on each rank's block
 (the same products; one call of the whole batch rounds its bf16
 products at other shapes, and its share of equal items is reported).
 The f32 mesh steps are held by their losses, ReLU inputs and the masked
@@ -210,6 +242,20 @@ P_REQUESTS, P_TEMPLATES = 64, 32
 # over several ranks, the share of trained parameters past T_PAR_ATOL
 P_GRAD_RTOL, P_GRAD_RTOL_RANKS = 1e-5, 1e-3
 P_RELU_RTOL, P_PARAM_SHARE = 1e-4, 1e-3
+# the tensor-parallel phase ([14]): the head-local (width, heads) of the
+# word model at model 2 and 4 (head_dim 64 in both); the batch of its
+# two-process tp_generate calls on one card and of the f32 parity, the
+# f32 parity's layers; the bf16 greedy gate (PERF.md section 2), the f32
+# train steps' loss tolerance; the time limit of the two processes
+TP_SHAPES = ((HID // 2, HEADS // 2), (HID // 4, HEADS // 4))
+TP_RANKS, TP_BATCH, TP_F32_ITEMS, TP_F32_LAYERS = 2, 256, 64, 2
+TP_GREEDY_SHARE, TP_TRAIN_RTOL, TP_TIMEOUT_S = 0.99, 1e-4, 600
+# the share of the f32 DP x TP run's trained parameters past T_PAR_ATOL of
+# one card's: elements whose gradient changes sign between the runs
+# (rounding noise, a ReLU input that rounds across 0 at the head-local
+# shapes) take Adam steps of up to lr the other way. PR 12 read 3.48e-6
+# (137 of 39,397,376) on an H100
+TP_PARAM_SHARE = 1e-4
 TOL = 2e-2  # bf16 kernel vs twin: one bf16 rounding of each output
 TOL_F32 = 1e-5  # f32 kernel vs twin: the summation order only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -288,9 +334,9 @@ def library_ms(fn):
     return cuda_ms(fn, iters=5)
 
 
-def heads(x, n, length):
-    """[n, length, D] -> the [n, H, length, hd] layout of SDPA."""
-    return x.reshape(n, length, HEADS, -1).transpose(1, 2).contiguous()
+def heads(x, n, length, h=HEADS):
+    """[n, length, D] -> the [n, h, length, hd] layout of SDPA."""
+    return x.reshape(n, length, h, -1).transpose(1, 2).contiguous()
 
 
 def sdpa(q, k, v, mask):
@@ -311,24 +357,24 @@ def attention_state(A, dev, gen, *, items, beam, p, pos, dt):
             rnd(rows, HID), rnd(rows, HID), A.ancestry_bias(anc, valid, p))
 
 
-def ancestry_sdpa_ms(q, k, v, bias, items, beam, p, pe):
+def ancestry_sdpa_ms(q, k, v, bias, items, beam, p, pe, h=HEADS):
     """One SDPA call over the (slot, position) rows [0, pe) of every item
     with the same bias: the library yardstick of K1, K7 and K8."""
-    qh = q.reshape(items, beam, HEADS, -1).transpose(1, 2)
-    kh, vh = (heads(x[:, :pe].reshape(items, beam * pe, HID), items,
-                    beam * pe) for x in (k, v))
+    qh = q.reshape(items, beam, h, -1).transpose(1, 2)
+    kh, vh = (heads(x[:, :pe].reshape(items, beam * pe, x.shape[-1]), items,
+                    beam * pe, h) for x in (k, v))
     mask = bias.reshape(items, beam, beam, p)[..., :pe].reshape(
         items, 1, beam, beam * pe).contiguous()
     return library_ms(lambda: sdpa(qh, kh, vh, mask))
 
 
-def k1_bytes(live, beam, pe, elt):
+def k1_bytes(live, beam, pe, elt, d=HID):
     """K/V prefix without the column at pos (pe - 1 positions: pos lies
     inside the prefix, and the kernels read it from k_new / v_new), q,
     k_new, v_new, out and the two written columns, plus the bias over the
     read positions."""
     lr = live * beam
-    return (2 * lr * (pe - 1) * HID + 6 * lr * HID) * elt \
+    return (2 * lr * (pe - 1) * d + 6 * lr * d) * elt \
         + lr * beam * pe * 4
 
 
@@ -377,9 +423,10 @@ def check_k1(A, dev, gen, *, items, beam, p, pes, dt, live_items=None,
         q, k, v, kn, vn, bias, pos, **kw), iters=3)
     live = items if live_items is None else live_items
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=ancestry_sdpa_ms(q, k, v, bias, items, beam, p, pe),
-                **bound(k1_bytes(live, beam, pe, k.element_size()),
-                        4 * live * beam * beam * pe * HID, dt))
+                library_ms=ancestry_sdpa_ms(q, k, v, bias, items, beam, p, pe,
+                                            heads),
+                **bound(k1_bytes(live, beam, pe, k.element_size(), d),
+                        4 * live * beam * beam * pe * d, dt))
 
 
 def check_k7(A, dev, gen, *, items, beam, p, cases, label):
@@ -496,7 +543,8 @@ def check_k11(C, dev, gen, *, rows, p, positions, label):
 
 
 def check_k2(A, dev, gen, *, items, beam, live_items=None,
-             dt=torch.bfloat16, d=HID, masked=True, timed=True):
+             dt=torch.bfloat16, d=HID, masked=True, timed=True,
+             n_heads=HEADS):
     """K2 vs its twin with item 0's encoder rows all masked (or no bias),
     finite, rows past live_items zero. With ``timed``: the kernel, the
     twin and SDPA."""
@@ -508,7 +556,7 @@ def check_k2(A, dev, gen, *, items, beam, live_items=None,
         mask = torch.rand(items, T_ENC, generator=gen, device=dev) < 0.1
         mask[0] = True  # one item with every encoder row masked
         bias = torch.where(mask[:, None, :], A.MASK_FILL, 0.0).float()
-    kw = dict(n_heads=HEADS, live_items=live_items)
+    kw = dict(n_heads=n_heads, live_items=live_items)
     got = A.grouped_cross_attention(q, ek, ev, bias, **kw)
     want = A.grouped_cross_attention_plain(q, ek, ev, bias, **kw)
     tol = TOL if dt == torch.bfloat16 else TOL_F32
@@ -519,7 +567,7 @@ def check_k2(A, dev, gen, *, items, beam, live_items=None,
     if got[live * beam:].any():
         raise AssertionError("K2: rows past live_items are not 0")
     err = (got.float() - want.float()).abs().max().item()
-    log(f"  K2 {str(dt)[6:]} head_dim {d // HEADS} G={items} r={beam} bias="
+    log(f"  K2 {str(dt)[6:]} head_dim {d // n_heads} G={items} r={beam} bias="
         f"{'item 0 fully masked' if masked else None} live_items="
         f"{live_items}: max|out-twin|={err:.3e} (atol=rtol={tol})")
     if not timed:
@@ -529,14 +577,14 @@ def check_k2(A, dev, gen, *, items, beam, live_items=None,
     plain_ms = cuda_ms(lambda: A.grouped_cross_attention_plain(
         q, ek, ev, bias, **kw), iters=3)
     log(f"  K2 G={items} r={beam}: {ms:.4f} ms (device alone)")
-    qh = q.reshape(items, beam, HEADS, -1).transpose(1, 2)
-    kh, vh = (heads(x, items, T_ENC) for x in (ek, ev))
+    qh = q.reshape(items, beam, n_heads, -1).transpose(1, 2)
+    kh, vh = (heads(x, items, T_ENC, n_heads) for x in (ek, ev))
     m4 = bias.reshape(items, 1, 1, T_ENC)
-    nbytes = (2 * live * T_ENC * HID + 2 * live * beam * HID) * 2 + (
+    nbytes = (2 * live * T_ENC * d + 2 * live * beam * d) * 2 + (
         live * T_ENC * 4)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms(lambda: sdpa(qh, kh, vh, m4)),
-                **bound(nbytes, 4 * live * beam * T_ENC * HID, dt))
+                **bound(nbytes, 4 * live * beam * T_ENC * d, dt))
 
 
 def k9_inputs(A, dev, gen, items, beam):
@@ -745,30 +793,31 @@ def check_k3(S, dev, gen, *, rows, vocab, top_k, draws, inv_t, label,
     return None if row is None else dict(row, max_abs_err=err)
 
 
-def k4_inputs(dev, gen):
-    """x [5376, 512], W [128, 512] bf16 and an f32 bias with UNK on top of
-    every row (it must never be drawn)."""
+def k4_inputs(dev, gen, d=HID):
+    """x [5376, d], W [128, d] bf16 (d 512 on one card) and an f32 bias
+    with UNK on top of every row (it must never be drawn)."""
     bf = torch.bfloat16
-    x = torch.randn(C_ROWS, HID, generator=gen, device=dev).to(bf)
-    w = (torch.randn(C_VOCAB, HID, generator=gen, device=dev) / 8).to(bf)
+    x = torch.randn(C_ROWS, d, generator=gen, device=dev).to(bf)
+    w = (torch.randn(C_VOCAB, d, generator=gen, device=dev) / 8).to(bf)
     b = torch.randn(C_VOCAB, generator=gen, device=dev)
     b[1] = 30.0
     return x, w, b
 
 
-def k4_bytes(live):
+def k4_bytes(live, d=HID):
     """x's live rows, W and b read; every row's ids (int64) and values
     (f32) written."""
-    return live * HID * 2 + C_VOCAB * HID * 2 + C_VOCAB * 4 + (
+    return live * d * 2 + C_VOCAB * d * 2 + C_VOCAB * 4 + (
         C_ROWS * C_BEAM * 12)
 
 
-def check_k4(S, dev, gen):
-    """K4 at the char shapes, all rows live and C_LIVE live (and 3000),
-    timed with the device queued beside the unfused route (bf16 F.linear,
-    then K3) and F.linear alone (partial yardsticks)."""
+def check_k4(S, dev, gen, d=HID):
+    """K4 at the char shapes (x and W ``d`` wide), all rows live and
+    C_LIVE live (and 3000), timed with the device queued beside the
+    unfused route (bf16 F.linear, then K3) and F.linear alone (partial
+    yardsticks)."""
     bf = torch.bfloat16
-    x, w, b = k4_inputs(dev, gen)
+    x, w, b = k4_inputs(dev, gen, d)
     kw = dict(top_k=C_TOP_K, num_draws=C_BEAM)
     err = 0.0
     for live in (None, 3000, C_LIVE):
@@ -794,28 +843,28 @@ def check_k4(S, dev, gen):
                 torch.nn.functional.linear(x, w, b.to(bf)), 7, 1 / C_TEMP,
                 live_rows=live, **kw), queued=True)
         row["bound_ms" + key] = bound(
-            k4_bytes(live or C_ROWS), 2 * (live or C_ROWS) * C_VOCAB * HID,
+            k4_bytes(live or C_ROWS, d), 2 * (live or C_ROWS) * C_VOCAB * d,
             bf)["bound_ms"]
     row["linear_ms"] = cuda_ms(
         lambda: torch.nn.functional.linear(x, w, b.to(bf)), queued=True)
     plain_ms = cuda_ms(lambda: S.fused_classifier_topk_gumbel_sample_plain(
         x, w, b, 7, 1 / C_TEMP, **kw), iters=2, warmup=1)
-    log(f"  K4 [{C_ROWS}, {HID}] x [{C_VOCAB}, {HID}]: {row['ms']:.4f} ms "
+    log(f"  K4 [{C_ROWS}, {d}] x [{C_VOCAB}, {d}]: {row['ms']:.4f} ms "
         f"(device alone; {C_LIVE} live rows {row['ms_live']:.4f} ms), twin "
         f"{plain_ms:.4f} ms; F.linear + K3 {row['linear_k3_ms']:.4f} ms "
         f"({C_LIVE} live {row['linear_k3_ms_live']:.4f} ms), F.linear alone "
         f"{row['linear_ms']:.4f} ms (partial yardsticks); bound "
         f"{row['bound_ms']:.4f} / {row['bound_ms_live']:.4f} ms")
     return dict(row, max_abs_err=err, plain_ms=plain_ms, library_ms=None,
-                bound_by=bound(k4_bytes(C_ROWS),
-                               2 * C_ROWS * C_VOCAB * HID, bf)["bound_by"])
+                bound_by=bound(k4_bytes(C_ROWS, d),
+                               2 * C_ROWS * C_VOCAB * d, bf)["bound_by"])
 
 
-def check_k5_k6(A, dev, gen):
+def check_k5_k6(A, dev, gen, d=HID, n_heads=HEADS):
     """K5 (pe 120: c 104, w 16; pe 128: c 120, w 8) and K6 (pe 128) at the
-    char shapes, and K5 + K6 merged == K1's full-width twin. K5 is timed
-    at both canon shapes (the row reports pe 120), K6 at 96 items, both on
-    the device alone (queued)."""
+    char shapes (``d`` wide over ``n_heads`` heads), and K5 + K6 merged ==
+    K1's full-width twin. K5 is timed at both canon shapes (the row
+    reports pe 120), K6 at 96 items, both on the device alone (queued)."""
     from deephumor_tpu_torch.ops.testing import canon_state
 
     dt, items, beam = torch.bfloat16, C_BATCH, C_BEAM
@@ -824,9 +873,9 @@ def check_k5_k6(A, dev, gen):
     err5 = err6 = 0.0
     ms5 = {}
     for c, pe, live in ((104, 120, None), (120, 128, None), (104, 120, 500)):
-        s = canon_state(items=items, beam=beam, p=C_P, c=c, pe=pe, d=HID,
+        s = canon_state(items=items, beam=beam, p=C_P, c=c, pe=pe, d=d,
                         dtype=dt, generator=gen, stragglers=range(n))
-        kw = dict(beam=beam, n_heads=HEADS, c=c, p_eff=pe, live_items=live)
+        kw = dict(beam=beam, n_heads=n_heads, c=c, p_eff=pe, live_items=live)
         caches = [(s["ck"].clone(), s["cv"].clone()) for _ in range(2)]
         args = (s["sk"], s["sv"], s["kn"], s["vn"], s["bias_sh"],
                 s["bias_win"], s["pos"])
@@ -846,7 +895,7 @@ def check_k5_k6(A, dev, gen):
         if live is not None:
             continue
         # K6 on the written caches: the 96 stragglers, then the merge
-        k6kw = dict(beam=beam, n_heads=HEADS, p_eff=pe)
+        k6kw = dict(beam=beam, n_heads=n_heads, p_eff=pe)
         ck, cv = caches[0]
         out_s = A.ancestry_attention_ids(s["q"], ck, cv, s["bias"],
                                          strag_ids, n, **k6kw)
@@ -861,7 +910,7 @@ def check_k5_k6(A, dev, gen):
         merged = torch.where(rows_mask[:, None], out_s, got)
         full = A.ancestry_attention_update_plain(
             s["q"], ck.clone(), cv.clone(), s["kn"], s["vn"], s["bias"],
-            s["pos"], beam=beam, n_heads=HEADS, p_eff=pe)
+            s["pos"], beam=beam, n_heads=n_heads, p_eff=pe)
         torch.testing.assert_close(merged, full, atol=TOL, rtol=TOL)
         em = (merged.float() - full.float()).abs().max().item()
         log(f"  K6 p_eff={pe} {n} stragglers: max|out-twin|="
@@ -877,25 +926,26 @@ def check_k5_k6(A, dev, gen):
     plain5 = cuda_ms(lambda: A.ancestry_attention_update_canon_plain(
         s["q"], ck, cv, *args, **kw), iters=3)
     c, pe, w = kw["c"], kw["p_eff"], kw["p_eff"] - kw["c"]
-    qh = s["q"].reshape(items, beam, HEADS, -1).transpose(1, 2)
-    kh, vh = (torch.cat([heads(sh, items, c), heads(
-        x[:, c:pe].reshape(items, beam * w, HID), items, beam * w)], dim=2)
+    qh = s["q"].reshape(items, beam, n_heads, -1).transpose(1, 2)
+    kh, vh = (torch.cat([heads(sh, items, c, n_heads), heads(
+        x[:, c:pe].reshape(items, beam * w, d), items, beam * w, n_heads)],
+        dim=2)
         for sh, x in ((s["sk"], ck), (s["sv"], cv)))
     mask = torch.cat([s["bias_sh"].expand(items, beam, c), s["bias_win"]],
                      dim=-1)[:, None].contiguous()
     rows = items * beam
     # K+V: shared rows, the window's w - 1 cached positions, k_new / v_new
     # read and written at pos (inside the window); q and the output; biases
-    nbytes5 = (2 * items * c * HID + 2 * rows * (w - 1) * HID
-               + 4 * rows * HID + 2 * rows * HID) * 2 \
+    nbytes5 = (2 * items * c * d + 2 * rows * (w - 1) * d
+               + 4 * rows * d + 2 * rows * d) * 2 \
         + items * c * 4 + items * beam * beam * w * 4
     k5 = dict(max_abs_err=err5, ms=ms5[120], ms_pe128=ms5[128],
               plain_ms=plain5,
               library_ms=library_ms(lambda: sdpa(qh, kh, vh, mask)),
-              **bound(nbytes5, 4 * rows * (c + beam * w) * HID, dt))
+              **bound(nbytes5, 4 * rows * (c + beam * w) * d, dt))
     # K6 at pe 128 on the last state that ran it
-    k6kw = dict(beam=beam, n_heads=HEADS, p_eff=128)
-    s6 = canon_state(items=items, beam=beam, p=C_P, c=120, pe=128, d=HID,
+    k6kw = dict(beam=beam, n_heads=n_heads, p_eff=128)
+    s6 = canon_state(items=items, beam=beam, p=C_P, c=120, pe=128, d=d,
                      dtype=dt, generator=gen, stragglers=range(n))
     ms6 = cuda_ms(lambda: A.ancestry_attention_ids(
         s6["q"], s6["ck"], s6["cv"], s6["bias"], strag_ids, n, **k6kw),
@@ -904,16 +954,17 @@ def check_k5_k6(A, dev, gen):
         s6["q"], s6["ck"], s6["cv"], s6["bias"], strag_ids, n, **k6kw),
         iters=3)
     sel = slice(0, n * beam)
-    qh = s6["q"][sel].reshape(n, beam, HEADS, -1).transpose(1, 2)
-    kh, vh = (heads(x[sel, :128].reshape(n, beam * 128, HID), n, beam * 128)
+    qh = s6["q"][sel].reshape(n, beam, n_heads, -1).transpose(1, 2)
+    kh, vh = (heads(x[sel, :128].reshape(n, beam * 128, d), n, beam * 128,
+                    n_heads)
               for x in (s6["ck"], s6["cv"]))
     mask = s6["bias"][:n].reshape(n, beam, beam, C_P)[..., :128].reshape(
         n, 1, beam, beam * 128).contiguous()
-    nbytes6 = (2 * n * beam * 128 * HID + 2 * n * beam * HID) * 2 + (
+    nbytes6 = (2 * n * beam * 128 * d + 2 * n * beam * d) * 2 + (
         n * beam * beam * 128 * 4 + n * 4)
     k6 = dict(max_abs_err=err6, ms=ms6, plain_ms=plain6,
               library_ms=library_ms(lambda: sdpa(qh, kh, vh, mask)),
-              **bound(nbytes6, 4 * n * beam * beam * 128 * HID, dt))
+              **bound(nbytes6, 4 * n * beam * beam * 128 * d, dt))
     return k5, k6
 
 
@@ -2327,10 +2378,577 @@ def check_parallel(CaptioningTransformer, tree_map, _build, modules, dev,
     return launches, serving, out
 
 
-def mesh_ranks():
-    """``--mesh-ranks``, one process per card under ``torchrun``: [13]'s
-    checks and timings over every rank (module docstring). Rank 0 builds
-    the kernels while the others wait, then prints the phase's numbers."""
+def check_tp_kernels(A, S, dev, gen, rows):
+    """[14]'s kernels at the head-local shapes of TP_SHAPES, bf16: K1 and
+    K2 at the word leg's rows, K5, K6 and K4 at the char settings, each
+    against its twin and timed (K3, whose rows do not depend on the
+    width, at the rows of [14]'s calls). Adds each one's numbers to its
+    row under "tp"."""
+    bf = torch.bfloat16
+    for d, h in TP_SHAPES:
+        key = f"D{d}_h{h}"
+        log(f"    D {d}, {h} heads (head_dim {d // h}): K1 rows {ROWS}, "
+            f"P {P}; K2 G {BATCH}, T {T_ENC}; K5/K6 rows {C_ROWS}, P {C_P}; "
+            f"K4 x [{C_ROWS}, {d}] W [{C_VOCAB}, {d}]")
+        got = {"ancestry_attention_update": check_k1(
+            A, dev, gen, items=BATCH, beam=BEAM, p=P, pes=(16, 24, 32),
+            dt=bf, d=d, heads=h, label=f"K1 {key}"),
+               "grouped_cross_attention": check_k2(
+            A, dev, gen, items=BATCH, beam=BEAM, d=d, n_heads=h)}
+        (got["ancestry_attention_update_canon"],
+         got["ancestry_attention_ids"]) = check_k5_k6(A, dev, gen, d=d,
+                                                      n_heads=h)
+        got["fused_classifier_topk_gumbel_sample"] = check_k4(S, dev, gen,
+                                                              d=d)
+        for name, r in got.items():
+            rows[name].setdefault("tp", {})[key] = {
+                k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                  "max_abs_err")}
+            log(f"    {name} at {key}: {r['ms']:.4f} ms (twin "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+                f"{r['bound_ms']:.4f} ms), max|out-twin| "
+                f"{r['max_abs_err']:.3e}")
+    r = check_k3(S, dev, gen, rows=TP_BATCH * BEAM, vocab=VOCAB, top_k=TOP_K,
+                 draws=BEAM, inv_t=1.0, label=f"K3 rows {TP_BATCH * BEAM}")
+    rows["fused_topk_gumbel_sample"]["tp"] = {f"rows{TP_BATCH * BEAM}": {
+        k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                          "max_abs_err")}}
+
+
+def run_tp_phase(A, S, dev, gen, rows, name_limit):
+    """[14]: the kernels at the head-local shapes, then the two processes
+    of ``check_tp``. Returns the phase's numbers, with each rank's
+    launches under ``launches_by_rank``."""
+    log(f"[14] tensor parallel: K1, K2, K5, K6 and K4 at the head-local "
+        f"shapes {TP_SHAPES} (width, heads), bf16, K3 at {TP_BATCH * BEAM} "
+        f"rows; tp_generate on a data 1 x model {TP_RANKS} mesh over gloo, "
+        f"two processes on this card (bf16 batch {TP_BATCH}, f32 parity at "
+        f"{TP_F32_LAYERS} layers); the DP x TP train step")
+    check_tp_kernels(A, S, dev, gen, rows)
+    launches, tp = check_tp(card())
+    tp["launches_by_rank"] = launches
+    return tp
+
+
+def tp_only():
+    """``--tp``: builds the kernels and runs [14] alone; prints its numbers
+    as one JSON line."""
+    from deephumor_tpu_torch.ops import _build
+    from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops import sampler as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.library()
+    rows = {k: {} for k in ("ancestry_attention_update",
+                            "grouped_cross_attention",
+                            "fused_topk_gumbel_sample",
+                            "fused_classifier_topk_gumbel_sample",
+                            "ancestry_attention_update_canon",
+                            "ancestry_attention_ids")}
+    tp = run_tp_phase(A, S, dev, torch.Generator(dev).manual_seed(0), rows,
+                      card())
+    print(json.dumps({"tp": tp, "kernels": {k: r.get("tp")
+                                            for k, r in rows.items()}}),
+          flush=True)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def check_tp(name_limit):
+    """[14]'s two processes on this card: ``--tp-rank`` 0 and 1 over a
+    gloo group (NCCL takes one rank per card), a data 1 x model 2 mesh.
+    Runs them, checks their JSON results and returns each rank's launches
+    and the numbers."""
+    out = {}
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as outdir:
+        port = free_port()
+        logs = [open(os.path.join(outdir, f"rank{r}.log"), "w")
+                for r in range(TP_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+             str(port), outdir], stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(TP_RANKS)]
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        texts = [open(os.path.join(outdir, f"rank{r}.log")).read()
+                 for r in range(TP_RANKS)]
+        for r, t in enumerate(texts):
+            for line in t.splitlines()[-40:]:
+                log(f"    [rank {r}] {line}")
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"[14] tp ranks exited "
+                                 f"{[p.returncode for p in procs]}")
+        res = [json.load(open(os.path.join(outdir, f"tp{r}.json")))
+               for r in range(TP_RANKS)]
+    word = ("ancestry_attention_update", "grouped_cross_attention",
+            "fused_topk_gumbel_sample")
+    for r, x in enumerate(res):
+        missing = [k for k in word if x["launches"][k] < 1]
+        extra = [k for k, v in x["launches"].items() if v and k not in word]
+        if missing or extra or x["hits"]:
+            raise AssertionError(f"[14] rank {r}: kernels not launched "
+                                 f"{missing}, launched off the path {extra}, "
+                                 f"twins on the card {x['hits']}")
+        if not (x["gloo_cuda"] and x["f32_equal"] and x["repeat"]
+                and x["greedy_share"] >= TP_GREEDY_SHARE):
+            raise AssertionError(f"[14] rank {r}: gloo on CUDA tensors "
+                                 f"{x['gloo_cuda']}, f32 greedy token-equal "
+                                 f"{x['f32_equal']}, sampled repeatable "
+                                 f"{x['repeat']}, bf16 greedy share "
+                                 f"{x['greedy_share']}")
+    x = res[0]
+    p = x["params"]
+    log(f"  DP x TP train step, f32, {TP_F32_LAYERS} layers, batch "
+        f"{T_PAR_BATCH}, dropout {x['train']['dropout']}: losses "
+        f"{x['train']['tp']} vs one card's {x['train']['plain']} (rtol "
+        f"{TP_TRAIN_RTOL}); gathered parameters max|tp-card| "
+        f"{p['max_abs_diff']:.3e}, a share {p['share_past_atol']:.3e} of "
+        f"{p['n_trained']} past {T_PAR_ATOL} (<= {TP_PARAM_SHARE})")
+    for k, over, rows, gap, g, g_med, g_max in p["past"][:12]:
+        log(f"    {k}: {over} past in {rows} rows, largest gap {gap:.3e}, "
+            f"first-step gradient there {g:.3e} (the leaf's median "
+            f"{g_med:.3e}, largest {g_max:.3e})")
+    for r in res:
+        np.testing.assert_allclose(r["train"]["tp"], r["train"]["plain"],
+                                   rtol=TP_TRAIN_RTOL)
+        if r["params"]["share_past_atol"] > TP_PARAM_SHARE:
+            raise AssertionError(f"[14] rank {r['rank']}: a share "
+                                 f"{r['params']['share_past_atol']} of the "
+                                 f"parameters past {T_PAR_ATOL}")
+    if res[0]["sampled"] != res[1]["sampled"]:
+        raise AssertionError("[14] the two model ranks drew apart")
+    out.update(greedy_share=x["greedy_share"], generate_ms=x["secs"],
+               train_losses=x["train"], gloo_cuda=x["gloo_cuda"],
+               launches_by_rank=[r["launches"] for r in res],
+               params=dict(p, past=p["past"][:12]))
+    log(f"  tp_generate, data 1 x model 2 over gloo, two processes on "
+        f"this card ({name_limit}): gloo all_reduce / broadcast / all_gather "
+        f"of CUDA tensors {x['gloo_cuda']}; f32 greedy at {TP_F32_LAYERS} "
+        f"layers ({TP_F32_ITEMS} items) token-equal to generate_from_emb: "
+        f"{x['f32_equal']}; bf16 greedy at full width, batch {TP_BATCH}: "
+        f"{x['greedy_share']:.4f} of items token-equal (>= "
+        f"{TP_GREEDY_SHARE}); sampled twice with seed 5: repeatable, equal "
+        f"on both ranks; launches per rank {out['launches_by_rank']}, no "
+        f"twin on the card")
+    log(f"  sampled call, batch {TP_BATCH}: tp_generate over the two "
+        f"processes {[round(v, 1) for v in x['secs']['tp']]} ms, "
+        f"generate_from_emb in one {[round(v, 1) for v in x['secs']['plain']]}"
+        f" ms")
+    return [r["launches"] for r in res], out
+
+
+def _build_dir():
+    from deephumor_tpu_torch.ops import _build
+
+    return _build.BUILD_DIR
+
+
+def _cut(x, mesh, placements):
+    """This rank's shard of ``x`` (equal on every rank) as a DTensor of
+    ``placements``, cut with no collective."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    local = x
+    for axis, p in enumerate(placements):
+        if isinstance(p, Shard):
+            local = local.tensor_split(mesh.size(axis), p.dim)[
+                mesh.get_local_rank(axis)]
+    return DTensor.from_local(local.contiguous(), mesh, placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def place_own(params, mesh):
+    """``params`` (equal on every rank) placed as
+    ``parallel.make_param_shardings`` places them, each rank cutting its
+    own shards: ``distribute_tensor`` scatters from one rank, which gloo
+    does not do with CUDA tensors."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from deephumor_tpu_torch.parallel import tp_param_specs
+
+    names = mesh.mesh_dim_names
+
+    def place(x, spec):
+        if isinstance(x, dict):
+            return {k: place(v, spec[k]) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [place(v, sp) for v, sp in zip(x, spec)]
+        return _cut(x, mesh, tuple(Shard(spec.index(n)) if n in spec
+                                   else Replicate() for n in names))
+
+    return place(params, tp_param_specs(params))
+
+
+def place_state_own(state, mesh):
+    """A train state placed as ``parallel.place_train_state`` places it
+    (Adam's moments as their parameter), cut as :func:`place_own`."""
+    from deephumor_tpu_torch.utils.pytree import flatten_tree
+
+    params = place_own(state["params"], mesh)
+    flat = flatten_tree(params)
+    opt = dict(state["opt_state"])
+    for name in ("mu", "nu"):
+        opt[name] = {k: _cut(v, mesh, flat[k].placements)
+                     for k, v in opt[name].items()}
+    return dict(state, params=params, opt_state=opt)
+
+
+def gather_own(tree):
+    """``tree`` with every DTensor leaf gathered whole with
+    ``dist.all_gather`` (gloo takes CUDA tensors there, not in the
+    functional collectives of ``full_tensor``)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from deephumor_tpu_torch.utils.pytree import tree_map
+
+    def whole(x):
+        if not isinstance(x, DTensor):
+            return x
+        t = x.to_local()
+        for axis, p in enumerate(x.placements):
+            if isinstance(p, Shard):
+                group = x.device_mesh.get_group(axis)
+                parts = [torch.empty_like(t)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, t.contiguous(), group=group)
+                t = torch.cat(parts, dim=p.dim)
+        return t
+
+    with torch.no_grad():
+        return tree_map(whole, tree)
+
+
+def tp_train_losses(model, dev, logdir, mesh, gen):
+    """T_PAR_STEPS f32 steps of ``model`` at batch T_PAR_BATCH from a
+    random trunk cache, dropout drawn from ``gen``: each step's loss, the
+    parameters after them (gathered whole), and the first step's gradient
+    as Adam applied it (after the clip; read from the second moment), by
+    flat key, or None on a mesh. With ``mesh``, over a state placed as
+    ``place_train_state`` places it (every rank holds the same initial
+    state)."""
+    from deephumor_tpu_torch.data.dataloaders import BatchIterator
+    from deephumor_tpu_torch.experiments.trainer import Adam, Trainer
+
+    ds, _ = memory_set(T_PAR_BATCH * T_PAR_STEPS, T_TEMPLATES, VOCAB, 11)
+    rows = {f"t{i:03d}": i for i in range(T_TEMPLATES)}
+    loader = list(BatchIterator(ds, T_PAR_BATCH, max_caption_len=T_CAP + 1,
+                                seed=0, image_rows=rows))[:T_PAR_STEPS]
+    trainer = Trainer(model, "tp" if mesh else "plain", log_dir=logdir,
+                      device=dev, log_flush_every=1, prefetch=0)
+    state = trainer.init_state(params=model.init(
+        torch.Generator(dev).manual_seed(0), dev))
+    if mesh is not None:
+        state = place_state_own(state, mesh)
+    trainer._trunk_cache = torch.randn(
+        T_TEMPLATES, 7, 7, 2048, device=dev,
+        generator=torch.Generator(dev).manual_seed(12))
+    losses, first_grad, step = [], {}, trainer._train_step
+
+    def recorded(*args):
+        st, metrics = step(*args)
+        losses.append(float(metrics["loss"]))
+        if len(losses) == 1 and mesh is None:
+            first_grad.update({
+                k: (v / (1 - Adam.b2)).sqrt()
+                for k, v in st["opt_state"]["nu"].items()})
+        return st, metrics
+
+    trainer._train_step = recorded
+    state, _, _ = trainer.run_epoch(state, loader, gen, mesh=mesh)
+    trainer.close()
+    return losses, gather_own(state["params"]), first_grad or None
+
+
+def param_gaps(plain, tp, grad):
+    """The trained parameters (the keys of ``grad``, one card's first-step
+    gradient) of a mesh run against one card's: the largest gap, the share
+    of elements past T_PAR_ATOL, and the leaves with such elements, the
+    largest gap first: each with their count, the rows (indices along
+    axis 0) that hold them, its largest gap, the first-step gradient
+    there, and the leaf's median and largest first-step gradient."""
+    n, past, top, leaves = 0, 0, 0.0, []
+    for k, g in grad.items():
+        gap = (plain[k] - tp[k]).abs().flatten()
+        n += gap.numel()
+        at = (gap > T_PAR_ATOL).nonzero().flatten()
+        past += at.numel()
+        i = int(gap.argmax())
+        top = max(top, gap[i].item())
+        if at.numel():
+            g = g.flatten()
+            rows = at // (gap.numel() // grad[k].shape[0])
+            leaves.append([k, at.numel(), int(rows.unique().numel()),
+                           gap[i].item(), g[i].item(), g.median().item(),
+                           g.max().item()])
+    return {"max_abs_diff": top, "share_past_atol": past / n,
+            "n_trained": n, "past": sorted(leaves, key=lambda r: -r[3])}
+
+
+def tp_rank(rank, port, outdir, device_type="cuda"):
+    """``--tp-rank``: one of [14]'s two processes on this card (module
+    docstring). Writes its results as ``tp<rank>.json`` in ``outdir``.
+    ``device_type="cpu"`` rehearses it on the CPU at widths the caller
+    sets in this module's constants (the kernels' twins run there)."""
+    import faulthandler
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from deephumor_tpu_torch.models import CaptioningTransformer
+    from deephumor_tpu_torch.ops import _build
+    from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops import cache as C
+    from deephumor_tpu_torch.ops import engine as E
+    from deephumor_tpu_torch.ops import sampler as S
+    from deephumor_tpu_torch.parallel.mesh import shard_generator
+    from deephumor_tpu_torch.utils.pytree import flatten_tree
+
+    faulthandler.enable()  # a crash prints where it was
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device_type == "cuda"
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=TP_RANKS)
+    try:
+        if on_card:
+            _build.library()
+        out = {"rank": rank}
+        # gloo on CUDA tensors: the collectives tp_generate and the step use
+        x = torch.full((4,), float(rank + 1), device=dev)
+        dist.all_reduce(x)
+        y = torch.full((4,), float(rank + 7), device=dev)
+        dist.broadcast(y, src=1)
+        parts = [torch.empty(2, device=dev) for _ in range(TP_RANKS)]
+        dist.all_gather(parts, torch.full((2,), float(rank), device=dev))
+        out["gloo_cuda"] = bool(
+            (x == 3).all() and (y == 8).all()
+            and all((p == i).all() for i, p in enumerate(parts)))
+        mesh = init_device_mesh(device_type, (1, TP_RANKS),
+                                mesh_dim_names=("data", "model"))
+        print(f"rank {rank}: mesh {mesh}, gloo on CUDA {out['gloo_cuda']}",
+              flush=True)
+
+        # f32 greedy at TP_F32_LAYERS layers: token-equal to one rank
+        model = CaptioningTransformer(
+            num_tokens=VOCAB, hid_dim=HID, n_layers=TP_F32_LAYERS,
+            n_heads=HEADS, pf_dim=PF, max_len=MAX_LEN + 2)
+        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        params["decoder"]["classifier"]["bias"][3] = EOS_BIAS
+        enc = features(TP_F32_ITEMS, dev, 1)
+        kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K)
+        want = model.generate_from_emb(params, enc, greedy=True, **kw)
+        got = model.generate_from_emb(
+            place_own(params, mesh), enc,
+            greedy=True, **kw)
+        out["f32_equal"] = all(torch.equal(got[k], want[k])
+                               for k in ("sequences", "chosen", "ended"))
+        print(f"rank {rank}: f32 greedy equal {out['f32_equal']}",
+              flush=True)
+
+        # bf16 at full width: the kernels' launches, greedy, sampled
+        model, params = make_model(CaptioningTransformer, "bfloat16", dev,
+                                   False)
+        tp = place_own(params, mesh)
+        enc = features(TP_BATCH, dev, 4)
+        kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K,
+                  temperature=1.0, sampler="pallas")
+        model.generate_from_emb(tp, enc, **kw)  # warm-up
+        hits, restore = twin_guard((A, C, E, S))
+        _build.reset_launch_counts()
+        try:
+            greedy = model.generate_from_emb(tp, enc, greedy=True, **kw)
+            sampled = [model.generate_from_emb(
+                tp, enc, generator=torch.Generator(dev).manual_seed(5), **kw)
+                for _ in range(2)]
+        finally:
+            restore()
+        out["launches"] = dict(_build.LAUNCHES)
+        out["hits"] = sorted(set(hits))
+        for o in (greedy, *sampled):
+            check_output(o, TP_BATCH, VOCAB, BEAM, MAX_LEN)
+        plain = model.generate_from_emb(params, enc, greedy=True, **kw)
+        out["greedy_share"] = (greedy["chosen"] == plain["chosen"]).all(
+            dim=1).float().mean().item()
+        out["repeat"] = all(torch.equal(sampled[0][k], sampled[1][k])
+                            for k in ("sequences", "chosen", "scores"))
+        out["sampled"] = sampled[0]["chosen"].tolist()
+        print(f"rank {rank}: launches {out['launches']}, greedy share "
+              f"{out['greedy_share']}", flush=True)
+        # in turns: one rank's call (the other waits), the two ranks' call
+        secs = {"plain": [], "tp": []}
+        for i, label in enumerate(("plain", "tp", "tp", "plain")):
+            g = torch.Generator(dev).manual_seed(30 + i)
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            if label == "tp":
+                model.generate_from_emb(tp, enc, generator=g, **kw)
+            elif rank == 0:
+                model.generate_from_emb(params, enc, generator=g, **kw)
+            sync()
+            if label == "tp" or rank == 0:
+                secs[label].append((time.perf_counter() - t0) * 1e3)
+        out["secs"] = secs
+        print(f"rank {rank}: timed {secs}", flush=True)
+        del model, params, tp, enc, greedy, sampled, plain
+
+        # the DP x TP train step, f32, at the model's dropout, against one
+        # card's steps with the generator of this data block
+        model = CaptioningTransformer(
+            num_tokens=VOCAB, hid_dim=HID, n_layers=TP_F32_LAYERS,
+            n_heads=HEADS, pf_dim=PF, max_len=50)
+        logdir = os.path.join(outdir, f"train{rank}")
+        plain_losses, plain_params, grad = tp_train_losses(
+            model, dev, logdir, None,
+            shard_generator(torch.Generator(dev).manual_seed(13), mesh))
+        print(f"rank {rank}: one card's steps {plain_losses}", flush=True)
+        tp_losses, tp_params, _ = tp_train_losses(
+            model, dev, logdir, mesh, torch.Generator(dev).manual_seed(13))
+        out["train"] = {"plain": plain_losses, "tp": tp_losses,
+                        "dropout": [model.enc_dropout, model.dec_dropout]}
+        out["params"] = param_gaps(flatten_tree(plain_params),
+                                   flatten_tree(tp_params), grad)
+        print(f"rank {rank}: train {out['train']}", flush=True)
+        with open(os.path.join(outdir, f"tp{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_tp_mesh(CaptioningTransformer, _build, modules, dev, name_limit,
+                  logdir):
+    """``--mesh-ranks``' tensor-parallel part: a data N/2 x model 2 NCCL
+    mesh, one rank per card. ``tp_generate`` at the word leg (batch
+    BATCH) beside one card's call, and the DP x TP train step (bf16, batch
+    T_BATCH) beside the data-parallel step over every card. Returns the
+    launches of its tp_generate run and its numbers."""
+    import torch.distributed as dist
+
+    from deephumor_tpu_torch.data.dataloaders import BatchIterator
+    from deephumor_tpu_torch.experiments.trainer import Trainer
+    from deephumor_tpu_torch.parallel import (make_mesh, make_param_shardings,
+                                              place_train_state, replicate)
+
+    mesh = make_mesh("cuda", model=2)
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    out = {"mesh": shape}
+    model, params = make_model(CaptioningTransformer, "bfloat16", dev, False)
+    tp = make_param_shardings(params, mesh)
+    enc = features(BATCH, dev, 4)
+    kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K, temperature=1.0,
+              sampler="pallas")
+    model.generate_from_emb(tp, enc, **kw)  # warm-up
+    hits, restore = twin_guard(modules)
+    _build.reset_launch_counts()
+    try:
+        greedy = model.generate_from_emb(tp, enc, greedy=True, **kw)
+        sampled = [model.generate_from_emb(
+            tp, enc, generator=torch.Generator(dev).manual_seed(5), **kw)
+            for _ in range(2)]
+    finally:
+        restore()
+    launches = dict(_build.LAUNCHES)
+    for o in (greedy, *sampled):
+        check_output(o, BATCH, VOCAB, BEAM, MAX_LEN)
+    whole = model.generate_from_emb(params, enc, greedy=True, **kw)
+    share = (greedy["chosen"] == whole["chosen"]).all(dim=1).float()
+    share = share.mean().item()
+    repeat = all(torch.equal(sampled[0][k], sampled[1][k])
+                 for k in ("sequences", "chosen", "scores"))
+    word = ("ancestry_attention_update", "grouped_cross_attention",
+            "fused_topk_gumbel_sample")
+    missing = [k for k in word if launches[k] < 1]
+    extra = [k for k, v in launches.items() if v and k not in word]
+    log(f"  tp_generate over {shape}, batch {BATCH} (greedy, then sampled "
+        f"twice with seed 5): greedy token-equal to one card's call on "
+        f"{share:.4f} of items (>= {TP_GREEDY_SHARE}); sampled calls equal: "
+        f"{repeat}; launches {launches}; twins on the card "
+        f"{sorted(set(hits))}")
+    if missing or extra or hits or not repeat or share < TP_GREEDY_SHARE:
+        raise AssertionError(f"tp_generate over the cards: not launched "
+                             f"{missing}, off the path {extra}, twins "
+                             f"{sorted(set(hits))}, repeat {repeat}, greedy "
+                             f"share {share}")
+    secs = {"plain": [], "tp_generate": []}
+    for i, label in enumerate(("plain", "tp_generate") * 2
+                              + ("tp_generate", "plain") * 2):
+        g = torch.Generator(dev).manual_seed(30 + i)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate_from_emb(tp if label == "tp_generate" else params,
+                                enc, generator=g, **kw)
+        torch.cuda.synchronize()
+        secs[label].append((time.perf_counter() - t0) * 1e3)
+    out.update(greedy_share=share, generate_ms=secs)
+    log(f"  sampled call, batch {BATCH} ({name_limit}): tp_generate "
+        f"{[round(x, 1) for x in secs['tp_generate']]} ms, one card's "
+        f"generate_from_emb {[round(x, 1) for x in secs['plain']]} ms")
+    del tp, enc, greedy, sampled, whole
+
+    tmodel = CaptioningTransformer(num_tokens=VOCAB, hid_dim=HID,
+                                   n_layers=LAYERS, n_heads=HEADS,
+                                   pf_dim=PF, max_len=50)
+    ds, _ = memory_set(T_BATCH * P_STEPS, T_TEMPLATES, VOCAB, 11)
+    rows = {f"t{i:03d}": i for i in range(T_TEMPLATES)}
+    loader = list(BatchIterator(ds, T_BATCH, max_caption_len=T_CAP + 1,
+                                seed=0, image_rows=rows))[:P_STEPS]
+    cache = torch.randn(T_TEMPLATES, 7, 7, 2048, device=dev,
+                        generator=torch.Generator(dev).manual_seed(12))
+    out["train"] = {}
+    for label, m in (("dp", make_mesh("cuda")), ("dp_x_tp", mesh)):
+        trainer = Trainer(tmodel, f"tp_{label}", log_dir=logdir,
+                          compute_dtype="bfloat16", device=dev,
+                          log_flush_every=1)
+        state = trainer.init_state(torch.Generator(dev).manual_seed(0))
+        state = (replicate(state, m) if label == "dp"
+                 else place_train_state(state, m))
+        trainer._trunk_cache = cache
+        state, ms, wall, peak = train_epoch_timed(
+            trainer, state, loader, torch.Generator(dev).manual_seed(13), m)
+        med = float(np.median(ms[P_WARM:]))
+        out["train"][label] = {"step_ms": ms, "step_ms_median": med,
+                               "peak_mem_gib": peak / 2**30}
+        log(f"  word train, bf16, batch {T_BATCH}, {len(ms)} steps, "
+            f"{label} over {dict(zip(m.mesh_dim_names, m.shape))} "
+            f"({name_limit}): median step {med:.2f} ms (all: "
+            f"{[round(x, 2) for x in ms]}), peak {peak / 2**30:.2f} GiB")
+        trainer.close()
+        del trainer, state
+    return launches, out
+
+
+def mesh_ranks(tp_only=False):
+    """``--mesh-ranks``, one process per card under ``torchrun``: [14]'s
+    data N/2 x model 2 part, then [13]'s checks and timings over every
+    rank (module docstring); ``--mesh-ranks tp`` runs the [14] part
+    alone. Rank 0 builds the kernels while the others wait, then prints
+    the phases' numbers."""
     import torch.distributed as dist
 
     from deephumor_tpu_torch.models import CaptioningTransformer
@@ -2355,11 +2973,23 @@ def mesh_ranks():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()))
-    log(f"[13] parallel over {dist.get_world_size()} ranks, one per card: "
-        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | "
+    log(f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | "
         f"nvidia-smi: {name_limit} | torch {torch.__version__}")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as logdir:
+        log(f"[14] tensor parallel over {dist.get_world_size()} ranks, one "
+            f"per card: tp_generate and the DP x TP train step")
+        tp_launches, tp = check_tp_mesh(CaptioningTransformer, _build,
+                                        (A, C, E, S), dev, name_limit, logdir)
+        tp.update(launches=tp_launches, card=name_limit,
+                  seconds=time.perf_counter() - t0)
+        log("tensor parallel: " + json.dumps(tp))
+        if tp_only:
+            dist.destroy_process_group()
+            return
+        log(f"[13] parallel over {dist.get_world_size()} ranks, one per "
+            f"card")
+        t0 = time.perf_counter()
         launches, serving, out = check_parallel(
             CaptioningTransformer, tree_map, _build, (A, C, E, S), dev,
             name_limit, logdir)
@@ -2500,7 +3130,11 @@ def main():
     if sys.argv[1:2] == ["--cold-build"]:
         return cold_build()
     if sys.argv[1:2] == ["--mesh-ranks"]:
-        return mesh_ranks()
+        return mesh_ranks(sys.argv[2:3] == ["tp"])
+    if sys.argv[1:2] == ["--tp-rank"]:
+        return tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--tp"]:
+        return tp_only()
     from deephumor_tpu_torch.models import (CaptioningLSTM,
                                             CaptioningLSTMWithLabels,
                                             CaptioningTransformer,
@@ -2828,6 +3462,13 @@ def main():
     log("parallel: " + json.dumps(parallel))
     log(f"    parallel phase {time.perf_counter() - t0:.1f} s; elapsed "
         f"{time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    tp = run_tp_phase(A, S, dev, gen, rows, name_limit)
+    legs.update({f"tp_rank{r}": x
+                 for r, x in enumerate(tp.pop("launches_by_rank"))})
+    log("tensor parallel: " + json.dumps(tp))
+    log(f"    tensor-parallel phase {time.perf_counter() - t0:.1f} s; "
+        f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "ancestry_attention_update": (
@@ -2869,12 +3510,13 @@ def main():
             # counts; K1 at the char shape, p_eff 128; K2 and K9 at the
             # char shape, K9 beside K2 on the same rows; K3 at the char
             # shape, in f32, and torch.topk alone; K4 at C_LIVE live rows,
-            # beside F.linear + K3 and F.linear alone (partial yardsticks)
+            # beside F.linear + K3 and F.linear alone (partial yardsticks);
+            # [14]'s head-local shapes
             **{k: row[k] for k in (
                 "ms_pe128", "ms_leg", "ms_char_pe128", "ms_char",
                 "bound_ms_char", "k2_ms", "k2_ms_char", "ms_f32", "topk_ms",
                 "ms_live", "bound_ms_live", "linear_ms", "linear_k3_ms",
-                "linear_k3_ms_live") if k in row}})
+                "linear_k3_ms_live", "tp") if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {name_limit}")
     print(json.dumps({"ok": True, "device": {

@@ -21,11 +21,22 @@ each takes its rows (``parallel.shard_batch``); the loss, the perplexity
 and the batch-norm moments are normalised by the global batch; the
 gradients are summed over the data axis before the clip, so that the
 global norm, the clip and the Adam update are the single-device ones on
-every rank; dropout draws from a generator per rank; only rank 0 writes
-metrics and checkpoints.
+every rank; dropout draws from a generator per data block; only rank 0
+writes metrics and checkpoints. A state placed by
+``parallel.place_train_state`` on a mesh with a ``model`` axis (DP x TP)
+steps over each rank's local shards: the transformers' forward runs its
+heads and pf units with the model-axis collectives
+(models/transformer.py), the gradients of the local shards are summed
+over the data axis only, the clip's global norm counts each sharded
+leaf's squares summed over the model axis and each replicated leaf's
+once, and Adam updates the local shards and their moments.
 
 The train state checkpoint is the JAX package's ``<path>.state.npz``
-layout, so either package resumes the other's: ``params/<flat JAX key>``,
+layout, so either package resumes the other's, and it does not depend on
+the layout: a placed state is gathered whole before it is written, and
+``restore_checkpoint`` returns plain tensors that the caller places on
+any mesh (``parallel.place_train_state``, ``parallel.replicate``) or on
+none. Its keys: ``params/<flat JAX key>``,
 ``step``, then ``opt/<i>``, the optimizer state's leaves in optax's order
 (Adam's int32 count, the first moment of every trainable leaf in JAX tree
 order, the second moments in the same order, and with a schedule the
@@ -47,6 +58,10 @@ import torch.distributed as dist
 from deephumor_tpu_torch.convert.jax_params import (params_from_jax,
                                                     params_to_jax)
 from deephumor_tpu_torch.experiments.metrics import masked_ce_and_perplexity
+from deephumor_tpu_torch.parallel.sharding import (gather_tree,
+                                                   is_model_sharded,
+                                                   local_tree, model_group,
+                                                   placed_mesh)
 from deephumor_tpu_torch.utils.pytree import (flatten_tree, tree_map,
                                               unflatten_tree)
 
@@ -136,15 +151,27 @@ class Adam:
                 "nu": {k: torch.zeros_like(flat[k]) for k in keys}}
 
     @torch.no_grad()
-    def update(self, leaves, grads, keys, opt_state):
+    def update(self, leaves, grads, keys, opt_state, model_group=None,
+               sharded=None):
         """Updates the trainable ``leaves`` (flat ``keys``) and the
         moments in place from ``grads``; returns the pre-clip global
-        norm, a device scalar."""
+        norm, a device scalar. With ``model_group`` the leaves, gradients
+        and moments are this rank's local shards (moments placed on a
+        mesh are read through their local tensors), and ``sharded`` marks
+        the leaves split over the group: their squares are summed over it,
+        the replicated leaves' counted once."""
         count = opt_state["count"]
-        mu = [opt_state["mu"][k] for k in keys]
-        nu = [opt_state["nu"][k] for k in keys]
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+        mu = [local_tree(opt_state["mu"][k]) for k in keys]
+        nu = [local_tree(opt_state["nu"][k]) for k in keys]
+        norms = torch.stack(torch._foreach_norm(grads))
+        if model_group is None:
+            norm = torch.linalg.vector_norm(norms)
+        else:
+            sq = norms * norms
+            split = torch.tensor(sharded, device=sq.device)
+            sq_split = torch.where(split, sq, 0.0).sum()
+            dist.all_reduce(sq_split, group=model_group)
+            norm = torch.sqrt(sq_split + torch.where(split, 0.0, sq).sum())
         scale = torch.where(norm < self.clip_norm, 1.0,
                             self.clip_norm / norm)
         grads = torch._foreach_mul(grads, scale)
@@ -213,6 +240,38 @@ def _all_reduce_sum(tensors, group):
     dist.all_reduce(flat, group=group)
     parts = flat.split([t.numel() for t in tensors])
     return [p.view_as(t).to(t.dtype) for p, t in zip(parts, tensors)]
+
+
+def _local_params(params):
+    """(this rank's local tree, the model axis's group) of a tree placed on
+    a mesh (``(params, None)`` for plain tensors); the group is None unless
+    a leaf is split over the model axis."""
+    if placed_mesh(params) is None:
+        return params, None
+    return local_tree(params), model_group(params)
+
+
+def _placed_like(placed, local):
+    """``local`` (a tree of local tensors from a step) placed as
+    ``placed``: leaves that are still ``placed``'s local tensors keep
+    their DTensor, new ones (batch-norm statistics) take its
+    placement."""
+    from torch.distributed.tensor import DTensor
+
+    def place(old, new):
+        if isinstance(old, dict):
+            return {k: place(old[k], new[k]) for k in new}
+        if isinstance(old, (list, tuple)):
+            return type(new)(place(o, n) for o, n in zip(old, new))
+        if not isinstance(old, DTensor):
+            return new
+        if local_tree(old) is new:
+            return old
+        return DTensor.from_local(new, old.device_mesh, old.placements,
+                                  run_check=False, shape=old.shape,
+                                  stride=old.stride())
+
+    return place(placed, local)
 
 
 def _leads(mesh):
@@ -393,12 +452,14 @@ class Trainer:
         return {k: i for i, k in enumerate(keys)}
 
     # -- steps ---------------------------------------------------------------
-    def _loss(self, params, batch, gen, train, group=None):
+    def _loss(self, params, batch, gen, train, group=None, model_group=None):
         """(loss, perplexity, new params) of one device batch. Rows that
         ``row_valid`` marks as padding become all-pad captions (out of the
         loss) and weigh 0 in the perplexity. With ``group`` (a mesh's data
         axis), the batch is this rank's shard and the results are its
-        share of the global batch's (``experiments/metrics.py``)."""
+        share of the global batch's (``experiments/metrics.py``); with
+        ``model_group``, ``params`` are this rank's tensor-parallel
+        shards."""
         pad = self.pad_index
         captions = batch["captions"]
         row_valid = batch.get("row_valid")
@@ -412,6 +473,8 @@ class Trainer:
             kwargs["from_trunk"] = True
         else:
             images = batch["images"]
+        if model_group is not None:
+            kwargs["model_group"] = model_group
         out = self._step_model.forward(params, images, captions[:, :-1],
                                        train=train, gen=gen, group=group,
                                        **kwargs)
@@ -426,13 +489,17 @@ class Trainer:
         dropout drawn from ``gen``; the encoder's batch-norm statistics
         come from the forward. With ``group`` (a mesh's data axis) the
         batch is this rank's shard: the gradients, the loss and the
-        perplexity are summed over the group before the clip. Returns
-        ``(state, metrics)``, the metrics device scalars."""
-        params = state["params"]
+        perplexity are summed over the group before the clip. A state
+        placed on a mesh with a model axis steps over its local shards
+        (module docstring). Returns ``(state, metrics)``, the metrics
+        device scalars."""
+        placed = state["params"]
+        params, model_group = _local_params(placed)
         flat = flatten_tree(params)
         keys = _trainable_paths(params)
         leaves = [flat[k].requires_grad_() for k in keys]
-        loss, pp, new_params = self._loss(params, batch, gen, True, group)
+        loss, pp, new_params = self._loss(params, batch, gen, True, group,
+                                          model_group)
         grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
                                          materialize_grads=True))
         loss, pp = loss.detach(), pp.detach()
@@ -441,14 +508,24 @@ class Trainer:
             # copies: as views, the metrics that run_epoch defers would
             # each keep the whole summed-gradient buffer alive
             loss, pp = loss.clone(), pp.clone()
-        norm = self._opt.update(leaves, grads, keys, state["opt_state"])
+        tp = {}
+        if model_group is not None:
+            flat_placed = flatten_tree(placed)
+            tp = {"model_group": model_group, "sharded": [
+                is_model_sharded(flat_placed[k]) for k in keys]}
+        norm = self._opt.update(leaves, grads, keys, state["opt_state"],
+                                **tp)
+        if params is not placed:
+            new_params = _placed_like(placed, new_params)
         state = {"params": new_params, "opt_state": state["opt_state"],
                  "step": state["step"] + 1}
         return state, {"loss": loss, "perplexity": pp, "grad_norm": norm}
 
     @torch.no_grad()
     def _eval_step(self, params, batch, group=None):
-        loss, pp, _ = self._loss(params, batch, None, False, group)
+        params, model_group = _local_params(params)
+        loss, pp, _ = self._loss(params, batch, None, False, group,
+                                 model_group)
         if group is not None:
             loss, pp = _all_reduce_sum([loss, pp], group)
         return {"loss": loss, "perplexity": pp}
@@ -476,13 +553,14 @@ class Trainer:
         ``torch.Generator`` on the device. Returns ``(state, mean loss,
         mean perplexity)``, each weighted by a batch's real rows.
 
-        With ``mesh`` (pure data-parallel, the state replicated on it),
-        every rank passes the same batches and ``gen``: each step takes
-        this rank's rows of the batch and sums the gradients over the
-        ``data`` axis before the clip; dropout draws from
-        ``parallel.mesh.shard_generator(gen, mesh)``; the returned and
-        logged loss and perplexity are the global batch's, and only rank
-        0 writes them."""
+        With ``mesh`` (the state replicated on it, or placed by
+        ``parallel.place_train_state`` for DP x TP), every rank passes the
+        same batches and ``gen``: each step takes this rank's rows of the
+        batch and sums the gradients over the ``data`` axis before the
+        clip; dropout draws from ``parallel.mesh.shard_generator(gen,
+        mesh)`` (one generator per data block); the returned and logged
+        loss and perplexity are the global batch's, and only rank 0
+        writes them."""
         is_train = phase == "train"
         writer = (self._writer(phase)
                   if phase in self.phases and _leads(mesh) else None)
@@ -558,12 +636,14 @@ class Trainer:
         val loss saved as ``<title>.best`` (``model.save``), and the train
         state as ``<title>.e<epoch>`` after each epoch. ``gen`` (default:
         seeded with 0 on the device) feeds every train step's dropout.
-        ``mesh``: data-parallel training over it (:meth:`run_epoch`); the
-        state should be replicated on it (``parallel.replicate``), and
-        only rank 0 prints and saves."""
+        ``mesh``: training over it (:meth:`run_epoch`); the state should
+        be replicated on it (``parallel.replicate``) or placed
+        (``parallel.place_train_state``), and only rank 0 prints and
+        saves (every rank gathers a placed state for it)."""
         if gen is None:
             gen = torch.Generator(self.device).manual_seed(0)
         leads = _leads(mesh)
+        placed = placed_mesh(state["params"]) is not None
         say = print if leads else (lambda *a, **k: None)
         best_epoch, best_val_loss = 0, float("inf")
         history = []
@@ -578,10 +658,12 @@ class Trainer:
                 say(f"  {phase:5s} loss: {loss:.5f}, perplexity: {pp:.3f}")
                 if phase == "val" and loss < best_val_loss:
                     best_epoch, best_val_loss = epoch, loss
+                    if leads or placed:
+                        best = gather_tree(state["params"])
                     if leads:
-                        self.model.save(state["params"], os.path.join(
+                        self.model.save(best, os.path.join(
                             self.experiment_dir, f"{self.title}.best"))
-            if save_every_epoch and leads:
+            if save_every_epoch and (leads or placed):
                 self.save_checkpoint(state, os.path.join(
                     self.experiment_dir, f"{self.title}.e{epoch}"))
             history.append(epoch_metrics)
@@ -593,7 +675,15 @@ class Trainer:
     def save_checkpoint(self, state, path):
         """Writes the train state as ``<path>.state.npz`` (+
         ``.state.json``, the model's hyperparameters), the JAX package's
-        layout."""
+        layout. A state placed on a mesh is gathered whole first, a
+        collective that every rank must join; rank 0 writes it."""
+        if placed_mesh(state["params"]) is not None:
+            opt = state["opt_state"]
+            state = dict(state, params=gather_tree(state["params"]),
+                         opt_state=dict(opt, mu=gather_tree(opt["mu"]),
+                                        nu=gather_tree(opt["nu"])))
+            if dist.get_rank() != 0:
+                return
         arrays = {f"params/{k}": v for k, v in flatten_tree(
             params_to_jax(state["params"])).items()}
         arrays["step"] = np.asarray(state["step"], np.int32)
@@ -607,7 +697,9 @@ class Trainer:
 
     def restore_checkpoint(self, path):
         """Reads ``<path>.state.npz``, written by either package, onto this
-        trainer's device."""
+        trainer's device: plain tensors, whatever layout saved them; place
+        them with ``parallel.place_train_state`` or ``parallel.replicate``
+        to resume on a mesh."""
         with np.load(f"{path}.state.npz") as z:
             flat = {k: z[k] for k in z.files}
         jax_params = unflatten_tree({k[len("params/"):]: v

@@ -33,7 +33,11 @@ Each model is a frozen dataclass of hyperparameters; its parameters are
 a nested dict of tensors (``init``, ``from_pretrained``), on the card
 unless the caller asks for the CPU. Generation runs where the parameters
 live: on a CUDA device the decode path goes through the hand-written
-kernels, on the CPU through their plain twins.
+kernels, on the CPU through their plain twins. Parameters placed on a
+``data x model`` mesh (``parallel.make_param_shardings``: DTensors) make
+``generate_from_emb`` run ``parallel.tp_generate``: each rank decodes its
+data block over its local shards (``model_group``, see
+models/transformer.py).
 """
 
 import dataclasses
@@ -57,6 +61,7 @@ from deephumor_tpu_torch.models.lstm import (lstm_decoder_forward,
 from deephumor_tpu_torch.models.sampling import beam_search
 from deephumor_tpu_torch.ops.attention import MASK_FILL
 from deephumor_tpu_torch.ops.engine import fused_survivor_update
+from deephumor_tpu_torch.parallel.sharding import local_tree, placed_mesh
 from deephumor_tpu_torch.utils.pytree import (load_params, save_params,
                                               tree_map)
 
@@ -75,6 +80,16 @@ def _check_sampler(sampler):
     if sampler not in _SAMPLERS:
         raise ValueError(f"sampler must be one of {_SAMPLERS}")
     return sampler
+
+
+def _tp_generate(model, params, enc, kwargs):
+    """``generate_from_emb`` of a tree placed on a mesh: runs
+    ``parallel.tp_generate`` (which calls back with the local shards)."""
+    from deephumor_tpu_torch.parallel.mesh import tp_generate
+
+    kwargs = dict(kwargs)
+    return tp_generate(model, params, enc, placed_mesh(params),
+                       generator=kwargs.pop("generator"), **kwargs)
 
 
 def _cast(tree, dtype_name):
@@ -189,12 +204,14 @@ class CaptioningLSTM(_Captioner):
         return image_encoder_trunk(params["encoder"], images)
 
     def forward(self, params, images, captions, lengths=None, train=False,
-                gen=None, from_trunk=False, group=None):
+                gen=None, from_trunk=False, group=None, model_group=None):
         """Teacher-forced logits ``[bs, T+1, num_tokens]`` of ``captions
         [bs, T]`` (the image embedding is step 0). In train mode, with
         dropout drawn from ``gen``, returns ``(logits, new_params)``;
         ``group`` (a mesh's data axis, of whose global batch this is a
-        shard) pools the encoder's batch-norm moments.
+        shard) pools the encoder's batch-norm moments. ``model_group`` is
+        taken for the transformers' signature: an LSTM has no sharded
+        leaf, and every rank of the model axis runs it whole.
         ``lengths`` is not needed: a one-way LSTM's outputs before each
         length are the same with or without the reference's packing."""
         return self._forward(
@@ -240,14 +257,21 @@ class CaptioningLSTM(_Captioner):
     def generate_from_emb(self, params, emb, generator=None, caption=None,
                           max_len=25, temperature=1.0, beam_size=10,
                           top_k=50, eos_index=EOS, greedy=False,
-                          sampler=None):
+                          sampler=None, model_group=None):
         """Batched generation from (possibly cached) image embeddings
         ``[B, emb_dim]``; arguments and result as
         :meth:`CaptioningTransformer.generate_from_emb` (no phases, no
         compaction: the state is a few rows per branch). With
         ``sampler="pallas"`` the steps return hidden states and the draw
         runs the classifier: inside K4 up to V = 16384, as a bf16 product
-        before K3 above it."""
+        before K3 above it. A tree placed on a mesh runs
+        ``parallel.tp_generate``; the LSTM has no sharded leaf, so every
+        rank of the model axis runs it whole (``model_group`` is unused)."""
+        if placed_mesh(params) is not None:
+            return _tp_generate(self, params, emb, dict(
+                generator=generator, caption=caption, max_len=max_len,
+                temperature=temperature, beam_size=beam_size, top_k=top_k,
+                eos_index=eos_index, greedy=greedy, sampler=sampler))
         sampler = _check_sampler(sampler)
         if generator is None:
             generator = torch.Generator(emb.device).manual_seed(0)
@@ -274,10 +298,10 @@ class CaptioningLSTM(_Captioner):
         """Batched caption generation from NHWC images ``[B, H, W, 3]``
         (ImageNet-normalized); arguments as :meth:`generate_from_emb`."""
         return self.generate_from_emb(
-            params, self.encode(params, images), generator=generator,
-            caption=caption, max_len=max_len, temperature=temperature,
-            beam_size=beam_size, top_k=top_k, eos_index=eos_index,
-            greedy=greedy, sampler=sampler)
+            params, self.encode(local_tree(params), images),
+            generator=generator, caption=caption, max_len=max_len,
+            temperature=temperature, beam_size=beam_size, top_k=top_k,
+            eos_index=eos_index, greedy=greedy, sampler=sampler)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,7 +329,8 @@ class CaptioningLSTMWithLabels(CaptioningLSTM):
         return image_encoder_trunk(params["encoder"]["image_encoder"], images)
 
     def forward(self, params, images, captions, lengths=None, labels=None,
-                train=False, gen=None, from_trunk=False, group=None):
+                train=False, gen=None, from_trunk=False, group=None,
+                model_group=None):
         """As :meth:`CaptioningLSTM.forward`, conditioned on the label
         tokens ``labels [bs, n]`` too."""
         return self._forward(
@@ -328,10 +353,10 @@ class CaptioningLSTMWithLabels(CaptioningLSTM):
         """Batched caption generation from NHWC images and label tokens;
         arguments as :meth:`generate_from_emb`."""
         return self.generate_from_emb(
-            params, self.encode(params, images, labels), generator=generator,
-            caption=caption, max_len=max_len, temperature=temperature,
-            beam_size=beam_size, top_k=top_k, eos_index=eos_index,
-            greedy=greedy, sampler=sampler)
+            params, self.encode(local_tree(params), images, labels),
+            generator=generator, caption=caption, max_len=max_len,
+            temperature=temperature, beam_size=beam_size, top_k=top_k,
+            eos_index=eos_index, greedy=greedy, sampler=sampler)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -375,10 +400,12 @@ class CaptioningTransformerBase(_Captioner):
         return image_encoder_trunk(params["encoder"], images)
 
     def forward(self, params, images, captions, lengths=None, train=False,
-                gen=None, from_trunk=False, group=None):
+                gen=None, from_trunk=False, group=None, model_group=None):
         """Teacher-forced logits ``[bs, T+1, num_tokens]`` of ``captions
         [bs, T]`` after the global image embedding; in train mode
-        ``(logits, new_params)``, as :meth:`CaptioningLSTM.forward`."""
+        ``(logits, new_params)``, as :meth:`CaptioningLSTM.forward`.
+        ``model_group``: ``params`` holds this rank's tensor-parallel
+        shards (models/transformer.py)."""
         return self._forward(
             params, image_encoder_apply(
                 params["encoder"], images, dropout=self.enc_dropout,
@@ -386,7 +413,7 @@ class CaptioningTransformerBase(_Captioner):
             train,
             lambda dec, emb: tfm.self_attn_decoder_forward(
                 dec, captions, emb, self.n_heads, self.pad_index,
-                self.dec_dropout, train, gen))
+                self.dec_dropout, train, gen, model_group))
 
     @torch.inference_mode()
     def encode(self, params, images):
@@ -395,7 +422,7 @@ class CaptioningTransformerBase(_Captioner):
         return image_encoder_apply(params["encoder"], images)
 
     def _prefill(self, dec, start_emb, prefix, max_positions, cross=None,
-                 enc_key_mask=None):
+                 enc_key_mask=None, model_group=None):
         """Feeds the start embedding (and the prefix tokens) through
         ``decode_step``: the first draw's logits and the cache state."""
         bs = start_emb.shape[0]
@@ -406,7 +433,7 @@ class CaptioningTransformerBase(_Captioner):
         valid[:, 0] = True
         logits, cache = tfm.decode_step(
             dec, start_emb / scale, 0, cache, valid, self.n_heads, cross,
-            enc_key_mask)
+            enc_key_mask, model_group=model_group)
         pos = 1
         for i in range(0 if prefix is None else prefix.shape[1]):
             tok = prefix[:, i]
@@ -414,17 +441,18 @@ class CaptioningTransformerBase(_Captioner):
             emb = L.embed(dec["tok_embedding"], tok) / scale
             logits, cache = tfm.decode_step(
                 dec, emb, pos, cache, valid, self.n_heads, cross,
-                enc_key_mask)
+                enc_key_mask, model_group=model_group)
             pos += 1
         return logits, {"cache": cache, "valid": valid, "pos": pos}
 
     def _prefill_and_state(self, dec, enc, prefix, max_positions,
-                           pad_to_tile=False):
+                           pad_to_tile=False, model_group=None):
         """(first logits, decoder state, per-item constants or None)."""
-        return (*self._prefill(dec, enc, prefix, max_positions), None)
+        return (*self._prefill(dec, enc, prefix, max_positions,
+                               model_group=model_group), None)
 
     def _make_step(self, dec, consts, p_eff, return_hidden, canon_c=None,
-                   pack_items=None):
+                   pack_items=None, model_group=None):
         scale = math.sqrt(self.hid_dim)
 
         def step(state, tokens):
@@ -450,7 +478,7 @@ class CaptioningTransformerBase(_Captioner):
                 p_eff=p_eff, return_hidden=return_hidden,
                 live_items=state.get("live"), canon=canon,
                 cross_t_real=src.get("cross_t_real"),
-                pack_items=pack_items)
+                pack_items=pack_items, model_group=model_group)
             return out, dict(state, cache=cache, pos=pos + 1)
 
         return step
@@ -556,7 +584,7 @@ class CaptioningTransformerBase(_Captioner):
 
     def _generate_impl(self, params, enc, gen, caption, temperature, *,
                        max_len, beam_size, top_k, greedy, eos_index,
-                       sampler, compact=None, canon=None):
+                       sampler, compact=None, canon=None, model_group=None):
         dec, enc = _cast((params["decoder"], enc), self.compute_dtype)
         prefix_len = 0 if caption is None else caption.shape[1]
         max_positions = max_len + 1
@@ -567,7 +595,8 @@ class CaptioningTransformerBase(_Captioner):
         pack_items = int(os.environ.get("DH_CROSS_PACK", "0") or 0)
         fused_survivor = os.environ.get("DH_FUSED_SURVIVOR") == "1"
         logits, state, consts = self._prefill_and_state(
-            dec, enc, caption, max_positions, pad_to_tile=pack_items > 1)
+            dec, enc, caption, max_positions, pad_to_tile=pack_items > 1,
+            model_group=model_group)
         # decoder state is tiled per beam (item-major rows); the
         # cross-attention K/V stay per item
         state["cache"] = [{k: v.repeat_interleave(beam_size, 0)
@@ -615,11 +644,11 @@ class CaptioningTransformerBase(_Captioner):
         p_last = min(p_cache, -(-(prefix_len + steps) // 8) * 8)
         phases = [(pe - prefix_len - 1,
                    self._make_step(dec, consts, pe, classifier is not None,
-                                   canon_cs[k], pack_items))
+                                   canon_cs[k], pack_items, model_group))
                   for k, pe in enumerate(pes)]
         phases.append((steps - 1, self._make_step(
             dec, consts, p_last, classifier is not None, canon_cs[-1],
-            pack_items)))
+            pack_items, model_group)))
         # boundaries: compaction at pe = 24, 48, 96, ... (each pass gathers
         # the cache prefix, so they are sparse), canonicalisation before
         # every canon phase, after the compaction of the same boundary so
@@ -681,7 +710,8 @@ class CaptioningTransformerBase(_Captioner):
     def generate_from_emb(self, params, enc, generator=None, caption=None,
                           max_len=25, temperature=1.0, beam_size=10,
                           top_k=50, eos_index=EOS, greedy=False,
-                          sampler=None, compact=None, canon=None):
+                          sampler=None, compact=None, canon=None,
+                          model_group=None):
         """Batched generation from (possibly cached) ``encode`` output.
 
         Args:
@@ -697,6 +727,12 @@ class CaptioningTransformerBase(_Captioner):
                 at least 32 items and 64 steps.
             canon: canonical-prefix attention; None (default) is on, and it
                 engages only in phases with p_eff >= 48.
+            model_group: the ``model`` axis's process group when
+                ``params`` holds this rank's tensor-parallel shards (as
+                ``parallel.tp_generate`` passes them; models/transformer.py).
+                Parameters placed on a mesh (DTensors) run
+                ``parallel.tp_generate`` instead, with ``enc`` the whole
+                batch on every rank or data-sharded DTensors.
 
         Two environment variables, read at each call, select kernels as in
         the JAX package: ``DH_CROSS_PACK=<ng>`` runs decode
@@ -713,6 +749,12 @@ class CaptioningTransformerBase(_Captioner):
             it, ``live`` items after its compaction, ``stragglers`` of its
             canon set-up; None where that part did not run).
         """
+        if placed_mesh(params) is not None:
+            return _tp_generate(self, params, enc, dict(
+                generator=generator, caption=caption, max_len=max_len,
+                temperature=temperature, beam_size=beam_size, top_k=top_k,
+                eos_index=eos_index, greedy=greedy, sampler=sampler,
+                compact=compact, canon=canon))
         sampler = _check_sampler(sampler)
         if generator is None:
             generator = torch.Generator(params["decoder"]["classifier"][
@@ -723,7 +765,7 @@ class CaptioningTransformerBase(_Captioner):
             params, enc, generator, caption, temperature, max_len=max_len,
             beam_size=beam_size, top_k=top_k, greedy=greedy,
             eos_index=eos_index, sampler=sampler, compact=compact,
-            canon=canon)
+            canon=canon, model_group=model_group)
 
     def generate(self, params, images, generator=None, caption=None,
                  max_len=25, temperature=1.0, beam_size=10, top_k=50,
@@ -732,10 +774,11 @@ class CaptioningTransformerBase(_Captioner):
         """Batched caption generation from NHWC images ``[B, H, W, 3]``
         (ImageNet-normalized); arguments as :meth:`generate_from_emb`."""
         return self.generate_from_emb(
-            params, self.encode(params, images), generator=generator,
-            caption=caption, max_len=max_len, temperature=temperature,
-            beam_size=beam_size, top_k=top_k, eos_index=eos_index,
-            greedy=greedy, sampler=sampler, compact=compact, canon=canon)
+            params, self.encode(local_tree(params), images),
+            generator=generator, caption=caption, max_len=max_len,
+            temperature=temperature, beam_size=beam_size, top_k=top_k,
+            eos_index=eos_index, greedy=greedy, sampler=sampler,
+            compact=compact, canon=canon)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -746,12 +789,13 @@ class CaptioningTransformer(CaptioningTransformerBase):
     cross_attention = True
 
     def forward(self, params, images, captions, lengths=None, train=False,
-                gen=None, from_trunk=False, group=None):
+                gen=None, from_trunk=False, group=None, model_group=None):
         """Teacher-forced logits ``[bs, max(T+1, 49), num_tokens]`` of
         ``captions [bs, T]``, with the reference's pad-to-common-length
         quirk (``transformer_decoder_forward``: the loss slices the first
         T+1 positions); in train mode ``(logits, new_params)``, as
-        :meth:`CaptioningLSTM.forward`."""
+        :meth:`CaptioningLSTM.forward`; ``model_group`` as in
+        :meth:`CaptioningTransformerBase.forward`."""
         return self._forward(
             params, image_encoder_apply(
                 params["encoder"], images, spatial_features=True,
@@ -759,7 +803,7 @@ class CaptioningTransformer(CaptioningTransformerBase):
                 from_trunk=from_trunk, group=group), train,
             lambda dec, enc: tfm.transformer_decoder_forward(
                 dec, captions, enc[1], enc[0], self.n_heads, self.pad_index,
-                self.dec_dropout, train, gen))
+                self.dec_dropout, train, gen, model_group))
 
     @torch.inference_mode()
     def encode(self, params, images):
@@ -769,7 +813,7 @@ class CaptioningTransformer(CaptioningTransformerBase):
                                    spatial_features=True)
 
     def _prefill_and_state(self, dec, enc, prefix, max_positions,
-                           pad_to_tile=False):
+                           pad_to_tile=False, model_group=None):
         start_emb, spatial = enc
         # packed cross-attention (K9) reads a store padded to 8 rows;
         # decode_step widens the mask and K9 skips rows past cross_t_real
@@ -777,7 +821,7 @@ class CaptioningTransformer(CaptioningTransformerBase):
         # the reference masks encoder rows holding a zero
         enc_key_mask = ~(spatial != 0.0).all(dim=-1)
         logits, state = self._prefill(dec, start_emb, prefix, max_positions,
-                                      cross, enc_key_mask)
+                                      cross, enc_key_mask, model_group)
         return logits, state, {"cross": cross, "enc_key_mask": enc_key_mask,
                                "cross_t_real": spatial.shape[1]}
 

@@ -27,11 +27,27 @@ asks for packing over a tile-padded store, in K9
 (``self_attn_decoder_init``, CaptioningTransformerBase) has no
 cross-attention: its layers carry no ``enc_attn`` and ``decode_step`` takes
 ``cross=None``. On CPU tensors every kernel runs its plain twin.
+
+Tensor parallelism (Megatron-style, explicit collectives): given a
+``model_group``, the parameter tree holds this rank's shards of the
+``model`` mesh axis (``parallel/sharding.py``): fc_q, fc_k, fc_v and fc_1
+column-parallel (its heads, its pf units), fc_o and fc_2 row-parallel. The
+attention runs over the rank's ``n_heads / model`` heads (caches and the
+cross store are ``D / model`` wide), each row-parallel product is formed
+without its bias, summed over the group in f32 (one ``all_reduce``), and
+the replicated bias, the residual and the layer norm follow. In training
+the column-parallel inputs pass through an identity whose backward sums
+the gradient over the group, and the dropout on the attention weights and
+on the pf units draws the whole layer's mask and keeps the rank's slice
+(the ranks of a group share their generator), so a group applies one
+card's masks. ``model_group=None`` (one card, or a tree of whole weights)
+runs none of it.
 """
 
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from deephumor_tpu_torch.models import layers as L
@@ -46,6 +62,83 @@ __all__ = ["mha_apply", "pff_apply", "get_pad_mask",
            "transformer_decoder_forward", "self_attn_decoder_init",
            "self_attn_decoder_forward", "init_cache",
            "precompute_cross_attention", "decode_step"]
+
+
+class _ModelCopy(torch.autograd.Function):
+    """The input of a column-parallel product: the identity forward; the
+    backward sums the gradient over the model group (each rank's heads
+    give only their share of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ModelSum(torch.autograd.Function):
+    """The partial products of a row-parallel layer summed over the model
+    group; the backward is the identity (the summed output is replicated,
+    and so is its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        # x is the fresh partial product, reduced where it lies
+        ctx.mark_dirty(x)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def local_heads(n_heads, model_group):
+    """The heads one rank of ``model_group`` holds (all of them without a
+    group)."""
+    if model_group is None:
+        return n_heads
+    m = dist.get_world_size(model_group)
+    if n_heads % m:
+        raise ValueError(f"{n_heads} heads do not split over a model axis "
+                         f"of {m}")
+    return n_heads // m
+
+
+def _col_input(x, model_group):
+    return x if model_group is None else _ModelCopy.apply(x, model_group)
+
+
+def _col_dropout(gen, x, rate, train, model_group, dim):
+    """Dropout on a column-parallel activation (``dim``: its heads or pf
+    units): over a model group, the mask is drawn at the whole layer's
+    shape and this rank's slice of it taken, so the group's ranks, which
+    share ``gen``, together apply one card's mask."""
+    if model_group is None or not train or rate == 0.0:
+        return L.dropout(gen, x, rate, train)
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * dist.get_world_size(model_group)
+    keep = 1.0 - rate
+    mask = torch.rand(shape, generator=gen, device=x.device).narrow(
+        dim, n * dist.get_rank(model_group), n) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def _row_linear(params, x, model_group):
+    """A row-parallel linear (fc_o, fc_2): over a model group, the partial
+    product without the bias, summed over the group in f32, then the
+    replicated bias, rounded once to ``x``'s dtype."""
+    if model_group is None:
+        return L.linear(params, x)
+    part = _ModelSum.apply(F.linear(x, params["weight"]).float(),
+                           model_group)
+    return (part + params["bias"].float()).to(x.dtype)
 
 
 def _mha_init(gen, d, device):
@@ -94,32 +187,46 @@ def self_attn_decoder_init(gen, num_tokens, hid_dim=512, n_layers=6,
 
 
 def mha_apply(params, query, key, value, n_heads, mask=None, dropout=0.0,
-              train=False, gen=None):
+              train=False, gen=None, model_group=None):
     """Multi-head attention of ``query [bs, Tq, D]`` over ``key, value
     [bs, Tk, D]``; ``mask`` bool ``[bs, Tq, Tk]``, True = masked (filled
     with -1e8 before the softmax). In train mode the attention weights
-    take ``dropout``."""
-    bs, tq, d = query.shape
-    hd = d // n_heads
+    take ``dropout``. With ``model_group`` the projections are this
+    rank's shards and it attends over its ``n_heads / model`` heads
+    (module docstring)."""
+    bs, tq, _ = query.shape
+    heads = local_heads(n_heads, model_group)
+    if model_group is not None:
+        # one group-summed gradient per distinct input
+        q_in = _col_input(query, model_group)
+        k_in = q_in if key is query else _col_input(key, model_group)
+        value = k_in if value is key else _col_input(value, model_group)
+        query, key = q_in, k_in
+    q = L.linear(params["fc_q"], query)
+    d = q.shape[-1]
+    hd = d // heads
 
     def split(x):
-        return x.reshape(bs, x.shape[1], n_heads, hd).transpose(1, 2)
+        return x.reshape(bs, x.shape[1], heads, hd).transpose(1, 2)
 
-    q = split(L.linear(params["fc_q"], query))
+    q = split(q)
     k = split(L.linear(params["fc_k"], key))
     v = split(L.linear(params["fc_v"], value))
     energy = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
     if mask is not None:
         energy = energy.masked_fill(mask[:, None], MASK_FILL)
-    attn = L.dropout(gen, torch.softmax(energy, dim=-1), dropout, train)
+    attn = _col_dropout(gen, torch.softmax(energy, dim=-1), dropout, train,
+                        model_group, 1)
     out = (attn @ v).transpose(1, 2).reshape(bs, tq, d)
-    return L.linear(params["fc_o"], out)
+    return _row_linear(params["fc_o"], out, model_group)
 
 
-def pff_apply(params, x, dropout=0.0, train=False, gen=None):
-    h = L.dropout(gen, torch.relu(L.linear(params["fc_1"], x)), dropout,
-                  train)
-    return L.linear(params["fc_2"], h)
+def pff_apply(params, x, dropout=0.0, train=False, gen=None,
+              model_group=None):
+    h = _col_dropout(gen, torch.relu(L.linear(
+        params["fc_1"], _col_input(x, model_group))), dropout, train,
+        model_group, -1)
+    return _row_linear(params["fc_2"], h, model_group)
 
 
 def get_pad_mask(query_ids, key_ids, pad_index=0):
@@ -136,20 +243,21 @@ def get_autoregressive_mask(bs, seq_len, device):
 
 
 def _decoder_layer_apply(params, x, n_heads, enc_out=None, input_mask=None,
-                         enc_mask=None, dropout=0.0, train=False, gen=None):
+                         enc_mask=None, dropout=0.0, train=False, gen=None,
+                         model_group=None):
     """One post-LN block: self-attention, cross-attention where the layer
     has it, feed-forward; each sublayer's output takes ``dropout`` before
     its residual add in train mode."""
     attn = mha_apply(params["self_attn"], x, x, x, n_heads, input_mask,
-                     dropout, train, gen)
+                     dropout, train, gen, model_group)
     x = L.layer_norm(params["self_attn_ln"],
                      x + L.dropout(gen, attn, dropout, train))
     if "enc_attn" in params:
         attn = mha_apply(params["enc_attn"], x, enc_out, enc_out, n_heads,
-                         enc_mask, dropout, train, gen)
+                         enc_mask, dropout, train, gen, model_group)
         x = L.layer_norm(params["enc_attn_ln"],
                          x + L.dropout(gen, attn, dropout, train))
-    ff = pff_apply(params["pf"], x, dropout, train, gen)
+    ff = pff_apply(params["pf"], x, dropout, train, gen, model_group)
     return L.layer_norm(params["pf_ln"], x + L.dropout(gen, ff, dropout,
                                                       train))
 
@@ -227,7 +335,7 @@ def _decoder_input(params, tokens, start_emb, pad_index, dropout, train,
 
 def transformer_decoder_forward(params, tokens, enc_out, start_emb, n_heads,
                                 pad_index=0, dropout=0.0, train=False,
-                                gen=None):
+                                gen=None, model_group=None):
     """Teacher-forced forward with cross-attention, as the reference runs
     it: the tokens ``[bs, T]`` (after the start embedding ``[bs, D]`` at
     position 0) and the encoder rows ``enc_out [bs, T_enc, D]`` are padded
@@ -235,6 +343,9 @@ def transformer_decoder_forward(params, tokens, enc_out, start_emb, n_heads,
     key only if every element of it is non-zero (taken after the padding,
     in the decoder's dtype). Raises ``ValueError`` when the positional
     table is shorter than the padded sequence.
+
+    ``model_group``: the tree holds this rank's tensor-parallel shards
+    (module docstring).
 
     Returns logits ``[bs, max(T + 1, T_enc), num_tokens]``.
     """
@@ -255,38 +366,42 @@ def transformer_decoder_forward(params, tokens, enc_out, start_emb, n_heads,
     enc_mask = get_pad_mask(ids, enc_valid, pad_index)
     for layer in params["layers"]:
         x = _decoder_layer_apply(layer, x, n_heads, enc_out, input_mask,
-                                 enc_mask, dropout, train, gen)
+                                 enc_mask, dropout, train, gen, model_group)
     return L.linear(params["classifier"], x)
 
 
 def self_attn_decoder_forward(params, tokens, start_emb, n_heads,
                               pad_index=0, dropout=0.0, train=False,
-                              gen=None):
+                              gen=None, model_group=None):
     """Teacher-forced forward of the decoder-only stack: logits
-    ``[bs, T + 1, num_tokens]``."""
+    ``[bs, T + 1, num_tokens]``; ``model_group`` as in
+    :func:`transformer_decoder_forward`."""
     x, _, input_mask = _decoder_input(params, tokens, start_emb, pad_index,
                                       dropout, train, gen)
     for layer in params["layers"]:
         x = _decoder_layer_apply(layer, x, n_heads, input_mask=input_mask,
-                                 dropout=dropout, train=train, gen=gen)
+                                 dropout=dropout, train=train, gen=gen,
+                                 model_group=model_group)
     return L.linear(params["classifier"], x)
 
 
 def init_cache(params, bs, max_positions, dtype=torch.float32):
     """Per-layer K/V caches ``[bs, P, D]``, P = max_positions rounded up to
-    a multiple of 8 (the tail is never written and always masked)."""
-    table = params["tok_embedding"]["weight"]
+    a multiple of 8 (the tail is never written and always masked). D is
+    the width of the layers' fc_k: ``D / model`` for a tree of
+    tensor-parallel shards."""
+    width = params["layers"][0]["self_attn"]["fc_k"]["weight"].shape[0]
+    dev = params["tok_embedding"]["weight"].device
     p = -(-max_positions // 8) * 8
-    return [{"k": torch.zeros((bs, p, table.shape[1]), dtype=dtype,
-                              device=table.device),
-             "v": torch.zeros((bs, p, table.shape[1]), dtype=dtype,
-                              device=table.device)}
+    return [{"k": torch.zeros((bs, p, width), dtype=dtype, device=dev),
+             "v": torch.zeros((bs, p, width), dtype=dtype, device=dev)}
             for _ in params["layers"]]
 
 
 def precompute_cross_attention(params, enc_out, pad_to_tile=False):
     """Per-layer cross-attention keys/values over the fixed encoder output
-    ``[G, T, D]``, computed once per generation.
+    ``[G, T, D]``, computed once per generation (``[G, T, D / model]`` from
+    a tree of tensor-parallel shards: the rank's heads).
 
     ``pad_to_tile`` zero-pads T up to a multiple of 8, the store that the
     packed cross-attention (K9) takes; :func:`decode_step` then masks the
@@ -318,7 +433,7 @@ def _cached_attention(q, cache_k, cache_v, n_heads, key_mask):
 def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
                 n_heads, cross=None, enc_key_mask=None, anc=None, p_eff=None,
                 return_hidden=False, live_items=None, canon=None,
-                cross_t_real=None, pack_items=None):
+                cross_t_real=None, pack_items=None, model_group=None):
     """One incremental decode position; writes K/V at ``pos`` in place.
 
     Args:
@@ -356,11 +471,18 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
             block where the JAX package's packed kernel would run: above
             1, dividing the groups, T and ``n_heads * rows per group``
             multiples of 8. Elsewhere K2 runs.
+        model_group: the process group of the ``model`` mesh axis when
+            ``params`` holds this rank's tensor-parallel shards; the caches
+            and the cross store are then ``D / model`` wide, the kernels
+            run over ``n_heads / model`` heads, and the fc_o / fc_2 partial
+            sums are all-reduced over it (module docstring). None: one
+            card, whole weights.
 
     Returns:
         (logits ``[bs, V]`` or hidden ``[bs, D]``, cache)
     """
     x = token_emb_scaled + params["pos_embedding"]["weight"][pos]
+    heads = local_heads(n_heads, model_group)
     pack = cross_bias = None
     if cross is not None:
         # a tile-padded cross store holds rows past cross_t_real: widen the
@@ -374,7 +496,7 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
         if (pack_items is not None and pack_items > 1 and anc is not None
                 and cross_t_real is not None and groups % pack_items == 0
                 and t_cross % 8 == 0
-                and n_heads * (x.shape[0] // groups) % 8 == 0):
+                and heads * (x.shape[0] // groups) % 8 == 0):
             pack = pack_items
         if enc_key_mask is not None:
             cross_bias = torch.where(enc_key_mask[:, None, :], MASK_FILL,
@@ -391,45 +513,48 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
             c = canon["c"]
             pe = p_cache if p_eff is None else min(p_eff, p_cache)
             bias_win = ancestry_bias(anc[:, :, c:pe], valid[:, c:pe], pe - c)
-    d = x.shape[-1]
     for i, layer in enumerate(params["layers"]):
         sa = layer["self_attn"]
-        # fused QKV projection: one [3D, D] matmul instead of three
+        # fused QKV projection: one [3D, D] matmul instead of three (over a
+        # model group, of this rank's shards: [3D / model, D])
         w = torch.cat([sa[n]["weight"] for n in ("fc_q", "fc_k", "fc_v")])
         b = torch.cat([sa[n]["bias"] for n in ("fc_q", "fc_k", "fc_v")])
-        q, k, v = (t.contiguous() for t in F.linear(x, w, b).split(d, -1))
+        q, k, v = (t.contiguous() for t in F.linear(x, w, b).split(
+            w.shape[0] // 3, -1))
         ck, cv = cache[i]["k"], cache[i]["v"]
         if canon is not None:
             beam = anc.shape[1]
             sh = canon["shared"][i]
             attn = ancestry_attention_update_canon(
                 q, ck, cv, sh["sk"], sh["sv"], k, v, canon["bias_sh"],
-                bias_win, pos, beam=beam, n_heads=n_heads, c=canon["c"],
+                bias_win, pos, beam=beam, n_heads=heads, c=canon["c"],
                 p_eff=pe, live_items=live_items)
             if canon["n_strag"]:
                 out_s = ancestry_attention_ids(
                     q, ck, cv, anc_bias, canon["strag_ids"], canon["n_strag"],
-                    beam=beam, n_heads=n_heads, p_eff=p_eff)
+                    beam=beam, n_heads=heads, p_eff=p_eff)
                 attn = torch.where(canon["strag_rows"][:, None], out_s, attn)
         elif anc_bias is not None:
             attn = ancestry_attention_update(
                 q, ck, cv, k, v, anc_bias, pos, beam=anc.shape[1],
-                n_heads=n_heads, p_eff=p_eff, live_items=live_items)
+                n_heads=heads, p_eff=p_eff, live_items=live_items)
         else:
             ck[:, pos] = k
             cv[:, pos] = v
-            attn = _cached_attention(q, ck, cv, n_heads, ~valid)
-        x = L.layer_norm(layer["self_attn_ln"], x + L.linear(sa["fc_o"], attn))
+            attn = _cached_attention(q, ck, cv, heads, ~valid)
+        x = L.layer_norm(layer["self_attn_ln"],
+                         x + _row_linear(sa["fc_o"], attn, model_group))
 
         if "enc_attn" in layer:
             ea = layer["enc_attn"]
             attn = grouped_cross_attention(
                 L.linear(ea["fc_q"], x), cross[i]["ek"], cross[i]["ev"],
-                cross_bias, n_heads=n_heads, live_items=live_items,
+                cross_bias, n_heads=heads, live_items=live_items,
                 pack_items=pack, t_real=cross_t_real if pack else None)
             x = L.layer_norm(layer["enc_attn_ln"],
-                             x + L.linear(ea["fc_o"], attn))
-        x = L.layer_norm(layer["pf_ln"], x + pff_apply(layer["pf"], x))
+                             x + _row_linear(ea["fc_o"], attn, model_group))
+        x = L.layer_norm(layer["pf_ln"], x + pff_apply(
+            layer["pf"], x, model_group=model_group))
     if return_hidden:
         return x, cache
     return L.linear(params["classifier"], x), cache

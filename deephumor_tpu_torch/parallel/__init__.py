@@ -9,8 +9,10 @@ from deephumor_tpu_torch.parallel.mesh import (
     replicate,
     replicated_sharding,
     shard_batch,
+    tp_generate,
 )
 from deephumor_tpu_torch.parallel.sharding import (make_param_shardings,
+                                                   place_train_state,
                                                    tp_param_specs)
 
 __all__ = [
@@ -20,6 +22,8 @@ __all__ = [
     "data_sharding",
     "replicated_sharding",
     "dp_generate",
+    "tp_generate",
     "tp_param_specs",
     "make_param_shardings",
+    "place_train_state",
 ]

@@ -7,8 +7,12 @@ controller over every chip; the port runs one process per card (as
 rank makes the same calls on the same global inputs (same loader, same
 seed) and takes its own rows of them: :func:`shard_batch` is the
 counterpart of placing a batch with its axis 0 split over ``data``,
-:func:`replicate` of placing a tree on a replicated sharding, and
-:func:`dp_generate` of the ``shard_map`` decode.
+:func:`replicate` of placing a tree on a replicated sharding,
+:func:`dp_generate` of the ``shard_map`` decode, and :func:`tp_generate`
+of the jitted decode over tensor-parallel (``make_param_shardings``)
+parameters, which it runs Megatron-style: each rank decodes its data
+block over its local shards, with the row-parallel partial sums
+all-reduced over the ``model`` axis (models/transformer.py).
 
 ``"cuda"`` meshes run over NCCL, ``"cpu"`` meshes over gloo; neither
 falls back to the other.
@@ -19,8 +23,9 @@ import os
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from deephumor_tpu_torch.parallel.sharding import local_tree, model_group
 from deephumor_tpu_torch.pipeline import derive_seed
 from deephumor_tpu_torch.utils.pytree import tree_map
 
@@ -31,6 +36,7 @@ __all__ = [
     "data_sharding",
     "replicated_sharding",
     "dp_generate",
+    "tp_generate",
     "mesh_device",
     "data_index",
     "data_size",
@@ -199,6 +205,64 @@ def all_gather_rows(x, group):
     return out.bool() if as_bool else out
 
 
+def _data_rows(x, mesh, n, i, dev):
+    """This rank's data block of ``x``: a DTensor's local rows (it must be
+    split over ``data`` and replicated over the other axes, as
+    ``data_sharding`` places it), else block ``i`` of ``n`` of axis 0."""
+    if isinstance(x, DTensor):
+        if tuple(x.placements) != data_sharding(mesh, x.ndim):
+            raise ValueError(f"a DTensor input must be placed as "
+                             f"data_sharding(mesh), not {x.placements}")
+        return local_tree(x).to(dev)
+    return _rows(x, n, i, dev)
+
+
+def _generate_blocks(model, params, enc, mesh, generator, generate_kwargs,
+                     group_of_model=None, sharded=False):
+    """The body of :func:`dp_generate` and :func:`tp_generate`: this rank's
+    block of ``enc`` and of the batch-shaped keyword tensors through
+    ``model.generate_from_emb`` with the rank's generator, then the outputs
+    gathered over the data axis (tensors) or listed per shard. With
+    ``group_of_model`` (a model axis of several ranks) the chosen ids are
+    checked equal over it; ``sharded``: ``params`` hold tensor-parallel
+    shards, and the decode runs its collectives over that group."""
+    n, i, dev = data_size(mesh), data_index(mesh), mesh_device(mesh)
+    first = enc[0] if isinstance(enc, tuple) else enc
+    bs = first.shape[0]
+    local_enc = tree_map(lambda x: _data_rows(x, mesh, n, i, dev), enc)
+    kwargs = {k: _data_rows(v, mesh, n, i, dev)
+              if isinstance(v, torch.Tensor) and v.ndim >= 1
+              and v.shape[0] == bs else v
+              for k, v in generate_kwargs.items()}
+    if sharded:
+        kwargs["model_group"] = group_of_model
+    out = model.generate_from_emb(params, local_enc,
+                                  generator=shard_generator(generator, mesh),
+                                  **kwargs)
+    if group_of_model is not None:
+        _check_model_agreement(out["chosen"], group_of_model)
+    group = mesh.get_group("data")
+    gathered = {}
+    for k, v in out.items():
+        if isinstance(v, torch.Tensor):
+            gathered[k] = all_gather_rows(v, group)
+        else:
+            per_shard = [None] * n
+            dist.all_gather_object(per_shard, v, group=group)
+            gathered[k] = per_shard
+    return gathered
+
+
+def _check_model_agreement(chosen, group):
+    """Raises unless every rank of the model group chose the same ids: a
+    rank that drew otherwise would follow other beams, and its head-local
+    caches would silently part from its peers'."""
+    ids = all_gather_rows(chosen, group).reshape(-1, *chosen.shape)
+    if not bool((ids == chosen).all()):
+        raise RuntimeError("tp_generate: the ranks of a model group chose "
+                           "different tokens; their draws must be equal")
+
+
 def dp_generate(model, params, enc, mesh, generator=None, **generate_kwargs):
     """Data-parallel batched generation over the ``data`` mesh axis.
 
@@ -222,24 +286,35 @@ def dp_generate(model, params, enc, mesh, generator=None, **generate_kwargs):
     if _model_size(mesh) != 1:
         raise ValueError("dp_generate shards over 'data' only; build the "
                          "mesh with model=1")
-    n, i, dev = data_size(mesh), data_index(mesh), mesh_device(mesh)
-    first = enc[0] if isinstance(enc, tuple) else enc
-    bs = first.shape[0]
-    local_enc = tree_map(lambda x: _rows(x, n, i, dev), enc)
-    kwargs = {k: _rows(v, n, i, dev)
-              if isinstance(v, torch.Tensor) and v.ndim >= 1
-              and v.shape[0] == bs else v
-              for k, v in generate_kwargs.items()}
-    out = model.generate_from_emb(params, local_enc,
-                                  generator=shard_generator(generator, mesh),
-                                  **kwargs)
-    group = mesh.get_group("data")
-    gathered = {}
-    for k, v in out.items():
-        if isinstance(v, torch.Tensor):
-            gathered[k] = all_gather_rows(v, group)
-        else:
-            per_shard = [None] * n
-            dist.all_gather_object(per_shard, v, group=group)
-            gathered[k] = per_shard
-    return gathered
+    return _generate_blocks(model, params, enc, mesh, generator,
+                            generate_kwargs)
+
+
+def tp_generate(model, tp_params, enc, mesh, generator=None,
+                **generate_kwargs):
+    """Generation on a ``data x model`` mesh over tensor-parallel
+    parameters (``make_param_shardings``: DTensors; the counterpart of the
+    JAX package's jitted ``generate_from_emb`` over placed parameters).
+
+    Every rank calls it with the same ``tp_params``, ``enc`` (the whole
+    batch on every rank, or DTensors placed by ``data_sharding``) and
+    keyword arguments. Each rank takes its data block of ``enc`` and of
+    the batch-shaped keyword tensors (as :func:`dp_generate`), the local
+    shards of the parameters, and runs ``generate_from_emb`` over its
+    ``n_heads / model`` heads: the kernels at head-local shapes (caches
+    and cross store ``D / model`` wide), the fc_o / fc_2 partial sums
+    all-reduced over the ``model`` group in f32, the classifier and the
+    draw (replicated) whole on every rank. The generator comes from
+    ``shard_generator(generator, mesh)``, derived over the data axis only,
+    so every rank of a model group draws alike; the call checks once that
+    their chosen ids agree and raises ``RuntimeError`` if not.
+
+    Returns what :func:`dp_generate` returns: the whole batch's outputs
+    on every rank. On a mesh whose model axis has size 1, or over a tree
+    with no leaf split over it (the LSTMs, a replicated tree), every rank
+    decodes its block with whole weights, as :func:`dp_generate` does.
+    """
+    group = mesh.get_group("model") if _model_size(mesh) > 1 else None
+    return _generate_blocks(model, local_tree(tp_params), enc, mesh,
+                            generator, generate_kwargs, group,
+                            sharded=model_group(tp_params) is not None)
