@@ -138,16 +138,41 @@ with ``dist.all_gather``: gloo scatters no CUDA tensor for
 there. The phase says nothing of scaling: both ranks share the card and
 gloo stages each all-reduce through host memory.
 
+Last, a product-surface phase ([15]). The C++ text core
+(deephumor_tpu_torch.native) must build anew with this host's g++; a
+memes900k-shaped train split (X_TEMPLATES templates x X_CAPTIONS captions
+over the word vocabulary, written from a seed) goes through
+``MemeDataset.materialize``, and the C++ ids and lengths must equal the
+Python path's on a word sample of X_SAMPLE captions and a char sample
+(both paths' captions/s on the host clock). K3 and K4 are held to their
+twins and timed at the shapes the sweep and the demo give them (K4 past
+V 256 runs the kernel that streams W). Then, with every launch count
+at zero, ``sweep.main(["--synthetic"])``: 3,000 captions over 300
+templates through the ResNet trunk and the pipeline (the phase's main
+path; K1, K2, K3 for the first draw and K4 for the others (V 2,006) and
+no other kernel, no twin on a CUDA tensor, captions in the
+vocabulary without UNK; encode time, captions/s, first call and steady
+state). ``generate_meme``: a reference-layout ``.pth`` of the word width
+loaded with ``from_torch`` must give the weights written, and
+``caption_image`` greedy at beam 1 (without and with a starting caption)
+the CPU's text exactly. The demo's four architectures on X_DEMO_ITEMS images, word then
+char, with the sampler kernels (char through compaction and canon: K4,
+K5 and K6 must launch). An ExperimentConfig must survive JSON and build
+the word model, and a word Trainer state ``save_state`` /
+``restore_state`` must come back bit-equal, onto its template and whole.
+
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [ROOT]
     python3 chip_smoke.py --tp
+    python3 chip_smoke.py --product
     torchrun --nproc-per-node N chip_smoke.py --mesh-ranks [tp]
 
 The second form only times K4 (all char rows, C_LIVE live), K9 (ng 2, 4,
 8) and K2 on K9's rows, queued, through the deephumor_tpu_torch of the
 tree at ROOT (default: this one), and prints one JSON line: run beside
 a parent tree's root, it times the parent's kernels on the same inputs.
-The third builds the kernels and runs [14] alone. The fourth runs over N
+The third builds the kernels and runs [14] alone, the fourth [15]. The
+fifth runs over N
 ranks, one per card (N = 2 or 4): first [14]'s data N/2 x model 2 NCCL
 mesh, ``tp_generate`` at the word leg (batch BATCH; greedy on >=
 TP_GREEDY_SHARE of items equal to one card's call, sampled repeatable,
@@ -177,6 +202,7 @@ import contextlib
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -256,6 +282,13 @@ TP_GREEDY_SHARE, TP_TRAIN_RTOL, TP_TIMEOUT_S = 0.99, 1e-4, 600
 # shapes) take Adam steps of up to lr the other way. PR 12 read 3.48e-6
 # (137 of 39,397,376) on an H100
 TP_PARAM_SHARE = 1e-4
+# the product-surface phase ([15]): a memes900k-shaped train split for the
+# text core (split_data's defaults: 300 templates x 2,500 captions) over
+# the word vocabulary, TrainConfig's lengths, the samples that hold the
+# C++ path to the Python one (word, char); the demo's items (enough for
+# char's early-EOS compaction and canon stragglers)
+X_TEMPLATES, X_CAPTIONS, X_CAP_LEN, X_LAB_LEN = 300, 2500, 32, 8
+X_SAMPLE, X_CHAR_SAMPLE, X_CHAR_LEN, X_DEMO_ITEMS = 50_000, 5_000, 128, 64
 TOL = 2e-2  # bf16 kernel vs twin: one bf16 rounding of each output
 TOL_F32 = 1e-5  # f32 kernel vs twin: the summation order only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -793,22 +826,44 @@ def check_k3(S, dev, gen, *, rows, vocab, top_k, draws, inv_t, label,
     return None if row is None else dict(row, max_abs_err=err)
 
 
-def k4_inputs(dev, gen, d=HID):
-    """x [5376, d], W [128, d] bf16 (d 512 on one card) and an f32 bias
-    with UNK on top of every row (it must never be drawn)."""
+def k4_inputs(dev, gen, d=HID, rows=C_ROWS, vocab=C_VOCAB):
+    """x [rows, d], W [vocab, d] bf16 (by default the char shape: x [5376,
+    512], W [128, 512] on one card) and an f32 bias with UNK on top of
+    every row (it must never be drawn)."""
     bf = torch.bfloat16
-    x = torch.randn(C_ROWS, d, generator=gen, device=dev).to(bf)
-    w = (torch.randn(C_VOCAB, d, generator=gen, device=dev) / 8).to(bf)
-    b = torch.randn(C_VOCAB, generator=gen, device=dev)
+    x = torch.randn(rows, d, generator=gen, device=dev).to(bf)
+    w = (torch.randn(vocab, d, generator=gen, device=dev) / 8).to(bf)
+    b = torch.randn(vocab, generator=gen, device=dev)
     b[1] = 30.0
     return x, w, b
 
 
-def k4_bytes(live, d=HID):
+def k4_bytes(live, d=HID, rows=C_ROWS, vocab=C_VOCAB, draws=C_BEAM):
     """x's live rows, W and b read; every row's ids (int64) and values
     (f32) written."""
-    return live * d * 2 + C_VOCAB * d * 2 + C_VOCAB * 4 + (
-        C_ROWS * C_BEAM * 12)
+    return live * d * 2 + vocab * d * 2 + vocab * 4 + rows * draws * 12
+
+
+def check_k4_draws(S, x, w, b, inv_t, lives, label, **kw):
+    """K4 vs its twin on ``x, w, b`` with each of ``lives`` live rows
+    (None: all): rows past it 0, the live rows' ids in the exact support
+    and equal to the twin's (``check_draws``). Returns the largest
+    |vals - twin's| over the rows whose ids agree."""
+    err = 0.0
+    for live in lives:
+        ids, vals = S.fused_classifier_topk_gumbel_sample(
+            x, w, b, 4321, inv_t, live_rows=live, **kw)
+        ids_p, vals_p = S.fused_classifier_topk_gumbel_sample_plain(
+            x, w, b, 4321, inv_t, live_rows=live, **kw)
+        n = x.shape[0] if live is None else live
+        if live is not None and (ids[n:].any() or vals[n:].any()):
+            raise AssertionError(f"{label}: rows past live_rows are not 0")
+        logits = S.classifier_logits(x[:n], w, b)
+        check_draws(ids[:n], ids_p[:n], logits, kw["top_k"],
+                    f"{label} live_rows={live}")
+        eq = (ids == ids_p).all(dim=1)
+        err = max(err, (vals[eq] - vals_p[eq]).abs().max().item())
+    return err
 
 
 def check_k4(S, dev, gen, d=HID):
@@ -819,20 +874,8 @@ def check_k4(S, dev, gen, d=HID):
     bf = torch.bfloat16
     x, w, b = k4_inputs(dev, gen, d)
     kw = dict(top_k=C_TOP_K, num_draws=C_BEAM)
-    err = 0.0
-    for live in (None, 3000, C_LIVE):
-        ids, vals = S.fused_classifier_topk_gumbel_sample(
-            x, w, b, 4321, 1 / C_TEMP, live_rows=live, **kw)
-        ids_p, vals_p = S.fused_classifier_topk_gumbel_sample_plain(
-            x, w, b, 4321, 1 / C_TEMP, live_rows=live, **kw)
-        n = C_ROWS if live is None else live
-        if live is not None and (ids[n:].any() or vals[n:].any()):
-            raise AssertionError("K4: rows past live_rows are not 0")
-        logits = S.classifier_logits(x[:n], w, b)
-        check_draws(ids[:n], ids_p[:n], logits, C_TOP_K,
-                    f"K4 live_rows={live}")
-        eq = (ids == ids_p).all(dim=1)
-        err = max(err, (vals[eq] - vals_p[eq]).abs().max().item())
+    err = check_k4_draws(S, x, w, b, 1 / C_TEMP, (None, 3000, C_LIVE), "K4",
+                         **kw)
     row = {}
     for key, live in (("", None), ("_live", C_LIVE)):
         row["ms" + key] = cuda_ms(
@@ -3091,6 +3134,474 @@ def check_cold_build():
                              "for two threads that asked at once")
 
 
+# -- [15] the product surface ------------------------------------------------
+def synthetic_words(rng, n, taken=()):
+    """``n`` distinct random lowercase words of 2-9 letters, none in
+    ``taken``."""
+    words, seen = [], set(taken)
+    while len(words) < n:
+        lens = rng.integers(2, 10, 2 * (n - len(words)) + 16).tolist()
+        text = (rng.integers(0, 26, sum(lens), dtype=np.uint8)
+                + ord("a")).tobytes().decode()
+        pos = 0
+        for length in lens:
+            word, pos = text[pos:pos + length], pos + length
+            if word not in seen and len(words) < n:
+                seen.add(word)
+                words.append(word)
+    return words
+
+
+def memes_split(root, seed):
+    """Writes a memes900k-shaped dataset under ``root``: X_TEMPLATES
+    templates (no image files: the split is read without them) and
+    ``captions_train.txt`` with X_CAPTIONS captions each, ``top <sep>
+    bottom`` of 4 tokens and a geometric tail (mean 14, a few past
+    X_CAP_LEN) drawn by a power law over the word vocabulary (VOCAB tokens
+    with punctuation runs, in random rank order), 3% out of it, 30% of the
+    captions upper-case. Returns the vocabulary and the captions."""
+    from deephumor_tpu_torch.data import Vocab
+
+    rng = np.random.default_rng(seed)
+    punct = ["!", "?", ",", ".", "...", "!!!", "?!"]
+    vocab = Vocab(synthetic_words(rng, VOCAB - 6 - len(punct)) + punct)
+    assert len(vocab) == VOCAB
+    known = vocab.tokens[6:]
+    pool = np.array(known + synthetic_words(rng, 2000, known), dtype=object)
+    n = X_TEMPLATES * X_CAPTIONS
+    lens = 3 + rng.geometric(0.09, n)
+    total = int(lens.sum())
+    cdf = np.cumsum(1.0 / np.arange(1, len(known) + 1) ** 1.1)
+    rank = np.searchsorted(cdf, rng.random(total) * cdf[-1])
+    idx = np.where(rng.random(total) < 0.03,
+                   len(known) + rng.integers(0, 2000, total),
+                   rng.permutation(len(known))[rank])
+    # every token followed by its glue: a space, " <sep> " after the top
+    # half's last token, a newline after the caption's last
+    ends = np.cumsum(lens)
+    glue = np.full(total, " ", dtype=object)
+    glue[ends - lens + rng.integers(0, lens - 1)] = " <sep> "
+    glue[ends - 1] = "\n"
+    pieces = np.empty(2 * total, dtype=object)
+    pieces[0::2], pieces[1::2] = pool[idx], glue
+    captions = "".join(pieces.tolist()).split("\n")[:-1]
+    for i in np.flatnonzero(rng.random(n) < 0.3).tolist():
+        captions[i] = captions[i].upper()
+    labels = [f"{known[a].title()} {known[b].title()} {i}" for i, (a, b)
+              in enumerate(rng.integers(0, len(known) // 8,
+                                        (X_TEMPLATES, 2)).tolist())]
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    with open(os.path.join(root, "templates.txt"), "w") as f:
+        f.writelines(f"{label}\tlink\thttp://x/{i}.jpg\n"
+                     for i, label in enumerate(labels))
+    scores = rng.integers(0, 10000, n).tolist()
+    with open(os.path.join(root, "captions_train.txt"), "w") as f:
+        f.writelines(f"{labels[i // X_CAPTIONS]}\t{scores[i]}\t{c}\n"
+                     for i, c in enumerate(captions))
+    return vocab, captions
+
+
+def check_texts(texts, vocab, tokenizer, where):
+    """Generated texts: every token in the vocabulary, no UNK (an empty
+    text is a caption that ended at its first token)."""
+    for text in texts:
+        tokens = tokenizer.tokenize(text)
+        if any(t not in vocab.stoi for t in tokens) or "<unk>" in tokens:
+            raise AssertionError(f"{where}: bad caption {text!r}")
+
+
+def check_native(tmp, seed):
+    """The text core: built on this host, ``materialize`` of the
+    memes900k-shaped split through it, and its ids equal to the Python
+    path's on a word and a char sample. Returns the host rates and the
+    split's vocabulary."""
+    from deephumor_tpu_torch import native
+    from deephumor_tpu_torch.data import (EOS_ID, UNK_ID, CharTokenizer,
+                                          MemeDataset, Vocab,
+                                          WordPunctTokenizer)
+
+    if shutil.which("g++") is None:
+        raise AssertionError("[15] native: no g++ on this host, so the text "
+                             "core cannot be built (materialize would run "
+                             "in Python)")
+    # built here from the checkout's source, whatever the build directory
+    # already holds
+    t0 = time.perf_counter()
+    if not (native.build(force=True) and native.available(autobuild=False)):
+        raise AssertionError("[15] native: the text core did not build")
+    build_s = time.perf_counter() - t0
+    so = native._library_path(native.SOURCE, native.BUILD_DIR)
+    log(f"  text core built and loaded in {build_s:.2f} s -> {so}")
+    t0 = time.perf_counter()
+    vocab, captions = memes_split(tmp, seed)
+    ds = MemeDataset(tmp, vocab, split="train", num_classes=X_TEMPLATES,
+                     preload_images=False)
+    log(f"  split of {len(ds)} captions over {len(ds.templates)} templates "
+        f"(V {len(vocab)}) written and read in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if len(ds) != X_TEMPLATES * X_CAPTIONS:
+        raise AssertionError(f"[15] native: the split has {len(ds)} captions")
+    t0 = time.perf_counter()
+    mat = ds.materialize(X_CAP_LEN, X_LAB_LEN)
+    mat_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 1)
+    sel = np.sort(rng.choice(len(captions), X_SAMPLE, replace=False))
+    sample = [captions[i] for i in sel]
+    out = {"build_s": build_s, "materialize_s": mat_s,
+           "materialize_captions_per_s": len(ds) / mat_s}
+    results = {}
+    for mode, tok, v, n, length in (
+            ("word", WordPunctTokenizer(), vocab, X_SAMPLE, X_CAP_LEN),
+            ("char", CharTokenizer(), None, X_CHAR_SAMPLE, X_CHAR_LEN)):
+        texts = sample[:n]
+        if v is None:  # the sample's characters less two, which become UNK
+            chars = sorted({c for t in texts for c in t.lower()} - set("qz"))
+            v = Vocab(chars)
+        t0 = time.perf_counter()
+        got = native.encode_batch(texts, v, mode, length)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = native._python_encode([t.lower() for t in texts], v, tok,
+                                     length, UNK_ID, EOS_ID, True, 0)
+        python_s = time.perf_counter() - t0
+        for g, w, what in zip(got, want, ("ids", "lengths")):
+            if not np.array_equal(g, w):
+                rows = np.flatnonzero((g != w).reshape(len(texts), -1)
+                                      .any(axis=1))
+                raise AssertionError(f"[15] native {mode}: {what} differ from "
+                                     f"the Python path in {len(rows)} rows, "
+                                     f"first {texts[rows[0]]!r}")
+        results[mode] = got[0]
+        unk = float((got[0] == UNK_ID).any(axis=1).mean())
+        trunc = float((got[1] == length).mean())
+        out[f"{mode}_native_captions_per_s"] = n / native_s
+        out[f"{mode}_python_captions_per_s"] = n / python_s
+        log(f"  {mode}, {n} captions, max_len {length}: ids and lengths "
+            f"equal to the Python path (rows with UNK {unk:.3f}, cut at "
+            f"max_len {trunc:.3f}); C++ {n / native_s:,.0f} captions/s, "
+            f"Python {n / python_s:,.0f} captions/s ("
+            f"{python_s / native_s:.1f}x; host clock)")
+    if not np.array_equal(mat["captions"][sel], results["word"]):
+        raise AssertionError("[15] native: materialize differs from "
+                             "encode_batch on the sample")
+    log(f"  materialize: {len(ds)} captions + {len(ds.templates)} labels in "
+        f"{mat_s:.2f} s ({len(ds) / mat_s:,.0f} captions/s, host clock); "
+        f"its sample rows equal the Python path's")
+    return out, vocab
+
+
+def check_product_kernels(S, dev, gen):
+    """K3 and K4 at the shapes [15]'s paths give them, each against its
+    twin and timed beside it, bf16. The sweep (batch 256, beam 5, top_k
+    64, V 2,006, D 512): K3's first draw at [256, 2006] (and at K4's
+    1,280 rows), K4 at x [1280, 512], W [2006, 512]. The demo's word leg
+    (64 images, beam 10, top_k 70, V 506, D 64): K3 at [64, 506], K4 at
+    x [640, 64], W [506, 64]. K4 past V 256 runs the kernel that streams
+    W; the char leg (V 37, top_k 37, beam 7, 1/T 1/1.1) the resident one.
+    Returns {kernel: {path: numbers}}."""
+    bf = torch.bfloat16
+    out = {"fused_topk_gumbel_sample": {},
+           "fused_classifier_topk_gumbel_sample": {}}
+    for path, items, beam, top_k, vocab, d, inv_t in (
+            ("sweep", 256, 5, 64, 2006, HID, 1.0),
+            ("demo_word", X_DEMO_ITEMS, 10, 70, 506, 64, 1.0),
+            ("demo_char", X_DEMO_ITEMS, 7, 37, 37, 64, 1 / 1.1)):
+        rows = items * beam
+        if path != "demo_char":  # K3 plants ties across 40 logits
+            r = check_k3(S, dev, gen, rows=items, vocab=vocab, top_k=top_k,
+                         draws=beam, inv_t=inv_t, label=f"K3 {path}")
+            out["fused_topk_gumbel_sample"][path] = {
+                k: r[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+        if path == "sweep":
+            check_k3(S, dev, gen, rows=rows, vocab=vocab, top_k=top_k,
+                     draws=beam, inv_t=inv_t, label=f"K3 {path} rows {rows}",
+                     timed=False)
+        x, w, b = k4_inputs(dev, gen, d, rows, vocab)
+        kw = dict(top_k=top_k, num_draws=beam)
+        err = check_k4_draws(S, x, w, b, inv_t, (None, rows // 2),
+                             f"K4 {path}", **kw)
+        ms = cuda_ms(lambda: S.fused_classifier_topk_gumbel_sample(
+            x, w, b, 7, inv_t, **kw), queued=True)
+        plain_ms = cuda_ms(lambda: S.fused_classifier_topk_gumbel_sample_plain(
+            x, w, b, 7, inv_t, **kw), iters=2, warmup=1)
+        # the unfused route (bf16 F.linear, then K3): a partial yardstick
+        linear_k3_ms = cuda_ms(lambda: S.fused_topk_gumbel_sample(
+            torch.nn.functional.linear(x, w, b.to(bf)), 7, inv_t, **kw),
+            queued=True)
+        r = dict(ms=ms, plain_ms=plain_ms, linear_k3_ms=linear_k3_ms,
+                 max_abs_err=err, **bound(k4_bytes(rows, d, rows, vocab, beam),
+                                          2 * rows * vocab * d, bf))
+        out["fused_classifier_topk_gumbel_sample"][path] = r
+        log(f"  K4 {path} x [{rows}, {d}] W [{vocab}, {d}], top_k {top_k}, "
+            f"draws {beam}: {ms:.4f} ms (device alone), twin {plain_ms:.4f} "
+            f"ms, F.linear + K3 {linear_k3_ms:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max|vals-twin| "
+            f"{err:.3e}")
+    return out
+
+
+def reference_state_dict(params):
+    """The reference's ``state_dict`` of a CaptioningTransformer's
+    parameters: the port's names with the ResNet's ``nn.Sequential``
+    indices (the layout that convert/torch_import.py reads)."""
+    import re
+
+    from deephumor_tpu_torch.utils.pytree import flatten_tree
+
+    sd = {}
+    for key, t in flatten_tree(params).items():
+        key = re.sub(r"^encoder/resnet/conv1/", "encoder/resnet/0/", key)
+        key = re.sub(r"^encoder/resnet/bn1/", "encoder/resnet/1/", key)
+        key = re.sub(r"^encoder/resnet/layer(\d)/",
+                     lambda m: f"encoder/resnet/{3 + int(m.group(1))}/", key)
+        key = key.replace("/downsample/conv/", "/downsample/0/")
+        key = key.replace("/downsample/bn/", "/downsample/1/")
+        sd[key.replace("/", ".")] = t.detach().cpu().clone()
+    return sd
+
+
+def check_generate_meme(CaptioningTransformer, _build, dev, vocab, tmp,
+                        seed):
+    """``generate_meme``: a reference-layout ``.pth`` of the word width
+    (f32, random weights from ``seed``) loaded with ``from_torch`` on the
+    card equals the weights written; ``caption_image`` greedy (beam 1) on
+    a seeded image, without and with a starting caption, gives the CPU's
+    text exactly. Returns the card calls' launches."""
+    from deephumor_tpu_torch.generate_meme import caption_image
+    from deephumor_tpu_torch.utils.pytree import flatten_tree
+
+    model = CaptioningTransformer(num_tokens=VOCAB, hid_dim=HID,
+                                  n_layers=LAYERS, n_heads=HEADS, pf_dim=PF,
+                                  max_len=MAX_LEN + 2)
+    params = model.init(torch.Generator(dev).manual_seed(seed), dev)
+    path = os.path.join(tmp, "TransformerDecoderWords.best.pth")
+    torch.save({"model": reference_state_dict(params), "hp": model.hp()},
+               path)
+    m_card, p_card = CaptioningTransformer.from_torch(path, device=dev)
+    m_cpu, p_cpu = CaptioningTransformer.from_torch(path, device="cpu")
+    written, loaded = flatten_tree(params), flatten_tree(p_card)
+    if m_card != model or loaded.keys() != written.keys() or any(
+            not same_leaf(loaded[k], w) for k, w in written.items()):
+        raise AssertionError("[15] generate_meme: from_torch of the .pth "
+                             "does not give the weights written")
+    image = torch.randn(1, 224, 224, 3, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed + 1))
+    start = " ".join(vocab.tokens[6:9])
+    kw = dict(greedy=True, beam_size=1)
+    _build.reset_launch_counts()
+    texts = [caption_image(m_card, p_card, image, vocab, "word", caption=c,
+                           **kw) for c in (None, start)]
+    launches = dict(_build.LAUNCHES)
+    for c, got in zip((None, start), texts):
+        want = caption_image(m_cpu, p_cpu, image.cpu(), vocab, "word",
+                             caption=c, **kw)
+        what = f"from {start!r}" if c else "from the image"
+        if got != want:
+            raise AssertionError(f"[15] generate_meme {what}: card {got!r} "
+                                 f"!= CPU {want!r}")
+        log(f"  caption {what}: card == CPU ({got[0][:48]!r}...)")
+    if not (launches["ancestry_attention_update"]
+            and launches["grouped_cross_attention"]):
+        raise AssertionError(f"[15] generate_meme: launches {launches}")
+    return launches
+
+
+def check_demo(_build, modules, dev, seed):
+    """``demo.demo_captions``: the four architectures at the notebook's
+    settings on X_DEMO_ITEMS seeded images, word then char, with the
+    sampler kernels. Returns each mode's launches."""
+    from deephumor_tpu_torch import demo
+    from deephumor_tpu_torch.data import CharTokenizer, WordPunctTokenizer
+
+    images = torch.randn(X_DEMO_ITEMS, 224, 224, 3, device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed))
+    want = {"word": ("ancestry_attention_update", "grouped_cross_attention",
+                     "fused_topk_gumbel_sample",
+                     "fused_classifier_topk_gumbel_sample"),
+            "char": ("ancestry_attention_update", "grouped_cross_attention",
+                     "fused_topk_gumbel_sample",
+                     "fused_classifier_topk_gumbel_sample",
+                     "ancestry_attention_update_canon",
+                     "ancestry_attention_ids")}
+    legs = {}
+    for mode, tok in (("word", WordPunctTokenizer()),
+                      ("char", CharTokenizer())):
+        vocab = demo.synthetic_vocab(mode)
+        hits, restore = twin_guard(modules)
+        try:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = demo.demo_captions(images, {mode: vocab}, synthetic=True,
+                                     device=dev)
+            secs = time.perf_counter() - t0
+            launches = legs[f"product_demo_{mode}"] = dict(_build.LAUNCHES)
+        finally:
+            restore()
+        types = [r["model_type"] for r in res]
+        for r in res:
+            check_texts([c[0] for c in r["captions"]], vocab, tok,
+                        f"[15] demo {mode} {r['model_type']}")
+        log(f"  demo {mode}: {types} on {X_DEMO_ITEMS} images in {secs:.2f} "
+            f"s; first captions {[r['captions'][0][0][:24] for r in res]}; "
+            f"launches {launches}")
+        missing = [k for k in want[mode] if not launches[k]]
+        extra = [k for k, v in launches.items() if v and k not in want[mode]]
+        if len(types) != 4 or missing or extra or hits:
+            raise AssertionError(f"[15] demo {mode}: models {types}, kernels "
+                                 f"not launched {missing}, off the path "
+                                 f"{extra}, twins on the card {hits}")
+    return legs
+
+
+def same_leaf(got, want):
+    """Bit-equal tensors (dtype and device too), or equal values."""
+    if isinstance(want, torch.Tensor):
+        return (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and got.device == want.device and torch.equal(got, want))
+    return got == want
+
+
+def check_config_checkpoint(CaptioningTransformer, dev, tmp, seed):
+    """An ExperimentConfig through JSON builds the word model; a word
+    Trainer state on the card (moments and counts past their initial
+    values) through ``save_state`` / ``restore_state`` comes back bit-equal,
+    onto its template and whole without one."""
+    from deephumor_tpu_torch.experiments.trainer import Trainer
+    from deephumor_tpu_torch.utils.checkpoint import (latest_step,
+                                                      restore_state,
+                                                      save_state)
+    from deephumor_tpu_torch.utils.config import (ExperimentConfig,
+                                                  SamplingConfig)
+    from deephumor_tpu_torch.utils.pytree import flatten_tree
+
+    model = CaptioningTransformer(num_tokens=VOCAB, hid_dim=HID,
+                                  n_layers=LAYERS, n_heads=HEADS, pf_dim=PF,
+                                  max_len=MAX_LEN + 2,
+                                  compute_dtype="bfloat16")
+    cfg = ExperimentConfig.from_model(
+        model, sampling=SamplingConfig.word_default(), title="chip_smoke")
+    cfg.save(os.path.join(tmp, "config.json"))
+    back = ExperimentConfig.load(os.path.join(tmp, "config.json"))
+    if back != cfg or back.build_model() != model:
+        raise AssertionError("[15] config: the JSON round trip changed it")
+    trainer = Trainer(back.build_model(), "product", log_dir=tmp, device=dev)
+    g = torch.Generator(dev).manual_seed(seed)
+    state = trainer.init_state(g)
+    for name in ("mu", "nu"):
+        for t in state["opt_state"][name].values():
+            t.normal_(generator=g)
+    state["opt_state"]["count"] = state["step"] = 3
+    ckpt = os.path.join(tmp, "state")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_state(ckpt, state, 3)
+    save_s = time.perf_counter() - t0
+    if latest_step(ckpt) != 3:
+        raise AssertionError(f"[15] checkpoint: latest_step "
+                             f"{latest_step(ckpt)}")
+    t0 = time.perf_counter()
+    onto, step = restore_state(ckpt, template=state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    whole, _ = restore_state(ckpt, device=dev)
+    want = flatten_tree(state)
+    nbytes = sum(t.numel() * t.element_size() for t in want.values()
+                 if isinstance(t, torch.Tensor))
+    for label, got in (("onto the template", onto), ("whole", whole)):
+        got = flatten_tree(got)
+        bad = [k for k, w in want.items() if not same_leaf(got.get(k), w)]
+        if step != 3 or got.keys() != want.keys() or bad:
+            raise AssertionError(f"[15] checkpoint {label}: step {step}, "
+                                 f"leaves that differ {bad[:5]}")
+    log(f"  config: ExperimentConfig -> JSON -> build_model() == the word "
+        f"model; checkpoint: {len(want)} leaves, {nbytes / 2 ** 20:.0f} MiB, "
+        f"save_state {save_s:.2f} s, restore_state onto the template "
+        f"{restore_s:.2f} s, bit-equal (and whole without one), "
+        f"latest_step 3")
+    return {"state_mib": nbytes / 2 ** 20, "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def product_phase(CaptioningTransformer, _build, modules, dev, name_limit):
+    """[15]: the native scanner behind ``materialize``, the 300-template
+    sweep (the phase's main path), ``generate_meme`` from a ``.pth``, the
+    demo's four architectures, and the config and checkpoint round trips.
+    Returns the launches of each path and the phase's numbers."""
+    from deephumor_tpu_torch import sweep
+    from deephumor_tpu_torch.data import WordPunctTokenizer
+
+    log(f"[15] product surface: the text core on a {X_TEMPLATES} x "
+        f"{X_CAPTIONS} train split; K3 and K4 vs their twins at the sweep's "
+        f"and the demo's shapes; sweep --synthetic (300 templates x 10 "
+        f"captions, beam 5, len 32, top_k 64, batch 256); generate_meme "
+        f"from a .pth; the demo's four models; config and checkpoint")
+    t_phase = time.perf_counter()
+    legs = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        numbers, vocab = check_native(os.path.join(tmp, "memes"), 15)
+        numbers["kernels"] = check_product_kernels(
+            modules[-1], dev, torch.Generator(dev).manual_seed(15))
+
+        hits, restore = twin_guard(modules)
+        try:
+            _build.reset_launch_counts()
+            res = sweep.main(["--synthetic"])
+            launches = legs["product_sweep"] = dict(_build.LAUNCHES)
+        finally:
+            restore()
+        sweep_vocab = res.pop("vocab")
+        outputs = res.pop("outputs")
+        check_texts([text for _, text in outputs], sweep_vocab,
+                    WordPunctTokenizer(), "[15] sweep")
+        # at V 2,006 each decode step's classifier and draw run in K4
+        # (up to FUSED_CLASSIFIER_MAX_V), the first draw in K3
+        path = ("ancestry_attention_update", "grouped_cross_attention",
+                "fused_topk_gumbel_sample",
+                "fused_classifier_topk_gumbel_sample")
+        missing = [k for k in path if not launches[k]]
+        extra = [k for k, v in launches.items() if v and k not in path]
+        log(f"  sweep: {res['captions']} captions over {res['templates']} "
+            f"templates, encode {res['encode_s']:.2f} s, "
+            f"{res['captions_per_s']:.1f} captions/s, first call "
+            f"{res['first_call_s']:.2f} s, steady state "
+            f"{res['steady_captions_per_s']:.1f} captions/s ({name_limit}); "
+            f"launches {launches}")
+        if (len(outputs) != res["templates"] * 10 or missing or extra
+                or hits):
+            raise AssertionError(f"[15] sweep: {len(outputs)} captions, "
+                                 f"kernels not launched {missing}, off the "
+                                 f"path {extra}, twins on the card {hits}")
+        numbers["sweep"] = res
+
+        legs["product_meme"] = check_generate_meme(
+            CaptioningTransformer, _build, dev, vocab, tmp, 15)
+        legs.update(check_demo(_build, modules, dev, 15))
+        numbers["checkpoint"] = check_config_checkpoint(
+            CaptioningTransformer, dev, tmp, 15)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"    product phase {numbers['phase_s']:.1f} s")
+    return legs, numbers
+
+
+def product_only():
+    """``--product``: builds the kernels and runs [15] alone; prints its
+    numbers and launches as one JSON line."""
+    from deephumor_tpu_torch.models import CaptioningTransformer
+    from deephumor_tpu_torch.ops import _build
+    from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops import cache as C
+    from deephumor_tpu_torch.ops import engine as E
+    from deephumor_tpu_torch.ops import sampler as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    legs, numbers = product_phase(CaptioningTransformer, _build,
+                                  (A, C, E, S), torch.device("cuda", 0),
+                                  card())
+    print(json.dumps({"product": numbers, "launches": legs}), flush=True)
+
+
 def kernel_times(root):
     """Device times (queued) of K4 at the char shape, all rows and C_LIVE
     live, and of K9 (ng PACK) beside K2 on the same rows at the word and
@@ -3135,6 +3646,8 @@ def main():
         return tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if sys.argv[1:2] == ["--tp"]:
         return tp_only()
+    if sys.argv[1:2] == ["--product"]:
+        return product_only()
     from deephumor_tpu_torch.models import (CaptioningLSTM,
                                             CaptioningLSTMWithLabels,
                                             CaptioningTransformer,
@@ -3469,6 +3982,13 @@ def main():
     log("tensor parallel: " + json.dumps(tp))
     log(f"    tensor-parallel phase {time.perf_counter() - t0:.1f} s; "
         f"elapsed {time.perf_counter() - t_start:.1f} s")
+    product_legs, product = product_phase(
+        CaptioningTransformer, _build, (A, C, E, S), dev, name_limit)
+    legs.update(product_legs)
+    log("product: " + json.dumps(product))
+    for name, paths in product["kernels"].items():
+        rows[name]["product"] = paths
+    log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "ancestry_attention_update": (
@@ -3511,12 +4031,12 @@ def main():
             # char shape, K9 beside K2 on the same rows; K3 at the char
             # shape, in f32, and torch.topk alone; K4 at C_LIVE live rows,
             # beside F.linear + K3 and F.linear alone (partial yardsticks);
-            # [14]'s head-local shapes
+            # [14]'s head-local shapes; K3 and K4 at [15]'s shapes
             **{k: row[k] for k in (
                 "ms_pe128", "ms_leg", "ms_char_pe128", "ms_char",
                 "bound_ms_char", "k2_ms", "k2_ms_char", "ms_f32", "topk_ms",
                 "ms_live", "bound_ms_live", "linear_ms", "linear_k3_ms",
-                "linear_k3_ms_live", "tp") if k in row}})
+                "linear_k3_ms_live", "tp", "product") if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {name_limit}")
     print(json.dumps({"ok": True, "device": {

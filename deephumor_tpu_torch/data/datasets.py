@@ -14,9 +14,9 @@ Counterpart of deephumor_tpu/data/datasets.py:
   template).
 
 :meth:`MemeDataset.materialize` pre-encodes a whole split for
-``BatchIterator``'s fast path, in pure Python through the port's
-tokenizers (the JAX package may use its C++ scanner; the id matrices are
-the same).
+``BatchIterator``'s fast path: the word and char tokenizers through the
+C++ text core (``deephumor_tpu_torch.native``), any other tokenizer item
+by item in Python; the id matrices are the same either way.
 """
 
 import os
@@ -24,7 +24,8 @@ import os
 import numpy as np
 
 from deephumor_tpu_torch.data.dataloaders import pad_ids
-from deephumor_tpu_torch.data.tokenizers import WordPunctTokenizer
+from deephumor_tpu_torch.data.tokenizers import (CharTokenizer,
+                                                 WordPunctTokenizer)
 from deephumor_tpu_torch.data.vocab import SPECIAL_TOKENS
 
 __all__ = ["MemeDataset"]
@@ -106,6 +107,12 @@ class MemeDataset:
     def __len__(self):
         return len(self.captions)
 
+    def _tokenizer_mode(self):
+        """``encode_batch``'s mode for the word and char tokenizers (not
+        their subclasses, which may tokenize otherwise), else None."""
+        return {WordPunctTokenizer: "word",
+                CharTokenizer: "char"}.get(type(self.tokenizer))
+
     def materialize(self, max_caption_len, max_label_len):
         """The whole split as padded id matrices, encoded once:
         ``{"captions" [N, C], "labels" [N, L] int32, "image_keys" [N]}``
@@ -115,10 +122,20 @@ class MemeDataset:
         if cached is not None and cached[0] == key:
             return cached[1]
         unique_labels = list(self.templates)
-        cap_ids = pad_ids([self._preprocess_text(c) for _, c in self.captions],
-                          max_caption_len)
-        lab_ids = pad_ids([self._preprocess_text(t) for t in unique_labels],
-                          max_label_len)
+        captions = [c for _, c in self.captions]
+        mode = self._tokenizer_mode()
+        if mode is not None:
+            from deephumor_tpu_torch.native import encode_batch
+
+            cap_ids = encode_batch(captions, self.vocab, mode,
+                                   max_caption_len)[0]
+            lab_ids = encode_batch(unique_labels, self.vocab, mode,
+                                   max_label_len)[0]
+        else:
+            cap_ids = pad_ids([self._preprocess_text(c) for c in captions],
+                              max_caption_len)
+            lab_ids = pad_ids([self._preprocess_text(t)
+                               for t in unique_labels], max_label_len)
         row = {label: i for i, label in enumerate(unique_labels)}
         image_keys = [label for label, _ in self.captions]
         result = {"captions": cap_ids,

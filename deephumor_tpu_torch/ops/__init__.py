@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the decode path and their plain twins."""
+"""Hand-written CUDA kernels of the decode path and their plain twins, and
+the image preprocessing (``image_ops``)."""
 
 from deephumor_tpu_torch.ops._build import LAUNCHES, reset_launch_counts
 from deephumor_tpu_torch.ops.attention import (
@@ -13,6 +14,9 @@ from deephumor_tpu_torch.ops.cache import (cache_column_write,
                                            cache_column_write_plain)
 from deephumor_tpu_torch.ops.engine import (fused_survivor_update,
                                             fused_survivor_update_plain)
+from deephumor_tpu_torch.ops.image_ops import (IMAGENET_MEAN, IMAGENET_STD,
+                                               preprocess_batch,
+                                               preprocess_pil)
 from deephumor_tpu_torch.ops.sampler import (
     fused_classifier_topk_gumbel_sample,
     fused_classifier_topk_gumbel_sample_plain, fused_topk_gumbel_sample,
@@ -34,4 +38,5 @@ __all__ = [
     "fused_classifier_topk_gumbel_sample",
     "fused_classifier_topk_gumbel_sample_plain",
     "fused_survivor_update", "fused_survivor_update_plain",
+    "IMAGENET_MEAN", "IMAGENET_STD", "preprocess_pil", "preprocess_batch",
 ]
