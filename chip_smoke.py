@@ -145,8 +145,10 @@ over the word vocabulary, written from a seed) goes through
 ``MemeDataset.materialize``, and the C++ ids and lengths must equal the
 Python path's on a word sample of X_SAMPLE captions and a char sample
 (both paths' captions/s on the host clock). K3 and K4 are held to their
-twins and timed at the shapes the sweep and the demo give them (K4 past
-V 256 runs the kernel that streams W). Then, with every launch count
+twins and timed at the shapes the sweep and the demo give them, and K4
+also at V 257 and 16,384 (K4 past V 256 runs its streamed path: the
+product on the tensor cores into an L2-sized scratch, then K3's row
+body). Then, with every launch count
 at zero, ``sweep.main(["--synthetic"])``: 3,000 captions over 300
 templates through the ResNet trunk and the pipeline (the phase's main
 path; K1, K2, K3 for the first draw and K4 for the others (V 2,006) and
@@ -167,7 +169,8 @@ the word model, and a word Trainer state ``save_state`` /
     python3 chip_smoke.py --product
     torchrun --nproc-per-node N chip_smoke.py --mesh-ranks [tp]
 
-The second form only times K4 (all char rows, C_LIVE live), K9 (ng 2, 4,
+The second form only times K3 and K8 (word, first), K4 (all char rows,
+C_LIVE live, and at X_SHAPES), K3 (the sweep's first draw), K9 (ng 2, 4,
 8) and K2 on K9's rows, queued, through the deephumor_tpu_torch of the
 tree at ROOT (default: this one), and prints one JSON line: run beside
 a parent tree's root, it times the parent's kernels on the same inputs.
@@ -289,6 +292,17 @@ TP_PARAM_SHARE = 1e-4
 # char's early-EOS compaction and canon stragglers)
 X_TEMPLATES, X_CAPTIONS, X_CAP_LEN, X_LAB_LEN = 300, 2500, 32, 8
 X_SAMPLE, X_CHAR_SAMPLE, X_CHAR_LEN, X_DEMO_ITEMS = 50_000, 5_000, 128, 64
+# K3 and K4 at the shapes [15]'s paths give them: path, items, beam, top_k,
+# V, D, 1/T. The sweep (batch 256, beam 5, top_k 64, V 2,006, D 512), the
+# demo's word leg (64 images, beam 10, top_k 70, V 506, D 64) and char leg
+# (V 37, top_k 37, beam 7, 1/T 1/1.1); and at the sweep's rows, K4's
+# streamed path at its ends: V 257 (the smallest past the resident body)
+# and FUSED_CLASSIFIER_MAX_V
+X_SHAPES = (("sweep", 256, 5, 64, 2006, HID, 1.0),
+            ("demo_word", X_DEMO_ITEMS, 10, 70, 506, 64, 1.0),
+            ("demo_char", X_DEMO_ITEMS, 7, 37, 37, 64, 1 / 1.1),
+            ("v257", 256, 5, 64, 257, HID, 1.0),
+            ("v16384", 256, 5, 64, 16384, HID, 1.0))
 TOL = 2e-2  # bf16 kernel vs twin: one bf16 rounding of each output
 TOL_F32 = 1e-5  # f32 kernel vs twin: the summation order only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -3291,23 +3305,18 @@ def check_native(tmp, seed):
 
 
 def check_product_kernels(S, dev, gen):
-    """K3 and K4 at the shapes [15]'s paths give them, each against its
-    twin and timed beside it, bf16. The sweep (batch 256, beam 5, top_k
-    64, V 2,006, D 512): K3's first draw at [256, 2006] (and at K4's
-    1,280 rows), K4 at x [1280, 512], W [2006, 512]. The demo's word leg
-    (64 images, beam 10, top_k 70, V 506, D 64): K3 at [64, 506], K4 at
-    x [640, 64], W [506, 64]. K4 past V 256 runs the kernel that streams
-    W; the char leg (V 37, top_k 37, beam 7, 1/T 1/1.1) the resident one.
-    Returns {kernel: {path: numbers}}."""
+    """K3 and K4 at X_SHAPES, each against its twin and timed beside it,
+    bf16. K3 at the sweep's first draw, [256, 2006] (and at K4's 1,280
+    rows), and the demo's word leg, [64, 506]; K4 at every shape (x [items
+    * beam, D], W [V, D]), timed beside the unfused route (bf16 F.linear,
+    then K3) and F.linear alone. K4 past V 256 runs the streamed path; the
+    char leg (V 37) the resident one. Returns {kernel: {path: numbers}}."""
     bf = torch.bfloat16
     out = {"fused_topk_gumbel_sample": {},
            "fused_classifier_topk_gumbel_sample": {}}
-    for path, items, beam, top_k, vocab, d, inv_t in (
-            ("sweep", 256, 5, 64, 2006, HID, 1.0),
-            ("demo_word", X_DEMO_ITEMS, 10, 70, 506, 64, 1.0),
-            ("demo_char", X_DEMO_ITEMS, 7, 37, 37, 64, 1 / 1.1)):
+    for path, items, beam, top_k, vocab, d, inv_t in X_SHAPES:
         rows = items * beam
-        if path != "demo_char":  # K3 plants ties across 40 logits
+        if path in ("sweep", "demo_word"):  # K3 plants ties across 40 logits
             r = check_k3(S, dev, gen, rows=items, vocab=vocab, top_k=top_k,
                          draws=beam, inv_t=inv_t, label=f"K3 {path}")
             out["fused_topk_gumbel_sample"][path] = {
@@ -3324,19 +3333,23 @@ def check_product_kernels(S, dev, gen):
             x, w, b, 7, inv_t, **kw), queued=True)
         plain_ms = cuda_ms(lambda: S.fused_classifier_topk_gumbel_sample_plain(
             x, w, b, 7, inv_t, **kw), iters=2, warmup=1)
-        # the unfused route (bf16 F.linear, then K3): a partial yardstick
+        # the unfused route (bf16 F.linear, then K3) and F.linear alone:
+        # partial yardsticks
         linear_k3_ms = cuda_ms(lambda: S.fused_topk_gumbel_sample(
             torch.nn.functional.linear(x, w, b.to(bf)), 7, inv_t, **kw),
             queued=True)
+        linear_ms = cuda_ms(lambda: torch.nn.functional.linear(
+            x, w, b.to(bf)), queued=True)
         r = dict(ms=ms, plain_ms=plain_ms, linear_k3_ms=linear_k3_ms,
-                 max_abs_err=err, **bound(k4_bytes(rows, d, rows, vocab, beam),
-                                          2 * rows * vocab * d, bf))
+                 linear_ms=linear_ms, max_abs_err=err,
+                 **bound(k4_bytes(rows, d, rows, vocab, beam),
+                         2 * rows * vocab * d, bf))
         out["fused_classifier_topk_gumbel_sample"][path] = r
         log(f"  K4 {path} x [{rows}, {d}] W [{vocab}, {d}], top_k {top_k}, "
             f"draws {beam}: {ms:.4f} ms (device alone), twin {plain_ms:.4f} "
-            f"ms, F.linear + K3 {linear_k3_ms:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max|vals-twin| "
-            f"{err:.3e}")
+            f"ms, F.linear + K3 {linear_k3_ms:.4f} ms, F.linear alone "
+            f"{linear_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max|vals-twin| {err:.3e}")
     return out
 
 
@@ -3602,10 +3615,29 @@ def product_only():
     print(json.dumps({"product": numbers, "launches": legs}), flush=True)
 
 
+def kernel_split(fn, calls=10):
+    """torch.profiler over ``calls`` calls of ``fn``: each kernel's device
+    time per call (ms), by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.device_time_total > 0}
+
+
 def kernel_times(root):
-    """Device times (queued) of K4 at the char shape, all rows and C_LIVE
-    live, and of K9 (ng PACK) beside K2 on the same rows at the word and
-    char shapes, through the deephumor_tpu_torch of the tree at ``root``:
+    """Device times (queued) of K3 and K8 at the word shape (first); of K4
+    at the char shape, all rows and C_LIVE live, and at X_SHAPES (with
+    each kernel's share, profiled); of K3 at the sweep's first draw and
+    over K4's logits at X_SHAPES; and of K9 (ng 2, PACK, 8) beside K2 on
+    the same rows at the word and char shapes, through the
+    deephumor_tpu_torch of the tree at ``root``:
     given another tree's root, it times that tree's kernels on the same
     inputs (a change beside its parent, in one call). Prints one JSON
     line."""
@@ -3616,11 +3648,42 @@ def kernel_times(root):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(dev).manual_seed(0)
     out = {"tree": root, "card": card()}
+    # K3 and K8 at the word shape first, in the process's first
+    # allocations: later, what ran before moves memory-bound kernels by
+    # a few percent either way
+    logits = torch.randn(ROWS, VOCAB, generator=gen, device=dev).to(
+        torch.bfloat16)
+    out["k3_ms_word"] = cuda_ms(lambda: S.fused_topk_gumbel_sample(
+        logits, 7, 1.0, top_k=TOP_K, num_draws=BEAM), queued=True)
+    del logits
+    q, ck, cv, kn, vn, bias = attention_state(
+        A, dev, gen, items=BATCH, beam=BEAM, p=P, pos=31, dt=torch.bfloat16)
+    out["k8_ms_word"] = cuda_ms(lambda: A.ancestry_attention_update_flash(
+        q, ck, cv, kn, vn, bias, 31, beam=BEAM, n_heads=HEADS), queued=True)
+    del q, ck, cv, kn, vn, bias
     x, w, b = k4_inputs(dev, gen)
     kw = dict(top_k=C_TOP_K, num_draws=C_BEAM)
     for key, live in (("k4_ms", None), ("k4_ms_live", C_LIVE)):
         out[key] = cuda_ms(lambda: S.fused_classifier_topk_gumbel_sample(
             x, w, b, 7, 1 / C_TEMP, live_rows=live, **kw), queued=True)
+    for path, items, beam, top_k, vocab, d, inv_t in X_SHAPES:
+        x, w, b = k4_inputs(dev, gen, d, items * beam, vocab)
+        kw = dict(top_k=top_k, num_draws=beam)
+        out[f"k4_ms_{path}"] = cuda_ms(
+            lambda: S.fused_classifier_topk_gumbel_sample(
+                x, w, b, 7, inv_t, **kw), queued=True)
+        out[f"k4_kernels_{path}"] = kernel_split(
+            lambda: S.fused_classifier_topk_gumbel_sample(x, w, b, 7, inv_t,
+                                                          **kw))
+        # K3 alone over the same logits: the draw half of F.linear + K3
+        logits = S.classifier_logits(x, w, b)
+        out[f"k3_ms_{path}"] = cuda_ms(
+            lambda: S.fused_topk_gumbel_sample(logits, 7, inv_t, **kw),
+            queued=True)
+    logits = torch.randn(256, 2006, generator=gen, device=dev).to(
+        torch.bfloat16)
+    out["k3_ms_sweep"] = cuda_ms(lambda: S.fused_topk_gumbel_sample(
+        logits, 7, 1.0, top_k=64, num_draws=5), queued=True)
     for label, items, beam in (("word", BATCH, BEAM),
                                ("char", C_BATCH, C_BEAM)):
         q, ek, ev, bias = k9_inputs(A, dev, gen, items, beam)

@@ -64,10 +64,10 @@ _SIGNATURES = {
     # stream
     "dh_topk_gumbel_sample":
         [_I, _P, _P, _I, _I, _I, _I, _I, _U, _F, _P],
-    # x, w, b, ids, vals, rows, live_rows, V, D, top_k, num_draws, unk,
-    # seed, invT, stream
+    # x, w, b, ids, vals, scratch (or NULL), rows, live_rows, V, D, top_k,
+    # num_draws, unk, seed, invT, stream
     "dh_classifier_topk_gumbel_sample":
-        [*[_P] * 5, *[_I] * 7, _U, _F, _P],
+        [*[_P] * 6, *[_I] * 7, _U, _F, _P],
     # dtype, q, cache_k, cache_v, shared_k, shared_v, k_new, v_new,
     # bias_shared, bias_win, out, items, live, beam, P, shared_len, c,
     # p_eff, D, H, pos, inv_scale, stream
@@ -108,6 +108,8 @@ _SIZES = {
     "dh_grouped_cross_attention_smem": ([_I] * 5, ctypes.c_longlong),
     # dtype, V -> bytes of dynamic shared memory of a block of one team
     "dh_topk_gumbel_sample_smem": ([_I] * 2, ctypes.c_longlong),
+    # V, D, live rows -> bytes of K4's logits scratch on the current device
+    "dh_classifier_topk_gumbel_sample_scratch": ([_I] * 3, ctypes.c_longlong),
     # device -> the opt-in limit of a block's dynamic shared memory
     "dh_smem_optin": ([_I], ctypes.c_int),
 }

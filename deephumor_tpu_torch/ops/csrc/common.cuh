@@ -2,8 +2,8 @@
 // either storage type, warp reductions, the dtype codes the Python
 // wrappers pass (0 = float32, 1 = bfloat16), the cp.async, ldmatrix and
 // mma.sync wrappers of the tensor-core kernels, the bulk copies and
-// mbarriers of K3, and the launch preparation (SM count, shared-memory
-// limits) of the kernels that size their own grids.
+// mbarriers of K3 and K4, and the launch preparation (SM count,
+// shared-memory limits) of the kernels that size their own grids.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -265,6 +265,68 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// ---- Warpgroup products (sm_90a) ----
+
+// The descriptor of a K-major bf16 tile in shared memory whose rows are 64
+// values (128 bytes), stored in 1024-byte atoms of 8 rows with the 128-byte
+// swizzle: 16-byte chunk c of row r at r * 128 + 16 (c ^ (r % 8)). The
+// atom at `tile` must be 1024-byte aligned; adding 2 to the descriptor
+// moves its start 32 bytes (16 values) along K.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
+  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4)
+         | (uint64_t)1 << 16            // leading offset (unused here)
+         | (uint64_t)(1024 >> 4) << 32  // 8-row atoms 1024 bytes apart
+         | (uint64_t)1 << 62;           // 128-byte swizzle
+}
+// Orders the warpgroup's register and shared-memory accesses before the
+// products that follow; groups the products issued so far; waits until at
+// most N groups are in flight.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// d += a * b over 16 of K by the warpgroup: a [64 x 16] and b [128 x 16]
+// bf16 (K-major tiles, descriptors above), d [64 x 128] f32. Thread t of
+// the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8 for d[4j + 2],
+// d[4j + 3]), columns 8 j + 2 (t % 4) and + 1.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, 1, 1, 1, 0, 0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b));
+}
+
 // The shared-memory row stride, in bf16 values, of a staged tile of
 // `hd`-wide rows (hd a multiple of 8): 16 bytes of padding put the eight
 // row addresses of an ldmatrix (or eight cp.async destinations) in eight
@@ -280,6 +342,21 @@ inline int sm_count() {
     return count;
   }();
   return sms;
+}
+
+// The current device's opt-in limit of a block's dynamic shared memory,
+// read once per device (the first 32; past them on every call).
+inline int smem_optin() {
+  static std::atomic<int> cached[32];  // 0: not read yet
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 32 && (optin = cached[dev].load(std::memory_order_relaxed)))
+    return optin;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  if (dev < 32) cached[dev].store(optin, std::memory_order_relaxed);
+  return optin;
 }
 
 // Once per kernel and device (the first 32 devices; past them on every

@@ -200,7 +200,9 @@ def fused_classifier_topk_gumbel_sample(x, w, b, seed, inv_temperature, *,
                                         top_k, num_draws, unk_index=UNK,
                                         live_rows=None):
     """K4: :func:`fused_topk_gumbel_sample` of :func:`classifier_logits`
-    ``(x, w, b)``, with the logits kept inside the kernel.
+    ``(x, w, b)``, with the product inside the kernel: the logits stay in
+    its blocks (V up to 256) or pass through a scratch that the draws read
+    back at once.
 
     Args:
         x: ``[rows, D]`` hidden states (cast to bf16).
@@ -231,21 +233,21 @@ def fused_classifier_topk_gumbel_sample(x, w, b, seed, inv_temperature, *,
                          f"(the kernel's tensor-core product steps by 16)")
     bf = torch.bfloat16
     rows, v = x.shape[0], w.shape[0]
-    xb, bb = x.to(bf), b.float().contiguous()
-    # the kernel that streams W reads it in 16-row fragments (the one that
-    # keeps W resident reads its V rows)
-    wb = w.to(bf) if v % 16 == 0 else torch.nn.functional.pad(
-        w.to(bf), (0, 0, 0, -v % 16))
+    live = _build.live_count(rows, live_rows)
+    xb, wb, bb = x.to(bf), w.to(bf), b.float().contiguous()
     _build.check_vector_rows(name, x.shape[1], xb, wb)
-    if wb.data_ptr() % 32:
-        raise ValueError(f"{name}: w must be 32-byte aligned")
+    lib = _build.library()
+    # the streamed path's bf16 logits (none, NULL, on the resident path)
+    scratch = torch.empty(
+        lib.dh_classifier_topk_gumbel_sample_scratch(v, x.shape[1], live),
+        dtype=torch.uint8, device=x.device)
     ids = torch.empty((rows, num_draws), dtype=torch.int64, device=x.device)
     vals = torch.empty((rows, num_draws), dtype=torch.float32,
                        device=x.device)
-    err = _build.library().dh_classifier_topk_gumbel_sample(
+    err = lib.dh_classifier_topk_gumbel_sample(
         xb.data_ptr(), wb.data_ptr(), bb.data_ptr(), ids.data_ptr(),
-        vals.data_ptr(), rows, _build.live_count(rows, live_rows), v,
-        x.shape[1], top_k, num_draws, unk_index, int(seed),
+        vals.data_ptr(), scratch.data_ptr(), rows, live,
+        v, x.shape[1], top_k, num_draws, unk_index, int(seed),
         float(np.float32(inv_temperature)), _build.stream_of(x))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1

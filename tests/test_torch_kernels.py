@@ -381,7 +381,9 @@ def _classifier_case(cuda, dtype, rows, d, vocab, live_rows):
     # fewer rows than one 16-row tile; no live row; a row past a tile
     # boundary, in rows and in live_rows
     (5, 512, 128, None), (448, 512, 128, 0), (33, 512, 128, None),
-    (448, 512, 128, 17)])
+    (448, 512, 128, 17),
+    # the demo's word leg (streamed, V % 16 != 0)
+    (640, 64, 506, None)])
 def test_classifier_topk_gumbel_matches_twin(cuda, dtype, rows, d, vocab,
                                              live_rows):
     _, _, _, _, vals, vals_p, eq = _classifier_case(cuda, dtype, rows, d,
@@ -394,7 +396,12 @@ def test_classifier_topk_gumbel_matches_twin(cuda, dtype, rows, d, vocab,
 @pytest.mark.parametrize("rows,d,vocab,live_rows", [
     # the char step: blocks walk several tiles through both x buffers; a
     # late step's 1,120 live rows; D 768 (W too large to stay resident)
-    (5376, 512, 128, None), (5376, 512, 128, 1120), (448, 768, 128, 300)])
+    (5376, 512, 128, None), (5376, 512, 128, 1120), (448, 768, 128, 300),
+    # the streamed path: the sweep's step, all and half its rows live; the
+    # smallest streamed V; the top of the range, in two chunks of rows;
+    # D 768 past V 256
+    (1280, 512, 2006, None), (1280, 512, 2006, 640), (448, 512, 257, 300),
+    (1280, 512, 16384, 700), (448, 768, 2006, None)])
 def test_classifier_topk_gumbel_at_serving_rows(cuda, dtype, rows, d, vocab,
                                                 live_rows):
     # ~1e-4 of the logits round to the other bf16 neighbour under another

@@ -1,15 +1,18 @@
 """deephumor_tpu_torch's K3 sampler twin: the support of its draws against
 the JAX package's ``filter_top_k`` and its K3 kernel (interpreted), its
-distribution, its noise hash, and its ``live_rows``."""
+distribution, its noise hash, and its ``live_rows``; and K4's twin
+against the JAX package's K4 kernel (interpreted) past V 256."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from deephumor_tpu.models.sampling import filter_top_k
-from deephumor_tpu.ops.pallas_sampler import fused_topk_gumbel_sample
+from deephumor_tpu.ops.pallas_sampler import (
+    fused_classifier_topk_gumbel_sample, fused_topk_gumbel_sample)
 from deephumor_tpu_torch.ops import sampler as S
 
 R, V, K, D = 16, 512, 16, 4
@@ -160,6 +163,50 @@ def test_live_rows_draw_from_the_support_of_the_jax_kernel(dtype, live_rows):
     for r in range(live_rows):
         assert set(ids[r].tolist()) <= support[r] and 1 not in ids[r]
         assert set(jax_ids[r].tolist()) <= support[r]
+
+
+@pytest.mark.parametrize("vocab", [506, 2006])
+@pytest.mark.parametrize("live_rows", [None, 5])
+def test_classifier_draws_from_the_support_of_the_jax_kernel(vocab,
+                                                             live_rows):
+    # K4 at the vocabularies of its streamed path (the demo's word leg, the
+    # sweep; V % 16 != 0) against the JAX kernel, interpreted: equal bf16
+    # logits, draws in their keep-ties top-k support without UNK or
+    # repeats, rows past live_rows id 0 and value 0. x and W lie on grids
+    # that bf16 holds and whose dot products f32 sums exactly in any
+    # order, so both packages round the same sums (ties in bf16 abound)
+    rng = np.random.default_rng(14)
+    rows, d = 8, 64
+    x = (rng.integers(-8, 9, size=(rows, d)) / 8).astype(np.float32)
+    w = (rng.integers(-16, 17, size=(vocab, d)) / 64).astype(np.float32)
+    b = rng.normal(size=vocab).astype(np.float32)
+    b[1] = 30.0  # UNK on top of every row
+    live = rows if live_rows is None else live_rows
+    ids, vals = S.fused_classifier_topk_gumbel_sample(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), 9,
+        1.0, top_k=K, num_draws=D, live_rows=live_rows)
+    ids, vals = ids.numpy(), vals.numpy()
+    jax_ids, jax_vals = fused_classifier_topk_gumbel_sample(
+        jnp.asarray(x), jnp.asarray(w.T), jnp.asarray(b), 9, 1.0, top_k=K,
+        num_draws=D, interpret=True,
+        live_rows=None if live_rows is None else jnp.int32(live_rows))
+    jax_ids, jax_vals = np.asarray(jax_ids), np.asarray(jax_vals)
+    bf = jnp.bfloat16
+    ref = np.asarray((jax.lax.dot_general(
+        jnp.asarray(x, bf), jnp.asarray(w.T, bf), (((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32) + b).astype(bf).astype(
+            jnp.float32))
+    logits = S.classifier_logits(torch.from_numpy(x), torch.from_numpy(w),
+                                 torch.from_numpy(b)).float().numpy()
+    np.testing.assert_array_equal(logits, ref)
+    support = _jax_support(ref, K)
+    for r in range(live):
+        assert set(ids[r]) <= support[r] and 1 not in ids[r]
+        assert len(set(ids[r])) == D
+        np.testing.assert_array_equal(vals[r], ref[r, ids[r]])
+        assert set(jax_ids[r].tolist()) <= support[r] and 1 not in jax_ids[r]
+        np.testing.assert_array_equal(jax_vals[r], ref[r, jax_ids[r]])
+    assert not ids[live:].any() and not vals[live:].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
