@@ -163,10 +163,33 @@ K5 and K6 must launch). An ExperimentConfig must survive JSON and build
 the word model, and a word Trainer state ``save_state`` /
 ``restore_state`` must come back bit-equal, onto its template and whole.
 
+Last, a compiled-generation phase ([16]). Every path above runs its
+decode loop as CUDA graphs by default (models/graphs.py; the phases
+after char's first boundary eagerly). K3 and K4 take the step's seed from
+device memory: held to the int seed (equal draws) and to the twin, and
+timed in both forms, K3 at word's rows, K4 at the sweep's and char's.
+Greedy text of the captured path at a small size (2 layers, hid 64, V
+300, 8 items, f32) must equal the CPU's for the three families. Then
+word, Base and LSTM (batch 1792), the sweep's shape (V 2,006, batch 256)
+and char (batch 768; its phases through p_eff 24 captured) each run
+captured beside eager (``compiled=False``) from the same inputs and
+generator seed: sequences, scores, chosen and ended bit-equal, sampled
+(``sampler="pallas"``) and greedy, and the same launches per call; each
+path's captions/s (median of G_CALLS calls of each, in turns; char
+G_CHAR_CALLS), the idle share of one profiled call of each, the first
+captured call's time (warm-up and capture) and the memory its key holds;
+and one call of each path under ``torch.cuda.set_sync_debug_mode
+("error")``, with only the reads between graphs (or eager steps) and
+char's boundaries allowed. Last, a burst of G_REQUESTS requests through
+a warmed ``DynamicBatcher`` (buckets "auto") over a 32-template word
+pipeline, captured and eager in turns, twice each, after the pipeline's
+call of one full batch gave the same texts captured and eager.
+
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [ROOT]
     python3 chip_smoke.py --tp
     python3 chip_smoke.py --product
+    python3 chip_smoke.py --compiled
     torchrun --nproc-per-node N chip_smoke.py --mesh-ranks [tp]
 
 The second form only times K3 and K8 (word, first), K4 (all char rows,
@@ -174,8 +197,8 @@ C_LIVE live, and at X_SHAPES), K3 (the sweep's first draw), K9 (ng 2, 4,
 8) and K2 on K9's rows, queued, through the deephumor_tpu_torch of the
 tree at ROOT (default: this one), and prints one JSON line: run beside
 a parent tree's root, it times the parent's kernels on the same inputs.
-The third builds the kernels and runs [14] alone, the fourth [15]. The
-fifth runs over N
+The third builds the kernels and runs [14] alone, the fourth [15], the
+fifth [16]. The sixth runs over N
 ranks, one per card (N = 2 or 4): first [14]'s data N/2 x model 2 NCCL
 mesh, ``tp_generate`` at the word leg (batch BATCH; greedy on >=
 TP_GREEDY_SHARE of items equal to one card's call, sampled repeatable,
@@ -298,6 +321,9 @@ X_SAMPLE, X_CHAR_SAMPLE, X_CHAR_LEN, X_DEMO_ITEMS = 50_000, 5_000, 128, 64
 # (V 37, top_k 37, beam 7, 1/T 1/1.1); and at the sweep's rows, K4's
 # streamed path at its ends: V 257 (the smallest past the resident body)
 # and FUSED_CLASSIFIER_MAX_V
+# the compiled phase ([16]): timed calls of each path and of char, and the
+# batcher burst's requests
+G_CALLS, G_CHAR_CALLS, G_REQUESTS = 10, 5, 1024
 X_SHAPES = (("sweep", 256, 5, 64, 2006, HID, 1.0),
             ("demo_word", X_DEMO_ITEMS, 10, 70, 506, 64, 1.0),
             ("demo_char", X_DEMO_ITEMS, 7, 37, 37, 64, 1 / 1.1),
@@ -3102,7 +3128,10 @@ def cold_build():
         pipe.add_templates(["a", "b"], torch.randn(
             2, 64, 64, 3, device=dev,
             generator=torch.Generator(dev).manual_seed(1)))
-        kw = dict(max_len=8, beam_size=2, top_k=8, sampler="pallas")
+        # eager: a key's first captured call holds the capture lock, so
+        # two captured first calls never ask for the library at once
+        kw = dict(max_len=8, beam_size=2, top_k=8, sampler="pallas",
+                  compiled=False)
         barrier, texts = threading.Barrier(2), []
         with DynamicBatcher(pipe, max_batch=4, seed=0, **kw) as one, \
                 DynamicBatcher(pipe, max_batch=4, seed=1, **kw) as two:
@@ -3615,6 +3644,405 @@ def product_only():
     print(json.dumps({"product": numbers, "launches": legs}), flush=True)
 
 
+# -- [16] compiled generation ------------------------------------------------
+def sync_checked(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: any op
+    that waits for the device raises, except in ``BeamSearch.all_ended``
+    (the read between graphs, or between eager steps, that the loop makes
+    on purpose) and ``run_boundary`` (a phase boundary, eager: it sets
+    host ints)."""
+    from deephumor_tpu_torch.models import sampling
+
+    cls = sampling.BeamSearch
+    saved = {name: getattr(cls, name)
+             for name in ("all_ended", "run_boundary")}
+    depth = [0]  # a boundary reads all_ended inside
+
+    def allowed(real):
+        def run(*args, **kwargs):
+            depth[0] += 1
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return real(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if not depth[0]:
+                    torch.cuda.set_sync_debug_mode("error")
+        return run
+
+    for name, real in saved.items():
+        setattr(cls, name, allowed(real))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        for name, real in saved.items():
+            setattr(cls, name, real)
+
+
+def same_outputs(a, b, keys=("sequences", "scores", "chosen", "ended")):
+    return all(torch.equal(a[k], b[k]) for k in keys)
+
+
+def idle_share(fn):
+    """torch.profiler over one call: (wall ms, device kernel ms, idle
+    share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0
+               and e.device_type.name == "CUDA") / 1e3
+    return wall, busy, 1 - busy / wall
+
+
+def compare_compiled(model, params, enc, kw, _build, graphs, label,
+                     name_limit, calls=G_CALLS, path_kernels=()):
+    """One path captured beside eager (``compiled=False``) from the same
+    inputs and generator seed: outputs bit-equal (sampled and greedy),
+    launches per call equal (and each of ``path_kernels`` launched), the
+    first captured call's warm-up and capture time and the memory its key
+    holds, captions/s (median of ``calls`` calls of each, in turns after
+    warm-up), the idle share of one profiled call of each, and one call
+    of each under the sync debug mode. Returns the path's numbers."""
+    n, dev = batch(enc).shape[0], batch(enc).device
+
+    def call(compiled, seed=5, **extra):
+        return model.generate_from_emb(
+            params, enc, generator=torch.Generator(dev).manual_seed(seed),
+            compiled=compiled, **dict(kw, **extra))
+
+    graphs.clear()
+    eager = call(False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    captured = call(None)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (info,) = graphs.cache_info()
+    again = call(None)
+    if not (same_outputs(captured, eager) and same_outputs(again, eager)):
+        raise AssertionError(f"[16] {label}: captured outputs differ from "
+                             f"the eager loop's at the same seed")
+    if captured.get("boundaries") != eager.get("boundaries"):
+        raise AssertionError(f"[16] {label}: boundaries differ")
+    greedy = [call(c, greedy=True) for c in (False, None)]
+    if not same_outputs(*greedy):
+        raise AssertionError(f"[16] {label}: greedy captured differs from "
+                             f"greedy eager")
+    counts = []
+    for compiled in (False, None):
+        _build.reset_launch_counts()
+        call(compiled)
+        counts.append(dict(_build.LAUNCHES))
+    if counts[0] != counts[1]:
+        raise AssertionError(f"[16] {label}: launches per call, eager "
+                             f"{counts[0]} != captured {counts[1]}")
+    missing = [k for k in path_kernels if not counts[1][k]]
+    if missing:
+        raise AssertionError(f"[16] {label}: kernels not launched {missing}")
+    secs = {False: [], None: []}
+    for i in range(calls):
+        for compiled in (False, None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(compiled, seed=10 + i)
+            torch.cuda.synchronize()
+            secs[compiled].append(time.perf_counter() - t0)
+    rates = {c: n / float(np.median(s)) for c, s in secs.items()}
+    idle = {c: idle_share(lambda c=c: call(c)) for c in (False, None)}
+    sync_checked(lambda: call(False))
+    sync_checked(lambda: call(None))
+    res = {
+        "items": n, "captions_per_s": rates[None],
+        "captions_per_s_eager": rates[False],
+        "captions_per_s_calls": [n / s for s in secs[None]],
+        "captions_per_s_eager_calls": [n / s for s in secs[False]],
+        "idle_share": idle[None][2], "idle_share_eager": idle[False][2],
+        "device_ms": idle[None][1], "device_ms_eager": idle[False][1],
+        "wall_ms_profiled": idle[None][0],
+        "wall_ms_profiled_eager": idle[False][0],
+        "first_call_s": first_s, "capture_s": info["capture_s"],
+        "key_bytes": info["bytes"], "graphs": info["graphs"],
+        "launches_per_call": counts[1],
+        "card": name_limit}
+    log(f"  {label}: {n} items; captured {rates[None]:.1f} captions/s, eager "
+        f"{rates[False]:.1f} (median of {calls} calls each, in turns); idle "
+        f"share {idle[None][2]:.3f} captured, {idle[False][2]:.3f} eager "
+        f"(device {idle[None][1]:.1f} / {idle[False][1]:.1f} ms a call); "
+        f"first call {first_s:.2f} s (warm-up and capture "
+        f"{info['capture_s']:.2f} s, {info['graphs']} graphs), key holds "
+        f"{info['bytes'] / 2 ** 20:.1f} MiB; sampled and greedy outputs "
+        f"bit-equal, launches per call equal, no device read in a step "
+        f"(sync debug mode) | {name_limit}")
+    graphs.clear()
+    return res
+
+
+def check_seed_forms(S, dev, gen):
+    """K3 and K4 with the step's seed in device memory (a one-element
+    int32 tensor, as a captured step passes it) against the int seed and
+    the twin, at word's K3 rows and at the sweep's and char's K4 rows;
+    both forms timed queued. Returns each kernel's numbers."""
+    bf = torch.bfloat16
+    out = {}
+    seed_t = torch.tensor([12345], dtype=torch.int32, device=dev)
+    logits = torch.randn(ROWS, VOCAB, generator=gen, device=dev).to(bf)
+    kw = dict(top_k=TOP_K, num_draws=BEAM)
+    got = S.fused_topk_gumbel_sample(logits, seed_t, 1.0, **kw)
+    want = S.fused_topk_gumbel_sample(logits, 12345, 1.0, **kw)
+    twin = S.fused_topk_gumbel_sample_plain(logits, seed_t, 1.0, **kw)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("[16] K3: a device seed draws otherwise than "
+                             "the int seed")
+    check_draws(got[0], twin[0], logits, TOP_K, "K3 device seed (word)")
+    out["fused_topk_gumbel_sample"] = {
+        "ms_seed_ptr": cuda_ms(lambda: S.fused_topk_gumbel_sample(
+            logits, seed_t, 1.0, **kw), queued=True),
+        "ms_seed_int": cuda_ms(lambda: S.fused_topk_gumbel_sample(
+            logits, 12345, 1.0, **kw), queued=True)}
+    del logits
+    rows = {}
+    for label, (x, w, b), kw, inv_t in (
+            ("sweep", k4_inputs(dev, gen, HID, 256 * BEAM, 2006),
+             dict(top_k=64, num_draws=BEAM), 1.0),
+            ("char", k4_inputs(dev, gen), dict(top_k=C_TOP_K,
+                                               num_draws=C_BEAM),
+             1 / C_TEMP)):
+        got = S.fused_classifier_topk_gumbel_sample(x, w, b, seed_t, inv_t,
+                                                    **kw)
+        want = S.fused_classifier_topk_gumbel_sample(x, w, b, 12345, inv_t,
+                                                     **kw)
+        twin = S.fused_classifier_topk_gumbel_sample_plain(x, w, b, seed_t,
+                                                           inv_t, **kw)
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"[16] K4 {label}: a device seed draws "
+                                 f"otherwise than the int seed")
+        check_draws(got[0], twin[0], S.classifier_logits(x, w, b),
+                    kw["top_k"], f"K4 device seed ({label})")
+        rows[f"ms_seed_ptr_{label}"] = cuda_ms(
+            lambda: S.fused_classifier_topk_gumbel_sample(
+                x, w, b, seed_t, inv_t, **kw), queued=True)
+        rows[f"ms_seed_int_{label}"] = cuda_ms(
+            lambda: S.fused_classifier_topk_gumbel_sample(
+                x, w, b, 12345, inv_t, **kw), queued=True)
+    out["fused_classifier_topk_gumbel_sample"] = rows
+    log(f"  K3 and K4 with the seed in device memory: draws equal to the int "
+        f"seed's and in the twin's support; queued ms (device seed / int "
+        f"seed): {json.dumps(out)}")
+    return out
+
+
+def compiled_batcher(pipe, kw, name_limit):
+    """The pipeline's call of one full batch, captured and eager from one
+    generator seed: the same texts. Then G_REQUESTS submits from
+    S_THREADS threads through a DynamicBatcher (buckets "auto", warmed
+    up), captured and eager in turns: captions/s, p50 and p99 of each
+    (which batch a request lands in depends on the threads' timing)."""
+    from deephumor_tpu_torch.serving import DynamicBatcher
+
+    ids = list(pipe._row)
+    full = [ids[i % len(ids)] for i in range(S_MAX_BATCH)]
+    texts = [pipe.generate_captions(
+        full, torch.Generator(pipe.device).manual_seed(9),
+        pad_to=S_MAX_BATCH, compiled=compiled, **kw)
+        for compiled in (None, False)]
+    if texts[0] != texts[1]:
+        raise AssertionError("[16] pipeline: captured texts differ from "
+                             "eager texts at the same seed")
+    log(f"  pipeline.generate_captions, {S_MAX_BATCH} requests: captured "
+        f"texts equal to eager texts at one seed")
+    n = G_REQUESTS
+    stats = {}
+    for compiled in (None, False, None, False):
+        t_sub, t_done, futs = [0.0] * n, [0.0] * n, [None] * n
+        barrier = threading.Barrier(S_THREADS)
+        with DynamicBatcher(pipe, max_batch=S_MAX_BATCH, buckets="auto",
+                            seed=2, compiled=compiled, **kw) as srv:
+            srv.warmup()
+
+            def client(k):
+                barrier.wait()
+                for i in range(k, n, S_THREADS):
+                    t_sub[i] = time.perf_counter()
+                    f = srv.submit(ids[i % len(ids)])
+                    f.add_done_callback(lambda _, i=i: t_done.__setitem__(
+                        i, time.perf_counter()))
+                    futs[i] = f
+
+            clients = [threading.Thread(target=client, args=(k,))
+                       for k in range(S_THREADS)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join()
+            texts = [f.result(timeout=300) for f in futs]
+        for i, text in enumerate(texts):
+            check_caption(text, pipe.vocab, f"[16] batcher request {i}")
+        lat = np.array(t_done) - np.array(t_sub)
+        key = "captured" if compiled is None else "eager"
+        stats.setdefault(key, []).append({
+            "captions_per_s": n / (max(t_done) - min(t_sub)),
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "buckets": sorted(set(srv.pad_sizes))})
+    log(f"  batcher burst, {n} requests from {S_THREADS} threads, captured "
+        f"then eager, twice: " + "; ".join(
+            f"{k} " + ", ".join(f"{r['captions_per_s']:.1f} captions/s (p50 "
+                                f"{r['p50_ms']:.1f} ms, p99 "
+                                f"{r['p99_ms']:.1f} ms)" for r in v)
+            for k, v in stats.items()) + f" | {name_limit}")
+    return dict(stats, card=name_limit)
+
+
+def greedy_text_small(_build, graphs, tree_map, dev):
+    """Greedy text of the captured path at a small size (2 layers, hid 64,
+    V 300, 8 items, f32) equal to the CPU's, for the transformers and the
+    LSTM."""
+    from deephumor_tpu_torch.models import (CaptioningLSTM,
+                                            CaptioningTransformer,
+                                            CaptioningTransformerBase)
+
+    cpu = lambda t: t.cpu()  # noqa: E731
+    g = torch.Generator(dev).manual_seed(16)
+    feats = (torch.randn(8, 64, generator=g, device=dev),
+             torch.randn(8, T_ENC, 64, generator=g, device=dev))
+    kw = dict(max_len=20, beam_size=3, top_k=8, greedy=True)
+    for cls, enc in ((CaptioningTransformer, feats),
+                     (CaptioningTransformerBase, feats[0]),
+                     (CaptioningLSTM, feats[0])):
+        if cls is CaptioningLSTM:
+            model = cls(num_tokens=300, emb_dim=64, hidden_size=64,
+                        num_layers=2)
+        else:
+            model = cls(num_tokens=300, hid_dim=64, n_layers=2, n_heads=2,
+                        pf_dim=128, max_len=24)
+        params = model.init(torch.Generator(dev).manual_seed(3), dev)
+        params["decoder"]["classifier"]["bias"][3] = 0.5
+        got = model.generate_from_emb(params, enc, **kw)
+        want = model.generate_from_emb(tree_map(cpu, params),
+                                       tree_map(cpu, enc), **kw)
+        if not torch.equal(got["chosen"].cpu(), want["chosen"]):
+            raise AssertionError(f"[16] greedy {cls.__name__}: captured text "
+                                 f"differs from the CPU's")
+    graphs.clear()
+    log("  greedy text at 2 layers, hid 64, V 300, 8 items, f32: captured "
+        "== CPU for the cross-attention, decoder-only and LSTM models")
+
+
+def compiled_phase(_build, modules, dev, name_limit):
+    """[16]: the decode loop captured (models/graphs.py) beside the eager
+    loop on word (batch 1792), Base, LSTM, the sweep's shape (V 2,006,
+    batch 256), a batcher burst and char's captured first phases (module
+    docstring). Returns each path's launches and the phase's numbers."""
+    from deephumor_tpu_torch.data import Vocab
+    from deephumor_tpu_torch.models import (CaptioningLSTM,
+                                            CaptioningTransformer,
+                                            CaptioningTransformerBase,
+                                            graphs)
+    from deephumor_tpu_torch.pipeline import MemeGenerationPipeline
+    from deephumor_tpu_torch.utils.pytree import tree_map
+
+    S = modules[-1]
+    log(f"[16] compiled generation: captured (CUDA graphs) beside eager on "
+        f"word, base, lstm (batch {BATCH}), the sweep's shape (V 2006, "
+        f"batch 256), a batcher burst, char's first phases | {name_limit}")
+    t_phase = time.perf_counter()
+    out = {"kernels": check_seed_forms(
+        S, dev, torch.Generator(dev).manual_seed(16))}
+    greedy_text_small(_build, graphs, tree_map, dev)
+    kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K,
+              temperature=1.0, sampler="pallas")
+    word_kernels = ("ancestry_attention_update", "grouped_cross_attention",
+                    "fused_topk_gumbel_sample")
+    paths = {}
+    model, params = make_model(CaptioningTransformer, "bfloat16", dev, False)
+    paths["word"] = compare_compiled(
+        model, params, features(BATCH, dev, 4), kw, _build, graphs, "word",
+        name_limit, path_kernels=word_kernels)
+    model, params = make_model(CaptioningTransformerBase, "bfloat16", dev,
+                               False)
+    paths["base"] = compare_compiled(
+        model, params, features(BATCH, dev, 4)[0], kw, _build, graphs,
+        "base", name_limit, path_kernels=("ancestry_attention_update",
+                                          "fused_topk_gumbel_sample"))
+    model, params = make_lstm(CaptioningLSTM, "bfloat16", dev)
+    paths["lstm"] = compare_compiled(
+        model, params, torch.randn(BATCH, L_EMB, device=dev,
+                                   generator=torch.Generator(dev).manual_seed(
+                                       4)), kw, _build, graphs, "lstm",
+        name_limit, path_kernels=("fused_topk_gumbel_sample",))
+    # the sweep's model (sweep.py --synthetic): V 2,006, batch 256
+    model = CaptioningTransformer(num_tokens=2006, hid_dim=HID,
+                                  n_layers=LAYERS, n_heads=HEADS, pf_dim=PF,
+                                  max_len=MAX_LEN + 2,
+                                  compute_dtype="bfloat16")
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    paths["sweep"] = compare_compiled(
+        model, params, features(256, dev, 15), kw, _build, graphs, "sweep",
+        name_limit, path_kernels=word_kernels + (
+            "fused_classifier_topk_gumbel_sample",))
+    # char: the phases up to the first boundary (p_eff 24) captured, the
+    # rest eager
+    model, params = make_model(CaptioningTransformer, "bfloat16", dev, True)
+    paths["char"] = compare_compiled(
+        model, params, features(C_BATCH, dev, 6), dict(
+            max_len=C_LEN, beam_size=C_BEAM, top_k=C_TOP_K,
+            temperature=C_TEMP, sampler="pallas"), _build, graphs, "char",
+        name_limit, calls=G_CHAR_CALLS, path_kernels=(
+            "ancestry_attention_update", "grouped_cross_attention",
+            "fused_topk_gumbel_sample",
+            "fused_classifier_topk_gumbel_sample",
+            "ancestry_attention_update_canon"))
+    del model, params
+    # a batcher burst over a word pipeline (32 templates)
+    model, params = make_model(CaptioningTransformer, "bfloat16", dev, False)
+    bias = params["decoder"]["classifier"]["bias"]
+    bias[0], bias[3] = S_PAD_BIAS, S_EOS_BIAS
+    pipe = MemeGenerationPipeline(
+        model, params, Vocab([f"word{i}" for i in range(VOCAB - 6)]))
+    pipe.add_templates([f"t{i}" for i in range(32)], torch.randn(
+        32, 224, 224, 3, device=dev,
+        generator=torch.Generator(dev).manual_seed(7)))
+    out["batcher"] = compiled_batcher(
+        pipe, dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K,
+                   sampler="pallas"), name_limit)
+    pipe.close()
+    graphs.clear()
+    out["paths"] = paths
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"    [16] {out['seconds']:.1f} s")
+    return {f"compiled_{k}": v.pop("launches_per_call")
+            for k, v in paths.items()}, out
+
+
+def compiled_only():
+    """``--compiled``: builds the kernels and runs [16] alone; prints its
+    numbers and launches as one JSON line."""
+    from deephumor_tpu_torch.ops import _build
+    from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops import cache as C
+    from deephumor_tpu_torch.ops import engine as E
+    from deephumor_tpu_torch.ops import sampler as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for key in ("DH_CROSS_PACK", "DH_FUSED_SURVIVOR"):
+        os.environ.pop(key, None)
+    _build.library()
+    legs, numbers = compiled_phase(_build, (A, C, E, S),
+                                   torch.device("cuda", 0), card())
+    print(json.dumps({"compiled": numbers, "launches": legs}), flush=True)
+
+
 def kernel_split(fn, calls=10):
     """torch.profiler over ``calls`` calls of ``fn``: each kernel's device
     time per call (ms), by name."""
@@ -3711,10 +4139,13 @@ def main():
         return tp_only()
     if sys.argv[1:2] == ["--product"]:
         return product_only()
+    if sys.argv[1:2] == ["--compiled"]:
+        return compiled_only()
     from deephumor_tpu_torch.models import (CaptioningLSTM,
                                             CaptioningLSTMWithLabels,
                                             CaptioningTransformer,
-                                            CaptioningTransformerBase)
+                                            CaptioningTransformerBase,
+                                            graphs)
     from deephumor_tpu_torch.ops import _build
     from deephumor_tpu_torch.ops import attention as A
     from deephumor_tpu_torch.ops import cache as C
@@ -3836,6 +4267,7 @@ def main():
     profile_call(model, params, enc, kw, name_limit, "word_packed_fused", 12,
                  pack=PACK, fused=True)
     del model, params, out, fused, enc
+    graphs.clear()
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
 
     log("[6] decoder-only transformer and LSTM: greedy f32 on the card vs "
@@ -3897,6 +4329,7 @@ def main():
     check_output(out, BATCH, VOCAB, BEAM, MAX_LEN)
     profile_call(model, params, enc, kw, name_limit, "lstm", 12)
     del model, params, lab_model, lab_params, out, fused, enc
+    graphs.clear()
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
 
     log(f"[7] char kernels: K4 x [{C_ROWS}, {HID}] W [{C_VOCAB}, {HID}] "
@@ -4001,6 +4434,7 @@ def main():
         if legs[leg]["fused_topk_gumbel_sample"] != 1:
             raise AssertionError(f"{leg}: K3 runs the first draw only")
     del model, params, out, enc
+    graphs.clear()
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
 
     log(f"[10] serving: the word model (bf16, sampler='pallas') behind the "
@@ -4010,6 +4444,7 @@ def main():
         CaptioningTransformer, tree_map, _build, (A, C, E, S), dev,
         name_limit)
     log("serving: " + json.dumps(serving))
+    graphs.clear()
     log("[11] kernel library build lock")
     check_cold_build()
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
@@ -4051,6 +4486,13 @@ def main():
     log("product: " + json.dumps(product))
     for name, paths in product["kernels"].items():
         rows[name]["product"] = paths
+    log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
+    compiled_legs, compiled = compiled_phase(_build, (A, C, E, S), dev,
+                                             name_limit)
+    legs.update(compiled_legs)
+    log("compiled: " + json.dumps(compiled))
+    for name, numbers in compiled["kernels"].items():
+        rows[name]["seed_ptr"] = numbers
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
 
     sources = {
@@ -4094,12 +4536,14 @@ def main():
             # char shape, K9 beside K2 on the same rows; K3 at the char
             # shape, in f32, and torch.topk alone; K4 at C_LIVE live rows,
             # beside F.linear + K3 and F.linear alone (partial yardsticks);
-            # [14]'s head-local shapes; K3 and K4 at [15]'s shapes
+            # [14]'s head-local shapes; K3 and K4 at [15]'s shapes, and
+            # with the seed in device memory ([16])
             **{k: row[k] for k in (
                 "ms_pe128", "ms_leg", "ms_char_pe128", "ms_char",
                 "bound_ms_char", "k2_ms", "k2_ms_char", "ms_f32", "topk_ms",
                 "ms_live", "bound_ms_live", "linear_ms", "linear_k3_ms",
-                "linear_k3_ms_live", "tp", "product") if k in row}})
+                "linear_k3_ms_live", "tp", "product", "seed_ptr")
+                if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {name_limit}")
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,10 @@ Each model is a frozen dataclass of hyperparameters; its parameters are
 a nested dict of tensors (``init``, ``from_pretrained``), on the card
 unless the caller asks for the CPU. Generation runs where the parameters
 live: on a CUDA device the decode path goes through the hand-written
-kernels, on the CPU through their plain twins. Parameters placed on a
+kernels, on the CPU through their plain twins. On a CUDA device the
+decode loop replays as CUDA graphs unless the caller passes
+``compiled=False`` (models/graphs.py: the counterpart of the JAX
+package's compiled ``generate``). Parameters placed on a
 ``data x model`` mesh (``parallel.make_param_shardings``: DTensors) make
 ``generate_from_emb`` run ``parallel.tp_generate``: each rank decodes its
 data block over its local shards (``model_group``, see
@@ -50,6 +53,7 @@ import torch
 from deephumor_tpu_torch import EOS
 from deephumor_tpu_torch.convert.jax_params import (params_from_jax,
                                                     params_to_jax)
+from deephumor_tpu_torch.models import graphs
 from deephumor_tpu_torch.models import layers as L
 from deephumor_tpu_torch.models import transformer as tfm
 from deephumor_tpu_torch.models.encoders import (
@@ -58,7 +62,7 @@ from deephumor_tpu_torch.models.encoders import (
 from deephumor_tpu_torch.models.lstm import (lstm_decoder_forward,
                                              lstm_decoder_init, lstm_forward,
                                              lstm_step)
-from deephumor_tpu_torch.models.sampling import beam_search
+from deephumor_tpu_torch.models.sampling import BeamSearch, noise_shapes
 from deephumor_tpu_torch.ops.attention import MASK_FILL
 from deephumor_tpu_torch.ops.engine import fused_survivor_update
 from deephumor_tpu_torch.parallel.sharding import local_tree, placed_mesh
@@ -73,6 +77,18 @@ _SAMPLERS = ("exact", "pallas")
 # canonical prefix length c = p_eff - _CANON_LAG: the still-diverging
 # window [c, p_eff) stays per slot
 _CANON_LAG = 16
+# the LSTM's steps per captured graph (it has no phases); ended.all() is
+# read between graphs
+_GRAPH_STEPS = 8
+
+
+def _tile_rows(x, n):
+    """``x.repeat_interleave(n, 0)`` as a broadcast copy into a new
+    contiguous tensor: each row ``n`` times in a row, with no size
+    computed on the device (a captured prefill may not wait for it)."""
+    out = x.new_empty((x.shape[0] * n, *x.shape[1:]))
+    out.view(x.shape[0], n, *x.shape[1:]).copy_(x[:, None])
+    return out
 
 
 def _check_sampler(sampler):
@@ -253,15 +269,49 @@ class CaptioningLSTM(_Captioner):
 
         return step
 
+    def _program(self, params, emb, caption, *, max_len, temperature,
+                 beam_size, top_k, eos_index, greedy, sampler):
+        """One call as a :class:`graphs.Program`: the prefill and the
+        first draw, then the steps in segments of ``_GRAPH_STEPS`` (a
+        graph each on the card), then the final pick."""
+        num_items, dev = emb.shape[0], emb.device
+        prefix_len = 0 if caption is None else caption.shape[1]
+
+        def begin(inputs, noise):
+            dec, emb = _cast((self._decoder(params), inputs["enc"]),
+                             self.compute_dtype)
+            logits, state = self._prefill(dec, emb, inputs["caption"])
+            state = {k: _tile_rows(v, beam_size)
+                     for k, v in state.items()}
+            classifier = None
+            if sampler == "pallas" and not greedy:
+                cls = dec["classifier"]
+                classifier = (cls["weight"], cls["bias"])
+            search = BeamSearch(
+                step_fn=self._make_step(dec, classifier is not None),
+                segment_steps=_GRAPH_STEPS, beam_size=beam_size,
+                top_k=top_k, temperature=temperature, max_len=max_len,
+                prefix_len=prefix_len, greedy=greedy, sampler=sampler,
+                classifier=classifier, eos_index=eos_index)
+            return search.start(noise, state, logits, inputs["caption"])
+
+        return graphs.Program(
+            begin=begin, finish=lambda search: search.finish(),
+            noise=noise_shapes(steps=max_len - prefix_len,
+                               num_items=num_items, beam_size=beam_size,
+                               top_k=top_k, sampler=sampler, greedy=greedy),
+            device=dev)
+
     @torch.inference_mode()
     def generate_from_emb(self, params, emb, generator=None, caption=None,
                           max_len=25, temperature=1.0, beam_size=10,
                           top_k=50, eos_index=EOS, greedy=False,
-                          sampler=None, model_group=None):
+                          sampler=None, model_group=None, compiled=None):
         """Batched generation from (possibly cached) image embeddings
         ``[B, emb_dim]``; arguments and result as
         :meth:`CaptioningTransformer.generate_from_emb` (no phases, no
-        compaction: the state is a few rows per branch). With
+        compaction: the state is a few rows per branch; on the card the
+        steps replay as graphs of up to 8 steps). With
         ``sampler="pallas"`` the steps return hidden states and the draw
         runs the classifier: inside K4 up to V = 16384, as a bf16 product
         before K3 above it. A tree placed on a mesh runs
@@ -271,37 +321,32 @@ class CaptioningLSTM(_Captioner):
             return _tp_generate(self, params, emb, dict(
                 generator=generator, caption=caption, max_len=max_len,
                 temperature=temperature, beam_size=beam_size, top_k=top_k,
-                eos_index=eos_index, greedy=greedy, sampler=sampler))
+                eos_index=eos_index, greedy=greedy, sampler=sampler,
+                compiled=compiled))
         sampler = _check_sampler(sampler)
         if generator is None:
             generator = torch.Generator(emb.device).manual_seed(0)
-        dec, emb = _cast((self._decoder(params), emb), self.compute_dtype)
-        logits, state = self._prefill(dec, emb, caption)
-        state = {k: v.repeat_interleave(beam_size, 0)
-                 for k, v in state.items()}
-        classifier = None
-        if sampler == "pallas" and not greedy:
-            cls = dec["classifier"]
-            classifier = (cls["weight"], cls["bias"])
-        return beam_search(
-            generator, state, logits,
-            step_fn=self._make_step(dec, classifier is not None),
-            beam_size=beam_size, top_k=top_k, temperature=temperature,
-            max_len=max_len, prefix=caption,
-            prefix_len=0 if caption is None else caption.shape[1],
-            greedy=greedy, sampler=sampler, classifier=classifier,
-            eos_index=eos_index)
+        static = dict(max_len=max_len, temperature=temperature,
+                      beam_size=beam_size, top_k=top_k, eos_index=eos_index,
+                      greedy=greedy, sampler=sampler)
+        inputs = {"enc": emb, "caption": caption}
+        return graphs.generate(
+            lambda: self._program(params, emb, caption, **static), inputs,
+            generator, compiled=compiled,
+            key=lambda: graphs.graph_key(self, params, inputs, **static))
 
     def generate(self, params, images, generator=None, caption=None,
                  max_len=25, temperature=1.0, beam_size=10, top_k=50,
-                 eos_index=EOS, greedy=False, sampler=None):
+                 eos_index=EOS, greedy=False, sampler=None, compiled=None):
         """Batched caption generation from NHWC images ``[B, H, W, 3]``
-        (ImageNet-normalized); arguments as :meth:`generate_from_emb`."""
+        (ImageNet-normalized; the ResNet runs eagerly, then the decode);
+        arguments as :meth:`generate_from_emb`."""
         return self.generate_from_emb(
             params, self.encode(local_tree(params), images),
             generator=generator, caption=caption, max_len=max_len,
             temperature=temperature, beam_size=beam_size, top_k=top_k,
-            eos_index=eos_index, greedy=greedy, sampler=sampler)
+            eos_index=eos_index, greedy=greedy, sampler=sampler,
+            compiled=compiled)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,14 +394,15 @@ class CaptioningLSTMWithLabels(CaptioningLSTM):
 
     def generate(self, params, images, labels, generator=None, caption=None,
                  max_len=25, temperature=1.0, beam_size=10, top_k=50,
-                 eos_index=EOS, greedy=False, sampler=None):
+                 eos_index=EOS, greedy=False, sampler=None, compiled=None):
         """Batched caption generation from NHWC images and label tokens;
         arguments as :meth:`generate_from_emb`."""
         return self.generate_from_emb(
             params, self.encode(local_tree(params), images, labels),
             generator=generator, caption=caption, max_len=max_len,
             temperature=temperature, beam_size=beam_size, top_k=top_k,
-            eos_index=eos_index, greedy=greedy, sampler=sampler)
+            eos_index=eos_index, greedy=greedy, sampler=sampler,
+            compiled=compiled)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -582,27 +628,52 @@ class CaptioningTransformerBase(_Captioner):
 
         return run
 
-    def _generate_impl(self, params, enc, gen, caption, temperature, *,
-                       max_len, beam_size, top_k, greedy, eos_index,
-                       sampler, compact=None, canon=None, model_group=None):
+    def _program(self, params, enc, caption, *, temperature, max_len,
+                 beam_size, top_k, greedy, eos_index, sampler, compact,
+                 canon, model_group, pack_items, fused_survivor):
+        """One call as a :class:`graphs.Program`: the prefill and the
+        first draw, then the phases (each a segment: one graph on the
+        card, up to the first phase boundary), then the final pick.
+        ``pack_items`` and ``fused_survivor``: the two switches, read by
+        the caller."""
+        num_items = (enc[0] if isinstance(enc, tuple) else enc).shape[0]
+        prefix_len = 0 if caption is None else caption.shape[1]
+        kw = dict(temperature=temperature, max_len=max_len,
+                  beam_size=beam_size, top_k=top_k, greedy=greedy,
+                  eos_index=eos_index, sampler=sampler, compact=compact,
+                  canon=canon, model_group=model_group,
+                  pack_items=pack_items, fused_survivor=fused_survivor)
+
+        def finish(search):
+            return dict(search.finish(), boundaries=list(
+                search.state.get("boundaries", ())))
+
+        return graphs.Program(
+            begin=lambda inputs, noise: self._begin(
+                params, inputs["enc"], inputs["caption"], noise, **kw),
+            finish=finish,
+            noise=noise_shapes(steps=max_len - prefix_len,
+                               num_items=num_items, beam_size=beam_size,
+                               top_k=top_k, sampler=sampler, greedy=greedy),
+            device=params["decoder"]["classifier"]["weight"].device)
+
+    def _begin(self, params, enc, caption, noise, *, temperature, max_len,
+               beam_size, top_k, greedy, eos_index, sampler, compact, canon,
+               model_group, pack_items, fused_survivor):
+        """The prefill, the phase ladder and the first draw: the started
+        :class:`BeamSearch` of one call."""
         dec, enc = _cast((params["decoder"], enc), self.compute_dtype)
         prefix_len = 0 if caption is None else caption.shape[1]
         max_positions = max_len + 1
-        # the JAX package's two kernel-selecting switches, read per call:
-        # DH_CROSS_PACK=<ng> runs decode cross-attention in K9 with ng
-        # items per block (0 or unset: K2), DH_FUSED_SURVIVOR=1 runs the
-        # survivor update in K10
-        pack_items = int(os.environ.get("DH_CROSS_PACK", "0") or 0)
-        fused_survivor = os.environ.get("DH_FUSED_SURVIVOR") == "1"
         logits, state, consts = self._prefill_and_state(
             dec, enc, caption, max_positions, pad_to_tile=pack_items > 1,
             model_group=model_group)
         # decoder state is tiled per beam (item-major rows); the
         # cross-attention K/V stay per item
-        state["cache"] = [{k: v.repeat_interleave(beam_size, 0)
+        state["cache"] = [{k: _tile_rows(v, beam_size)
                            for k, v in layer.items()}
                           for layer in state["cache"]]
-        state["valid"] = state["valid"].repeat_interleave(beam_size, 0)
+        state["valid"] = _tile_rows(state["valid"], beam_size)
         num_items = logits.shape[0]
         dev = logits.device
         # every beam slot holds its own copy of the prefill cache
@@ -652,8 +723,10 @@ class CaptioningTransformerBase(_Captioner):
         # boundaries: compaction at pe = 24, 48, 96, ... (each pass gathers
         # the cache prefix, so they are sparse), canonicalisation before
         # every canon phase, after the compaction of the same boundary so
-        # its straggler ids index the permuted order
-        compactors, last_c, boundaries = [], 0, []
+        # its straggler ids index the permuted order. A boundary sets host
+        # ints that later steps bake in: on the card the phases after the
+        # first boundary run eagerly (models/graphs.py).
+        compactors, last_c = [], 0
         for k, pe in enumerate(pes):
             fns = []
             compacts = use_compact and pe >= 24 and pe >= 2 * last_c
@@ -666,7 +739,7 @@ class CaptioningTransformerBase(_Captioner):
                                              c=canon_cs[k + 1]))
             if fns:
                 fns.append(functools.partial(
-                    self._record_boundary, boundaries, pe, compacts,
+                    self._record_boundary, pe, compacts,
                     canon_cs[k + 1] is not None))
             compactors.append(self._chain_boundaries(fns) if fns else None)
         survivor_update_fn = None
@@ -686,32 +759,34 @@ class CaptioningTransformerBase(_Captioner):
                 st = dict(st, anc=anc, valid=valid.reshape(n * bm, -1))
                 return st, seq, val, ended, chosen
 
-        out = beam_search(
-            gen, state, logits, shuffle_fn=self._shuffle_state,
-            phases=phases, beam_size=beam_size, top_k=top_k,
-            temperature=temperature, max_len=max_len, prefix=caption,
-            prefix_len=prefix_len, greedy=greedy, sampler=sampler,
-            classifier=classifier, live_fn=live_fn, compactors=compactors,
-            finalize_fn=finalize_fn, survivor_update_fn=survivor_update_fn,
-            eos_index=eos_index, pad_index=self.pad_index)
-        return dict(out, boundaries=boundaries)
+        search = BeamSearch(
+            shuffle_fn=self._shuffle_state, phases=phases,
+            beam_size=beam_size, top_k=top_k, temperature=temperature,
+            max_len=max_len, prefix_len=prefix_len, greedy=greedy,
+            sampler=sampler, classifier=classifier, live_fn=live_fn,
+            compactors=compactors, finalize_fn=finalize_fn,
+            survivor_update_fn=survivor_update_fn, eos_index=eos_index,
+            pad_index=self.pad_index)
+        return search.start(noise, state, logits, caption)
 
     @staticmethod
-    def _record_boundary(log, pe, compacted, canon, state, seq, val, ended):
-        """Notes what a boundary left: the live items after its compaction
-        and the stragglers of its canon set-up (None for a part that did
-        not run). Both are host ints already."""
-        log.append({"p_eff": pe,
-                    "live": state["live"] if compacted else None,
-                    "stragglers": state["n_strag"] if canon else None})
-        return state, seq, val, ended
+    def _record_boundary(pe, compacted, canon, state, seq, val, ended):
+        """Notes what a boundary left in the state's ``boundaries``: the
+        live items after its compaction and the stragglers of its canon
+        set-up (None for a part that did not run). Both are host ints
+        already."""
+        entry = {"p_eff": pe,
+                 "live": state["live"] if compacted else None,
+                 "stragglers": state["n_strag"] if canon else None}
+        return (dict(state, boundaries=state.get("boundaries", ()) + (
+            entry,)), seq, val, ended)
 
     @torch.inference_mode()
     def generate_from_emb(self, params, enc, generator=None, caption=None,
                           max_len=25, temperature=1.0, beam_size=10,
                           top_k=50, eos_index=EOS, greedy=False,
                           sampler=None, compact=None, canon=None,
-                          model_group=None):
+                          model_group=None, compiled=None):
         """Batched generation from (possibly cached) ``encode`` output.
 
         Args:
@@ -732,7 +807,15 @@ class CaptioningTransformerBase(_Captioner):
                 ``parallel.tp_generate`` passes them; models/transformer.py).
                 Parameters placed on a mesh (DTensors) run
                 ``parallel.tp_generate`` instead, with ``enc`` the whole
-                batch on every rank or data-sharded DTensors.
+                batch on every rank or data-sharded DTensors. With a
+                model group the loop runs eagerly (its steps all-reduce
+                over the group).
+            compiled: on a CUDA device, None (default) replays the decode
+                loop as CUDA graphs (models/graphs.py: one per phase up to
+                the first phase boundary, made at the first call of each
+                static configuration and batch size); False runs it one
+                step at a time from the host, with the same outputs. On
+                the CPU the loop always runs eagerly.
 
         Two environment variables, read at each call, select kernels as in
         the JAX package: ``DH_CROSS_PACK=<ng>`` runs decode
@@ -754,31 +837,48 @@ class CaptioningTransformerBase(_Captioner):
                 generator=generator, caption=caption, max_len=max_len,
                 temperature=temperature, beam_size=beam_size, top_k=top_k,
                 eos_index=eos_index, greedy=greedy, sampler=sampler,
-                compact=compact, canon=canon))
+                compact=compact, canon=canon, compiled=compiled))
         sampler = _check_sampler(sampler)
         if generator is None:
             generator = torch.Generator(params["decoder"]["classifier"][
                 "weight"].device).manual_seed(0)
+        if model_group is not None:
+            if compiled:
+                raise ValueError("generation over a model group runs "
+                                 "eagerly: pass compiled=None or False")
+            compiled = False
         # the positional table bounds total positions (start emb + tokens)
         max_len = min(max_len, self.max_len - 1)
-        return self._generate_impl(
-            params, enc, generator, caption, temperature, max_len=max_len,
-            beam_size=beam_size, top_k=top_k, greedy=greedy,
-            eos_index=eos_index, sampler=sampler, compact=compact,
-            canon=canon, model_group=model_group)
+        # the JAX package's two kernel-selecting switches, read per call:
+        # DH_CROSS_PACK=<ng> runs decode cross-attention in K9 with ng
+        # items per block (0 or unset: K2), DH_FUSED_SURVIVOR=1 runs the
+        # survivor update in K10
+        static = dict(
+            temperature=temperature, max_len=max_len, beam_size=beam_size,
+            top_k=top_k, greedy=greedy, eos_index=eos_index,
+            sampler=sampler, compact=compact, canon=canon,
+            pack_items=int(os.environ.get("DH_CROSS_PACK", "0") or 0),
+            fused_survivor=os.environ.get("DH_FUSED_SURVIVOR") == "1")
+        inputs = {"enc": enc, "caption": caption}
+        return graphs.generate(
+            lambda: self._program(params, enc, caption,
+                                  model_group=model_group, **static),
+            inputs, generator, compiled=compiled,
+            key=lambda: graphs.graph_key(self, params, inputs, **static))
 
     def generate(self, params, images, generator=None, caption=None,
                  max_len=25, temperature=1.0, beam_size=10, top_k=50,
                  eos_index=EOS, greedy=False, sampler=None, compact=None,
-                 canon=None):
+                 canon=None, compiled=None):
         """Batched caption generation from NHWC images ``[B, H, W, 3]``
-        (ImageNet-normalized); arguments as :meth:`generate_from_emb`."""
+        (ImageNet-normalized; the ResNet runs eagerly, then the decode);
+        arguments as :meth:`generate_from_emb`."""
         return self.generate_from_emb(
             params, self.encode(local_tree(params), images),
             generator=generator, caption=caption, max_len=max_len,
             temperature=temperature, beam_size=beam_size, top_k=top_k,
             eos_index=eos_index, greedy=greedy, sampler=sampler,
-            compact=compact, canon=canon)
+            compact=compact, canon=canon, compiled=compiled)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,16 +7,21 @@ candidate draw and the survivor draw, per-step scores = log_softmax over
 the k drawn values, ended branches continue with one pad/score-0
 candidate, and a deterministic ``greedy`` mode (argmax everywhere).
 
-The token loop runs on the host, one decoder step per position, split
-into ``phases`` whose step functions read a growing cache prefix (or one
-``step_fn`` over every step, as the LSTM runs). It
-stops early once every branch has ended (one ``ended.all()`` read per
-step), which gives the same result as running every step: ended branches
-only append pads at score 0. A model may run a boundary function after a
-phase (early-EOS compaction, canonical-prefix setup) that permutes the
-items; ``finalize_fn`` puts the outputs back in the caller's order.
-Random draws come from the caller's ``torch.Generator``, which must live
-on the device of the logits.
+The token loop runs one decoder step per position, split into
+``phases`` whose step functions read a growing cache prefix (or one
+``step_fn`` over every step, as the LSTM runs). Every random number of a
+call is drawn up front from the caller's ``torch.Generator`` (on the
+device of the logits): the K3/K4 seeds, the uniforms of the per-branch
+and survivor draws and of the final pick (:func:`draw_noise`). A step
+then reads no host value and touches no generator, so a caller may
+capture whole segments of steps as CUDA graphs (models/graphs.py) and
+replay them with new draws. Eagerly the loop stops once every branch has
+ended (one ``ended.all()`` read per step); captured, the caller reads it
+between segments, and a step that runs after every branch has ended
+keeps every branch in place and appends a pad at score 0, so both give
+the same result. A model may run a boundary function after a phase
+(early-EOS compaction, canonical-prefix setup) that permutes the items;
+``finalize_fn`` puts the outputs back in the caller's order.
 """
 
 import torch
@@ -26,7 +31,8 @@ from deephumor_tpu_torch.ops.sampler import (
     fused_classifier_topk_gumbel_sample, fused_topk_gumbel_sample)
 from deephumor_tpu_torch.utils.pytree import tree_map
 
-__all__ = ["filter_top_k", "gumbel_top_k", "beam_search"]
+__all__ = ["filter_top_k", "gumbel_top_k", "beam_search", "BeamSearch",
+           "noise_shapes", "draw_noise", "run_eagerly"]
 
 NEG_INF = float("-inf")
 # above this vocabulary the classifier runs as a separate bf16 product
@@ -49,40 +55,42 @@ def filter_top_k(logits, top_k, unk_index=UNK):
     return filtered
 
 
-def gumbel_top_k(gen, log_weights, k):
-    """Samples k indices without replacement ~ softmax(log_weights);
-    -inf weights are never selected (given k <= #finite entries)."""
-    u = torch.rand(log_weights.shape, generator=gen,
-                   device=log_weights.device).clamp_min(1e-20)
-    gumbel = -torch.log(-torch.log(u))
+def gumbel_top_k(u, log_weights, k):
+    """Samples k indices without replacement ~ softmax(log_weights), from
+    uniforms ``u`` of ``log_weights``' shape (drawn up front:
+    :func:`draw_noise`); -inf weights are never selected (given k <=
+    #finite entries)."""
+    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
     perturbed = torch.where(torch.isfinite(log_weights),
                             log_weights + gumbel, NEG_INF)
     return _top_k(perturbed, k)[1]
 
 
-def _select_k(gen, log_weights, k, greedy):
+def _select_k(u, log_weights, k, greedy):
     if greedy:
         return _top_k(log_weights, k)[1]
-    return gumbel_top_k(gen, log_weights, k)
+    return gumbel_top_k(u, log_weights, k)
 
 
 def _log_softmax_scores(vals):
     return vals - torch.logsumexp(vals, dim=-1, keepdim=True)
 
 
-def _topk_space_draw(gen, logits, top_k, k, inv_t, greedy, unk_index,
+def _topk_space_draw(u, logits, top_k, k, inv_t, greedy, unk_index,
                      sampler="exact", classifier=None, seed=None,
                      live_rows=None):
     """One vocab-wide top-k selection, then the k-token draw in the
     reduced space. Returns (token ids ``[..., k]``, scores ``[..., k]``).
 
-    ``sampler="pallas"`` (stochastic only) runs the sampler kernels, which
-    skip rows at or past ``live_rows``. With ``classifier``, ``logits`` is
-    the pre-classifier hidden state: up to ``FUSED_CLASSIFIER_MAX_V`` the K4
+    ``sampler="pallas"`` (stochastic only) runs the sampler kernels with
+    ``seed`` (an int or a one-element int32 tensor), which skip rows at or
+    past ``live_rows``. With ``classifier``, ``logits`` is the
+    pre-classifier hidden state: up to ``FUSED_CLASSIFIER_MAX_V`` the K4
     kernel (ops.fused_classifier_topk_gumbel_sample) computes the
     classifier inside the draw; above it the classifier is a plain bf16
     matmul before K3 (ops.fused_topk_gumbel_sample). ``"exact"`` (and
-    greedy) sorts the f32 logits."""
+    greedy) sorts the f32 logits; its stochastic draw reads the uniforms
+    ``u`` ``[..., top_k]``."""
     if sampler == "pallas" and not greedy:
         if classifier is not None and (
                 classifier[0].shape[0] <= FUSED_CLASSIFIER_MAX_V):
@@ -103,7 +111,7 @@ def _topk_space_draw(gen, logits, top_k, k, inv_t, greedy, unk_index,
 
     vals, idx = _top_k(logits.float(), top_k)
     vals = vals.masked_fill(idx == unk_index, NEG_INF)
-    pick = _select_k(gen, vals * inv_t, k, greedy)
+    pick = _select_k(u, vals * inv_t, k, greedy)
     picked = vals.gather(-1, pick)
     # exhausted support (fewer kept candidates than draws): such draws
     # fall back to the best candidate; a fully filtered row emits token 0
@@ -124,25 +132,77 @@ def _gather_rows(state, flat_branch, branch):
     return tree_map(lambda t: t[flat_branch], state)
 
 
-def beam_search(gen, state, init_logits, *, beam_size, top_k, temperature,
-                max_len, step_fn=None, phases=None, shuffle_fn=None,
-                prefix=None, prefix_len=0,
-                greedy=False, sampler="exact", classifier=None,
-                live_fn=None, compactors=None, finalize_fn=None,
-                survivor_update_fn=None, eos_index=EOS, unk_index=UNK,
-                pad_index=PAD):
-    """Runs batched stochastic or greedy beam search.
+def noise_shapes(*, steps, num_items, beam_size, top_k, sampler, greedy):
+    """Name -> shape of a call's up-front draws (:func:`draw_noise`):
+
+    - ``seeds`` ``[steps]`` int32 (``sampler="pallas"``): the K3/K4 seed of
+      each step, read by the kernel from device memory;
+    - ``cand`` ``[steps, num_items * beam, top_k]`` (``"exact"``): the
+      uniforms of each step's per-branch draw (the first draw reads the
+      first ``num_items`` rows);
+    - ``surv`` ``[steps - 1, num_items, beam * beam]``: the survivor draw of
+      step s (1 <= s < steps) reads row s - 1;
+    - ``final`` ``[num_items, beam]``: the final pick.
+
+    A greedy call draws nothing."""
+    if greedy:
+        return {}
+    shapes = {"seeds": (steps,)} if sampler == "pallas" else {
+        "cand": (steps, num_items * beam_size, top_k)}
+    shapes["surv"] = (max(steps - 1, 0), num_items, beam_size * beam_size)
+    shapes["final"] = (num_items, beam_size)
+    return shapes
+
+
+def draw_noise(gen, shapes, device, out=None):
+    """Draws every random number of a call up front from ``gen``, one
+    generator call per entry of ``shapes`` (:func:`noise_shapes`), into
+    ``out``'s tensors when given (a captured call's static buffers) or new
+    ones. The same generator state gives the same draws either way, and
+    nothing of a step touches a generator: a captured step replays with
+    the draws in these buffers."""
+    if out is None:
+        out = {name: torch.empty(shape, device=device, dtype=(
+                   torch.int32 if name == "seeds" else torch.float32))
+               for name, shape in shapes.items()}
+    for name in shapes:
+        if name == "seeds":
+            # in [0, 2**31 - 1): the kernels' seed range, kept here
+            out[name].random_(0, 2 ** 31 - 1, generator=gen)
+        else:
+            out[name].uniform_(generator=gen)
+    return out
+
+
+class BeamSearch:
+    """One call of batched stochastic or greedy beam search, in the parts
+    that a caller runs eagerly or captures as CUDA graphs
+    (models/graphs.py):
+
+    - :meth:`start`: the first draw, and ``seq``, ``val`` and ``ended``:
+      buffers that every step writes in place, so that each captured step
+      and each later graph reads them where the one before left them;
+    - :meth:`run_segment`: the steps of one segment (a phase, or up to
+      ``segment_steps`` of it), each with no host read: no ``.item()``, no
+      shape or allocation size that depends on data. Eagerly it checks
+      before each step that a branch is still live (one ``ended.all()``
+      read); captured, the caller checks between segments, and a step
+      that runs after every branch has ended changes nothing;
+    - :meth:`run_boundary`: the phase boundary after a segment, eager (its
+      transforms set host ints);
+    - :meth:`finish`: the final pick and ``finalize_fn``.
+
+    Every random number comes from ``noise`` (:func:`draw_noise`), read by
+    step: the two paths draw alike.
 
     Args:
-        gen: ``torch.Generator`` on the logits' device (unused when
-            ``greedy``).
-        state: decoder state after prefill, batched ``B * beam`` rows.
-        init_logits: ``[B, V]`` logits of the first generated token.
         step_fn: ``(state, tokens [B*beam]) -> (logits or hidden,
             state)``, run for every step when ``phases`` is not given.
         phases: optional ``[(last_step, step_fn), ...]``: each step_fn runs
             the steps up to its ``last_step`` (the final entry covers the
             rest).
+        segment_steps: optional cap on the steps of a segment (a phase is
+            cut into segments of at most this many steps).
         shuffle_fn: optional ``(state, flat_branch [B*beam], branch
             [B, beam]) -> state`` that reorders the decoder state to the
             surviving branches; by default every state tensor's rows are
@@ -153,7 +213,7 @@ def beam_search(gen, state, init_logits, *, beam_size, top_k, temperature,
             (live items lead); the draw skips the other rows.
         compactors: optional list, one entry per phase but the last:
             ``None`` or ``(state, seq, val, ended) -> (state, seq, val,
-            ended)``, run after that phase's loop (it may permute items).
+            ended)``, run after that phase's steps (it may permute items).
         finalize_fn: optional ``(state, out) -> out`` run on the outputs.
         survivor_update_fn: optional replacement of the whole update after
             the survivor draw, ``shuffle_fn`` included: ``(state, new_idx,
@@ -163,85 +223,192 @@ def beam_search(gen, state, init_logits, *, beam_size, top_k, temperature,
             (ops.fused_survivor_update does); given, ``shuffle_fn`` is not
             called.
         max_len: total output length including any prefix.
+    """
+
+    def __init__(self, *, beam_size, top_k, temperature, max_len,
+                 step_fn=None, phases=None, segment_steps=None,
+                 shuffle_fn=None, prefix_len=0, greedy=False,
+                 sampler="exact", classifier=None, live_fn=None,
+                 compactors=None, finalize_fn=None, survivor_update_fn=None,
+                 eos_index=EOS, unk_index=UNK, pad_index=PAD):
+        if beam_size > top_k:
+            raise ValueError(f"beam_size ({beam_size}) must be <= top_k "
+                             f"({top_k})")
+        self.beam, self.top_k, self.inv_t = beam_size, top_k, 1.0 / temperature
+        self.max_len, self.prefix_len = max_len, prefix_len
+        self.steps = steps = max_len - prefix_len
+        self.greedy, self.sampler, self.classifier = greedy, sampler, classifier
+        self.live_fn, self.finalize_fn = live_fn, finalize_fn
+        self.shuffle_fn = shuffle_fn or _gather_rows
+        self.survivor_update_fn = survivor_update_fn
+        self.eos, self.unk, self.pad = eos_index, unk_index, pad_index
+        if phases is None:
+            phases = [(steps - 1, step_fn)]
+        bounds = [(min(b, steps - 1), f) for b, f in phases[:-1]]
+        bounds.append((steps - 1, phases[-1][1]))
+        compactors = list(compactors or []) + [None] * len(bounds)
+        # (first step, last step, step_fn, boundary after it)
+        self.segments = []
+        first = 1
+        for (last, fn), boundary in zip(bounds, compactors):
+            if last < first:
+                continue
+            cut = segment_steps or last - first + 1
+            for a in range(first, last + 1, cut):
+                b = min(a + cut - 1, last)
+                self.segments.append(
+                    [a, b, fn, boundary if b == last else None])
+            first = last + 1
+
+    @property
+    def captured_segments(self):
+        """How many leading segments a graph may hold: those up to the
+        first one that a boundary follows (a boundary sets host ints that
+        later steps bake in, so it and what follows run eagerly)."""
+        for i, seg in enumerate(self.segments):
+            if seg[3] is not None:
+                return i + 1
+        return len(self.segments)
+
+    def _draw(self, logits, s, classifier=None, live_rows=None):
+        noise = self.noise
+        u = seed = None
+        if "cand" in noise:
+            u = noise["cand"][s, :logits.shape[0]]
+        if "seeds" in noise:
+            seed = noise["seeds"][s:s + 1]
+        return _topk_space_draw(u, logits, self.top_k, self.beam, self.inv_t,
+                                self.greedy, self.unk, self.sampler,
+                                classifier, seed, live_rows)
+
+    def start(self, noise, state, init_logits, prefix=None):
+        """The first draw from ``init_logits [B, V]``, and the buffers.
+        ``state``: the decoder state after prefill, ``B * beam`` rows;
+        ``prefix``: optional ``[B, prefix_len]`` fixed first tokens."""
+        self.noise, self.state = noise, state
+        n, beam, dev = init_logits.shape[0], self.beam, init_logits.device
+        self.n = n
+        first_idx, self.val = self._draw(init_logits, 0)
+        self.seq = torch.full((n, beam, self.max_len), self.pad,
+                              dtype=torch.int64, device=dev)
+        if prefix is not None and self.prefix_len > 0:
+            self.seq[:, :, :self.prefix_len] = prefix[:, None, :]
+        self.seq[:, :, self.prefix_len] = first_idx
+        self.ended = first_idx == self.eos
+        self.col = torch.arange(beam, device=dev)
+        self.items = torch.arange(n, device=dev)[:, None]
+        # the survivor picks that keep every branch in place
+        self.keep = (self.col * beam)[None, :].expand(n, beam)
+        return self
+
+    def all_ended(self):
+        """True once every branch has ended (reads the device)."""
+        return bool(self.ended.all())
+
+    def run_segment(self, i, eager=True):
+        first, last, step_fn, _ = self.segments[i]
+        for s in range(first, last + 1):
+            if eager and self.all_ended():
+                return
+            self._step(s, step_fn)
+
+    def run_boundary(self, i):
+        """Segment ``i``'s boundary, if any, unless every branch has ended
+        (it would only permute rows that ``finalize_fn`` puts back)."""
+        boundary = self.segments[i][3]
+        if boundary is not None and not self.all_ended():
+            self.state, seq, val, ended = boundary(
+                self.state, self.seq, self.val, self.ended)
+            self._keep(seq, val, ended)
+
+    def _keep(self, seq, val, ended):
+        """Writes new values of the three buffers into them."""
+        for buf, new in ((self.seq, seq), (self.val, val),
+                         (self.ended, ended)):
+            if new is not buf:
+                buf.copy_(new)
+
+    def _step(self, s, step_fn):
+        n, beam, pos = self.n, self.beam, self.prefix_len + s
+        seq, val, ended = self.seq, self.val, self.ended
+        out, state = step_fn(self.state, seq[:, :, pos - 1].reshape(-1))
+        live = None if self.live_fn is None else self.live_fn(state)
+        new_idx, new_val = self._draw(out, s, self.classifier,
+                                      None if live is None else live * beam)
+        new_idx = new_idx.reshape(n, beam, beam)
+        new_val = new_val.reshape(n, beam, beam)
+        e3 = ended[..., None]
+        valid = ~e3 | (self.col == 0)
+        cand_val = val[..., None] + new_val.masked_fill(e3, 0.0)
+        weight = torch.where(valid, cand_val * self.inv_t, NEG_INF)
+        surv = _select_k(None if self.greedy else self.noise["surv"][s - 1],
+                         weight.reshape(n, -1), beam, self.greedy)
+        # once every branch has ended (a graph runs its segment to the
+        # end), the step keeps each branch where it is: it appends pads
+        # at score 0 and changes nothing
+        surv = torch.where(ended.all(), self.keep, surv)
+        if self.survivor_update_fn is not None:
+            state, seq, val, ended, _ = self.survivor_update_fn(
+                state, new_idx, new_val, surv, ended, val, seq, pos)
+        else:
+            branch = surv // beam
+            chosen = new_idx.masked_fill(e3, self.pad).reshape(
+                n, -1).gather(1, surv)
+            val = cand_val.reshape(n, -1).gather(1, surv)
+            seq = seq[self.items, branch]
+            ended = ended.gather(1, branch)
+            seq[:, :, pos] = chosen
+            ended = ended | (chosen == self.eos)
+            state = self.shuffle_fn(
+                state, (self.items * beam + branch).reshape(-1), branch)
+        self.state = state
+        self._keep(seq, val, ended)
+
+    def finish(self):
+        """The final pick; returns ``sequences [B, beam, max_len]``,
+        ``scores [B, beam]``, ``chosen [B, max_len]`` and ``ended [B,
+        beam]``."""
+        final = _select_k(self.noise.get("final"), self.val * self.inv_t, 1,
+                          self.greedy)[:, 0]
+        out = {"sequences": self.seq, "scores": self.val,
+               "chosen": self.seq[self.items[:, 0], final],
+               "ended": self.ended}
+        return (out if self.finalize_fn is None
+                else self.finalize_fn(self.state, out))
+
+
+def run_eagerly(search, first=0):
+    """Runs the segments of a started search from ``first`` on, each with
+    its boundary, one step at a time from the host; returns the search.
+    With ``first`` > 0 the segments before it have run (captured), and the
+    boundary after the last of them runs first."""
+    if first:
+        search.run_boundary(first - 1)
+    for i in range(first, len(search.segments)):
+        search.run_segment(i)
+        search.run_boundary(i)
+    return search
+
+
+def beam_search(gen, state, init_logits, *, prefix=None, **kwargs):
+    """Runs batched stochastic or greedy beam search eagerly
+    (:class:`BeamSearch`; its arguments).
+
+    Args:
+        gen: ``torch.Generator`` on the logits' device (unused when
+            ``greedy``): every draw of the call is made from it up front.
+        state: decoder state after prefill, batched ``B * beam`` rows.
+        init_logits: ``[B, V]`` logits of the first generated token.
+        prefix: optional ``[B, prefix_len]`` fixed first tokens.
 
     Returns:
         dict with ``sequences [B, beam, max_len]``, ``scores [B, beam]``,
         ``chosen [B, max_len]`` and ``ended [B, beam]``.
     """
-    if beam_size > top_k:
-        raise ValueError(f"beam_size ({beam_size}) must be <= top_k "
-                         f"({top_k})")
-    num_items = init_logits.shape[0]
-    beam, inv_t, dev = beam_size, 1.0 / temperature, init_logits.device
-    steps = max_len - prefix_len
-    if phases is None:
-        phases = [(steps - 1, step_fn)]
-    shuffle_fn = shuffle_fn or _gather_rows
-    seeds = [None] * steps
-    if sampler == "pallas" and not greedy:
-        # the K3 kernel's per-step seeds, drawn once up front
-        seeds = torch.randint(0, 2 ** 31 - 1, (steps,), generator=gen,
-                              device=gen.device).tolist()
-
-    def draw(logits, seed, cls=None, live_rows=None):
-        return _topk_space_draw(gen, logits, top_k, beam, inv_t, greedy,
-                                unk_index, sampler, cls, seed, live_rows)
-
-    first_idx, val = draw(init_logits, seeds[0])
-    seq = torch.full((num_items, beam, max_len), pad_index,
-                     dtype=torch.int64, device=dev)
-    if prefix is not None and prefix_len > 0:
-        seq[:, :, :prefix_len] = prefix[:, None, :]
-    seq[:, :, prefix_len] = first_idx
-    ended = first_idx == eos_index
-    col = torch.arange(beam, device=dev)
-    items = torch.arange(num_items, device=dev)[:, None]
-
-    bounds = [(min(b, steps - 1), f) for b, f in phases[:-1]]
-    bounds.append((steps - 1, phases[-1][1]))
-    compactors = list(compactors or []) + [None] * len(bounds)
-    s = 1
-    all_ended = bool(ended.all())
-    for (last_step, step_fn), boundary in zip(bounds, compactors):
-        if last_step < 1:
-            continue
-        while s <= last_step and not all_ended:
-            out, state = step_fn(state, seq[:, :, prefix_len + s - 1]
-                                 .reshape(-1))
-            live = None if live_fn is None else live_fn(state)
-            new_idx, new_val = draw(out, seeds[s], classifier,
-                                    None if live is None else live * beam)
-            new_idx = new_idx.reshape(num_items, beam, beam)
-            new_val = new_val.reshape(num_items, beam, beam)
-            e3 = ended[..., None]
-            valid = ~e3 | (col == 0)
-            cand_val = val[..., None] + new_val.masked_fill(e3, 0.0)
-            weight = torch.where(valid, cand_val * inv_t, NEG_INF)
-            surv = _select_k(gen, weight.reshape(num_items, -1), beam,
-                             greedy)
-            if survivor_update_fn is not None:
-                state, seq, val, ended, _ = survivor_update_fn(
-                    state, new_idx, new_val, surv, ended, val, seq,
-                    prefix_len + s)
-            else:
-                branch = surv // beam
-                chosen = new_idx.masked_fill(e3, pad_index).reshape(
-                    num_items, -1).gather(1, surv)
-                val = cand_val.reshape(num_items, -1).gather(1, surv)
-                seq = seq[items, branch]
-                ended = ended.gather(1, branch)
-                seq[:, :, prefix_len + s] = chosen
-                ended = ended | (chosen == eos_index)
-                state = shuffle_fn(state, (items * beam + branch).reshape(
-                    -1), branch)
-            s += 1
-            all_ended = bool(ended.all())
-        # once every branch has ended no later step runs, so a boundary
-        # would only permute rows that finalize_fn puts back
-        if boundary is not None and not all_ended:
-            state, seq, val, ended = boundary(state, seq, val, ended)
-
-    final = _select_k(gen, val * inv_t, 1, greedy)[:, 0]
-    out = {"sequences": seq, "scores": val,
-           "chosen": seq[items[:, 0], final], "ended": ended}
-    return out if finalize_fn is None else finalize_fn(state, out)
+    search = BeamSearch(**kwargs)
+    noise = draw_noise(gen, noise_shapes(
+        steps=search.steps, num_items=init_logits.shape[0],
+        beam_size=search.beam, top_k=search.top_k, sampler=search.sampler,
+        greedy=search.greedy), init_logits.device)
+    return run_eagerly(search.start(noise, state, init_logits,
+                                    prefix)).finish()

@@ -13,10 +13,13 @@ by a hash of the sources and flags, so an unchanged tree reuses it.
 ``nvcc.log`` beside it keeps ptxas's register/spill report.
 
 Each kernel also has a plain integer launch counter in ``LAUNCHES``: its
-wrapper adds one exactly where it launches the kernel, so a run can show
-that its main path went through the kernels.
+wrapper adds one exactly where it launches the kernel (``note_launch``),
+so a run can show that its main path went through the kernels. A launch
+made while a CUDA graph is captured runs only when the graph replays: it
+is tallied with the graph, and each replay adds the tally.
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -26,7 +29,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "library", "check",
+__all__ = ["LAUNCHES", "reset_launch_counts", "note_launch",
+           "capture_tally", "add_launches", "library", "check",
            "BUILD_DIR", "dtype_code", "on_kernel_device",
            "check_vector_rows", "check_mma_tiles", "check_smem",
            "smem_need", "live_count", "stream_of"]
@@ -60,14 +64,14 @@ _SIGNATURES = {
     # inv_scale, stream
     "dh_grouped_cross_attention":
         [_I, *[_P] * 5, *[_I] * 6, _F, _P],
-    # dtype, logits, ids, live_rows, V, top_k, num_draws, unk, seed, invT,
-    # stream
+    # dtype, logits, ids, live_rows, V, top_k, num_draws, unk, seed,
+    # seed_ptr (or NULL), invT, stream
     "dh_topk_gumbel_sample":
-        [_I, _P, _P, _I, _I, _I, _I, _I, _U, _F, _P],
+        [_I, _P, _P, _I, _I, _I, _I, _I, _U, _P, _F, _P],
     # x, w, b, ids, vals, scratch (or NULL), rows, live_rows, V, D, top_k,
-    # num_draws, unk, seed, invT, stream
+    # num_draws, unk, seed, seed_ptr (or NULL), invT, stream
     "dh_classifier_topk_gumbel_sample":
-        [*[_P] * 6, *[_I] * 7, _U, _F, _P],
+        [*[_P] * 6, *[_I] * 7, _U, _P, _F, _P],
     # dtype, q, cache_k, cache_v, shared_k, shared_v, k_new, v_new,
     # bias_shared, bias_win, out, items, live, beam, P, shared_len, c,
     # p_eff, D, H, pos, inv_scale, stream
@@ -117,6 +121,41 @@ _SIZES = {
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# the launch tally of the graph this thread is capturing (None: not
+# capturing); see note_launch
+_CAPTURE = threading.local()
+
+
+def note_launch(name):
+    """Counts one launch of kernel ``name``. While this thread captures a
+    CUDA graph (``capture_tally``) nothing runs yet: the launch goes into
+    that graph's tally, which ``add_launches`` adds to ``LAUNCHES`` at
+    each replay."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is None:
+        LAUNCHES[name] += 1
+    else:
+        tally[name] = tally.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Collects the launches that this thread notes inside the block into
+    the dict it yields, instead of ``LAUNCHES``."""
+    tally, saved = {}, getattr(_CAPTURE, "tally", None)
+    _CAPTURE.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = saved
+
+
+def add_launches(tally):
+    """Adds a captured graph's tally to ``LAUNCHES`` (once per replay)."""
+    for name, n in tally.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc():

@@ -155,7 +155,7 @@ def ancestry_attention(q, cache_k, cache_v, bias, *, beam, n_heads,
         beam, p, pe, d, n_heads, 1.0 / math.sqrt(d // n_heads),
         _build.stream_of(q))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.note_launch(name)
     return out
 
 
@@ -229,7 +229,7 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
         _build.live_count(rows // beam, live_items), beam, p, pe, d, n_heads,
         pos, 1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.note_launch(name)
     return out
 
 
@@ -296,7 +296,7 @@ def ancestry_attention_update_flash(q, cache_k, cache_v, k_new, v_new, bias,
         bias.data_ptr(), out.data_ptr(), rows // beam, beam, p, d, n_heads,
         pos, 1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.note_launch(name)
     return out
 
 
@@ -408,7 +408,7 @@ def ancestry_attention_update_canon(q, cache_k, cache_v, shared_k, shared_v,
         shared_k.shape[1], c, p_eff, d, n_heads, pos,
         1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.note_launch(name)
     return out
 
 
@@ -474,7 +474,7 @@ def ancestry_attention_ids(q, cache_k, cache_v, bias, item_ids, n_sel, *,
         rows // beam, sel.shape[0], beam, p, pe, d, n_heads,
         1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.note_launch(name)
     return out
 
 
@@ -534,7 +534,7 @@ def cross_attention_packed(q, ek, ev, bias, *, n_heads, pack_items, t_real,
         _build.live_count(g, live_items), r, t, t_real, d, n_heads,
         1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.note_launch(name)
     return out
 
 
@@ -600,5 +600,5 @@ def grouped_cross_attention(q, ek, ev, bias, *, n_heads, live_items=None,
         _build.live_count(g, live_items), r, t, d, n_heads,
         1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.note_launch(name)
     return out

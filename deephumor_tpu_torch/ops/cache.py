@@ -63,5 +63,5 @@ def cache_column_write(cache_k, cache_v, k_new, v_new, pos, block_rows=320):
         k_new.data_ptr(), v_new.data_ptr(), rows, p, d, pos,
         _build.stream_of(cache_k))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.note_launch(name)
     return cache_k, cache_v

@@ -10,7 +10,8 @@
 //      bias, then rounded to bf16 (as the TPU kernel rounds them);
 //   2. K3's draw over those logits: the exact k-th largest (ties kept),
 //      UNK masked, the counter-hash noise of (seed, global row, column)
-//      from common.cuh, num_draws strictly decreasing maxima of the packed
+//      from common.cuh (the seed by value or read from device memory,
+//      dh::Seed), num_draws strictly decreasing maxima of the packed
 //      (perturbed key, flipped column); an exhausted support gives id 0;
 //   3. the drawn ids (int64) and the rounded logits at those ids.
 // Rows at or past `live_rows` (items retired by early-EOS compaction) are
@@ -163,7 +164,7 @@ __global__ void __launch_bounds__(kResThreads, 1) classifier_resident_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w,
     const float* __restrict__ b, long long* __restrict__ ids,
     float* __restrict__ vals, int rows, int live, int V, int D, int top_k,
-    int num_draws, int unk, uint32_t seed, float invt, int col_bits) {
+    int num_draws, int unk, dh::Seed seed, float invt, int col_bits) {
   extern __shared__ __align__(128) unsigned char smem[];
   const ResidentLayout lay(V, D);
   const int vp = lay.vp, ld = lay.ld, ldl = lay.ldl;
@@ -285,7 +286,7 @@ __global__ void __launch_bounds__(kResThreads, 1) classifier_resident_kernel(
         n += __popc(bal);
       }
       __syncwarp();
-      const uint32_t rh = dh::row_hash(seed, (uint32_t)rg);
+      const uint32_t rh = dh::row_hash(seed.get(), (uint32_t)rg);
       int pk[kPer];
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
@@ -324,7 +325,7 @@ template <int kPer>
 cudaError_t launch_resident(const void* x, const void* w, const void* b,
                             void* ids, void* vals, int rows, int live, int V,
                             int D, int top_k, int num_draws, int unk,
-                            uint32_t seed, float invt, cudaStream_t stream) {
+                            dh::Seed seed, float invt, cudaStream_t stream) {
   const auto kernel = &classifier_resident_kernel<kPer>;
   const size_t smem = ResidentLayout(V, D).total;
   cudaError_t err = dh::prepare<&classifier_resident_kernel<kPer>>();
@@ -496,7 +497,7 @@ __global__ void __launch_bounds__(dh::topk::kTeam* dh::topk::kMaxTeams)
                            long long* __restrict__ ids,
                            float* __restrict__ vals, int row0, int n,
                            int zero_from, int rows, int V, int top_k,
-                           int num_draws, int unk, uint32_t seed, float invt,
+                           int num_draws, int unk, dh::Seed seed, float invt,
                            int col_bits, dh::topk::TeamLayout lay) {
   for (size_t o = (size_t)zero_from * num_draws + blockIdx.x * blockDim.x
                   + threadIdx.x;
@@ -546,7 +547,7 @@ __global__ void __launch_bounds__(32 * kWarpRowWarps)
                                 long long* __restrict__ ids,
                                 float* __restrict__ vals, int row0, int n,
                                 int zero_from, int rows, int V, int top_k,
-                                int num_draws, int unk, uint32_t seed,
+                                int num_draws, int unk, dh::Seed seed,
                                 float invt, int col_bits) {
   for (size_t o = (size_t)zero_from * num_draws + blockIdx.x * blockDim.x
                   + threadIdx.x;
@@ -615,7 +616,7 @@ __global__ void __launch_bounds__(32 * kWarpRowWarps)
       if (keep[i] >> 16) list[at++] = (int)((key[i] & 0xFFFF0000u) | (c + 1));
     }
     __syncwarp();
-    const uint32_t rh = dh::row_hash(seed, (uint32_t)(row0 + r));
+    const uint32_t rh = dh::row_hash(seed.get(), (uint32_t)(row0 + r));
     for (int j = lane; j < total; j += 32) {
       const uint32_t e = (uint32_t)list[j];
       list[j] = dh::packed_draw(key_logit(e >> 16), invt, rh,
@@ -642,7 +643,7 @@ __global__ void __launch_bounds__(32 * kWarpRowWarps)
 template <int kVec>
 cudaError_t launch_warp_draw(const bf16* lg, int ld, void* ids, void* vals,
                              int row0, int n, int zero_from, int rows, int V,
-                             int top_k, int num_draws, int unk, uint32_t seed,
+                             int top_k, int num_draws, int unk, dh::Seed seed,
                              float invt, cudaStream_t stream) {
   const auto kernel = &classifier_warp_draw_kernel<kVec>;
   const size_t smem = (size_t)4 * kWarpRowWarps * 256 * kVec;
@@ -665,7 +666,7 @@ cudaError_t launch_warp_draw(const bf16* lg, int ld, void* ids, void* vals,
 // teams.
 cudaError_t launch_draw(const bf16* lg, int ld, void* ids, void* vals,
                         int row0, int n, int zero_from, int rows, int V,
-                        int top_k, int num_draws, int unk, uint32_t seed,
+                        int top_k, int num_draws, int unk, dh::Seed seed,
                         float invt, cudaStream_t stream) {
   const auto warp_draw = V <= 256   ? &launch_warp_draw<1>
                          : V <= 512 ? &launch_warp_draw<2>
@@ -689,7 +690,7 @@ cudaError_t launch_draw(const bf16* lg, int ld, void* ids, void* vals,
 cudaError_t launch_streamed(const void* x, const void* w, const void* b,
                             void* ids, void* vals, void* scratch, int rows,
                             int live, int V, int D, int top_k, int num_draws,
-                            int unk, uint32_t seed, float invt,
+                            int unk, dh::Seed seed, float invt,
                             cudaStream_t stream) {
   cudaError_t err = dh::prepare<&classifier_product_kernel>();
   if (err != cudaSuccess) return err;
@@ -734,14 +735,16 @@ extern "C" long long dh_classifier_topk_gumbel_sample_scratch(int V, int D,
 extern "C" int dh_classifier_topk_gumbel_sample(
     const void* x, const void* w, const void* b, void* ids, void* vals,
     void* scratch, int rows, int live_rows, int V, int D, int top_k,
-    int num_draws, int unk, unsigned seed, float invt, void* stream) {
+    int num_draws, int unk, unsigned seed, const void* seed_ptr, float invt,
+    void* stream) {
   auto s = (cudaStream_t)stream;
+  const dh::Seed sd{(const int*)seed_ptr, seed};
   if (resident(V, D) && V <= 128)
     return launch_resident<4>(x, w, b, ids, vals, rows, live_rows, V, D,
-                              top_k, num_draws, unk, seed, invt, s);
+                              top_k, num_draws, unk, sd, invt, s);
   if (resident(V, D))
     return launch_resident<8>(x, w, b, ids, vals, rows, live_rows, V, D,
-                              top_k, num_draws, unk, seed, invt, s);
+                              top_k, num_draws, unk, sd, invt, s);
   return launch_streamed(x, w, b, ids, vals, scratch, rows, live_rows, V, D,
-                         top_k, num_draws, unk, seed, invt, s);
+                         top_k, num_draws, unk, sd, invt, s);
 }

@@ -115,6 +115,17 @@ __device__ __forceinline__ uint32_t row_hash(uint32_t seed, uint32_t row) {
   return mix32(mix32(seed ^ 0x9e3779b9U) ^ row);
 }
 
+// A draw's seed: the int32 at `ptr` when it is given (a decode step's seed
+// in device memory, so that a captured graph replays with new draws), else
+// `value`. Either way the same value draws the same noise.
+struct Seed {
+  const int* ptr;
+  uint32_t value;
+  __device__ __forceinline__ uint32_t get() const {
+    return ptr ? (uint32_t)__ldg(ptr) : value;
+  }
+};
+
 // The packed draw key of column c of a kept logit x: the order key of
 // x * invt + Gumbel(c) in the high bits, (cmask - c) in the low col_bits,
 // so one max yields both the winner and its column (ties to the smallest

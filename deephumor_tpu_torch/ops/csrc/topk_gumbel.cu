@@ -12,7 +12,10 @@
 //      The TPU's on-core PRNG becomes a counter-based hash of
 //      (seed, row, column) -- the same integer ops run in the plain
 //      PyTorch twin, so kernel and twin draw the same tokens. 24 high bits
-//      give the uniform, floored at 1e-10.
+//      give the uniform, floored at 1e-10. The seed is a launch argument
+//      or an int32 in device memory that the kernel reads (dh::Seed): a
+//      captured decode step keeps its seed there, and each replay draws
+//      anew.
 //   3. num_draws strictly decreasing maxima of the packed (perturbed order
 //      key, flipped column) int32 -- ties go to the smallest column,
 //      non-kept columns are unreachable, and an exhausted support yields
@@ -74,7 +77,7 @@ using namespace dh::topk;
 template <typename T>
 __global__ void __launch_bounds__(kTeam* kMaxTeams) topk_gumbel_kernel(
     const T* __restrict__ logits, int* __restrict__ ids, int live, int V,
-    int top_k, int num_draws, int unk, uint32_t seed, float invt,
+    int top_k, int num_draws, int unk, dh::Seed seed, float invt,
     int low_bit, int col_bits, TeamLayout lay) {
   extern __shared__ __align__(16) unsigned char smem[];
   sample_rows(smem, logits, V, live, V, 0, top_k, num_draws, unk, seed, invt,
@@ -85,7 +88,7 @@ __global__ void __launch_bounds__(kTeam* kMaxTeams) topk_gumbel_kernel(
 
 template <typename T>
 cudaError_t launch(const void* logits, void* ids, int live_rows, int V,
-                   int top_k, int num_draws, int unk, uint32_t seed,
+                   int top_k, int num_draws, int unk, dh::Seed seed,
                    float invt, cudaStream_t stream) {
   Plan p;
   cudaError_t err =
@@ -102,15 +105,19 @@ cudaError_t launch(const void* logits, void* ids, int live_rows, int V,
 
 }  // namespace
 
+// seed_ptr: NULL (the draws use `seed`) or a device int32 that the kernel
+// reads at launch (a captured step's seed).
 extern "C" int dh_topk_gumbel_sample(int dtype, const void* logits, void* ids,
                                      int live_rows, int V, int top_k,
                                      int num_draws, int unk, unsigned seed,
-                                     float invt, void* stream) {
+                                     const void* seed_ptr, float invt,
+                                     void* stream) {
   auto s = (cudaStream_t)stream;
+  const dh::Seed sd{(const int*)seed_ptr, seed};
   if (dtype == dh::kBFloat16)
     return launch<__nv_bfloat16>(logits, ids, live_rows, V, top_k, num_draws,
-                                 unk, seed, invt, s);
-  return launch<float>(logits, ids, live_rows, V, top_k, num_draws, unk, seed,
+                                 unk, sd, invt, s);
+  return launch<float>(logits, ids, live_rows, V, top_k, num_draws, unk, sd,
                        invt, s);
 }
 

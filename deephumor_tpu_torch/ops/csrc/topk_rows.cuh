@@ -295,7 +295,7 @@ __device__ __forceinline__ void gather(int key, int c, int bound, int* keys,
 template <typename T, typename Out>
 __device__ __forceinline__ void sample_rows(
     unsigned char* smem, const T* __restrict__ logits, size_t ld, int live,
-    int V, int row0, int top_k, int num_draws, int unk, uint32_t seed,
+    int V, int row0, int top_k, int num_draws, int unk, dh::Seed seed,
     float invt, int low_bit, int col_bits, const TeamLayout& lay,
     const Out& out) {
   using VK = Vec<T>;
@@ -402,7 +402,7 @@ __device__ __forceinline__ void sample_rows(
 
     const int n = misc[kLen];
     const int next = r + stride;
-    d.rh = row_hash(seed, (uint32_t)(row0 + r));
+    d.rh = row_hash(seed.get(), (uint32_t)(row0 + r));
     const auto put = [&](int j, int id) { out(r, j, id); };
     if (n <= lay.cap) {
       // the row buffer is free: the next row streams in during the draws

@@ -129,5 +129,5 @@ def fused_survivor_update(new_idx, new_val, surv, ended, val, seq, anc,
         _build.live_count(b, live_items), beam, seq.shape[-1],
         anc.shape[-1], pos, eos_index, pad_index, _build.stream_of(surv))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.note_launch(name)
     return chosen, val, ended, seq, anc, valid

@@ -8,6 +8,9 @@ classifier product runs inside the kernel). The TPU kernels draw their
 noise from the on-core PRNG; here the noise is a counter-based hash of
 (seed, row, column) that the CUDA kernels and the twins compute with the
 same integer ops, so they draw the same tokens from the same logits.
+The seed is a host int or a one-element int32 tensor on the logits'
+device, which the kernel reads at launch: a captured decode step keeps
+its seed in device memory, so each replay draws anew.
 """
 
 import numpy as np
@@ -38,9 +41,13 @@ def mix32(x):
 
 def noise_bits(seed, rows, cols):
     """uint32 noise bits (as int64) for rows x cols: mix32(row_hash ^ col)
-    with row_hash = mix32(mix32(seed ^ 0x9E3779B9) ^ row)."""
-    s = mix32(torch.tensor(seed ^ 0x9E3779B9, dtype=torch.int64,
-                           device=rows.device))
+    with row_hash = mix32(mix32(seed ^ 0x9E3779B9) ^ row); ``seed`` an int
+    or a one-element integer tensor."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(()).to(device=rows.device, dtype=torch.int64)
+    else:
+        seed = torch.tensor(seed, dtype=torch.int64, device=rows.device)
+    s = mix32(seed ^ 0x9E3779B9)
     row_hash = mix32(s ^ rows.to(torch.int64))
     return mix32(row_hash[:, None] ^ cols.to(torch.int64)[None, :])
 
@@ -49,6 +56,23 @@ def _order_key(x):
     """Monotone f32 -> int32 map: signed-int order == float order."""
     i = x.view(torch.int32)
     return torch.where(i < 0, i ^ 0x7FFFFFFF, i)
+
+
+def _seed_args(name, seed, device):
+    """(value, device pointer or None) of a seed: an int in ``[0, 2**31)``,
+    or a one-element int32 tensor on ``device`` that the kernel reads. A
+    tensor's value is not read here (that would wait for the device): its
+    drawer keeps it in range."""
+    if isinstance(seed, torch.Tensor):
+        if (seed.dtype != torch.int32 or seed.numel() != 1
+                or seed.device != device):
+            raise ValueError(f"{name}: a seed tensor must be one int32 on "
+                             f"{device}, got {seed.dtype} "
+                             f"{tuple(seed.shape)} on {seed.device}")
+        return 0, seed.data_ptr()
+    if not 0 <= int(seed) < 2 ** 31:
+        raise ValueError(f"{name}: seed {seed} outside [0, 2**31)")
+    return int(seed), None
 
 
 def _check(logits, top_k, num_draws):
@@ -101,7 +125,7 @@ def fused_topk_gumbel_sample_plain(logits, seed, inv_temperature, *, top_k,
                        device=logits.device)
     if live:
         ids[:live] = torch.cat([
-            _plain_rows(x[r0:r0 + _CHUNK_ROWS], r0, int(seed), invt, top_k,
+            _plain_rows(x[r0:r0 + _CHUNK_ROWS], r0, seed, invt, top_k,
                         num_draws, unk_index, low_bit)
             for r0 in range(0, live, _CHUNK_ROWS)
         ])
@@ -120,7 +144,9 @@ def fused_topk_gumbel_sample(logits, seed, inv_temperature, *, top_k,
 
     Args:
         logits: ``[rows, V]`` float32 or bfloat16 (scored in f32).
-        seed: int in ``[0, 2**31)``; a fixed seed gives fixed draws.
+        seed: int in ``[0, 2**31)``, or a one-element int32 tensor on the
+            logits' device holding one (the kernel reads it at launch);
+            a fixed seed value gives fixed draws either way.
         inv_temperature: float (rounded to f32).
         live_rows: optional host int; rows at or past it are not computed
             and get id 0 and value 0 (early-EOS compaction keeps the live
@@ -133,8 +159,7 @@ def fused_topk_gumbel_sample(logits, seed, inv_temperature, *, top_k,
     """
     name = "fused_topk_gumbel_sample"
     _check(logits, top_k, num_draws)
-    if not 0 <= int(seed) < 2 ** 31:
-        raise ValueError(f"{name}: seed {seed} outside [0, 2**31)")
+    seed_value, seed_ptr = _seed_args(name, seed, logits.device)
     if not _build.on_kernel_device(name, logits):
         return fused_topk_gumbel_sample_plain(
             logits, seed, inv_temperature, top_k=top_k,
@@ -149,10 +174,11 @@ def fused_topk_gumbel_sample(logits, seed, inv_temperature, *, top_k,
     if live:
         err = _build.library().dh_topk_gumbel_sample(
             code, logits.data_ptr(),
-            ids.data_ptr(), live, v, top_k, num_draws, unk_index, int(seed),
-            float(np.float32(inv_temperature)), _build.stream_of(logits))
+            ids.data_ptr(), live, v, top_k, num_draws, unk_index,
+            seed_value, seed_ptr, float(np.float32(inv_temperature)),
+            _build.stream_of(logits))
         _build.check(err, name)
-        _build.LAUNCHES[name] += 1
+        _build.note_launch(name)
     ids = ids.to(torch.int64)
     vals = logits.gather(1, ids).float()
     if live < rows:
@@ -221,8 +247,7 @@ def fused_classifier_topk_gumbel_sample(x, w, b, seed, inv_temperature, *,
     """
     name = "fused_classifier_topk_gumbel_sample"
     _check_classifier(x, w, b, top_k, num_draws)
-    if not 0 <= int(seed) < 2 ** 31:
-        raise ValueError(f"{name}: seed {seed} outside [0, 2**31)")
+    seed_value, seed_ptr = _seed_args(name, seed, x.device)
     kw = dict(top_k=top_k, num_draws=num_draws, unk_index=unk_index,
               live_rows=live_rows)
     if not _build.on_kernel_device(name, x, w, b):
@@ -247,8 +272,8 @@ def fused_classifier_topk_gumbel_sample(x, w, b, seed, inv_temperature, *,
     err = lib.dh_classifier_topk_gumbel_sample(
         xb.data_ptr(), wb.data_ptr(), bb.data_ptr(), ids.data_ptr(),
         vals.data_ptr(), scratch.data_ptr(), rows, live,
-        v, x.shape[1], top_k, num_draws, unk_index, int(seed),
+        v, x.shape[1], top_k, num_draws, unk_index, seed_value, seed_ptr,
         float(np.float32(inv_temperature)), _build.stream_of(x))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.note_launch(name)
     return ids, vals

@@ -335,6 +335,49 @@ def test_live_items_in_k1_and_k2(cuda, dtype):
     assert not got[lr:].any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_topk_gumbel_sample_reads_a_device_seed(cuda, dtype):
+    # a captured decode step passes its seed as a one-element int32 tensor
+    # that the kernel reads at launch: the same value draws the same ids
+    g = torch.Generator(cuda).manual_seed(3)
+    logits = torch.randn(96, 3001, generator=g, device=cuda).to(dtype)
+    seeds = torch.tensor([7, 123456, 9], dtype=torch.int32, device=cuda)
+    kw = dict(top_k=32, num_draws=5, live_rows=80)
+    reset_launch_counts()
+    got = S.fused_topk_gumbel_sample(logits, seeds[1:2], 0.8, **kw)
+    assert LAUNCHES["fused_topk_gumbel_sample"] == 1
+    want = S.fused_topk_gumbel_sample(logits, 123456, 0.8, **kw)
+    twin = S.fused_topk_gumbel_sample_plain(logits, seeds[1:2], 0.8, **kw)
+    for ref in (want, twin):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    seeds[1] = 7  # the kernel reads the value at its launch
+    again = S.fused_topk_gumbel_sample(logits, seeds[1:2], 0.8, **kw)
+    first = S.fused_topk_gumbel_sample(logits, 7, 0.8, **kw)
+    assert torch.equal(again[0], first[0])
+    assert not torch.equal(again[0], got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vocab,d", [(128, 512), (2006, 512)])
+def test_classifier_sample_reads_a_device_seed(cuda, vocab, d):
+    # the resident (V 128) and the streamed (V 2,006) bodies
+    g = torch.Generator(cuda).manual_seed(4)
+    x = torch.randn(640, d, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(vocab, d, generator=g, device=cuda) / 8).to(
+        torch.bfloat16)
+    b = torch.randn(vocab, generator=g, device=cuda)
+    seed = torch.tensor([4321], dtype=torch.int32, device=cuda)
+    kw = dict(top_k=50, num_draws=5, live_rows=600)
+    got = S.fused_classifier_topk_gumbel_sample(x, w, b, seed, 0.9, **kw)
+    want = S.fused_classifier_topk_gumbel_sample(x, w, b, 4321, 0.9, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    twin = S.fused_classifier_topk_gumbel_sample_plain(x, w, b, seed, 0.9,
+                                                       **kw)
+    # the product's summation order may move a bf16 rounding by one ulp
+    assert (got[0] == twin[0]).all(dim=1).float().mean().item() >= 0.99
+
+
 def _classifier_case(cuda, dtype, rows, d, vocab, live_rows):
     """K4 and its twin on seeded inputs (UNK on top of every row); checks
     the launch, the dead rows and the draws, and returns what the vals
