@@ -164,23 +164,31 @@ the word model, and a word Trainer state ``save_state`` /
 ``restore_state`` must come back bit-equal, onto its template and whole.
 
 Last, a compiled-generation phase ([16]). Every path above runs its
-decode loop as CUDA graphs by default (models/graphs.py; the phases
-after char's first boundary eagerly). K3 and K4 take the step's seed from
-device memory: held to the int seed (equal draws) and to the twin, and
-timed in both forms, K3 at word's rows, K4 at the sweep's and char's.
+decode loop as CUDA graphs by default (models/graphs.py: every phase
+and every phase boundary, char's included). K3 and K4 take the step's
+seed from device memory: held to the int seed (equal draws) and to the
+twin, and timed in both forms, K3 at word's rows, K4 at the sweep's and
+char's. K1-K6, K9 and K10 take the count that a boundary sets (live
+items, K3/K4's live rows, K6's stragglers) from device memory: at the
+char shapes, at counts of 0, some and all (K6: 0, 1 and 8 stragglers,
+its device form's grid over all 768 items), held to the int count
+(equal outputs) and timed in both forms; K4 also on its streamed path.
 Greedy text of the captured path at a small size (2 layers, hid 64, V
 300, 8 items, f32) must equal the CPU's for the three families. Then
 word, Base and LSTM (batch 1792), the sweep's shape (V 2,006, batch 256)
-and char (batch 768; its phases through p_eff 24 captured) each run
-captured beside eager (``compiled=False``) from the same inputs and
-generator seed: sequences, scores, chosen and ended bit-equal, sampled
-(``sampler="pallas"``) and greedy, and the same launches per call; each
-path's captions/s (median of G_CALLS calls of each, in turns; char
-G_CHAR_CALLS), the idle share of one profiled call of each, the first
-captured call's time (warm-up and capture) and the memory its key holds;
-and one call of each path under ``torch.cuda.set_sync_debug_mode
-("error")``, with only the reads between graphs (or eager steps) and
-char's boundaries allowed. Last, a burst of G_REQUESTS requests through
+and char (batch 768, full width and depth) each run captured beside
+eager (``compiled=False``) from the same inputs and generator seed:
+sequences, scores, chosen and ended bit-equal, sampled
+(``sampler="pallas"``) and greedy, boundaries equal, the same launches
+per call and no eager tail; each path's captions/s (median of G_CALLS
+calls of each, in turns; char G_CHAR_CALLS), the idle share of one
+profiled call of each, the first captured call's time (warm-up and
+capture), its graphs and the memory its key holds; and one call of each
+path under ``torch.cuda.set_sync_debug_mode("error")``, with only the
+reads through ``sampling.host_read`` allowed (``ended.all()`` between
+graphs or eager steps, the boundaries' counts after the last graph). A
+second temperature on a word key replays that key and draws what the
+eager loop draws at it. Last, a burst of G_REQUESTS requests through
 a warmed ``DynamicBatcher`` (buckets "auto") over a 32-template word
 pipeline, captured and eager in turns, twice each, after the pipeline's
 call of one full batch gave the same texts captured and eager.
@@ -3647,38 +3655,30 @@ def product_only():
 # -- [16] compiled generation ------------------------------------------------
 def sync_checked(fn):
     """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: any op
-    that waits for the device raises, except in ``BeamSearch.all_ended``
-    (the read between graphs, or between eager steps, that the loop makes
-    on purpose) and ``run_boundary`` (a phase boundary, eager: it sets
-    host ints)."""
+    that waits for the device raises, except in ``sampling.host_read``,
+    through which a call makes its reads on purpose (``ended.all()``
+    between graphs or between eager steps, and the boundaries' counts
+    once after the last graph). Returns ``fn()`` and the number of those
+    reads."""
     from deephumor_tpu_torch.models import sampling
 
-    cls = sampling.BeamSearch
-    saved = {name: getattr(cls, name)
-             for name in ("all_ended", "run_boundary")}
-    depth = [0]  # a boundary reads all_ended inside
+    real, reads = sampling.host_read, [0]
 
-    def allowed(real):
-        def run(*args, **kwargs):
-            depth[0] += 1
-            torch.cuda.set_sync_debug_mode(0)
-            try:
-                return real(*args, **kwargs)
-            finally:
-                depth[0] -= 1
-                if not depth[0]:
-                    torch.cuda.set_sync_debug_mode("error")
-        return run
+    def allowed(t):
+        reads[0] += 1
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(t)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
 
-    for name, real in saved.items():
-        setattr(cls, name, allowed(real))
+    sampling.host_read = allowed
     torch.cuda.set_sync_debug_mode("error")
     try:
-        return fn()
+        return fn(), reads[0]
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        for name, real in saved.items():
-            setattr(cls, name, real)
+        sampling.host_read = real
 
 
 def same_outputs(a, b, keys=("sequences", "scores", "chosen", "ended")):
@@ -3707,11 +3707,14 @@ def compare_compiled(model, params, enc, kw, _build, graphs, label,
                      name_limit, calls=G_CALLS, path_kernels=()):
     """One path captured beside eager (``compiled=False``) from the same
     inputs and generator seed: outputs bit-equal (sampled and greedy),
-    launches per call equal (and each of ``path_kernels`` launched), the
-    first captured call's warm-up and capture time and the memory its key
-    holds, captions/s (median of ``calls`` calls of each, in turns after
+    boundaries equal, launches per call equal (and each of
+    ``path_kernels`` launched), no part of the call eager (every segment
+    and boundary a graph), the first captured call's warm-up and capture
+    time and the memory its key holds (within ``graphs.MAX_SHARE`` of the
+    card), captions/s (median of ``calls`` calls of each, in turns after
     warm-up), the idle share of one profiled call of each, and one call
-    of each under the sync debug mode. Returns the path's numbers."""
+    of each under the sync debug mode (the reads through
+    ``sampling.host_read`` counted). Returns the path's numbers."""
     n, dev = batch(enc).shape[0], batch(enc).device
 
     def call(compiled, seed=5, **extra):
@@ -3727,6 +3730,14 @@ def compare_compiled(model, params, enc, kw, _build, graphs, label,
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     (info,) = graphs.cache_info()
+    if info["eager_tail"]:
+        raise AssertionError(f"[16] {label}: part of the call runs eagerly "
+                             f"after its graphs")
+    budget = graphs.MAX_SHARE * torch.cuda.get_device_properties(
+        dev).total_memory
+    if info["bytes"] > budget:
+        raise AssertionError(f"[16] {label}: the key holds {info['bytes']} "
+                             f"bytes, above MAX_SHARE of the card")
     again = call(None)
     if not (same_outputs(captured, eager) and same_outputs(again, eager)):
         raise AssertionError(f"[16] {label}: captured outputs differ from "
@@ -3758,8 +3769,7 @@ def compare_compiled(model, params, enc, kw, _build, graphs, label,
             secs[compiled].append(time.perf_counter() - t0)
     rates = {c: n / float(np.median(s)) for c, s in secs.items()}
     idle = {c: idle_share(lambda c=c: call(c)) for c in (False, None)}
-    sync_checked(lambda: call(False))
-    sync_checked(lambda: call(None))
+    reads = {c: sync_checked(lambda c=c: call(c))[1] for c in (False, None)}
     res = {
         "items": n, "captions_per_s": rates[None],
         "captions_per_s_eager": rates[False],
@@ -3771,6 +3781,10 @@ def compare_compiled(model, params, enc, kw, _build, graphs, label,
         "wall_ms_profiled_eager": idle[False][0],
         "first_call_s": first_s, "capture_s": info["capture_s"],
         "key_bytes": info["bytes"], "graphs": info["graphs"],
+        "captured_segments": info["captured_segments"],
+        "captured_boundaries": info["captured_boundaries"],
+        "eager_tail": info["eager_tail"],
+        "host_reads": reads[None], "host_reads_eager": reads[False],
         "launches_per_call": counts[1],
         "card": name_limit}
     log(f"  {label}: {n} items; captured {rates[None]:.1f} captions/s, eager "
@@ -3778,10 +3792,13 @@ def compare_compiled(model, params, enc, kw, _build, graphs, label,
         f"share {idle[None][2]:.3f} captured, {idle[False][2]:.3f} eager "
         f"(device {idle[None][1]:.1f} / {idle[False][1]:.1f} ms a call); "
         f"first call {first_s:.2f} s (warm-up and capture "
-        f"{info['capture_s']:.2f} s, {info['graphs']} graphs), key holds "
-        f"{info['bytes'] / 2 ** 20:.1f} MiB; sampled and greedy outputs "
-        f"bit-equal, launches per call equal, no device read in a step "
-        f"(sync debug mode) | {name_limit}")
+        f"{info['capture_s']:.2f} s, {info['graphs']} graphs: "
+        f"{info['captured_segments']} segments, "
+        f"{info['captured_boundaries']} boundaries, no eager tail), key "
+        f"holds {info['bytes'] / 2 ** 20:.1f} MiB; sampled and greedy "
+        f"outputs bit-equal, launches per call equal, no device read in a "
+        f"step or boundary (sync debug mode; host_read calls: captured "
+        f"{reads[None]}, eager {reads[False]}) | {name_limit}")
     graphs.clear()
     return res
 
@@ -3839,6 +3856,130 @@ def check_seed_forms(S, dev, gen):
         f"seed's and in the twin's support; queued ms (device seed / int "
         f"seed): {json.dumps(out)}")
     return out
+
+
+def check_device_counts(dev, name_limit):
+    """K1-K6, K9 and K10 with the count in device memory (a 0-d int32, as
+    a captured char step passes it: the grid then covers every item)
+    beside the int count, at the char shapes (768 items, beam 7, P 136, c
+    120, p_eff 128, D 512 over 8 heads, 49 encoder rows, V 128, bf16):
+    at counts of 0, C_LIVE // C_BEAM and all the items (K6: 0, 1 and 8
+    stragglers, its int grid over the selected items only), the outputs
+    equal on every row the count defines (K6 leaves the others
+    unwritten), each form timed queued. K6's int grid of 1-8 items splits
+    each (item, head) over a cluster of up to four blocks, whose partial
+    outputs it sums in rank order, while its device grid of 768 items
+    keeps one block each: the two round differently, so K6 is held
+    within TOL and its bit-equality reported. K4 also on its streamed
+    path at V 2,006 (1,280 rows) and V 16,384 (3,072 rows: two chunks).
+    Returns name -> count -> numbers."""
+    from deephumor_tpu_torch.ops import sampler as S
+    from deephumor_tpu_torch.ops.testing import (COUNTED, count_rows,
+                                                 counted_calls)
+
+    shapes = dict(items=C_BATCH, beam=C_BEAM, p=C_P, c=120, pe=128, d=HID,
+                  n_heads=HEADS, t_enc=T_ENC, vocab=C_VOCAB, top_k=C_TOP_K,
+                  length=C_LEN, dtype=torch.bfloat16, pack=PACK,
+                  generator=torch.Generator(dev).manual_seed(16))
+    calls = counted_calls(**shapes)
+    timed = counted_calls(**dict(shapes, fresh=False))
+    out = {}
+
+    def both(name, run, trun, n, per, rows=None):
+        """int and device count of ``n`` items: equal outputs (K6, given
+        ``rows``: within TOL on those rows), queued ms."""
+        t = torch.tensor(n * per, dtype=torch.int32, device=dev)
+        equal, err = True, 0.0
+        for g, w in zip(run(t), run(n * per)):
+            if rows is not None:
+                g, w = g[rows], w[rows]
+                torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
+                err = max(err, (g.float() - w.float()).abs().max().item())
+            elif not torch.equal(g, w):
+                raise AssertionError(f"[16] {name}: a device count of {n} "
+                                     f"gives other outputs than the int")
+            equal = equal and torch.equal(g, w)
+        return {"ms_count_ptr": cuda_ms(lambda: trun(t), queued=True),
+                "ms_count_int": cuda_ms(lambda: trun(n * per), queued=True),
+                "bit_equal": equal, "max_abs_err": err}
+
+    for name in COUNTED:
+        (per, run), (_, trun) = calls[name], timed[name]
+        k6 = name == "ancestry_attention_ids"
+        out[name] = {}
+        for n in (0, 1, 8) if k6 else (0, C_LIVE // C_BEAM, C_BATCH):
+            rows = count_rows(name, n, C_BATCH, C_BEAM).to(dev)
+            out[name][str(n)] = both(
+                name, run, trun, n, per,
+                rows.repeat_interleave(C_BEAM) if k6 else None)
+    del calls, timed
+    g = torch.Generator(dev).manual_seed(17)
+    seed = torch.tensor([77], dtype=torch.int32, device=dev)
+    for v, n_rows in ((2006, 1280), (16384, 3072)):
+        x = torch.randn(n_rows, HID, generator=g, device=dev).to(
+            torch.bfloat16)
+        w = torch.randn(v, HID, generator=g, device=dev).to(torch.bfloat16)
+        b = torch.randn(v, generator=g, device=dev)
+
+        def k4(n, x=x, w=w, b=b):
+            return S.fused_classifier_topk_gumbel_sample(
+                x, w, b, seed, 1 / C_TEMP, top_k=64, num_draws=BEAM,
+                live_rows=n)
+
+        name = f"fused_classifier_topk_gumbel_sample_v{v}"
+        out[name] = {str(n): both(name, k4, k4, n, 1)
+                     for n in (0, n_rows * 2 // 3, n_rows)}
+    log(f"  K1-K6, K9, K10 with a device count beside the int count at the "
+        f"char shapes (K4 also streamed at V 2006 and 16384): outputs "
+        f"equal (K6 within atol=rtol={TOL}); queued ms (device / int "
+        f"count; K6 max|diff|, bit-equal): " + "; ".join(
+            f"{k} " + ", ".join(
+                f"{n}: {r['ms_count_ptr']:.4f} / {r['ms_count_int']:.4f}"
+                + (f" ({r['max_abs_err']:.2e}, {r['bit_equal']})"
+                   if k == "ancestry_attention_ids" else "")
+                for n, r in v.items()) for k, v in out.items())
+        + f" | {name_limit}")
+    return out
+
+
+def check_second_temperature(model, params, enc, kw, graphs, name_limit):
+    """A second temperature on an existing word key: it makes no new key
+    (the key's graphs replay with the new 1/T in their input buffer), its
+    draws equal an eager call's at that temperature and differ from the
+    first temperature's. Returns the numbers."""
+    dev = batch(enc).device
+
+    def call(compiled, temperature):
+        return model.generate_from_emb(
+            params, enc, generator=torch.Generator(dev).manual_seed(5),
+            compiled=compiled, **dict(kw, temperature=temperature))
+
+    graphs.clear()
+    first = call(None, 1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second = call(None, 0.7)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    eager = call(False, 0.7)
+    info = graphs.cache_info()
+    if len(info) != 1 or info[0]["replays"] != 2:
+        raise AssertionError(f"[16] a second temperature made a new key: "
+                             f"{info}")
+    if not same_outputs(second, eager):
+        raise AssertionError("[16] at a second temperature the captured "
+                             "draws differ from the eager loop's")
+    if torch.equal(second["scores"], first["scores"]):
+        raise AssertionError("[16] the second temperature drew as the "
+                             "first")
+    res = {"items": batch(enc).shape[0], "keys": len(info),
+           "replays": info[0]["replays"], "second_temperature_call_s": secs,
+           "card": name_limit}
+    log(f"  word, {res['items']} items: temperature 0.7 after 1.0 replays "
+        f"the same key ({len(info)} key, {info[0]['replays']} replays; "
+        f"{secs:.3f} s), draws equal to eager at 0.7 | {name_limit}")
+    graphs.clear()
+    return res
 
 
 def compiled_batcher(pipe, kw, name_limit):
@@ -3941,8 +4082,10 @@ def greedy_text_small(_build, graphs, tree_map, dev):
 def compiled_phase(_build, modules, dev, name_limit):
     """[16]: the decode loop captured (models/graphs.py) beside the eager
     loop on word (batch 1792), Base, LSTM, the sweep's shape (V 2,006,
-    batch 256), a batcher burst and char's captured first phases (module
-    docstring). Returns each path's launches and the phase's numbers."""
+    batch 256), char (batch 768, every phase and boundary captured) and a
+    batcher burst; a second temperature on a word key; K1-K6, K9 and K10
+    with device counts (module docstring). Returns each path's launches
+    and the phase's numbers."""
     from deephumor_tpu_torch.data import Vocab
     from deephumor_tpu_torch.models import (CaptioningLSTM,
                                             CaptioningTransformer,
@@ -3954,10 +4097,12 @@ def compiled_phase(_build, modules, dev, name_limit):
     S = modules[-1]
     log(f"[16] compiled generation: captured (CUDA graphs) beside eager on "
         f"word, base, lstm (batch {BATCH}), the sweep's shape (V 2006, "
-        f"batch 256), a batcher burst, char's first phases | {name_limit}")
+        f"batch 256), char (batch {C_BATCH}, whole), a batcher burst; a "
+        f"second temperature; device counts | {name_limit}")
     t_phase = time.perf_counter()
     out = {"kernels": check_seed_forms(
         S, dev, torch.Generator(dev).manual_seed(16))}
+    out["device_counts"] = check_device_counts(dev, name_limit)
     greedy_text_small(_build, graphs, tree_map, dev)
     kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K,
               temperature=1.0, sampler="pallas")
@@ -3968,6 +4113,8 @@ def compiled_phase(_build, modules, dev, name_limit):
     paths["word"] = compare_compiled(
         model, params, features(BATCH, dev, 4), kw, _build, graphs, "word",
         name_limit, path_kernels=word_kernels)
+    out["second_temperature"] = check_second_temperature(
+        model, params, features(256, dev, 4), kw, graphs, name_limit)
     model, params = make_model(CaptioningTransformerBase, "bfloat16", dev,
                                False)
     paths["base"] = compare_compiled(
@@ -3990,8 +4137,7 @@ def compiled_phase(_build, modules, dev, name_limit):
         model, params, features(256, dev, 15), kw, _build, graphs, "sweep",
         name_limit, path_kernels=word_kernels + (
             "fused_classifier_topk_gumbel_sample",))
-    # char: the phases up to the first boundary (p_eff 24) captured, the
-    # rest eager
+    # char: every phase and boundary captured, full width and depth
     model, params = make_model(CaptioningTransformer, "bfloat16", dev, True)
     paths["char"] = compare_compiled(
         model, params, features(C_BATCH, dev, 6), dict(
@@ -4001,7 +4147,7 @@ def compiled_phase(_build, modules, dev, name_limit):
             "ancestry_attention_update", "grouped_cross_attention",
             "fused_topk_gumbel_sample",
             "fused_classifier_topk_gumbel_sample",
-            "ancestry_attention_update_canon"))
+            "ancestry_attention_update_canon", "ancestry_attention_ids"))
     del model, params
     # a batcher burst over a word pipeline (32 templates)
     model, params = make_model(CaptioningTransformer, "bfloat16", dev, False)
@@ -4493,6 +4639,12 @@ def main():
     log("compiled: " + json.dumps(compiled))
     for name, numbers in compiled["kernels"].items():
         rows[name]["seed_ptr"] = numbers
+    for name in rows:
+        if name in compiled["device_counts"]:
+            rows[name]["count_ptr"] = compiled["device_counts"][name]
+    rows["fused_classifier_topk_gumbel_sample"]["count_ptr_streamed"] = {
+        k: v for k, v in compiled["device_counts"].items()
+        if k.startswith("fused_classifier_topk_gumbel_sample_v")}
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
 
     sources = {
@@ -4537,12 +4689,13 @@ def main():
             # shape, in f32, and torch.topk alone; K4 at C_LIVE live rows,
             # beside F.linear + K3 and F.linear alone (partial yardsticks);
             # [14]'s head-local shapes; K3 and K4 at [15]'s shapes, and
-            # with the seed in device memory ([16])
+            # with the seed and the count in device memory ([16])
             **{k: row[k] for k in (
                 "ms_pe128", "ms_leg", "ms_char_pe128", "ms_char",
                 "bound_ms_char", "k2_ms", "k2_ms_char", "ms_f32", "topk_ms",
                 "ms_live", "bound_ms_live", "linear_ms", "linear_k3_ms",
-                "linear_k3_ms_live", "tp", "product", "seed_ptr")
+                "linear_k3_ms_live", "tp", "product", "seed_ptr",
+                "count_ptr", "count_ptr_streamed")
                 if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {name_limit}")

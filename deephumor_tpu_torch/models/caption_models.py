@@ -62,7 +62,10 @@ from deephumor_tpu_torch.models.encoders import (
 from deephumor_tpu_torch.models.lstm import (lstm_decoder_forward,
                                              lstm_decoder_init, lstm_forward,
                                              lstm_step)
-from deephumor_tpu_torch.models.sampling import BeamSearch, noise_shapes
+from deephumor_tpu_torch.models import sampling
+from deephumor_tpu_torch.models.sampling import (BeamSearch,
+                                                 inv_temperature,
+                                                 noise_shapes)
 from deephumor_tpu_torch.ops.attention import MASK_FILL
 from deephumor_tpu_torch.ops.engine import fused_survivor_update
 from deephumor_tpu_torch.parallel.sharding import local_tree, placed_mesh
@@ -269,8 +272,8 @@ class CaptioningLSTM(_Captioner):
 
         return step
 
-    def _program(self, params, emb, caption, *, max_len, temperature,
-                 beam_size, top_k, eos_index, greedy, sampler):
+    def _program(self, params, emb, caption, *, max_len, beam_size, top_k,
+                 eos_index, greedy, sampler):
         """One call as a :class:`graphs.Program`: the prefill and the
         first draw, then the steps in segments of ``_GRAPH_STEPS`` (a
         graph each on the card), then the final pick."""
@@ -290,7 +293,7 @@ class CaptioningLSTM(_Captioner):
             search = BeamSearch(
                 step_fn=self._make_step(dec, classifier is not None),
                 segment_steps=_GRAPH_STEPS, beam_size=beam_size,
-                top_k=top_k, temperature=temperature, max_len=max_len,
+                top_k=top_k, inv_t=inputs["inv_t"], max_len=max_len,
                 prefix_len=prefix_len, greedy=greedy, sampler=sampler,
                 classifier=classifier, eos_index=eos_index)
             return search.start(noise, state, logits, inputs["caption"])
@@ -326,10 +329,10 @@ class CaptioningLSTM(_Captioner):
         sampler = _check_sampler(sampler)
         if generator is None:
             generator = torch.Generator(emb.device).manual_seed(0)
-        static = dict(max_len=max_len, temperature=temperature,
-                      beam_size=beam_size, top_k=top_k, eos_index=eos_index,
-                      greedy=greedy, sampler=sampler)
-        inputs = {"enc": emb, "caption": caption}
+        static = dict(max_len=max_len, beam_size=beam_size, top_k=top_k,
+                      eos_index=eos_index, greedy=greedy, sampler=sampler)
+        inputs = {"enc": emb, "caption": caption,
+                  "inv_t": inv_temperature(temperature, emb.device)}
         return graphs.generate(
             lambda: self._program(params, emb, caption, **static), inputs,
             generator, compiled=compiled,
@@ -543,9 +546,12 @@ class CaptioningTransformerBase(_Captioner):
     def _compact_state(state, seq, val, ended, prefix_positions=None):
         """Early-EOS compaction at a phase boundary: a stable partition
         that moves every item whose branches have all ended to the batch
-        tail, and the new live count (a host int) that the kernels read.
-        Results equal the uncompacted run's (ended branches only append
-        pads at score 0); ``_finalize_compaction`` undoes the order.
+        tail, and the new live count that the kernels read (``live``, and
+        the draw's ``live_rows``: 0-d int32 tensors, set here on the
+        device). Results equal the uncompacted run's (ended branches only
+        append pads at score 0); ``_finalize_compaction`` undoes the order,
+        which is kept in place in ``item_perm`` (the final pick of a
+        captured call reads it there, whichever boundaries ran).
 
         ``prefix_positions``: the finished phase's p_eff. Cache positions
         past it are still their initial zeros, the same in every row, so
@@ -561,11 +567,12 @@ class CaptioningTransformerBase(_Captioner):
                 pp = x.shape[1] if prefix_positions is None else min(
                     prefix_positions, x.shape[1])
                 x[:, :pp] = x[flat, :pp]
+        state["item_perm"].copy_(state["item_perm"][order])
+        live = (~dead).sum(dtype=torch.int32)
         # cross_t_real, a host int, passes through unchanged
         new_state = dict(state, valid=state["valid"][flat],
-                         anc=state["anc"][order],
-                         item_perm=state["item_perm"][order],
-                         live=int((~dead).sum()))
+                         anc=state["anc"][order], live=live,
+                         live_rows=live * beam)
         if "cross" in state:
             new_state["cross"] = [{k: v[order] for k, v in c.items()}
                                   for c in state["cross"]]
@@ -587,7 +594,8 @@ class CaptioningTransformerBase(_Captioner):
         per-layer ``shared`` cache ``[B, c, D]``, which K5 reads instead
         of ``beam`` slots per position. Items whose live branches disagree
         (stragglers) are listed first in ``strag_ids`` (``n_strag`` of
-        them, a host int) and recomputed full-width by K6. Agreement below
+        them, a 0-d int32 tensor that K6 reads) and recomputed full-width
+        by K6, whose rows ``strag_rows`` marks. Agreement below
         ``c`` persists for the rest of the phase (survivors inherit live
         ancestries; ended branches' outputs are discarded), so one gather
         per boundary is exact.
@@ -615,8 +623,8 @@ class CaptioningTransformerBase(_Captioner):
         bias_sh = torch.where(sval, 0.0, MASK_FILL).to(torch.float32)
         new_state = dict(
             state, shared=shared, bias_sh=bias_sh, strag_ids=strag_ids,
-            n_strag=int(is_strag.sum()),
-            strag_rows=is_strag.repeat_interleave(beam))
+            n_strag=is_strag.sum(dtype=torch.int32),
+            strag_rows=is_strag[:, None].expand(-1, beam).reshape(-1))
         return new_state, seq, val, ended
 
     @staticmethod
@@ -628,20 +636,19 @@ class CaptioningTransformerBase(_Captioner):
 
         return run
 
-    def _program(self, params, enc, caption, *, temperature, max_len,
-                 beam_size, top_k, greedy, eos_index, sampler, compact,
-                 canon, model_group, pack_items, fused_survivor):
+    def _program(self, params, enc, caption, *, max_len, beam_size, top_k,
+                 greedy, eos_index, sampler, compact, canon, model_group,
+                 pack_items, fused_survivor):
         """One call as a :class:`graphs.Program`: the prefill and the
-        first draw, then the phases (each a segment: one graph on the
-        card, up to the first phase boundary), then the final pick.
+        first draw, then the phases and the boundaries between them (each
+        a graph on the card), then the final pick.
         ``pack_items`` and ``fused_survivor``: the two switches, read by
         the caller."""
         num_items = (enc[0] if isinstance(enc, tuple) else enc).shape[0]
         prefix_len = 0 if caption is None else caption.shape[1]
-        kw = dict(temperature=temperature, max_len=max_len,
-                  beam_size=beam_size, top_k=top_k, greedy=greedy,
-                  eos_index=eos_index, sampler=sampler, compact=compact,
-                  canon=canon, model_group=model_group,
+        kw = dict(max_len=max_len, beam_size=beam_size, top_k=top_k,
+                  greedy=greedy, eos_index=eos_index, sampler=sampler,
+                  compact=compact, canon=canon, model_group=model_group,
                   pack_items=pack_items, fused_survivor=fused_survivor)
 
         def finish(search):
@@ -650,14 +657,16 @@ class CaptioningTransformerBase(_Captioner):
 
         return graphs.Program(
             begin=lambda inputs, noise: self._begin(
-                params, inputs["enc"], inputs["caption"], noise, **kw),
+                params, inputs["enc"], inputs["caption"], inputs["inv_t"],
+                noise, **kw),
             finish=finish,
             noise=noise_shapes(steps=max_len - prefix_len,
                                num_items=num_items, beam_size=beam_size,
                                top_k=top_k, sampler=sampler, greedy=greedy),
-            device=params["decoder"]["classifier"]["weight"].device)
+            device=params["decoder"]["classifier"]["weight"].device,
+            read_out=self._read_boundaries)
 
-    def _begin(self, params, enc, caption, noise, *, temperature, max_len,
+    def _begin(self, params, enc, caption, inv_t, noise, *, max_len,
                beam_size, top_k, greedy, eos_index, sampler, compact, canon,
                model_group, pack_items, fused_survivor):
         """The prefill, the phase ladder and the first draw: the started
@@ -691,11 +700,13 @@ class CaptioningTransformerBase(_Captioner):
                        if compact is None else compact)
         live_fn = finalize_fn = None
         if use_compact:
+            # ints until the first compaction sets device counts
             state["live"] = num_items
+            state["live_rows"] = num_items * beam_size
             state["item_perm"] = torch.arange(num_items, device=dev)
             state.update(consts or {})
             consts = None
-            live_fn = lambda st: st["live"]  # noqa: E731
+            live_fn = lambda st: st["live_rows"]  # noqa: E731
             finalize_fn = self._finalize_compaction
         use_canon = True if canon is None else canon
         # phase ladder: the attention kernels read only the first p_eff
@@ -723,9 +734,9 @@ class CaptioningTransformerBase(_Captioner):
         # boundaries: compaction at pe = 24, 48, 96, ... (each pass gathers
         # the cache prefix, so they are sparse), canonicalisation before
         # every canon phase, after the compaction of the same boundary so
-        # its straggler ids index the permuted order. A boundary sets host
-        # ints that later steps bake in: on the card the phases after the
-        # first boundary run eagerly (models/graphs.py).
+        # its straggler ids index the permuted order. A boundary leaves its
+        # counts in device memory, where the next phase's kernels read
+        # them: on the card each boundary is a graph (models/graphs.py).
         compactors, last_c = [], 0
         for k, pe in enumerate(pes):
             fns = []
@@ -761,7 +772,7 @@ class CaptioningTransformerBase(_Captioner):
 
         search = BeamSearch(
             shuffle_fn=self._shuffle_state, phases=phases,
-            beam_size=beam_size, top_k=top_k, temperature=temperature,
+            beam_size=beam_size, top_k=top_k, inv_t=inv_t,
             max_len=max_len, prefix_len=prefix_len, greedy=greedy,
             sampler=sampler, classifier=classifier, live_fn=live_fn,
             compactors=compactors, finalize_fn=finalize_fn,
@@ -773,13 +784,27 @@ class CaptioningTransformerBase(_Captioner):
     def _record_boundary(pe, compacted, canon, state, seq, val, ended):
         """Notes what a boundary left in the state's ``boundaries``: the
         live items after its compaction and the stragglers of its canon
-        set-up (None for a part that did not run). Both are host ints
-        already."""
+        set-up (None for a part that did not run), as the 0-d tensors that
+        the kernels read (``_read_boundaries`` reads them at the end)."""
         entry = {"p_eff": pe,
                  "live": state["live"] if compacted else None,
                  "stragglers": state["n_strag"] if canon else None}
         return (dict(state, boundaries=state.get("boundaries", ()) + (
             entry,)), seq, val, ended)
+
+    @staticmethod
+    def _read_boundaries(out, ran):
+        """The outputs with ``boundaries`` as host ints: the first ``ran``
+        boundaries (all for None) read from the device at once, after the
+        last step of the call."""
+        marks = out["boundaries"][:ran]
+        counts = [v for m in marks for v in m.values()
+                  if isinstance(v, torch.Tensor)]
+        values = iter(sampling.host_read(torch.stack(counts)) if counts
+                      else ())
+        return dict(out, boundaries=[
+            {k: next(values) if isinstance(v, torch.Tensor) else v
+             for k, v in m.items()} for m in marks])
 
     @torch.inference_mode()
     def generate_from_emb(self, params, enc, generator=None, caption=None,
@@ -811,11 +836,11 @@ class CaptioningTransformerBase(_Captioner):
                 model group the loop runs eagerly (its steps all-reduce
                 over the group).
             compiled: on a CUDA device, None (default) replays the decode
-                loop as CUDA graphs (models/graphs.py: one per phase up to
-                the first phase boundary, made at the first call of each
-                static configuration and batch size); False runs it one
-                step at a time from the host, with the same outputs. On
-                the CPU the loop always runs eagerly.
+                loop as CUDA graphs (models/graphs.py: one per phase and
+                per phase boundary, made at the first call of each static
+                configuration and batch size, whatever the temperature);
+                False runs it one step at a time from the host, with the
+                same outputs. On the CPU the loop always runs eagerly.
 
         Two environment variables, read at each call, select kernels as in
         the JAX package: ``DH_CROSS_PACK=<ng>`` runs decode
@@ -854,12 +879,14 @@ class CaptioningTransformerBase(_Captioner):
         # items per block (0 or unset: K2), DH_FUSED_SURVIVOR=1 runs the
         # survivor update in K10
         static = dict(
-            temperature=temperature, max_len=max_len, beam_size=beam_size,
-            top_k=top_k, greedy=greedy, eos_index=eos_index,
-            sampler=sampler, compact=compact, canon=canon,
+            max_len=max_len, beam_size=beam_size, top_k=top_k,
+            greedy=greedy, eos_index=eos_index, sampler=sampler,
+            compact=compact, canon=canon,
             pack_items=int(os.environ.get("DH_CROSS_PACK", "0") or 0),
             fused_survivor=os.environ.get("DH_FUSED_SURVIVOR") == "1")
-        inputs = {"enc": enc, "caption": caption}
+        dev = params["decoder"]["classifier"]["weight"].device
+        inputs = {"enc": enc, "caption": caption,
+                  "inv_t": inv_temperature(temperature, dev)}
         return graphs.generate(
             lambda: self._program(params, enc, caption,
                                   model_group=model_group, **static),

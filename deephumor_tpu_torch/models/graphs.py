@@ -4,34 +4,47 @@ Counterpart of the JAX package's compiled ``generate``
 (deephumor_tpu/models/caption_models.py ``_compiled_generate``: an
 ``lru_cache`` over ``jax.jit``, one XLA program per static configuration,
 each phase's steps inside a ``lax.while_loop`` whose condition is the
-early exit). Here a call of one static configuration (a *key*) is a
-:class:`Program`: the prefill and the first draw, then the segments of
+early exit; the temperature, the live-item count of compaction and the
+straggler count of canonicalisation stay traced values). Here a call of
+one static configuration (a *key*) is a :class:`Program`: the prefill
+and the first draw, then the segments of
 :class:`~deephumor_tpu_torch.models.sampling.BeamSearch` (a phase each,
-unrolled; up to 8 steps for the LSTM), then the final pick.
+unrolled; up to 8 steps for the LSTM) with the phase boundary after a
+segment (char's early-EOS compaction and canonical-prefix set-up), then
+the final pick.
 
 The first call of a key runs the whole program once eagerly on a side
 stream (every kernel library build, cuBLAS handle and first-use attribute
-happens outside capture), then captures the prefill and each segment that
-no phase boundary precedes as a graph of its own, in order, into one
-private memory pool; each graph reads the tensors the one before it left.
-When no boundary runs, the final pick is captured too. Every call then
-copies its encoder output (and caption) into the key's static input
-buffers, draws its random numbers into the key's noise buffers
+happens outside capture), then captures the prefill, each segment, each
+boundary and the final pick as graphs of their own, in order, into one
+private memory pool; each graph reads the tensors the one before it left
+(a boundary's gathers and its ``shared`` caches among them). Nothing of a
+step or a boundary reads the device from the host: the temperature is a
+0-d tensor among the inputs (1/T, which the steps multiply by and K3/K4
+read through a pointer), and a boundary leaves its live and straggler
+counts in device memory, where the kernels of the next phase read them
+through a pointer (``dh::Count``). Every call copies its encoder output,
+caption and 1/T into the key's static input buffers, draws its random
+numbers into the key's noise buffers
 (:func:`~deephumor_tpu_torch.models.sampling.draw_noise`, the same
 generator calls as the eager loop) and replays the graphs in order,
-reading ``ended.all()`` once between graphs (the ``while_loop``'s
-condition, per phase rather than per step). What follows the first
-boundary (char's later phases: the boundaries set the host ints ``live``
-and ``n_strag``) runs eagerly from the state the last graph left. The
-outputs returned are copies: the next replay overwrites the buffers.
+reading ``ended.all()`` once before each segment and boundary (the
+``while_loop``'s condition, per phase rather than per step); once every
+branch has ended it skips the rest, as the eager loop does, and replays
+the final pick. The buffers that the final pick reads (sequences,
+scores, ended flags, the item order of compaction) are written in place,
+so a skipped boundary leaves them right. After the last graph,
+``Program.read_out`` reads what the host needs (the boundaries' counts)
+once. The outputs returned are copies: the next replay overwrites the
+buffers.
 
-A graph bakes in what JAX keeps dynamic, so the key holds it: the batch
-size, the device, the temperature (K3/K4 take 1/T by value), the two
-kernel switches and the parameters' addresses. New parameters, a new
-batch size or a new temperature make a new key. The last ``MAX_KEYS``
-keys are kept (the batcher's bucket ladder makes one per bucket), as
-long as they hold at most ``MAX_SHARE`` of the card's memory together; an
-evicted key frees its pool.
+A graph bakes in what stays static, so the key holds it: the batch size,
+the device, the sampler arguments, the two kernel switches and the
+parameters' addresses. New parameters or a new batch size make a new
+key; a new temperature does not. The last ``MAX_KEYS`` keys are kept
+(the batcher's bucket ladder makes one per bucket), as long as they hold
+at most ``MAX_SHARE`` of the card's memory together; an evicted key frees
+its pool.
 
 A kernel wrapper notes its launch while a graph is captured into that
 graph's tally (ops/_build.py ``note_launch``); each replay adds the
@@ -43,7 +56,6 @@ to the eager loop.
 """
 
 import collections
-import copy
 import dataclasses
 import threading
 import time
@@ -55,7 +67,7 @@ from deephumor_tpu_torch.ops import _build
 from deephumor_tpu_torch.utils.pytree import flatten_tree, tree_map
 
 __all__ = ["Program", "graph_key", "use_graphs", "generate", "run_eager",
-           "cache_info", "clear", "MAX_KEYS", "MAX_SHARE"]
+           "run_captured", "cache_info", "clear", "MAX_KEYS", "MAX_SHARE"]
 
 # the keys kept, and the share of the card's memory that they may hold
 # together (a word key at batch 1792 holds ~7 GiB: its KV caches)
@@ -79,12 +91,17 @@ class Program:
         noise: name -> shape of the call's up-front draws
             (``sampling.noise_shapes``).
         device: where the call runs.
+        read_out: ``(outputs, boundaries) -> outputs``, run on the
+            outputs after the last graph: the host reads of the call
+            (``boundaries``: how many phase boundaries ran, None for an
+            eager call, whose state lists only those).
     """
 
     begin: object
     finish: object
     noise: dict
     device: torch.device
+    read_out: object = lambda out, boundaries: out
 
 
 def use_graphs(compiled, device):
@@ -96,9 +113,10 @@ def use_graphs(compiled, device):
 
 def graph_key(model, params, inputs, **static):
     """The key of a call: the model's hyperparameters, the static
-    arguments, the inputs' shapes and dtypes (the batch size), their
-    device, the parameters' addresses (a graph holds them) and the
-    matmul precision flag that cuBLAS read when it was captured."""
+    arguments (not the temperature: 1/T is an input), the inputs' shapes
+    and dtypes (the batch size), their device, the parameters' addresses
+    (a graph holds them) and the matmul precision flag that cuBLAS read
+    when it was captured."""
     leaves = [t for t in flatten_tree(params).values()
               if isinstance(t, torch.Tensor)]
     shapes = tuple((k, tuple(t.shape), t.dtype, str(t.device))
@@ -115,7 +133,31 @@ def run_eager(program, inputs, gen, noise=None):
     draws are given."""
     if noise is None:
         noise = draw_noise(gen, program.noise, program.device)
-    return program.finish(run_eagerly(program.begin(inputs, noise)))
+    return program.read_out(
+        program.finish(run_eagerly(program.begin(inputs, noise))), None)
+
+
+def run_captured(search, segment, boundary):
+    """Runs a started search in the order of a captured call: each
+    segment, then its boundary, with ``ended.all()`` read once before each
+    (a boundary leaves every branch as it was, so the segment after it
+    needs no read of its own); once every branch has ended, the rest is
+    skipped, as the eager loop skips it. ``segment(i)`` and
+    ``boundary(i)`` run segment i and its boundary: a graph's replay on
+    the card, the captured body itself in the CPU tests. Returns how many
+    boundaries ran."""
+    ran, live = 0, False
+    for i in range(len(search.segments)):
+        if not live and search.all_ended():
+            break
+        segment(i)
+        live = False
+        if search.has_boundary(i):
+            if search.all_ended():
+                break
+            boundary(i)
+            ran, live = ran + 1, True
+    return ran
 
 
 def _tensors(tree):
@@ -160,13 +202,17 @@ class _Graphs:
         capture(lambda: made.update(
             search=program.begin(self.inputs, self.noise)))
         self.search = search = made["search"]
-        self.segments = search.captured_segments
-        for i in range(self.segments):
+        # (segment graph, boundary graph or None) per segment
+        self.steps = []
+        for i in range(len(search.segments)):
             capture(lambda i=i: search.run_segment(i, eager=False))
-        self.out = None
-        if self.segments == len(search.segments):
-            capture(lambda: made.update(out=program.finish(search)))
-            self.out = made["out"]
+            step = [len(self.graphs) - 1, None]
+            if search.has_boundary(i):
+                capture(lambda i=i: search.run_boundary(i, eager=False))
+                step[1] = len(self.graphs) - 1
+            self.steps.append(tuple(step))
+        capture(lambda: made.update(out=program.finish(search)))
+        self.out = made["out"]
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -183,20 +229,12 @@ class _Graphs:
                 draw_noise(gen, self.program.noise, self.program.device,
                            out=self.noise)
             self._replay(0)
-            for i in range(self.segments):
-                if self.search.all_ended():
-                    break
-                self._replay(i + 1)
-            if self.out is not None:
-                self._replay(len(self.graphs) - 1)
-                out = self.out
-            else:
-                # the phases after the first boundary, from the state the
-                # last graph left
-                tail = copy.copy(self.search)
-                out = self.program.finish(run_eagerly(tail, self.segments))
+            boundaries = run_captured(
+                self.search, lambda i: self._replay(self.steps[i][0]),
+                lambda i: self._replay(self.steps[i][1]))
+            self._replay(len(self.graphs) - 1)
             self.replays += 1
-            return _clone(out)
+            return self.program.read_out(_clone(self.out), boundaries)
 
     def _replay(self, i):
         graph, tally = self.graphs[i]
@@ -240,13 +278,18 @@ def generate(make_program, inputs, gen, *, key, compiled=None):
 
 
 def cache_info():
-    """One dict per cached key, oldest first: its graphs, replays, the
-    seconds its first call took to warm up and capture, and the device
-    memory it holds (its static buffers and pool, bytes)."""
+    """One dict per cached key, oldest first: its graphs, the segments and
+    boundaries they hold, whether any part of a call runs eagerly after
+    them (``eager_tail``: never since every boundary is captured), its
+    replays, the seconds its first call took to warm up and capture, and
+    the device memory it holds (its static buffers and pool, bytes)."""
     with _CACHE_LOCK:
-        return [{"graphs": len(e.graphs), "captured_segments": e.segments,
-                 "eager_tail": e.out is None, "replays": e.replays,
-                 "capture_s": e.capture_s, "bytes": e.bytes}
+        return [{"graphs": len(e.graphs), "captured_segments": len(e.steps),
+                 "captured_boundaries": sum(b is not None
+                                            for _, b in e.steps),
+                 "eager_tail": len(e.steps) < len(e.search.segments),
+                 "replays": e.replays, "capture_s": e.capture_s,
+                 "bytes": e.bytes}
                 for e in _CACHE.values()]
 
 

@@ -12,17 +12,22 @@ The token loop runs one decoder step per position, split into
 ``step_fn`` over every step, as the LSTM runs). Every random number of a
 call is drawn up front from the caller's ``torch.Generator`` (on the
 device of the logits): the K3/K4 seeds, the uniforms of the per-branch
-and survivor draws and of the final pick (:func:`draw_noise`). A step
-then reads no host value and touches no generator, so a caller may
-capture whole segments of steps as CUDA graphs (models/graphs.py) and
-replay them with new draws. Eagerly the loop stops once every branch has
-ended (one ``ended.all()`` read per step); captured, the caller reads it
-between segments, and a step that runs after every branch has ended
-keeps every branch in place and appends a pad at score 0, so both give
-the same result. A model may run a boundary function after a phase
-(early-EOS compaction, canonical-prefix setup) that permutes the items;
-``finalize_fn`` puts the outputs back in the caller's order.
+and survivor draws and of the final pick (:func:`draw_noise`). 1/T is a
+0-d f32 tensor on that device (:func:`inv_temperature`), and the live row
+count that a phase boundary sets is a 0-d int32 tensor. A step then
+reads no host value and touches no generator, so a caller may capture
+whole segments of steps, and the boundaries between them, as CUDA graphs
+(models/graphs.py) and replay them with new draws at any temperature.
+Eagerly the loop stops once every branch has ended (one ``ended.all()``
+read per step); captured, the caller reads it between segments, and a
+step that runs after every branch has ended keeps every branch in place
+and appends a pad at score 0, so both give the same result. A model may
+run a boundary function after a phase (early-EOS compaction,
+canonical-prefix setup) that permutes the items; ``finalize_fn`` puts
+the outputs back in the caller's order.
 """
+
+import numpy as np
 
 import torch
 
@@ -32,7 +37,8 @@ from deephumor_tpu_torch.ops.sampler import (
 from deephumor_tpu_torch.utils.pytree import tree_map
 
 __all__ = ["filter_top_k", "gumbel_top_k", "beam_search", "BeamSearch",
-           "noise_shapes", "draw_noise", "run_eagerly"]
+           "noise_shapes", "draw_noise", "inv_temperature", "host_read",
+           "run_eagerly"]
 
 NEG_INF = float("-inf")
 # above this vocabulary the classifier runs as a separate bf16 product
@@ -83,8 +89,9 @@ def _topk_space_draw(u, logits, top_k, k, inv_t, greedy, unk_index,
     reduced space. Returns (token ids ``[..., k]``, scores ``[..., k]``).
 
     ``sampler="pallas"`` (stochastic only) runs the sampler kernels with
-    ``seed`` (an int or a one-element int32 tensor), which skip rows at or
-    past ``live_rows``. With ``classifier``, ``logits`` is the
+    ``seed`` (an int or a one-element int32 tensor) and ``inv_t`` (a float
+    or a 0-d f32 tensor), which skip rows at or past ``live_rows`` (an int
+    or a 0-d int32 tensor). With ``classifier``, ``logits`` is the
     pre-classifier hidden state: up to ``FUSED_CLASSIFIER_MAX_V`` the K4
     kernel (ops.fused_classifier_topk_gumbel_sample) computes the
     classifier inside the draw; above it the classifier is a plain bf16
@@ -154,6 +161,24 @@ def noise_shapes(*, steps, num_items, beam_size, top_k, sampler, greedy):
     return shapes
 
 
+def inv_temperature(temperature, device):
+    """1/T as a generation call holds it: a 0-d f32 tensor on ``device``
+    with the f32 value of ``1.0 / temperature``, which the steps multiply
+    by and K3/K4 read through a pointer (a captured call's buffer is
+    written on every call, so one graph serves every temperature). Made by
+    a fill, not a copy from the host, so it waits for nothing."""
+    return torch.full((), float(np.float32(1.0 / temperature)),
+                      dtype=torch.float32, device=device)
+
+
+def host_read(t):
+    """``t``'s values on the host. Every read of the device that a
+    generation call makes on purpose goes through here: ``ended.all()``
+    between steps (eager) or graphs (captured), and the phase boundaries'
+    counts once after the last graph (the transformers' ``boundaries``)."""
+    return t.tolist()
+
+
 def draw_noise(gen, shapes, device, out=None):
     """Draws every random number of a call up front from ``gen``, one
     generator call per entry of ``shapes`` (:func:`noise_shapes`), into
@@ -188,14 +213,18 @@ class BeamSearch:
       before each step that a branch is still live (one ``ended.all()``
       read); captured, the caller checks between segments, and a step
       that runs after every branch has ended changes nothing;
-    - :meth:`run_boundary`: the phase boundary after a segment, eager (its
-      transforms set host ints);
+    - :meth:`run_boundary`: the phase boundary after a segment (early-EOS
+      compaction, canonical-prefix set-up), with no host read either: its
+      counts stay in device memory, where the next phase's kernels read
+      them;
     - :meth:`finish`: the final pick and ``finalize_fn``.
 
     Every random number comes from ``noise`` (:func:`draw_noise`), read by
     step: the two paths draw alike.
 
     Args:
+        inv_t: 1/T, a 0-d f32 tensor on the device of the logits
+            (:func:`inv_temperature`; a captured call's static buffer).
         step_fn: ``(state, tokens [B*beam]) -> (logits or hidden,
             state)``, run for every step when ``phases`` is not given.
         phases: optional ``[(last_step, step_fn), ...]``: each step_fn runs
@@ -209,8 +238,9 @@ class BeamSearch:
             gathered by ``flat_branch``.
         classifier: optional ``(weight [V, D], bias [V])``; when given the
             step functions return hidden states and the draw classifies.
-        live_fn: optional ``state -> int or None``, the live-item count
-            (live items lead); the draw skips the other rows.
+        live_fn: optional ``state -> live rows``: an int, or a 0-d int32
+            tensor that a boundary set (live items lead); the draw skips
+            the other rows.
         compactors: optional list, one entry per phase but the last:
             ``None`` or ``(state, seq, val, ended) -> (state, seq, val,
             ended)``, run after that phase's steps (it may permute items).
@@ -225,7 +255,7 @@ class BeamSearch:
         max_len: total output length including any prefix.
     """
 
-    def __init__(self, *, beam_size, top_k, temperature, max_len,
+    def __init__(self, *, beam_size, top_k, inv_t, max_len,
                  step_fn=None, phases=None, segment_steps=None,
                  shuffle_fn=None, prefix_len=0, greedy=False,
                  sampler="exact", classifier=None, live_fn=None,
@@ -234,7 +264,7 @@ class BeamSearch:
         if beam_size > top_k:
             raise ValueError(f"beam_size ({beam_size}) must be <= top_k "
                              f"({top_k})")
-        self.beam, self.top_k, self.inv_t = beam_size, top_k, 1.0 / temperature
+        self.beam, self.top_k, self.inv_t = beam_size, top_k, inv_t
         self.max_len, self.prefix_len = max_len, prefix_len
         self.steps = steps = max_len - prefix_len
         self.greedy, self.sampler, self.classifier = greedy, sampler, classifier
@@ -259,16 +289,6 @@ class BeamSearch:
                 self.segments.append(
                     [a, b, fn, boundary if b == last else None])
             first = last + 1
-
-    @property
-    def captured_segments(self):
-        """How many leading segments a graph may hold: those up to the
-        first one that a boundary follows (a boundary sets host ints that
-        later steps bake in, so it and what follows run eagerly)."""
-        for i, seg in enumerate(self.segments):
-            if seg[3] is not None:
-                return i + 1
-        return len(self.segments)
 
     def _draw(self, logits, s, classifier=None, live_rows=None):
         noise = self.noise
@@ -303,7 +323,7 @@ class BeamSearch:
 
     def all_ended(self):
         """True once every branch has ended (reads the device)."""
-        return bool(self.ended.all())
+        return host_read(self.ended.all())
 
     def run_segment(self, i, eager=True):
         first, last, step_fn, _ = self.segments[i]
@@ -312,11 +332,16 @@ class BeamSearch:
                 return
             self._step(s, step_fn)
 
-    def run_boundary(self, i):
-        """Segment ``i``'s boundary, if any, unless every branch has ended
-        (it would only permute rows that ``finalize_fn`` puts back)."""
+    def has_boundary(self, i):
+        """Whether a phase boundary follows segment ``i``."""
+        return self.segments[i][3] is not None
+
+    def run_boundary(self, i, eager=True):
+        """Segment ``i``'s boundary, if any; eagerly not once every branch
+        has ended (it would only permute rows that ``finalize_fn`` puts
+        back: a captured call skips its graph from the host then)."""
         boundary = self.segments[i][3]
-        if boundary is not None and not self.all_ended():
+        if boundary is not None and not (eager and self.all_ended()):
             self.state, seq, val, ended = boundary(
                 self.state, self.seq, self.val, self.ended)
             self._keep(seq, val, ended)
@@ -332,9 +357,9 @@ class BeamSearch:
         n, beam, pos = self.n, self.beam, self.prefix_len + s
         seq, val, ended = self.seq, self.val, self.ended
         out, state = step_fn(self.state, seq[:, :, pos - 1].reshape(-1))
-        live = None if self.live_fn is None else self.live_fn(state)
-        new_idx, new_val = self._draw(out, s, self.classifier,
-                                      None if live is None else live * beam)
+        new_idx, new_val = self._draw(
+            out, s, self.classifier,
+            None if self.live_fn is None else self.live_fn(state))
         new_idx = new_idx.reshape(n, beam, beam)
         new_val = new_val.reshape(n, beam, beam)
         e3 = ended[..., None]
@@ -377,22 +402,20 @@ class BeamSearch:
                 else self.finalize_fn(self.state, out))
 
 
-def run_eagerly(search, first=0):
-    """Runs the segments of a started search from ``first`` on, each with
-    its boundary, one step at a time from the host; returns the search.
-    With ``first`` > 0 the segments before it have run (captured), and the
-    boundary after the last of them runs first."""
-    if first:
-        search.run_boundary(first - 1)
-    for i in range(first, len(search.segments)):
+def run_eagerly(search):
+    """Runs the segments of a started search, each with its boundary, one
+    step at a time from the host; returns the search."""
+    for i in range(len(search.segments)):
         search.run_segment(i)
         search.run_boundary(i)
     return search
 
 
-def beam_search(gen, state, init_logits, *, prefix=None, **kwargs):
+def beam_search(gen, state, init_logits, *, temperature=1.0, prefix=None,
+                **kwargs):
     """Runs batched stochastic or greedy beam search eagerly
-    (:class:`BeamSearch`; its arguments).
+    (:class:`BeamSearch`; its arguments, with ``temperature`` for
+    ``inv_t``).
 
     Args:
         gen: ``torch.Generator`` on the logits' device (unused when
@@ -405,7 +428,8 @@ def beam_search(gen, state, init_logits, *, prefix=None, **kwargs):
         dict with ``sequences [B, beam, max_len]``, ``scores [B, beam]``,
         ``chosen [B, max_len]`` and ``ended [B, beam]``.
     """
-    search = BeamSearch(**kwargs)
+    search = BeamSearch(inv_t=inv_temperature(temperature,
+                                              init_logits.device), **kwargs)
     noise = draw_noise(gen, noise_shapes(
         steps=search.steps, num_items=init_logits.shape[0],
         beam_size=search.beam, top_k=search.top_k, sampler=search.sampler,

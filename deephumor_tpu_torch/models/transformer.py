@@ -452,18 +452,21 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
             (prefill).
         p_eff: with ``anc``, the number of leading cache positions read.
         return_hidden: return the pre-classifier hidden state.
-        live_items: optional host int, the number of live items (early-EOS
-            compaction keeps them first); the kernels skip the rest, whose
-            attention rows are zero.
+        live_items: optional int or 0-d int32 tensor on the device (set by
+            a compaction boundary, read by the kernels through a pointer),
+            the number of live items (early-EOS compaction keeps them
+            first); the kernels skip the rest, whose attention rows are
+            zero.
         canon: optional canonical-prefix bundle from the engine's phase
             boundary (``CaptioningTransformer._canonicalize_state``):
             ``{"c": int, "shared": [{"sk", "sv"} per layer],
-            "bias_sh": [B, 1, c], "strag_ids": [B], "n_strag": int,
-            "strag_rows": bool [bs]}``. Self-attention then reads the
-            shared rows below ``c`` plus the per-slot window
-            ``[c, p_eff)`` (K5); straggler items are recomputed full-width
-            (K6) and merged by row mask. A phase without stragglers
-            launches no K6.
+            "bias_sh": [B, 1, c], "strag_ids": [B], "n_strag": int or
+            0-d int32 tensor, "strag_rows": bool [bs]}``. Self-attention
+            then reads the shared rows below ``c`` plus the per-slot
+            window ``[c, p_eff)`` (K5); straggler items are recomputed
+            full-width (K6, launched on every canon step, as in the JAX
+            package: with no straggler it computes the first listed item)
+            and merged by row mask.
         cross_t_real: the number of valid encoder rows of a tile-padded
             cross store (None: the store is not padded).
         pack_items: with ``anc`` and ``cross_t_real``, cross-attention
@@ -529,11 +532,10 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
                 q, ck, cv, sh["sk"], sh["sv"], k, v, canon["bias_sh"],
                 bias_win, pos, beam=beam, n_heads=heads, c=canon["c"],
                 p_eff=pe, live_items=live_items)
-            if canon["n_strag"]:
-                out_s = ancestry_attention_ids(
-                    q, ck, cv, anc_bias, canon["strag_ids"], canon["n_strag"],
-                    beam=beam, n_heads=heads, p_eff=p_eff)
-                attn = torch.where(canon["strag_rows"][:, None], out_s, attn)
+            out_s = ancestry_attention_ids(
+                q, ck, cv, anc_bias, canon["strag_ids"], canon["n_strag"],
+                beam=beam, n_heads=heads, p_eff=p_eff)
+            attn = torch.where(canon["strag_rows"][:, None], out_s, attn)
         elif anc_bias is not None:
             attn = ancestry_attention_update(
                 q, ck, cv, k, v, anc_bias, pos, beam=anc.shape[1],

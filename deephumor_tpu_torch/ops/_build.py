@@ -33,7 +33,7 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "note_launch",
            "capture_tally", "add_launches", "library", "check",
            "BUILD_DIR", "dtype_code", "on_kernel_device",
            "check_vector_rows", "check_mma_tiles", "check_smem",
-           "smem_need", "live_count", "stream_of"]
+           "smem_need", "count_args", "count_mask", "stream_of"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parents[2] / "build" / "deephumor_tpu_torch"
@@ -55,40 +55,43 @@ LAUNCHES = {
 }
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+# A count (live items or rows, straggler items) is an int and a pointer
+# beside it: NULL, or a device int32 that the kernel reads (count_args).
 _SIGNATURES = {
-    # dtype, q, cache_k, cache_v, k_new, v_new, bias, out,
-    # items, live, beam, P, p_eff, D, H, pos, inv_scale, stream
+    # dtype, q, cache_k, cache_v, k_new, v_new, bias, out, items, live,
+    # live_ptr, beam, P, p_eff, D, H, pos, inv_scale, stream
     "dh_ancestry_attention_update":
-        [_I, *[_P] * 7, *[_I] * 8, _F, _P],
-    # dtype, q, ek, ev, bias (or NULL), out, G, live, r, T, D, H,
+        [_I, *[_P] * 7, _I, _I, _P, *[_I] * 6, _F, _P],
+    # dtype, q, ek, ev, bias (or NULL), out, G, live, live_ptr, r, T, D, H,
     # inv_scale, stream
     "dh_grouped_cross_attention":
-        [_I, *[_P] * 5, *[_I] * 6, _F, _P],
-    # dtype, logits, ids, live_rows, V, top_k, num_draws, unk, seed,
-    # seed_ptr (or NULL), invT, stream
+        [_I, *[_P] * 5, _I, _I, _P, *[_I] * 4, _F, _P],
+    # dtype, logits, ids, rows, live_rows, live_ptr, V, top_k, num_draws,
+    # unk, seed, seed_ptr (or NULL), invT, invT_ptr (or NULL), stream
     "dh_topk_gumbel_sample":
-        [_I, _P, _P, _I, _I, _I, _I, _I, _U, _P, _F, _P],
-    # x, w, b, ids, vals, scratch (or NULL), rows, live_rows, V, D, top_k,
-    # num_draws, unk, seed, seed_ptr (or NULL), invT, stream
+        [_I, _P, _P, _I, _I, _P, *[_I] * 4, _U, _P, _F, _P, _P],
+    # x, w, b, ids, vals, scratch (or NULL), rows, live_rows, live_ptr, V,
+    # D, top_k, num_draws, unk, seed, seed_ptr (or NULL), invT, invT_ptr
+    # (or NULL), stream
     "dh_classifier_topk_gumbel_sample":
-        [*[_P] * 6, *[_I] * 7, _U, _P, _F, _P],
+        [*[_P] * 6, _I, _I, _P, *[_I] * 5, _U, _P, _F, _P, _P],
     # dtype, q, cache_k, cache_v, shared_k, shared_v, k_new, v_new,
-    # bias_shared, bias_win, out, items, live, beam, P, shared_len, c,
-    # p_eff, D, H, pos, inv_scale, stream
+    # bias_shared, bias_win, out, items, live, live_ptr, beam, P,
+    # shared_len, c, p_eff, D, H, pos, inv_scale, stream
     "dh_ancestry_attention_update_canon":
-        [_I, *[_P] * 10, *[_I] * 10, _F, _P],
-    # dtype, q, cache_k, cache_v, bias, item_ids, out, items, n_sel, beam,
-    # P, p_eff, D, H, inv_scale, stream
+        [_I, *[_P] * 10, _I, _I, _P, *[_I] * 8, _F, _P],
+    # dtype, q, cache_k, cache_v, bias, item_ids, out, items, n_sel,
+    # n_sel_ptr, beam, P, p_eff, D, H, inv_scale, stream
     "dh_ancestry_attention_ids":
-        [_I, *[_P] * 6, *[_I] * 7, _F, _P],
-    # dtype, q, ek, ev, bias (or NULL), out, G, live, r, Tp, t_real, D, H,
-    # inv_scale, stream
+        [_I, *[_P] * 6, _I, _I, _P, *[_I] * 5, _F, _P],
+    # dtype, q, ek, ev, bias (or NULL), out, G, live, live_ptr, r, Tp,
+    # t_real, D, H, inv_scale, stream
     "dh_cross_attention_packed":
-        [_I, *[_P] * 5, *[_I] * 7, _F, _P],
+        [_I, *[_P] * 5, _I, _I, _P, *[_I] * 5, _F, _P],
     # new_idx, new_val, surv, ended, val, seq, anc, valid, chosen, B, live,
-    # beam, L, P, pos, eos, pad, stream
+    # live_ptr, beam, L, P, pos, eos, pad, stream
     "dh_fused_survivor_update":
-        [*[_P] * 9, *[_I] * 8, _P],
+        [*[_P] * 9, _I, _I, _P, *[_I] * 6, _P],
     # dtype, q, cache_k, cache_v, bias, out, items, beam, P, p_eff, D, H,
     # inv_scale, stream
     "dh_ancestry_attention":
@@ -314,10 +317,35 @@ def check_smem(name, need, t):
                          f"{limit} bytes a block")
 
 
-def live_count(n, live):
-    """How many of ``n`` leading items (or rows) a kernel computes: all of
-    them when ``live`` is None, else ``live`` clamped to [0, n]."""
-    return n if live is None else min(max(int(live), 0), n)
+def count_args(name, n, count, device):
+    """The (int, device pointer or None) pair that a C entry point takes
+    for a count of ``n`` leading items or rows: ``count`` None (all of
+    them), an int (clamped to [0, n]), or a 0-d int32 tensor on
+    ``device`` that the kernel reads at launch, so that a captured step
+    reads each call's own count. A tensor's value is not read here (that
+    would wait for the device); the int beside its pointer is ``n``, the
+    rows the kernel's grid covers."""
+    import torch
+
+    if not isinstance(count, torch.Tensor):
+        return n if count is None else min(max(int(count), 0), n), None
+    if count.dtype != torch.int32 or count.ndim or count.device != device:
+        raise ValueError(f"{name}: a count tensor must be a 0-d int32 on "
+                         f"{device}, got {count.dtype} {tuple(count.shape)} "
+                         f"on {count.device}")
+    return n, count.data_ptr()
+
+
+def count_mask(n, count, device, per=1):
+    """Bool ``[n * per]``: True on the ``per`` rows of each of the first
+    ``count`` of ``n`` items (``count`` None, an int or a 0-d integer
+    tensor, compared where it lies: no host read). The plain twins
+    compute every row and keep those it marks."""
+    import torch
+
+    idx = torch.arange(n, device=device)
+    mask = idx >= 0 if count is None else idx < count
+    return mask[:, None].expand(n, per).reshape(-1)
 
 
 def stream_of(t):

@@ -162,17 +162,16 @@ def ancestry_attention(q, cache_k, cache_v, bias, *, beam, n_heads,
 def ancestry_attention_update_plain(q, cache_k, cache_v, k_new, v_new, bias,
                                     pos, *, beam, n_heads, p_eff=None,
                                     live_items=None):
-    """Plain PyTorch twin of :func:`ancestry_attention_update`."""
+    """Plain PyTorch twin of :func:`ancestry_attention_update`: every row
+    computed, the live items' kept (so a tensor count is never read)."""
     rows, p, _ = cache_k.shape
     pe = p if p_eff is None else min(p_eff, p)
-    live = _build.live_count(rows // beam, live_items)
-    lr = live * beam
-    cache_k[:lr, pos] = k_new[:lr]
-    cache_v[:lr, pos] = v_new[:lr]
-    out = torch.zeros_like(q)
-    out[:lr] = _attend(q[:lr], cache_k[:lr], cache_v[:lr], bias[:live],
-                       beam=beam, n_heads=n_heads, pe=pe)
-    return out
+    live = _build.count_mask(rows // beam, live_items, q.device, beam)[:, None]
+    cache_k[:, pos] = torch.where(live, k_new, cache_k[:, pos])
+    cache_v[:, pos] = torch.where(live, v_new, cache_v[:, pos])
+    out = _attend(q, cache_k, cache_v, bias, beam=beam, n_heads=n_heads,
+                  pe=pe)
+    return torch.where(live, out, 0.0)
 
 
 def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
@@ -191,10 +190,11 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
         pos: int decode position, ``0 <= pos < P``.
         p_eff: read only the first ``p_eff`` cache positions (every valid
             position must lie below it).
-        live_items: optional host int; items at or past it (retired by
-            early-EOS compaction, which keeps live items first) are not
-            computed: their output rows are zero and their cache columns
-            are not written.
+        live_items: optional int, or a 0-d int32 tensor on the device of
+            ``q`` that the kernel reads (a captured step's count); items at
+            or past it (retired by early-EOS compaction, which keeps live
+            items first) are not computed: their output rows are zero and
+            their cache columns are not written.
 
     Returns:
         attention output ``[B*beam, D]`` (before the output projection).
@@ -221,13 +221,15 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
     _build.check_smem(name, _build.smem_need(
         "dh_ancestry_attention_update_smem", code, rows // beam, beam, pe, d,
         n_heads), q)
+    live, live_ptr = _build.count_args(name, rows // beam, live_items,
+                                       q.device)
     out = torch.empty_like(q)
     err = _build.library().dh_ancestry_attention_update(
         code, q.data_ptr(), cache_k.data_ptr(),
         cache_v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), rows // beam,
-        _build.live_count(rows // beam, live_items), beam, p, pe, d, n_heads,
-        pos, 1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
+        bias.data_ptr(), out.data_ptr(), rows // beam, live, live_ptr, beam,
+        p, pe, d, n_heads, pos, 1.0 / math.sqrt(d // n_heads),
+        _build.stream_of(q))
     _build.check(err, name)
     _build.note_launch(name)
     return out
@@ -327,30 +329,28 @@ def ancestry_attention_update_canon_plain(q, cache_k, cache_v, shared_k,
                                           bias_shared, bias_win, pos, *,
                                           beam, n_heads, c, p_eff,
                                           live_items=None):
-    """Plain PyTorch twin of :func:`ancestry_attention_update_canon`."""
+    """Plain PyTorch twin of :func:`ancestry_attention_update_canon`: every
+    row computed, the live items' kept."""
     rows, _, d = cache_k.shape
-    hd, w = d // n_heads, p_eff - c
-    live = _build.live_count(rows // beam, live_items)
-    lr = live * beam
-    cache_k[:lr, pos] = k_new[:lr]
-    cache_v[:lr, pos] = v_new[:lr]
-    out = torch.zeros_like(q)
-    qf = q[:lr].float().reshape(live, beam, n_heads, hd)
-    sk, sv = (s[:live, :c].float().reshape(live, c, n_heads, hd)
+    hd, w, b = d // n_heads, p_eff - c, rows // beam
+    live = _build.count_mask(b, live_items, q.device, beam)[:, None]
+    cache_k[:, pos] = torch.where(live, k_new, cache_k[:, pos])
+    cache_v[:, pos] = torch.where(live, v_new, cache_v[:, pos])
+    qf = q.float().reshape(b, beam, n_heads, hd)
+    sk, sv = (s[:, :c].float().reshape(b, c, n_heads, hd)
               for s in (shared_k, shared_v))
-    wk, wv = (t[:lr, c:p_eff].float().reshape(live, beam * w, n_heads, hd)
+    wk, wv = (t[:, c:p_eff].float().reshape(b, beam * w, n_heads, hd)
               for t in (cache_k, cache_v))
     scale = 1.0 / math.sqrt(hd)
     e_sh = torch.einsum("bjhd,bchd->bjhc", qf, sk) * scale
-    e_sh = e_sh + bias_shared[:live, :, None, :]
+    e_sh = e_sh + bias_shared[:, :, None, :]
     e_wn = torch.einsum("bjhd,bwhd->bjhw", qf, wk) * scale
-    e_wn = e_wn + bias_win[:live, :, None, :]
+    e_wn = e_wn + bias_win[:, :, None, :]
     wt = torch.softmax(torch.cat([e_sh, e_wn], dim=-1), dim=-1)
     wt = wt.to(q.dtype).float()
     o = (torch.einsum("bjhc,bchd->bjhd", wt[..., :c], sv)
          + torch.einsum("bjhw,bwhd->bjhd", wt[..., c:], wv))
-    out[:lr] = o.reshape(lr, d).to(q.dtype)
-    return out
+    return torch.where(live, o.reshape(rows, d).to(q.dtype), 0.0)
 
 
 def ancestry_attention_update_canon(q, cache_k, cache_v, shared_k, shared_v,
@@ -398,39 +398,37 @@ def ancestry_attention_update_canon(q, cache_k, cache_v, shared_k, shared_v,
     _build.check_vector_rows(name, d // n_heads, cache_k, cache_v, shared_k,
                              shared_v, k_new, v_new)
     _build.check_mma_tiles(name, d // n_heads, q)
+    live, live_ptr = _build.count_args(name, rows // beam, live_items,
+                                       q.device)
     out = torch.empty_like(q)
     err = _build.library().dh_ancestry_attention_update_canon(
         _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
         cache_v.data_ptr(), shared_k.data_ptr(), shared_v.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), bias_shared.data_ptr(),
-        bias_win.data_ptr(), out.data_ptr(), rows // beam,
-        _build.live_count(rows // beam, live_items), beam, p,
-        shared_k.shape[1], c, p_eff, d, n_heads, pos,
+        bias_win.data_ptr(), out.data_ptr(), rows // beam, live, live_ptr,
+        beam, p, shared_k.shape[1], c, p_eff, d, n_heads, pos,
         1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
     _build.note_launch(name)
     return out
 
 
-def _selected(item_ids, n_sel, items):
-    """The item ids the kernel's grid walks: the first n_sel, at least one
-    (the TPU grid is clamped to [1, items] the same way)."""
-    return item_ids[:min(max(int(n_sel), 1), items)]
-
-
 def ancestry_attention_ids_plain(q, cache_k, cache_v, bias, item_ids, n_sel,
                                  *, beam, n_heads, p_eff=None):
     """Plain PyTorch twin of :func:`ancestry_attention_ids` (rows of items
-    it does not compute are zero)."""
+    it does not compute are zero): every item computed, the selected
+    ones' rows kept, so a tensor ``n_sel`` is never read."""
     rows, p, _ = cache_k.shape
     pe = p if p_eff is None else min(p_eff, p)
-    sel = _selected(item_ids, n_sel, rows // beam).long()
-    sel_rows = (sel[:, None] * beam
-                + torch.arange(beam, device=sel.device)).reshape(-1)
-    out = torch.zeros_like(q)
-    out[sel_rows] = _attend(q[sel_rows], cache_k[sel_rows], cache_v[sel_rows],
-                            bias[sel], beam=beam, n_heads=n_heads, pe=pe)
-    return out
+    items = rows // beam
+    ids = item_ids[:items].long()
+    take = _build.count_mask(ids.shape[0], n_sel, q.device)
+    take[:1] = True  # at least one
+    sel = torch.zeros(items, dtype=torch.int32, device=q.device).index_add_(
+        0, ids, take.to(torch.int32)) > 0
+    out = _attend(q, cache_k, cache_v, bias, beam=beam, n_heads=n_heads,
+                  pe=pe)
+    return torch.where(sel.repeat_interleave(beam)[:, None], out, 0.0)
 
 
 def ancestry_attention_ids(q, cache_k, cache_v, bias, item_ids, n_sel, *,
@@ -444,7 +442,11 @@ def ancestry_attention_ids(q, cache_k, cache_v, bias, item_ids, n_sel, *,
             ``[B, beam, beam*P]`` bias); the caches are only read.
         item_ids: int ``[>= n_sel]`` item indices (the engine lists the
             straggler items first).
-        n_sel: host int, the number of leading ids to compute.
+        n_sel: the number of leading ids to compute: an int (the grid
+            has that many entries), or a 0-d int32 tensor on the device of
+            ``q`` that the kernel reads (a captured step's straggler
+            count: the grid covers the whole list, up to ``B`` entries,
+            and the entries at or past ``max(n_sel, 1)`` return at once).
 
     Returns:
         ``[B*beam, D]``: rows of the selected items hold their attention
@@ -466,12 +468,18 @@ def ancestry_attention_ids(q, cache_k, cache_v, bias, item_ids, n_sel, *,
     _build.check_vector_rows(name, d // n_heads, cache_k, cache_v)
     _build.check_mma_tiles(name, d // n_heads, q)
     pe = p if p_eff is None else min(p_eff, p)
-    sel = _selected(item_ids, n_sel, rows // beam).to(torch.int32)
+    # the grid walks the whole list for a device count, else the first
+    # n_sel ids, at least one (the TPU grid is clamped to [1, items] the
+    # same way)
+    items = rows // beam
+    _, n_ptr = _build.count_args(name, items, n_sel, q.device)
+    sel = item_ids[:items if n_ptr else min(max(int(n_sel), 1), items)].to(
+        torch.int32)
     out = torch.empty_like(q)
     err = _build.library().dh_ancestry_attention_ids(
         _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
         cache_v.data_ptr(), bias.data_ptr(), sel.data_ptr(), out.data_ptr(),
-        rows // beam, sel.shape[0], beam, p, pe, d, n_heads,
+        items, sel.shape[0], n_ptr, beam, p, pe, d, n_heads,
         1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
     _build.note_launch(name)
@@ -480,21 +488,20 @@ def ancestry_attention_ids(q, cache_k, cache_v, bias, item_ids, n_sel, *,
 
 def grouped_cross_attention_plain(q, ek, ev, bias, *, n_heads,
                                   live_items=None):
-    """Plain PyTorch twin of :func:`grouped_cross_attention`."""
+    """Plain PyTorch twin of :func:`grouped_cross_attention`: every group
+    computed, the live groups' rows kept."""
     g, t, d = ek.shape
     r, hd = q.shape[0] // g, d // n_heads
-    live = _build.live_count(g, live_items)
-    qf = q[:live * r].float().reshape(live, r, n_heads, hd)
-    k = ek[:live].float().reshape(live, t, n_heads, hd)
-    v = ev[:live].float().reshape(live, t, n_heads, hd)
+    live = _build.count_mask(g, live_items, q.device, r)[:, None]
+    qf = q.float().reshape(g, r, n_heads, hd)
+    k = ek.float().reshape(g, t, n_heads, hd)
+    v = ev.float().reshape(g, t, n_heads, hd)
     e = torch.einsum("grhd,gthd->grht", qf, k) * (1.0 / math.sqrt(hd))
     if bias is not None:
-        e = e + bias[:live].reshape(live, 1, 1, t)
+        e = e + bias.reshape(g, 1, 1, t)
     w = torch.softmax(e, dim=-1).to(q.dtype).float()
-    out = torch.zeros_like(q)
-    out[:live * r] = torch.einsum("grht,gthd->grhd", w, v).reshape(
-        live * r, d).to(q.dtype)
-    return out
+    out = torch.einsum("grht,gthd->grhd", w, v).reshape(g * r, d)
+    return torch.where(live, out.to(q.dtype), 0.0)
 
 
 def cross_attention_packed_plain(q, ek, ev, bias, *, n_heads, pack_items,
@@ -527,12 +534,13 @@ def cross_attention_packed(q, ek, ev, bias, *, n_heads, pack_items, t_real,
     code, r = _build.dtype_code(q, name), q.shape[0] // g
     _build.check_smem(name, _build.smem_need(
         "dh_grouped_cross_attention_smem", code, r, t_real, d, n_heads), q)
+    live, live_ptr = _build.count_args(name, g, live_items, q.device)
     out = torch.empty_like(q)
     err = _build.library().dh_cross_attention_packed(
         code, q.data_ptr(), ek.data_ptr(), ev.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), g,
-        _build.live_count(g, live_items), r, t, t_real, d, n_heads,
-        1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
+        None if bias is None else bias.data_ptr(), out.data_ptr(), g, live,
+        live_ptr, r, t, t_real, d, n_heads, 1.0 / math.sqrt(d // n_heads),
+        _build.stream_of(q))
     _build.check(err, name)
     _build.note_launch(name)
     return out
@@ -548,8 +556,10 @@ def grouped_cross_attention(q, ek, ev, bias, *, n_heads, live_items=None,
         ek, ev: ``[G, T, D]`` pre-projected encoder keys/values, the dtype
             of ``q``.
         bias: f32 ``[G, 1, T]`` additive mask (0 or -1e8), or None.
-        live_items: optional host int; groups at or past it are not
-            computed and their output rows are zero.
+        live_items: optional int, or a 0-d int32 tensor on the device of
+            ``q`` that the kernel reads (a captured step's count); groups
+            at or past it are not computed and their output rows are
+            zero.
         pack_items: optional; above 1, blocks of this many items (it must
             divide G) over a store padded past its valid rows
             (``precompute_cross_attention(..., pad_to_tile=True)``).
@@ -593,12 +603,13 @@ def grouped_cross_attention(q, ek, ev, bias, *, n_heads, live_items=None,
     code, r = _build.dtype_code(q, name), q.shape[0] // g
     _build.check_smem(name, _build.smem_need(
         "dh_grouped_cross_attention_smem", code, r, t, d, n_heads), q)
+    live, live_ptr = _build.count_args(name, g, live_items, q.device)
     out = torch.empty_like(q)
     err = _build.library().dh_grouped_cross_attention(
         code, q.data_ptr(), ek.data_ptr(), ev.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), g,
-        _build.live_count(g, live_items), r, t, d, n_heads,
-        1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
+        None if bias is None else bias.data_ptr(), out.data_ptr(), g, live,
+        live_ptr, r, t, d, n_heads, 1.0 / math.sqrt(d // n_heads),
+        _build.stream_of(q))
     _build.check(err, name)
     _build.note_launch(name)
     return out

@@ -41,6 +41,9 @@
 // Early-EOS compaction keeps the live items first: blocks of items at or
 // past `live` write zero output rows and neither read nor write the
 // caches (the TPU kernel shrinks its grid and leaves those rows stale).
+// The grid covers every item, and `live` is a launch argument or an int32
+// in device memory (dh::Count) that a compaction boundary sets, so a
+// captured step reads each call's own count.
 
 #include "ancestry_update.cuh"
 #include "attention_mma.cuh"
@@ -59,15 +62,15 @@ __global__ void __launch_bounds__(ma::kThreads)
         const bf16* __restrict__ q, bf16* __restrict__ ck,
         bf16* __restrict__ cv, const bf16* __restrict__ knew,
         const bf16* __restrict__ vnew, const float* __restrict__ bias,
-        bf16* __restrict__ out, int live, int beam, int P, int pe, int D,
-        int hd, int pos, float inv_scale, int cs) {
+        bf16* __restrict__ out, dh::Count live, int beam, int P, int pe,
+        int D, int hd, int pos, float inv_scale, int cs) {
   extern __shared__ __align__(16) unsigned char smem[];
   namespace cg = cooperative_groups;
   const int H = D / hd, b = blockIdx.x / cs, col0 = b % H * hd;
   const ma::Chunk<NT> ch(b, H, beam);
   const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const size_t row0 = (size_t)ch.sel * beam, qrow0 = row0 + ch.j0;
-  if (ch.sel >= live) {  // the whole cluster returns
+  if (ch.sel >= live.get()) {  // the whole cluster returns
     if (rank == 0) dh::zero_rows(out + qrow0 * D + col0, ch.nq, hd, D);
     return;
   }
@@ -86,12 +89,12 @@ __global__ void __launch_bounds__(dh::simt::kThreads)
     ancestry_attention_update_simt_kernel(
         const T* __restrict__ q, T* __restrict__ ck, T* __restrict__ cv,
         const T* __restrict__ knew, const T* __restrict__ vnew,
-        const float* __restrict__ bias, T* __restrict__ out, int live,
+        const float* __restrict__ bias, T* __restrict__ out, dh::Count live,
         int beam, int P, int pe, int D, int hd, int pos, float inv_scale) {
   extern __shared__ __align__(16) uint32_t smem_w[];
   const int H = D / hd, item = blockIdx.x / H, col0 = blockIdx.x % H * hd;
   const size_t row0 = (size_t)item * beam;
-  if (item >= live) {
+  if (item >= live.get()) {
     dh::zero_rows(out + row0 * D + col0, beam, hd, D);
     return;
   }
@@ -126,8 +129,9 @@ size_t smem_bytes(int dtype, int items, int beam, int pe, int D, int H) {
 template <typename T>
 cudaError_t launch_simt(const void* q, void* ck, void* cv, const void* kn,
                         const void* vn, const void* bias, void* out,
-                        int items, int live, int beam, int P, int pe, int D,
-                        int H, int pos, float inv_scale, cudaStream_t stream) {
+                        int items, dh::Count live, int beam, int P, int pe,
+                        int D, int H, int pos, float inv_scale,
+                        cudaStream_t stream) {
   const int hd = D / H;
   return ma::launch<&ancestry_attention_update_simt_kernel<T>,
                     dh::simt::kThreads>(
@@ -138,12 +142,15 @@ cudaError_t launch_simt(const void* q, void* ck, void* cv, const void* kn,
 
 }  // namespace
 
+// live_ptr: NULL (`live` items are computed) or a device int32 that the
+// kernel reads (a captured step's live count).
 extern "C" int dh_ancestry_attention_update(
     int dtype, const void* q, void* ck, void* cv, const void* kn,
-    const void* vn, const void* bias, void* out, int items, int live,
-    int beam, int P, int pe, int D, int H, int pos, float inv_scale,
-    void* stream) {
+    const void* vn, const void* bias, void* out, int items, int live_items,
+    const void* live_ptr, int beam, int P, int pe, int D, int H, int pos,
+    float inv_scale, void* stream) {
   auto s = (cudaStream_t)stream;
+  const dh::Count live{(const int*)live_ptr, live_items};
   if ((size_t)items * beam * P >= dh::kFresh) return cudaErrorInvalidValue;
   if (!use_mma(dtype, D / H)) {
     if (dtype == dh::kBFloat16)

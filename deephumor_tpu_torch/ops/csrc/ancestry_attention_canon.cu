@@ -19,7 +19,8 @@
 // (stragglers) get outputs from a stale shared path here; the engine
 // recomputes their rows with K6. Their cache write is right all the same.
 // Items at or past `live` (retired by early-EOS compaction) get zero rows
-// and no cache write.
+// and no cache write; the grid covers every item, and `live` is a launch
+// argument or an int32 in device memory (dh::Count).
 //
 // Bound on the H100: bytes. At the char serving shape at p_eff 120
 // (c 104, w 16, 768 items, beam 7, D 512, bf16) one launch must move
@@ -98,8 +99,8 @@ __global__ void __launch_bounds__(dh::mma_attn::kThreads)
         const bf16* __restrict__ sv, const bf16* __restrict__ knew,
         const bf16* __restrict__ vnew, const float* __restrict__ bias_sh,
         const float* __restrict__ bias_win, bf16* __restrict__ out,
-        int live, int beam, int P, int cs, int c, int w, int D, int hd,
-        int pos, float inv_scale) {
+        dh::Count live, int beam, int P, int cs, int c, int w, int D,
+        int hd, int pos, float inv_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   // heads vary fastest, so an item's heads read its 1 KB rows together;
   // then the item's chunks of at most kMaxBeam branches
@@ -107,7 +108,7 @@ __global__ void __launch_bounds__(dh::mma_attn::kThreads)
   const dh::mma_attn::Chunk<NT> ch(blockIdx.x, H, beam);
   const int nq = ch.nq;
   const size_t item = ch.sel, row0 = item * beam, qrow0 = row0 + ch.j0;
-  if ((int)item >= live) {
+  if ((int)item >= live.get()) {
     dh::zero_rows(out + qrow0 * D + col0, nq, hd, D);
     return;
   }
@@ -126,9 +127,9 @@ __global__ void __launch_bounds__(kThreads) canon_attention_f32_kernel(
     float* __restrict__ cv, const float* __restrict__ sk,
     const float* __restrict__ sv, const float* __restrict__ knew,
     const float* __restrict__ vnew, const float* __restrict__ bias_sh,
-    const float* __restrict__ bias_win, float* __restrict__ out, int live,
-    int beam, int P, int cs, int c, int w, int D, int hd, int pos,
-    float inv_scale) {
+    const float* __restrict__ bias_win, float* __restrict__ out,
+    dh::Count live, int beam, int P, int cs, int c, int w, int D, int hd,
+    int pos, float inv_scale) {
   extern __shared__ __align__(16) uint32_t smem_w[];
   const int n = c + beam * w;  // joined support
   const int ld = hd + 1;       // odd: conflict-free columns
@@ -138,7 +139,7 @@ __global__ void __launch_bounds__(kThreads) canon_attention_f32_kernel(
   float* e = qs + beam * hd;                          // [beam][n]
   const size_t item = blockIdx.x, row0 = item * beam;
   const int col0 = blockIdx.y * hd;
-  if ((int)item >= live) {
+  if ((int)item >= live.get()) {
     dh::zero_rows(out + row0 * D + col0, beam, hd, D);
     return;
   }
@@ -185,8 +186,8 @@ template <int NT>
 cudaError_t launch_mma(const void* q, void* ck, void* cv, const void* sk,
                        const void* sv, const void* kn, const void* vn,
                        const void* bias_sh, const void* bias_win, void* out,
-                       int items, int live, int beam, int P, int cs, int c,
-                       int pe, int D, int H, int pos, float inv_scale,
+                       int items, dh::Count live, int beam, int P, int cs,
+                       int c, int pe, int D, int H, int pos, float inv_scale,
                        cudaStream_t stream) {
   namespace ma = dh::mma_attn;
   const int hd = D / H, w = pe - c, n = c + beam * w;
@@ -202,8 +203,8 @@ cudaError_t launch_mma(const void* q, void* ck, void* cv, const void* sk,
 cudaError_t launch_f32(const void* q, void* ck, void* cv, const void* sk,
                        const void* sv, const void* kn, const void* vn,
                        const void* bias_sh, const void* bias_win, void* out,
-                       int items, int live, int beam, int P, int cs, int c,
-                       int pe, int D, int H, int pos, float inv_scale,
+                       int items, dh::Count live, int beam, int P, int cs,
+                       int c, int pe, int D, int H, int pos, float inv_scale,
                        cudaStream_t stream) {
   const int hd = D / H, w = pe - c;
   const size_t n = (size_t)c + (size_t)beam * w;
@@ -224,13 +225,16 @@ cudaError_t launch_f32(const void* q, void* ck, void* cv, const void* sk,
 
 }  // namespace
 
+// live_ptr: NULL (`live_items` items are computed) or a device int32 that
+// the kernel reads (a captured step's live count).
 extern "C" int dh_ancestry_attention_update_canon(
     int dtype, const void* q, void* ck, void* cv, const void* sk,
     const void* sv, const void* kn, const void* vn, const void* bias_sh,
-    const void* bias_win, void* out, int items, int live, int beam, int P,
-    int cs, int c, int pe, int D, int H, int pos, float inv_scale,
-    void* stream) {
+    const void* bias_win, void* out, int items, int live_items,
+    const void* live_ptr, int beam, int P, int cs, int c, int pe, int D,
+    int H, int pos, float inv_scale, void* stream) {
   auto s = (cudaStream_t)stream;
+  const dh::Count live{(const int*)live_ptr, live_items};
   if (dtype != dh::kBFloat16)
     return launch_f32(q, ck, cv, sk, sv, kn, vn, bias_sh, bias_win, out,
                       items, live, beam, P, cs, c, pe, D, H, pos, inv_scale,

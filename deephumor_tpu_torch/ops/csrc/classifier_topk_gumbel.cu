@@ -16,7 +16,10 @@
 //   3. the drawn ids (int64) and the rounded logits at those ids.
 // Rows at or past `live_rows` (items retired by early-EOS compaction) are
 // not computed; they get id 0 and value 0, so no stale id reaches a
-// gather.
+// gather. `live_rows` and 1/T are launch arguments or values in device
+// memory (dh::Count, dh::InvT) that a captured step reads; with a device
+// count the grids and the streamed path's chunks cover every row, and the
+// tiles past the count return at once.
 //
 // Bound on the H100: bytes, and barely. At the char serving shape (5376
 // rows, D 512, V 128, top_k 50, 7 draws) one launch reads 5.5 MB of
@@ -33,9 +36,11 @@
 //     bytes a thread and copy, into rows padded by 16 bytes so that
 //     ldmatrix hits distinct banks; rows past V zero) and walks 16-row
 //     tiles of the live rows, blockIdx.x, + gridDim.x, ...; the grid is
-//     the live tiles' count, capped at the blocks that fit on the card, so
-//     a late char step (~1,120 live rows) runs 70 blocks of one tile and
-//     the full step 132 blocks of 2-3. The x tiles are double-buffered:
+//     the live tiles' count (every row's tiles, with a device count: a
+//     captured char step), capped at the blocks that fit on the card, so
+//     an int count at a late char step (~1,120 live rows) runs 70 blocks
+//     of one tile and the full step 132 blocks of 2-3; blocks past the
+//     live tiles only zero their share of the rows past the count. The x tiles are double-buffered:
 //     tile i + 2 is copied in while tile i is sampled.
 //   * The product on mma.sync m16n8k16: warp u takes the 16 columns
 //     [16u, 16u + 16) of V; per 16 of D one ldmatrix.x4 of the x tile (A),
@@ -163,9 +168,12 @@ template <int kPer>
 __global__ void __launch_bounds__(kResThreads, 1) classifier_resident_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w,
     const float* __restrict__ b, long long* __restrict__ ids,
-    float* __restrict__ vals, int rows, int live, int V, int D, int top_k,
-    int num_draws, int unk, dh::Seed seed, float invt, int col_bits) {
+    float* __restrict__ vals, int rows, dh::Count live_rows, int V, int D,
+    int top_k, int num_draws, int unk, dh::Seed seed, dh::InvT inv_t,
+    int col_bits) {
   extern __shared__ __align__(128) unsigned char smem[];
+  const int live = min(max(live_rows.get(), 0), rows);
+  const float invt = inv_t.get();
   const ResidentLayout lay(V, D);
   const int vp = lay.vp, ld = lay.ld, ldl = lay.ldl;
   bf16* ws = reinterpret_cast<bf16*>(smem + lay.w);
@@ -323,9 +331,10 @@ bool resident(int V, int D) {
 
 template <int kPer>
 cudaError_t launch_resident(const void* x, const void* w, const void* b,
-                            void* ids, void* vals, int rows, int live, int V,
-                            int D, int top_k, int num_draws, int unk,
-                            dh::Seed seed, float invt, cudaStream_t stream) {
+                            void* ids, void* vals, int rows, dh::Count live,
+                            int V, int D, int top_k, int num_draws, int unk,
+                            dh::Seed seed, dh::InvT invt,
+                            cudaStream_t stream) {
   const auto kernel = &classifier_resident_kernel<kPer>;
   const size_t smem = ResidentLayout(V, D).total;
   cudaError_t err = dh::prepare<&classifier_resident_kernel<kPer>>();
@@ -334,7 +343,7 @@ cudaError_t launch_resident(const void* x, const void* w, const void* b,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         kResThreads, smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (live + kRows - 1) / kRows;
+  const int tiles = ((live.ptr ? rows : live.value) + kRows - 1) / kRows;
   const int fit = (per_sm > 1 ? per_sm : 1) * dh::sm_count();
   kernel<<<std::max(1, std::min(tiles, fit)), kResThreads, smem, stream>>>(
       (const bf16*)x, (const bf16*)w, (const float*)b, (long long*)ids,
@@ -387,12 +396,17 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // lg[r][c] = bf16(x[r] . W[c] + b[c]) for rows [0, m) and columns [0, V)
 // of one tile of the grid (blockIdx.x: rows, blockIdx.y: columns), on
 // wgmma from shared-memory tiles that TMA fills with the 128-byte swizzle
-// (rows past m or V and columns past D arrive as zeros).
+// (rows past m or V and columns past D arrive as zeros). The chunk's rows
+// start at global row row0; m is cut to the live rows, and a block whose
+// rows are all past them returns.
 __global__ void __launch_bounds__(kProductThreads) classifier_product_kernel(
     const __grid_constant__ CUtensorMap xmap,
     const __grid_constant__ CUtensorMap wmap, const float* __restrict__ b,
-    bf16* __restrict__ lg, int ld, int m, int V, int D) {
+    bf16* __restrict__ lg, int ld, int m, int row0, dh::Count live, int V,
+    int D) {
   extern __shared__ __align__(128) unsigned char tile_smem[];
+  m = min(m, live.get() - row0);
+  if ((int)blockIdx.x * kBM >= m) return;
   // the stages, 1024-byte aligned (the swizzle's atoms)
   unsigned char* tiles =
       tile_smem + ((1024 - (dh::smem_addr(tile_smem) & 1023)) & 1023);
@@ -489,17 +503,33 @@ cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int D,
              : cudaErrorInvalidValue;
 }
 
-// The draws of rows [row0, row0 + n) from their logits lg (row r at lg + r
-// * ld), by K3's row body; ids and vals of rows [zero_from, rows) are set
-// to 0 first.
+// The live rows of a chunk: of rows [row0, row0 + n), those below the
+// count (clamped to [0, rows]); and the first row past the count that a
+// draw launch zeroes: the count for the first chunk (row0 0), none (rows)
+// for the others.
+struct ChunkRows {
+  int n, zero_from;
+  __device__ ChunkRows(dh::Count live_rows, int row0, int n_chunk,
+                       int rows) {
+    const int live = min(max(live_rows.get(), 0), rows);
+    n = max(0, min(n_chunk, live - row0));
+    zero_from = row0 == 0 ? live : rows;
+  }
+};
+
+// The draws of the live rows of [row0, row0 + n) from their logits lg (row
+// r at lg + r * ld), by K3's row body; ids and vals of rows past the count
+// are set to 0 first (by the first chunk's launch).
 __global__ void __launch_bounds__(dh::topk::kTeam* dh::topk::kMaxTeams)
     classifier_draw_kernel(const bf16* __restrict__ lg, int ld,
                            long long* __restrict__ ids,
                            float* __restrict__ vals, int row0, int n,
-                           int zero_from, int rows, int V, int top_k,
-                           int num_draws, int unk, dh::Seed seed, float invt,
-                           int col_bits, dh::topk::TeamLayout lay) {
-  for (size_t o = (size_t)zero_from * num_draws + blockIdx.x * blockDim.x
+                           dh::Count live, int rows, int V, int top_k,
+                           int num_draws, int unk, dh::Seed seed,
+                           dh::InvT invt, int col_bits,
+                           dh::topk::TeamLayout lay) {
+  const ChunkRows cr(live, row0, n, rows);
+  for (size_t o = (size_t)cr.zero_from * num_draws + blockIdx.x * blockDim.x
                   + threadIdx.x;
        o < (size_t)rows * num_draws; o += (size_t)gridDim.x * blockDim.x) {
     ids[o] = 0;
@@ -507,8 +537,8 @@ __global__ void __launch_bounds__(dh::topk::kTeam* dh::topk::kMaxTeams)
   }
   extern __shared__ __align__(16) unsigned char team_smem[];
   dh::topk::sample_rows(
-      team_smem, lg, ld, n, V, row0, top_k, num_draws, unk, seed, invt, 15,
-      col_bits, lay, [=](int r, int j, int id) {
+      team_smem, lg, ld, cr.n, V, row0, top_k, num_draws, unk, seed,
+      invt.get(), 15, col_bits, lay, [=](int r, int j, int id) {
         const size_t o = (size_t)(row0 + r) * num_draws + j;
         ids[o] = id;
         vals[o] = __bfloat162float(lg[(size_t)r * ld + id]);
@@ -535,21 +565,26 @@ __device__ __forceinline__ float key_logit(uint32_t k) {
   return __uint_as_float((k ^ (k & 0x8000u ? 0x8000u : 0xFFFFu)) << 16);
 }
 
-// The draws of rows [row0, row0 + n) from their logits lg (row r at lg + r
-// * ld, V <= 256 kVec), a warp a row with the row in registers: the exact
-// k-th largest key by a count a bit (16-bit keys two a register, compared
-// in pairs), the kept columns' packed draw keys computed once into the
-// warp's list, then num_draws warp max reductions over the list. Ids and
-// vals of rows [zero_from, rows) are set to 0 first.
+// The draws of the live rows of [row0, row0 + n) from their logits lg (row
+// r at lg + r * ld, V <= 256 kVec), a warp a row with the row in
+// registers: the exact k-th largest key by a count a bit (16-bit keys two
+// a register, compared in pairs), the kept columns' packed draw keys
+// computed once into the warp's list, then num_draws warp max reductions
+// over the list. Ids and vals of rows past the count are set to 0 first
+// (by the first chunk's launch).
 template <int kVec>
 __global__ void __launch_bounds__(32 * kWarpRowWarps)
     classifier_warp_draw_kernel(const bf16* __restrict__ lg, int ld,
                                 long long* __restrict__ ids,
-                                float* __restrict__ vals, int row0, int n,
-                                int zero_from, int rows, int V, int top_k,
-                                int num_draws, int unk, dh::Seed seed,
-                                float invt, int col_bits) {
-  for (size_t o = (size_t)zero_from * num_draws + blockIdx.x * blockDim.x
+                                float* __restrict__ vals, int row0,
+                                int n_chunk, dh::Count live, int rows, int V,
+                                int top_k, int num_draws, int unk,
+                                dh::Seed seed, dh::InvT inv_t,
+                                int col_bits) {
+  const ChunkRows cr(live, row0, n_chunk, rows);
+  const int n = cr.n;
+  const float invt = inv_t.get();
+  for (size_t o = (size_t)cr.zero_from * num_draws + blockIdx.x * blockDim.x
                   + threadIdx.x;
        o < (size_t)rows * num_draws; o += (size_t)gridDim.x * blockDim.x) {
     ids[o] = 0;
@@ -642,9 +677,9 @@ __global__ void __launch_bounds__(32 * kWarpRowWarps)
 
 template <int kVec>
 cudaError_t launch_warp_draw(const bf16* lg, int ld, void* ids, void* vals,
-                             int row0, int n, int zero_from, int rows, int V,
+                             int row0, int n, dh::Count live, int rows, int V,
                              int top_k, int num_draws, int unk, dh::Seed seed,
-                             float invt, cudaStream_t stream) {
+                             dh::InvT invt, cudaStream_t stream) {
   const auto kernel = &classifier_warp_draw_kernel<kVec>;
   const size_t smem = (size_t)4 * kWarpRowWarps * 256 * kVec;
   cudaError_t err = dh::prepare<&classifier_warp_draw_kernel<kVec>>();
@@ -656,48 +691,50 @@ cudaError_t launch_warp_draw(const bf16* lg, int ld, void* ids, void* vals,
   const int want = (n + kWarpRowWarps - 1) / kWarpRowWarps;
   const int fit = (per_sm > 1 ? per_sm : 1) * dh::sm_count();
   kernel<<<std::max(1, std::min(want, fit)), 32 * kWarpRowWarps, smem,
-           stream>>>(lg, ld, (long long*)ids, (float*)vals, row0, n,
-                     zero_from, rows, V, top_k, num_draws, unk, seed, invt,
+           stream>>>(lg, ld, (long long*)ids, (float*)vals, row0, n, live,
+                     rows, V, top_k, num_draws, unk, seed, invt,
                      col_bits_of(V));
   return cudaGetLastError();
 }
 
-// The draws of one chunk: a warp a row up to kWarpRowV logits, else K3's
-// teams.
+// The draws of one chunk of n rows from row0: a warp a row up to kWarpRowV
+// logits, else K3's teams.
 cudaError_t launch_draw(const bf16* lg, int ld, void* ids, void* vals,
-                        int row0, int n, int zero_from, int rows, int V,
+                        int row0, int n, dh::Count live, int rows, int V,
                         int top_k, int num_draws, int unk, dh::Seed seed,
-                        float invt, cudaStream_t stream) {
+                        dh::InvT invt, cudaStream_t stream) {
   const auto warp_draw = V <= 256   ? &launch_warp_draw<1>
                          : V <= 512 ? &launch_warp_draw<2>
                          : V <= kWarpRowV ? &launch_warp_draw<4>
                                           : nullptr;
   if (warp_draw)
-    return warp_draw(lg, ld, ids, vals, row0, n, zero_from, rows, V, top_k,
+    return warp_draw(lg, ld, ids, vals, row0, n, live, rows, V, top_k,
                      num_draws, unk, seed, invt, stream);
   dh::topk::Plan p;
   cudaError_t err = dh::topk::plan<&classifier_draw_kernel>(V, 2, n, &p);
   if (err != cudaSuccess) return err;
   classifier_draw_kernel<<<p.blocks, p.threads, p.smem, stream>>>(
-      lg, ld, (long long*)ids, (float*)vals, row0, n, zero_from, rows, V,
-      top_k, num_draws, unk, seed, invt, col_bits_of(V), p.lay);
+      lg, ld, (long long*)ids, (float*)vals, row0, n, live, rows, V, top_k,
+      num_draws, unk, seed, invt, col_bits_of(V), p.lay);
   return cudaGetLastError();
 }
 
-// Per chunk of the live rows: the product into the scratch, then the
-// draws from it; the first chunk's draws zero the rows past `live` (with
-// no live row, that is the one launch).
+// Per chunk of the live rows (of every row, with a device count): the
+// product into the scratch, then the draws from it; the first chunk's
+// draws zero the rows past the count (with no live row and an int count,
+// that is the one launch).
 cudaError_t launch_streamed(const void* x, const void* w, const void* b,
                             void* ids, void* vals, void* scratch, int rows,
-                            int live, int V, int D, int top_k, int num_draws,
-                            int unk, dh::Seed seed, float invt,
-                            cudaStream_t stream) {
+                            dh::Count live, int V, int D, int top_k,
+                            int num_draws, int unk, dh::Seed seed,
+                            dh::InvT invt, cudaStream_t stream) {
   cudaError_t err = dh::prepare<&classifier_product_kernel>();
   if (err != cudaSuccess) return err;
   const int ld = scratch_ld(V), chunk = chunk_rows(V);
+  const int total = live.ptr ? rows : live.value;
   auto* lg = (bf16*)scratch;
   for (int r0 = 0;; r0 += chunk) {
-    const int n = std::min(chunk, live - r0);
+    const int n = std::min(chunk, total - r0);
     if (n > 0) {
       CUtensorMap xmap, wmap;
       if ((err = tensor_map(&xmap, (const bf16*)x + (size_t)r0 * D, n, D,
@@ -707,21 +744,21 @@ cudaError_t launch_streamed(const void* x, const void* w, const void* b,
       const dim3 grid((n + kBM - 1) / kBM, (V + kBN - 1) / kBN);
       classifier_product_kernel<<<grid, kProductThreads, kProductSmem,
                                   stream>>>(
-          xmap, wmap, (const float*)b, lg, ld, n, V, D);
+          xmap, wmap, (const float*)b, lg, ld, n, r0, live, V, D);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
-    err = launch_draw(lg, ld, ids, vals, r0, std::max(n, 0),
-                      r0 == 0 ? live : rows, rows, V, top_k, num_draws, unk,
-                      seed, invt, stream);
+    err = launch_draw(lg, ld, ids, vals, r0, std::max(n, 0), live, rows, V,
+                      top_k, num_draws, unk, seed, invt, stream);
     if (err != cudaSuccess) return err;
-    if (r0 + chunk >= live) return cudaSuccess;
+    if (r0 + chunk >= total) return cudaSuccess;
   }
 }
 
 }  // namespace
 
 // The scratch bytes (bf16 logits) that a call at (V, D) with `live` live
-// rows needs on the current device: none on the resident path.
+// rows (every row, with a device count) needs on the current device: none
+// on the resident path.
 extern "C" long long dh_classifier_topk_gumbel_sample_scratch(int V, int D,
                                                               int live) {
   if (resident(V, D)) return 0;
@@ -731,20 +768,24 @@ extern "C" long long dh_classifier_topk_gumbel_sample_scratch(int V, int D,
 // x: bf16 [rows, D]; w: bf16 [V, D], both 16-byte aligned, D a multiple of
 // 16; b: f32 [V]; ids: int64 [rows, num_draws]; vals: f32 [rows,
 // num_draws]; scratch: the bytes dh_classifier_topk_gumbel_sample_scratch
-// gives (NULL if none).
+// gives (NULL if none). live_ptr, seed_ptr, invt_ptr: NULL (the value
+// beside it is used) or a device int32 / int32 / f32 that the kernels read
+// (a captured step's live rows, seed and 1/T).
 extern "C" int dh_classifier_topk_gumbel_sample(
     const void* x, const void* w, const void* b, void* ids, void* vals,
-    void* scratch, int rows, int live_rows, int V, int D, int top_k,
-    int num_draws, int unk, unsigned seed, const void* seed_ptr, float invt,
-    void* stream) {
+    void* scratch, int rows, int live_rows, const void* live_ptr, int V,
+    int D, int top_k, int num_draws, int unk, unsigned seed,
+    const void* seed_ptr, float inv_t, const void* invt_ptr, void* stream) {
   auto s = (cudaStream_t)stream;
   const dh::Seed sd{(const int*)seed_ptr, seed};
+  const dh::Count live{(const int*)live_ptr, live_rows};
+  const dh::InvT invt{(const float*)invt_ptr, inv_t};
   if (resident(V, D) && V <= 128)
-    return launch_resident<4>(x, w, b, ids, vals, rows, live_rows, V, D,
-                              top_k, num_draws, unk, sd, invt, s);
+    return launch_resident<4>(x, w, b, ids, vals, rows, live, V, D, top_k,
+                              num_draws, unk, sd, invt, s);
   if (resident(V, D))
-    return launch_resident<8>(x, w, b, ids, vals, rows, live_rows, V, D,
-                              top_k, num_draws, unk, sd, invt, s);
-  return launch_streamed(x, w, b, ids, vals, scratch, rows, live_rows, V, D,
+    return launch_resident<8>(x, w, b, ids, vals, rows, live, V, D, top_k,
+                              num_draws, unk, sd, invt, s);
+  return launch_streamed(x, w, b, ids, vals, scratch, rows, live, V, D,
                          top_k, num_draws, unk, sd, invt, s);
 }

@@ -126,6 +126,34 @@ struct Seed {
   }
 };
 
+// A count that a kernel takes (live items or rows after early-EOS
+// compaction, straggler items of a canonical-prefix boundary): the int32
+// at `ptr` when it is given, else `value`. A boundary sets it in device
+// memory and the kernels of the next phase read it, as the TPU kernels
+// read a prefetched scalar, so a captured graph replays with each call's
+// own count. With a pointer the launcher sizes the grid for every item
+// (a graph bakes the grid in), and blocks at or past the count return at
+// once.
+struct Count {
+  const int* ptr;
+  int value;
+  __device__ __forceinline__ int get() const {
+    return ptr ? __ldg(ptr) : value;
+  }
+};
+
+// A draw's 1/T: the f32 at `ptr` when it is given (a captured call's
+// temperature, written into device memory on every call, so that one
+// graph serves every temperature), else `value`. The same f32 draws the
+// same noise either way.
+struct InvT {
+  const float* ptr;
+  float value;
+  __device__ __forceinline__ float get() const {
+    return ptr ? __ldg(ptr) : value;
+  }
+};
+
 // The packed draw key of column c of a kept logit x: the order key of
 // x * invt + Gumbel(c) in the high bits, (cmask - c) in the low col_bits,
 // so one max yields both the winner and its column (ties to the smallest

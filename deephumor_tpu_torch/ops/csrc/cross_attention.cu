@@ -10,7 +10,9 @@
 // A group whose rows are all masked gets the uniform average: -1e8 is a
 // fill, not -inf, so the softmax never sees an all--inf row and gives no
 // NaN. Groups at or past `live` (compacted, all-ended items) write zero
-// rows and read nothing.
+// rows and read nothing; the grid covers every group, and `live` is a
+// launch argument or an int32 in device memory (dh::Count) that a
+// compaction boundary sets.
 //
 // Bound on the H100: bytes. At the word serving shape (1792 items, T 49,
 // D 512, bf16) one launch must read ~180 MB of ek + ev (0.059 ms at 3.35
@@ -107,14 +109,14 @@ __global__ void __launch_bounds__(ma::kThreads, kMinBlocks<NT>)
     grouped_cross_attention_mma_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ ek,
         const bf16* __restrict__ ev, const float* __restrict__ bias,
-        bf16* __restrict__ out, int live, int r, int Tn, int n, int D,
+        bf16* __restrict__ out, dh::Count live, int r, int Tn, int n, int D,
         int hd, float inv_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = D / hd, b = blockIdx.x;
   const ma::Chunk<NT> ch(b, H, r);
   const int col0 = b % H * hd;
   const size_t qrow0 = (size_t)ch.sel * r + ch.j0;
-  if (ch.sel >= live) {
+  if (ch.sel >= live.get()) {
     dh::zero_rows(out + qrow0 * D + col0, ch.nq, hd, D);
     return;
   }
@@ -128,12 +130,12 @@ __global__ void __launch_bounds__(dh::simt::kThreads)
     grouped_cross_attention_simt_kernel(
         const T* __restrict__ q, const T* __restrict__ ek,
         const T* __restrict__ ev, const float* __restrict__ bias,
-        T* __restrict__ out, int live, int r, int Tn, int n, int D, int hd,
-        float inv_scale) {
+        T* __restrict__ out, dh::Count live, int r, int Tn, int n, int D,
+        int hd, float inv_scale) {
   extern __shared__ __align__(16) uint32_t smem_w[];
   const int H = D / hd, g = blockIdx.x / H, col0 = blockIdx.x % H * hd;
   const size_t q0 = (size_t)g * r * D + col0;
-  if (g >= live) {
+  if (g >= live.get()) {
     dh::zero_rows(out + q0, r, hd, D);
     return;
   }
@@ -156,8 +158,8 @@ size_t smem_bytes(int dtype, int r, int n, int D, int H) {
 
 template <typename T>
 cudaError_t launch_simt(const void* q, const void* ek, const void* ev,
-                        const void* bias, void* out, int G, int live, int r,
-                        int Tn, int n, int D, int H, float inv_scale,
+                        const void* bias, void* out, int G, dh::Count live,
+                        int r, int Tn, int n, int D, int H, float inv_scale,
                         cudaStream_t stream) {
   const int hd = D / H;
   return ma::launch<&grouped_cross_attention_simt_kernel<T>,
@@ -169,8 +171,8 @@ cudaError_t launch_simt(const void* q, const void* ek, const void* ev,
 
 template <int NT>
 cudaError_t launch_mma(const void* q, const void* ek, const void* ev,
-                       const void* bias, void* out, int G, int live, int r,
-                       int Tn, int n, int D, int H, float inv_scale,
+                       const void* bias, void* out, int G, dh::Count live,
+                       int r, int Tn, int n, int D, int H, float inv_scale,
                        cudaStream_t stream) {
   const int hd = D / H;
   return ma::launch<&grouped_cross_attention_mma_kernel<NT>>(
@@ -182,7 +184,7 @@ cudaError_t launch_mma(const void* q, const void* ek, const void* ev,
 
 // Items Tn rows apart, each attending over its first n rows.
 cudaError_t launch(int dtype, const void* q, const void* ek, const void* ev,
-                   const void* bias, void* out, int G, int live, int r,
+                   const void* bias, void* out, int G, dh::Count live, int r,
                    int Tn, int n, int D, int H, float inv_scale,
                    cudaStream_t s) {
   if (!use_mma(dtype, D / H)) {
@@ -200,23 +202,28 @@ cudaError_t launch(int dtype, const void* q, const void* ek, const void* ev,
 
 }  // namespace
 
+// live_ptr: NULL (`live` groups are computed) or a device int32 that the
+// kernel reads (a captured step's live count).
 extern "C" int dh_grouped_cross_attention(int dtype, const void* q,
                                           const void* ek, const void* ev,
                                           const void* bias, void* out, int G,
-                                          int live, int r, int Tn, int D,
-                                          int H, float inv_scale,
-                                          void* stream) {
-  return launch(dtype, q, ek, ev, bias, out, G, live, r, Tn, Tn, D, H,
+                                          int live, const void* live_ptr,
+                                          int r, int Tn, int D, int H,
+                                          float inv_scale, void* stream) {
+  return launch(dtype, q, ek, ev, bias, out, G,
+                dh::Count{(const int*)live_ptr, live}, r, Tn, Tn, D, H,
                 inv_scale, (cudaStream_t)stream);
 }
 
 extern "C" int dh_cross_attention_packed(int dtype, const void* q,
                                          const void* ek, const void* ev,
                                          const void* bias, void* out, int G,
-                                         int live, int r, int Tp, int t_real,
-                                         int D, int H, float inv_scale,
+                                         int live, const void* live_ptr,
+                                         int r, int Tp, int t_real, int D,
+                                         int H, float inv_scale,
                                          void* stream) {
-  return launch(dtype, q, ek, ev, bias, out, G, live, r, Tp, t_real, D, H,
+  return launch(dtype, q, ek, ev, bias, out, G,
+                dh::Count{(const int*)live_ptr, live}, r, Tp, t_real, D, H,
                 inv_scale, (cudaStream_t)stream);
 }
 

@@ -18,7 +18,8 @@
 // seq, anc and valid (and its val/ended entries) into shared memory or
 // registers before it writes any of them. Items at or past `live` (retired
 // by early-EOS compaction) are left as they are; only their chosen tokens
-// are written, as pad.
+// are written, as pad. `live` is a launch argument or an int32 in device
+// memory (dh::Count); the grid covers every item either way.
 
 #include "common.cuh"
 
@@ -29,7 +30,7 @@ constexpr int kThreads = 128;
 __global__ void __launch_bounds__(kThreads) fused_survivor_update_kernel(
     const int64_t* __restrict__ new_idx, const float* __restrict__ new_val,
     const int64_t* __restrict__ surv, bool* ended, float* val, int64_t* seq,
-    int64_t* anc, bool* valid, int64_t* __restrict__ chosen, int live,
+    int64_t* anc, bool* valid, int64_t* __restrict__ chosen, dh::Count live,
     int beam, int L, int P, int pos, int eos, int pad) {
   extern __shared__ __align__(16) unsigned char smem[];
   int64_t* seq_s = reinterpret_cast<int64_t*>(smem);  // [beam][L]
@@ -39,7 +40,7 @@ __global__ void __launch_bounds__(kThreads) fused_survivor_update_kernel(
   bool* valid_s = reinterpret_cast<bool*>(branch_s + beam);          // [beam][P]
   const int b = blockIdx.x, tid = threadIdx.x;
   const size_t row0 = (size_t)b * beam;
-  if (b >= live) {
+  if (b >= live.get()) {
     for (int j = tid; j < beam; j += blockDim.x) chosen[row0 + j] = pad;
     return;
   }
@@ -89,8 +90,8 @@ __global__ void __launch_bounds__(kThreads) fused_survivor_update_kernel(
 extern "C" int dh_fused_survivor_update(
     const void* new_idx, const void* new_val, const void* surv, void* ended,
     void* val, void* seq, void* anc, void* valid, void* chosen, int B,
-    int live, int beam, int L, int P, int pos, int eos, int pad,
-    void* stream) {
+    int live, const void* live_ptr, int beam, int L, int P, int pos, int eos,
+    int pad, void* stream) {
   const size_t smem = sizeof(int64_t) * ((size_t)beam * (L + P + 1)) +
                       sizeof(int) * beam + (size_t)beam * P;
   auto kernel = fused_survivor_update_kernel;
@@ -102,6 +103,7 @@ extern "C" int dh_fused_survivor_update(
   kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const int64_t*)new_idx, (const float*)new_val, (const int64_t*)surv,
       (bool*)ended, (float*)val, (int64_t*)seq, (int64_t*)anc, (bool*)valid,
-      (int64_t*)chosen, live, beam, L, P, pos, eos, pad);
+      (int64_t*)chosen, dh::Count{(const int*)live_ptr, live}, beam, L, P,
+      pos, eos, pad);
   return cudaGetLastError();
 }

@@ -64,9 +64,12 @@
 // over the logits its product kernel writes.
 //
 // Early-EOS compaction keeps the live rows first: the teams walk only the
-// first `live_rows` rows (the wrapper gives the others id 0 and value 0).
-// The noise hashes the global row, so a live row draws the same tokens
-// whatever `live_rows` is.
+// first `live_rows` rows and the kernel gives the others id 0 (the wrapper
+// gives them value 0). The noise hashes the global row, so a live row
+// draws the same tokens whatever `live_rows` is. `live_rows` and 1/T are
+// launch arguments or values in device memory (dh::Count, dh::InvT): a
+// captured step reads each call's own; with a device count the grid is
+// planned for every row.
 
 #include "topk_rows.cuh"
 
@@ -76,49 +79,61 @@ using namespace dh::topk;
 
 template <typename T>
 __global__ void __launch_bounds__(kTeam* kMaxTeams) topk_gumbel_kernel(
-    const T* __restrict__ logits, int* __restrict__ ids, int live, int V,
-    int top_k, int num_draws, int unk, dh::Seed seed, float invt,
-    int low_bit, int col_bits, TeamLayout lay) {
+    const T* __restrict__ logits, int* __restrict__ ids, int rows,
+    dh::Count live_rows, int V, int top_k, int num_draws, int unk,
+    dh::Seed seed, dh::InvT invt, int low_bit, int col_bits,
+    TeamLayout lay) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sample_rows(smem, logits, V, live, V, 0, top_k, num_draws, unk, seed, invt,
-              low_bit, col_bits, lay, [=](int r, int j, int id) {
+  const int live = min(max(live_rows.get(), 0), rows);
+  // rows past `live`: id 0 (every block takes a share)
+  for (size_t o = (size_t)live * num_draws + blockIdx.x * blockDim.x
+                  + threadIdx.x;
+       o < (size_t)rows * num_draws; o += (size_t)gridDim.x * blockDim.x)
+    ids[o] = 0;
+  sample_rows(smem, logits, V, live, V, 0, top_k, num_draws, unk, seed,
+              invt.get(), low_bit, col_bits, lay, [=](int r, int j, int id) {
                 ids[(size_t)r * num_draws + j] = id;
               });
 }
 
 template <typename T>
-cudaError_t launch(const void* logits, void* ids, int live_rows, int V,
-                   int top_k, int num_draws, int unk, dh::Seed seed,
-                   float invt, cudaStream_t stream) {
+cudaError_t launch(const void* logits, void* ids, int rows,
+                   dh::Count live_rows, int V, int top_k, int num_draws,
+                   int unk, dh::Seed seed, dh::InvT invt,
+                   cudaStream_t stream) {
   Plan p;
-  cudaError_t err =
-      plan<&topk_gumbel_kernel<T>>(V, sizeof(T), live_rows, &p);
+  cudaError_t err = plan<&topk_gumbel_kernel<T>>(
+      V, sizeof(T), live_rows.ptr ? rows : live_rows.value, &p);
   if (err != cudaSuccess) return err;
   const int low_bit = sizeof(T) == 2 ? 15 : 0;
   int col_bits = 13;
   while ((1 << col_bits) < V) ++col_bits;
   topk_gumbel_kernel<T><<<p.blocks, p.threads, p.smem, stream>>>(
-      (const T*)logits, (int*)ids, live_rows, V, top_k, num_draws, unk, seed,
-      invt, low_bit, col_bits, p.lay);
+      (const T*)logits, (int*)ids, rows, live_rows, V, top_k, num_draws, unk,
+      seed, invt, low_bit, col_bits, p.lay);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// seed_ptr: NULL (the draws use `seed`) or a device int32 that the kernel
-// reads at launch (a captured step's seed).
+// ids: int32 [rows, num_draws]. live_ptr, seed_ptr, invt_ptr: NULL (the
+// value beside it is used) or a device int32 / int32 / f32 that the kernel
+// reads at launch (a captured step's live rows, seed and 1/T).
 extern "C" int dh_topk_gumbel_sample(int dtype, const void* logits, void* ids,
-                                     int live_rows, int V, int top_k,
+                                     int rows, int live_rows,
+                                     const void* live_ptr, int V, int top_k,
                                      int num_draws, int unk, unsigned seed,
                                      const void* seed_ptr, float invt,
-                                     void* stream) {
+                                     const void* invt_ptr, void* stream) {
   auto s = (cudaStream_t)stream;
   const dh::Seed sd{(const int*)seed_ptr, seed};
+  const dh::Count live{(const int*)live_ptr, live_rows};
+  const dh::InvT it{(const float*)invt_ptr, invt};
   if (dtype == dh::kBFloat16)
-    return launch<__nv_bfloat16>(logits, ids, live_rows, V, top_k, num_draws,
-                                 unk, sd, invt, s);
-  return launch<float>(logits, ids, live_rows, V, top_k, num_draws, unk, sd,
-                       invt, s);
+    return launch<__nv_bfloat16>(logits, ids, rows, live, V, top_k,
+                                 num_draws, unk, sd, it, s);
+  return launch<float>(logits, ids, rows, live, V, top_k, num_draws, unk, sd,
+                       it, s);
 }
 
 // The least dynamic shared memory a block needs at V logits: one team, no

@@ -54,19 +54,17 @@ def fused_survivor_update_plain(new_idx, new_val, surv, ended, val, seq,
                                 anc, valid, pos, *, beam, eos_index,
                                 pad_index, live_items=None):
     """Plain PyTorch twin of :func:`fused_survivor_update` (returns new
-    tensors; the inputs are not changed)."""
-    live = _build.live_count(surv.shape[0], live_items)
-    ref = _reference_update(
-        new_idx[:live], new_val[:live], surv[:live], ended[:live],
-        val[:live], seq[:live], anc[:live], valid[:live], pos, beam=beam,
-        eos_index=eos_index, pad_index=pad_index)
-    if live == surv.shape[0]:
+    tensors; the inputs are not changed): every item updated, the live
+    items' updates kept (so a tensor count is never read)."""
+    ref = _reference_update(new_idx, new_val, surv, ended, val, seq, anc,
+                            valid, pos, beam=beam, eos_index=eos_index,
+                            pad_index=pad_index)
+    if live_items is None:
         return ref
-    chosen = torch.full_like(surv, pad_index)
-    outs = [chosen] + [x.clone() for x in (val, ended, seq, anc, valid)]
-    for out, part in zip(outs, ref):
-        out[:live] = part
-    return tuple(outs)
+    live = _build.count_mask(surv.shape[0], live_items, surv.device)
+    olds = (torch.full_like(surv, pad_index), val, ended, seq, anc, valid)
+    return tuple(torch.where(live.reshape((-1,) + (1,) * (new.ndim - 1)),
+                             new, old) for new, old in zip(ref, olds))
 
 
 def _check(new_idx, new_val, surv, ended, val, seq, anc, valid, pos, beam):
@@ -108,7 +106,8 @@ def fused_survivor_update(new_idx, new_val, surv, ended, val, seq, anc,
         anc: ``[B, beam, P]`` int64 ancestry table.
         valid: ``[B, beam, P]`` bool (the engine's flat ``[B*beam, P]``
             reshaped by the caller).
-        live_items: optional host int, as in the attention kernels.
+        live_items: optional int or 0-d int32 tensor on the device of
+            ``surv``, as in the attention kernels.
 
     Returns:
         ``(chosen [B, beam] int64, val', ended', seq', anc', valid')``.
@@ -123,11 +122,12 @@ def fused_survivor_update(new_idx, new_val, surv, ended, val, seq, anc,
     if beam > 128:
         raise ValueError(f"{name}: beam {beam} above the kernel's 128")
     b = surv.shape[0]
+    live, live_ptr = _build.count_args(name, b, live_items, surv.device)
     chosen = torch.empty_like(surv)
     err = _build.library().dh_fused_survivor_update(
-        *(t.data_ptr() for t in args), chosen.data_ptr(), b,
-        _build.live_count(b, live_items), beam, seq.shape[-1],
-        anc.shape[-1], pos, eos_index, pad_index, _build.stream_of(surv))
+        *(t.data_ptr() for t in args), chosen.data_ptr(), b, live, live_ptr,
+        beam, seq.shape[-1], anc.shape[-1], pos, eos_index, pad_index,
+        _build.stream_of(surv))
     _build.check(err, name)
     _build.note_launch(name)
     return chosen, val, ended, seq, anc, valid

@@ -10,7 +10,9 @@ noise from the on-core PRNG; here the noise is a counter-based hash of
 same integer ops, so they draw the same tokens from the same logits.
 The seed is a host int or a one-element int32 tensor on the logits'
 device, which the kernel reads at launch: a captured decode step keeps
-its seed in device memory, so each replay draws anew.
+its seed in device memory, so each replay draws anew. 1/T and the live
+row count may be device values too (a 0-d f32 and a 0-d int32 tensor), so
+that one captured graph serves every temperature and every compaction.
 """
 
 import numpy as np
@@ -75,6 +77,29 @@ def _seed_args(name, seed, device):
     return int(seed), None
 
 
+def _inv_t_args(name, inv_temperature, device):
+    """(f32 value, device pointer or None) of 1/T: a float (rounded to
+    f32), or a 0-d f32 tensor on ``device`` that the kernel reads (not
+    read here)."""
+    if isinstance(inv_temperature, torch.Tensor):
+        if (inv_temperature.dtype != torch.float32 or inv_temperature.ndim
+                or inv_temperature.device != device):
+            raise ValueError(f"{name}: a 1/T tensor must be a 0-d float32 "
+                             f"on {device}, got {inv_temperature.dtype} "
+                             f"{tuple(inv_temperature.shape)} on "
+                             f"{inv_temperature.device}")
+        return 0.0, inv_temperature.data_ptr()
+    return float(np.float32(inv_temperature)), None
+
+
+def _plain_inv_t(inv_temperature):
+    """1/T as the twins multiply by it: the f32 value of a float, or the
+    tensor as it is (no host read)."""
+    if isinstance(inv_temperature, torch.Tensor):
+        return inv_temperature
+    return float(np.float32(inv_temperature))
+
+
 def _check(logits, top_k, num_draws):
     if logits.ndim != 2 or logits.dtype not in (torch.float32,
                                                 torch.bfloat16):
@@ -112,25 +137,25 @@ def _plain_rows(x, row0, seed, invt, top_k, num_draws, unk, low_bit):
 
 def fused_topk_gumbel_sample_plain(logits, seed, inv_temperature, *, top_k,
                                    num_draws, unk_index=UNK, live_rows=None):
-    """Plain PyTorch twin of :func:`fused_topk_gumbel_sample`."""
+    """Plain PyTorch twin of :func:`fused_topk_gumbel_sample`: every row
+    drawn, the live rows' draws kept (so tensor counts and 1/T are never
+    read)."""
     _check(logits, top_k, num_draws)
-    invt = float(np.float32(inv_temperature))
+    invt = _plain_inv_t(inv_temperature)
     low_bit = 15 if logits.dtype == torch.bfloat16 else 0
     rows = logits.shape[0]
-    live = _build.live_count(rows, live_rows)
-    x = logits[:live].float()
-    ids = torch.zeros((rows, num_draws), dtype=torch.int64,
-                      device=logits.device)
-    vals = torch.zeros((rows, num_draws), dtype=torch.float32,
-                       device=logits.device)
-    if live:
-        ids[:live] = torch.cat([
-            _plain_rows(x[r0:r0 + _CHUNK_ROWS], r0, seed, invt, top_k,
-                        num_draws, unk_index, low_bit)
-            for r0 in range(0, live, _CHUNK_ROWS)
-        ])
-        vals[:live] = x.gather(1, ids[:live])
-    return ids, vals
+    x = logits.float()
+    if not rows:
+        return (torch.zeros((0, num_draws), dtype=torch.int64,
+                            device=logits.device),
+                torch.zeros((0, num_draws), device=logits.device))
+    ids = torch.cat([
+        _plain_rows(x[r0:r0 + _CHUNK_ROWS], r0, seed, invt, top_k,
+                    num_draws, unk_index, low_bit)
+        for r0 in range(0, rows, _CHUNK_ROWS)])
+    live = _build.count_mask(rows, live_rows, logits.device)[:, None]
+    ids = torch.where(live, ids, 0).to(torch.int64)
+    return ids, torch.where(live, x.gather(1, ids), 0.0)
 
 
 def fused_topk_gumbel_sample(logits, seed, inv_temperature, *, top_k,
@@ -147,11 +172,15 @@ def fused_topk_gumbel_sample(logits, seed, inv_temperature, *, top_k,
         seed: int in ``[0, 2**31)``, or a one-element int32 tensor on the
             logits' device holding one (the kernel reads it at launch);
             a fixed seed value gives fixed draws either way.
-        inv_temperature: float (rounded to f32).
-        live_rows: optional host int; rows at or past it are not computed
-            and get id 0 and value 0 (early-EOS compaction keeps the live
-            rows first). The noise hashes the global row, so a row draws
-            the same tokens whatever ``live_rows`` is.
+        inv_temperature: float (rounded to f32), or a 0-d f32 tensor on
+            the logits' device holding one, which the kernel reads at
+            launch (a captured call's temperature).
+        live_rows: optional int, or a 0-d int32 tensor on the logits'
+            device that the kernel reads (a captured step's count); rows
+            at or past it are not computed and get id 0 and value 0
+            (early-EOS compaction keeps the live rows first). The noise
+            hashes the global row, so a row draws the same tokens whatever
+            ``live_rows`` is.
 
     Returns:
         (ids ``[rows, num_draws]`` int64, vals ``[rows, num_draws]`` f32 --
@@ -160,29 +189,32 @@ def fused_topk_gumbel_sample(logits, seed, inv_temperature, *, top_k,
     name = "fused_topk_gumbel_sample"
     _check(logits, top_k, num_draws)
     seed_value, seed_ptr = _seed_args(name, seed, logits.device)
+    invt, invt_ptr = _inv_t_args(name, inv_temperature, logits.device)
     if not _build.on_kernel_device(name, logits):
         return fused_topk_gumbel_sample_plain(
             logits, seed, inv_temperature, top_k=top_k,
             num_draws=num_draws, unk_index=unk_index, live_rows=live_rows)
     rows, v = logits.shape
-    live = _build.live_count(rows, live_rows)
+    live, live_ptr = _build.count_args(name, rows, live_rows, logits.device)
     code = _build.dtype_code(logits, name)
     _build.check_smem(name, _build.smem_need(
         "dh_topk_gumbel_sample_smem", code, v), logits)
-    ids = (torch.empty if live == rows else torch.zeros)(
+    # an int count of 0 launches nothing; the kernel zeroes the ids of the
+    # rows past any other count itself
+    ids = (torch.zeros if live == 0 else torch.empty)(
         (rows, num_draws), dtype=torch.int32, device=logits.device)
     if live:
         err = _build.library().dh_topk_gumbel_sample(
-            code, logits.data_ptr(),
-            ids.data_ptr(), live, v, top_k, num_draws, unk_index,
-            seed_value, seed_ptr, float(np.float32(inv_temperature)),
-            _build.stream_of(logits))
+            code, logits.data_ptr(), ids.data_ptr(), rows, live, live_ptr, v,
+            top_k, num_draws, unk_index, seed_value, seed_ptr, invt,
+            invt_ptr, _build.stream_of(logits))
         _build.check(err, name)
         _build.note_launch(name)
     ids = ids.to(torch.int64)
     vals = logits.gather(1, ids).float()
-    if live < rows:
-        vals[live:] = 0.0
+    if live_rows is not None:
+        vals = torch.where(_build.count_mask(rows, live_rows, logits.device)[
+            :, None], vals, 0.0)
     return ids, vals
 
 
@@ -207,19 +239,12 @@ def _check_classifier(x, w, b, top_k, num_draws):
 def fused_classifier_topk_gumbel_sample_plain(x, w, b, seed, inv_temperature,
                                               *, top_k, num_draws,
                                               unk_index=UNK, live_rows=None):
-    """Plain PyTorch twin of :func:`fused_classifier_topk_gumbel_sample`."""
+    """Plain PyTorch twin of :func:`fused_classifier_topk_gumbel_sample`:
+    K3's twin over :func:`classifier_logits`."""
     _check_classifier(x, w, b, top_k, num_draws)
-    rows, live = x.shape[0], _build.live_count(x.shape[0], live_rows)
-    ids = torch.zeros((rows, num_draws), dtype=torch.int64, device=x.device)
-    vals = torch.zeros((rows, num_draws), dtype=torch.float32,
-                       device=x.device)
-    if live:
-        logits = classifier_logits(x[:live], w, b)
-        ids[:live] = fused_topk_gumbel_sample_plain(
-            logits, seed, inv_temperature, top_k=top_k, num_draws=num_draws,
-            unk_index=unk_index)[0]
-        vals[:live] = logits.float().gather(1, ids[:live])
-    return ids, vals
+    return fused_topk_gumbel_sample_plain(
+        classifier_logits(x, w, b), seed, inv_temperature, top_k=top_k,
+        num_draws=num_draws, unk_index=unk_index, live_rows=live_rows)
 
 
 def fused_classifier_topk_gumbel_sample(x, w, b, seed, inv_temperature, *,
@@ -234,9 +259,9 @@ def fused_classifier_topk_gumbel_sample(x, w, b, seed, inv_temperature, *,
         x: ``[rows, D]`` hidden states (cast to bf16).
         w: ``[V, D]`` classifier weight (cast to bf16); b: ``[V]`` bias
             (f32).
-        live_rows: optional host int; rows at or past it are not computed
-            and get id 0 and value 0 (early-EOS compaction keeps the live
-            rows first).
+        live_rows: optional int or 0-d int32 tensor, as K3's; rows at or
+            past it are not computed and get id 0 and value 0 (early-EOS
+            compaction keeps the live rows first).
         seed, inv_temperature, top_k, num_draws, unk_index: as K3; the
             noise hashes the global row, so a row draws the same tokens
             whatever ``live_rows`` is.
@@ -248,6 +273,7 @@ def fused_classifier_topk_gumbel_sample(x, w, b, seed, inv_temperature, *,
     name = "fused_classifier_topk_gumbel_sample"
     _check_classifier(x, w, b, top_k, num_draws)
     seed_value, seed_ptr = _seed_args(name, seed, x.device)
+    invt, invt_ptr = _inv_t_args(name, inv_temperature, x.device)
     kw = dict(top_k=top_k, num_draws=num_draws, unk_index=unk_index,
               live_rows=live_rows)
     if not _build.on_kernel_device(name, x, w, b):
@@ -258,11 +284,12 @@ def fused_classifier_topk_gumbel_sample(x, w, b, seed, inv_temperature, *,
                          f"(the kernel's tensor-core product steps by 16)")
     bf = torch.bfloat16
     rows, v = x.shape[0], w.shape[0]
-    live = _build.live_count(rows, live_rows)
+    live, live_ptr = _build.count_args(name, rows, live_rows, x.device)
     xb, wb, bb = x.to(bf), w.to(bf), b.float().contiguous()
     _build.check_vector_rows(name, x.shape[1], xb, wb)
     lib = _build.library()
-    # the streamed path's bf16 logits (none, NULL, on the resident path)
+    # the streamed path's bf16 logits (none, NULL, on the resident path),
+    # for the live rows (every row, with a device count)
     scratch = torch.empty(
         lib.dh_classifier_topk_gumbel_sample_scratch(v, x.shape[1], live),
         dtype=torch.uint8, device=x.device)
@@ -271,9 +298,9 @@ def fused_classifier_topk_gumbel_sample(x, w, b, seed, inv_temperature, *,
                        device=x.device)
     err = lib.dh_classifier_topk_gumbel_sample(
         xb.data_ptr(), wb.data_ptr(), bb.data_ptr(), ids.data_ptr(),
-        vals.data_ptr(), scratch.data_ptr(), rows, live,
-        v, x.shape[1], top_k, num_draws, unk_index, seed_value, seed_ptr,
-        float(np.float32(inv_temperature)), _build.stream_of(x))
+        vals.data_ptr(), scratch.data_ptr(), rows, live, live_ptr, v,
+        x.shape[1], top_k, num_draws, unk_index, seed_value, seed_ptr, invt,
+        invt_ptr, _build.stream_of(x))
     _build.check(err, name)
     _build.note_launch(name)
     return ids, vals

@@ -1,12 +1,33 @@
-"""Synthetic decode states for holding the canonical-prefix kernels (K5,
-K6) against their plain twins: the card tests and ``chip_smoke.py`` build
-their inputs here, so both check the same kind of state."""
+"""Support for the port's tests and ``chip_smoke.py``: synthetic decode
+states for holding the canonical-prefix kernels (K5, K6) against their
+plain twins (the card tests and ``chip_smoke.py`` build their inputs
+here, so both check the same kind of state), and the cap on torch's CPU
+threads that each test module sets. Nothing of the port's runtime calls
+either."""
+
+import os
 
 import torch
 
 from deephumor_tpu_torch.ops.attention import MASK_FILL, ancestry_bias
 
-__all__ = ["canon_state"]
+__all__ = ["canon_state", "cap_test_threads"]
+
+
+def cap_test_threads():
+    """Lowers torch's intra-op CPU threads to this test worker's share of
+    the cores, ``max(1, os.cpu_count() // PYTEST_XDIST_WORKER_COUNT)``,
+    where pytest-xdist runs several workers (it sets that variable in
+    each); elsewhere it leaves them as they are. It never raises the
+    count: workers that each ran torch with every core's thread would
+    oversubscribe the cores many times over. Returns the count in
+    force."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0") or 0)
+    if workers > 0:
+        share = max(1, (os.cpu_count() or 1) // workers)
+        if share < torch.get_num_threads():
+            torch.set_num_threads(share)
+    return torch.get_num_threads()
 
 
 def canon_state(*, items, beam, p, c, pe, d, dtype, generator, stragglers,
@@ -53,3 +74,145 @@ def canon_state(*, items, beam, p, c, pe, d, dtype, generator, stragglers,
                 bias_win=ancestry_bias(anc[:, :, c:pe], valid[:, c:pe],
                                        pe - c),
                 bias=ancestry_bias(anc, valid, p), pos=pos)
+
+
+# the kernels that take a count (K1-K6, K9, K10), in the order of the
+# port's table
+COUNTED = ("ancestry_attention_update", "grouped_cross_attention",
+           "fused_topk_gumbel_sample", "fused_classifier_topk_gumbel_sample",
+           "ancestry_attention_update_canon", "ancestry_attention_ids",
+           "cross_attention_packed", "fused_survivor_update")
+
+
+def counted_calls(*, items, beam, p, c, pe, d, n_heads, t_enc, vocab,
+                  top_k, length, dtype, generator, pack=4, fresh=True):
+    """Each kernel of ``COUNTED`` on inputs made from ``generator`` (on its
+    device: the kernels on the card, the twins on the CPU), at a decode
+    state of ``items`` items of ``beam`` branches, caches of ``p``
+    positions read to ``pe`` (canonical prefix ``c``), width ``d`` over
+    ``n_heads`` heads, ``t_enc`` encoder rows (padded to 8 for K9, ``pack``
+    items a group), a ``vocab``-wide draw of ``top_k`` and ``length``
+    output tokens for K10.
+
+    Returns name -> ``(per, run)``: ``run(count)`` makes the call with the
+    count of items (K3 and K4: rows, ``per`` = ``beam`` rows an item; else
+    1) given as None, an int or a 0-d int32 tensor, on fresh copies of
+    whatever the kernel updates in place (with ``fresh`` False, on the
+    same tensors each time: for timing), and returns every output and
+    updated tensor. K6's count selects the leading entries of a list that
+    puts the odd items first; its other rows are left unwritten by the
+    kernel, so :func:`count_rows` names the rows to compare."""
+    from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops import engine as E
+    from deephumor_tpu_torch.ops import sampler as S
+
+    dev = generator.device
+    s = canon_state(items=items, beam=beam, p=p, c=c, pe=pe, d=d,
+                    dtype=dtype, generator=generator, stragglers=range(
+                        1, items, 2))
+    rows, heads = items * beam, dict(n_heads=n_heads)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(shape, generator=generator, device=dev).to(dt)
+
+    def randint(high, *shape):
+        return torch.randint(0, high, shape, generator=generator, device=dev)
+
+    def caches():
+        return (s["ck"].clone(), s["cv"].clone()) if fresh else (s["ck"],
+                                                                 s["cv"])
+
+    def k1(n):
+        ck, cv = caches()
+        return (A.ancestry_attention_update(
+            s["q"], ck, cv, s["kn"], s["vn"], s["bias"], s["pos"], beam=beam,
+            p_eff=pe, live_items=n, **heads), ck, cv)
+
+    def k5(n):
+        ck, cv = caches()
+        return (A.ancestry_attention_update_canon(
+            s["q"], ck, cv, s["sk"], s["sv"], s["kn"], s["vn"],
+            s["bias_sh"], s["bias_win"], s["pos"], beam=beam, c=c, p_eff=pe,
+            live_items=n, **heads), ck, cv)
+
+    ids = torch.cat([torch.arange(1, items, 2, device=dev),
+                     torch.arange(0, items, 2, device=dev)]).to(torch.int32)
+
+    def k6(n):
+        return (A.ancestry_attention_ids(
+            s["q"], s["ck"], s["cv"], s["bias"], ids, 1 if n is None else n,
+            beam=beam, p_eff=pe, **heads),)
+
+    tp = -(-t_enc // 8) * 8
+    q2, ek, ev = rnd(rows, d), rnd(items, tp, d), rnd(items, tp, d)
+    mask = torch.rand(items, 1, tp, generator=generator, device=dev) < 0.1
+    mask[..., t_enc:] = True
+    bias2 = torch.where(mask, A.MASK_FILL, 0.0).float()
+
+    def k2(n):
+        return (A.grouped_cross_attention(q2, ek[:, :t_enc].contiguous(),
+                                          ev[:, :t_enc].contiguous(),
+                                          bias2[..., :t_enc].contiguous(),
+                                          live_items=n, **heads),)
+
+    def k9(n):
+        return (A.grouped_cross_attention(q2, ek, ev, bias2, live_items=n,
+                                          pack_items=pack, t_real=t_enc,
+                                          **heads),)
+
+    logits = rnd(rows, vocab)
+    x, w, b = rnd(rows, d), rnd(vocab, d), rnd(vocab, dt=torch.float32)
+    seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+    draw = dict(top_k=top_k, num_draws=beam)
+
+    def k3(n):
+        return S.fused_topk_gumbel_sample(logits, seed, 1 / 1.1,
+                                          live_rows=n, **draw)
+
+    def k4(n):
+        return S.fused_classifier_topk_gumbel_sample(x, w, b, seed, 1 / 1.1,
+                                                     live_rows=n, **draw)
+
+    lp = length + 1
+    surv_in = dict(
+        new_idx=randint(vocab, items, beam, beam),
+        new_val=torch.randn(items, beam, beam, generator=generator,
+                            device=dev),
+        surv=randint(beam * beam, items, beam),
+        ended=torch.rand(items, beam, generator=generator, device=dev) < 0.3,
+        val=torch.randn(items, beam, generator=generator, device=dev),
+        seq=randint(vocab, items, beam, length),
+        anc=randint(beam, items, beam, lp),
+        valid=torch.rand(items, beam, lp, generator=generator,
+                         device=dev) < 0.8)
+
+    def k10(n):
+        t = ({k: v.clone() for k, v in surv_in.items()} if fresh
+             else surv_in)
+        return E.fused_survivor_update(
+            t["new_idx"], t["new_val"], t["surv"], t["ended"], t["val"],
+            t["seq"], t["anc"], t["valid"], length // 2, beam=beam,
+            eos_index=3, pad_index=0, live_items=n)
+
+    return {"ancestry_attention_update": (1, k1),
+            "grouped_cross_attention": (1, k2),
+            "fused_topk_gumbel_sample": (beam, k3),
+            "fused_classifier_topk_gumbel_sample": (beam, k4),
+            "ancestry_attention_update_canon": (1, k5),
+            "ancestry_attention_ids": (1, k6),
+            "cross_attention_packed": (1, k9),
+            "fused_survivor_update": (1, k10)}
+
+
+def count_rows(name, count, items, beam):
+    """Bool ``[items]``: the items whose rows a counted call defines and
+    computes at an int ``count`` (None: all); for K6 the selected items of
+    :func:`counted_calls`' list, at least one. Rows of the other items are
+    zero (K1-K5, K9), left as they were (K10) or unwritten (K6)."""
+    n = items if count is None else min(max(count, 0), items)
+    if name != "ancestry_attention_ids":
+        return torch.arange(items) < n
+    listed = torch.cat([torch.arange(1, items, 2), torch.arange(0, items, 2)])
+    sel = torch.zeros(items, dtype=torch.bool)
+    sel[listed[:max(n, 1)]] = True
+    return sel

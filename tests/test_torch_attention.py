@@ -10,6 +10,10 @@ import jax.numpy as jnp
 from deephumor_tpu.ops import pallas_attention as pa
 from deephumor_tpu_torch.ops import attention as A
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 B, BEAM, P, H, D = 2, 3, 16, 4, 128
 ROWS = B * BEAM
 G, R, T = 3, 3, 7

@@ -14,6 +14,10 @@ from deephumor_tpu.ops import pallas_cache as pc
 from deephumor_tpu_torch.ops import attention as A
 from deephumor_tpu_torch.ops import cache as C
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 BEAM, P, H, D = 3, 16, 4, 128
 
 

@@ -18,6 +18,10 @@ from deephumor_tpu_torch.models import CaptioningTransformer
 from deephumor_tpu_torch.ops import attention as A
 from deephumor_tpu_torch.ops import sampler as S
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 B, BEAM, P, H, D = 4, 5, 32, 4, 64
 ROWS = B * BEAM
 C, PE, POS = 16, 24, 18  # canonical length, read budget, decode position

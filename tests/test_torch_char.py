@@ -15,6 +15,10 @@ from deephumor_tpu_torch.models import sampling as TS
 from deephumor_tpu_torch.ops import sampler as S
 from test_torch_model import _to_jax_tree
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 HP = dict(num_tokens=64, hid_dim=32, n_layers=2, n_heads=2, pf_dim=64,
           max_len=80)
 # 72 steps cross both compaction boundaries and every canon phase

@@ -26,6 +26,10 @@ from torch_oracles import (OracleCaptioningLSTM,
                            OracleCaptioningTransformerBase,
                            randomize_bn_stats)
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 VOCAB, MAX_LEN = 30, 10
 ORACLES = {
     "captioning_lstm": OracleCaptioningLSTM,

@@ -1,9 +1,10 @@
 """The capture-safe decode loop of deephumor_tpu_torch (models/sampling.py
 ``BeamSearch``, models/graphs.py) on the CPU, where no graph exists: its
-body run as the graphs run it (segment by segment, the early exit read
-only between segments) against a plain per-step loop and against the
-JAX package; no host read inside a step; the K3/K4 twins' device-seed
-form; the graph key; and the launch tally of a captured graph."""
+body run as the graphs run it (segment by segment and boundary by
+boundary, the early exit read only between them) against a plain
+per-step loop and against the JAX package; no host read inside a step or
+a boundary; the K3/K4 twins' device-seed form; the graph key; and the
+launch tally of a captured graph."""
 
 import threading
 
@@ -24,6 +25,10 @@ from deephumor_tpu_torch.models import (CaptioningLSTM,
 from deephumor_tpu_torch.models import sampling as TS
 from deephumor_tpu_torch.ops import _build
 from deephumor_tpu_torch.ops import sampler as S
+
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
 
 V = 300
 TFM_HP = dict(num_tokens=V, hid_dim=64, n_layers=2, n_heads=2, pf_dim=128,
@@ -79,16 +84,14 @@ def _program(model, params, enc, **kw):
 
 
 def _as_captured(program, inputs, noise):
-    """The program as a captured call runs it: every segment up to the
-    first boundary to its end, ``ended.all()`` read only between them,
-    then the eager rest and the final pick."""
+    """The program as a captured call runs it (``graphs.run_captured``):
+    every segment and boundary to its end, ``ended.all()`` read only
+    between them, then the final pick and the host reads."""
     search = program.begin(inputs, noise)
-    n = search.captured_segments
-    for i in range(n):
-        if i and search.all_ended():
-            break
-        search.run_segment(i, eager=False)
-    return program.finish(TS.run_eagerly(search, n)), search
+    ran = graphs.run_captured(
+        search, lambda i: search.run_segment(i, eager=False),
+        lambda i: search.run_boundary(i, eager=False))
+    return program.read_out(program.finish(search), ran), search
 
 
 def _reference_loop(search):
@@ -108,14 +111,15 @@ def _reference_loop(search):
             out, state = step_fn(state, seq[:, :, pos - 1].reshape(-1))
             u = noise["cand"][s, :out.shape[0]] if "cand" in noise else None
             seed = int(noise["seeds"][s]) if "seeds" in noise else None
+            inv_t = float(search.inv_t)
             new_idx, new_val = TS._topk_space_draw(
-                u, out, search.top_k, beam, search.inv_t, search.greedy,
+                u, out, search.top_k, beam, inv_t, search.greedy,
                 search.unk, search.sampler, search.classifier, seed)
             new_idx = new_idx.reshape(n, beam, beam)
             new_val = new_val.reshape(n, beam, beam)
             e3 = ended[..., None]
             cand_val = val[..., None] + new_val.masked_fill(e3, 0.0)
-            weight = torch.where(~e3 | (col == 0), cand_val * search.inv_t,
+            weight = torch.where(~e3 | (col == 0), cand_val * inv_t,
                                  float("-inf")).reshape(n, -1)
             surv = TS._select_k(None if search.greedy else
                                 noise["surv"][s - 1], weight, beam,
@@ -129,7 +133,7 @@ def _reference_loop(search):
             ended = ended.gather(1, branch) | (chosen == search.eos)
             state = search.shuffle_fn(state, (items * beam + branch).reshape(
                 -1), branch)
-    final = TS._select_k(noise.get("final"), val * search.inv_t, 1,
+    final = TS._select_k(noise.get("final"), val * float(search.inv_t), 1,
                          search.greedy)[:, 0]
     return {"sequences": seq, "scores": val, "chosen": seq[items[:, 0], final],
             "ended": ended}
@@ -187,7 +191,8 @@ def test_body_equals_a_plain_per_step_loop(no_host_reads, monkeypatch, kind,
                           "cpu")
     no_host_reads.set()
     search = program.begin(inputs, noise)
-    assert search.captured_segments == len(search.segments)
+    assert not any(search.has_boundary(i)
+                   for i in range(len(search.segments)))
     for i in range(len(search.segments)):
         search.run_segment(i, eager=False)
     captured = program.finish(search)
@@ -242,31 +247,82 @@ def test_greedy_through_the_body_matches_jax(kind, attn):
                                   np.asarray(want["chosen"]))
 
 
+def _char_model(eos_bias=1.0):
+    """A char-like model whose 71 steps cross compaction boundaries and
+    canon phases (p_eff 48 on)."""
+    model = CaptioningTransformer(**dict(TFM_HP, max_len=80))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    params["decoder"]["classifier"]["bias"][3] = eos_bias
+    return model, params
+
+
+CHAR_KW = dict(max_len=72, beam_size=3, top_k=8, sampler="pallas",
+               temperature=1.1, compact=True)
+
+
 def test_phases_before_the_first_boundary_have_no_host_read(no_host_reads):
-    # with compaction (forced on: 8 items, 39 steps) the phases up to the
-    # first boundary (p_eff 24) are captured; the boundaries and what
-    # follows run eagerly from the state the last graph left
-    model, params = _model("word", eos_bias=1.0)
+    # the whole char loop as a capture records it, compaction and canon
+    # boundaries included, reads nothing from a tensor; then the final
+    # pick, the boundaries' counts read once, equal the eager call's
+    _char_loop_without_host_reads(no_host_reads)
+
+
+def test_char_loop_with_k10_has_no_host_read(no_host_reads, monkeypatch):
+    # the same with the survivor update in K10's twin
+    monkeypatch.setenv("DH_FUSED_SURVIVOR", "1")
+    _char_loop_without_host_reads(no_host_reads)
+
+
+def _char_loop_without_host_reads(no_host_reads):
+    model, params = _char_model()
     enc = _enc("word", n=8, seed=4)
-    kw = dict(max_len=40, beam_size=3, top_k=8, sampler="pallas",
-              temperature=1.1, compact=True)
-    program, inputs = _program(model, params, enc, **kw)
+    program, inputs = _program(model, params, enc, **CHAR_KW)
     noise = TS.draw_noise(torch.Generator().manual_seed(7), program.noise,
                           "cpu")
     no_host_reads.set()
     search = program.begin(inputs, noise)
-    n = search.captured_segments
-    assert 0 < n < len(search.segments)
-    for i in range(n):
+    ran = 0
+    for i in range(len(search.segments)):
         search.run_segment(i, eager=False)
+        if search.has_boundary(i):
+            search.run_boundary(i, eager=False)
+            ran += 1
+    out = program.finish(search)
     no_host_reads.clear()
-    out = program.finish(TS.run_eagerly(search, n))
+    out = program.read_out(out, ran)
     eager = model.generate_from_emb(
-        params, enc, generator=torch.Generator().manual_seed(7), **kw)
+        params, enc, generator=torch.Generator().manual_seed(7), **CHAR_KW)
+    assert not eager["ended"].all()
     _equal(out, eager)
     assert out["boundaries"] == eager["boundaries"]
-    assert out["boundaries"][0]["p_eff"] == 24
-    assert out["boundaries"][0]["live"] < 8
+    assert len(out["boundaries"]) == ran
+    marks = [(b["p_eff"], b["live"], b["stragglers"])
+             for b in out["boundaries"]]
+    assert marks[0][0] == 24 and marks[0][1] < 8
+    # compaction at 24 and 48, canon set-up from p_eff 40 on
+    assert all(isinstance(v, int) for m in marks for v in m[1:]
+               if v is not None)
+    assert [m[0] for m in marks if m[1] is not None] == [24, 48]
+    assert [m[0] for m in marks if m[2] is not None][0] == 40
+
+
+def test_boundaries_after_every_branch_ended_are_skipped():
+    # every branch ends before the last boundaries: the captured order
+    # skips them (and the segments after them) as the eager loop does
+    model, params = _char_model(eos_bias=3.0)
+    enc = _enc("word", n=8, seed=4)
+    program, inputs = _program(model, params, enc, **CHAR_KW)
+    noise = TS.draw_noise(torch.Generator().manual_seed(7), program.noise,
+                          "cpu")
+    got, search = _as_captured(program, inputs, noise)
+    eager = model.generate_from_emb(
+        params, enc, generator=torch.Generator().manual_seed(7), **CHAR_KW)
+    assert eager["ended"].all()
+    _equal(got, eager)
+    assert got["boundaries"] == eager["boundaries"]
+    boundaries = sum(search.has_boundary(i)
+                     for i in range(len(search.segments)))
+    assert len(got["boundaries"]) < boundaries
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -381,13 +437,14 @@ def test_graph_key_tracks_what_a_graph_bakes_in(monkeypatch):
         ({}, {}),
         ({}, {}),
         ({"enc": _enc("word", n=N_ITEMS + 1)}, {}),
-        ({"temperature": 0.7}, {}),
         ({}, {"DH_CROSS_PACK": "4"}),
         ({}, {"DH_FUSED_SURVIVOR": "1"}),
         ({"greedy": True}, {}),
+        # 1/T is an input: a new temperature is the same key
+        ({"temperature": 0.7}, {}),
     ])
-    assert keys[0] == keys[1]
-    assert len(set(keys[1:])) == len(keys) - 1
+    assert keys[0] == keys[1] == keys[-1]
+    assert len(set(keys[1:-1])) == len(keys) - 2
     monkeypatch.undo()
     new = _keys(monkeypatch, model, other, enc, [({}, {})])
     assert new[0] != keys[0]

@@ -15,6 +15,10 @@ from deephumor_tpu_torch.models import (CaptioningLSTM,
                                         CaptioningTransformerBase, graphs)
 from deephumor_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 GEN = dict(max_len=24, beam_size=3, top_k=8, temperature=1.1)
 
 
@@ -98,37 +102,75 @@ def test_one_item_captured_equals_eager(cuda):
 
 
 @pytest.mark.cuda
-def test_a_new_temperature_or_batch_makes_a_new_key(cuda):
+def test_a_new_batch_makes_a_new_key(cuda):
     model, params, enc = _model("word", cuda)
     kw = dict(GEN, sampler="pallas")
     model.generate_from_emb(params, enc, **kw)
-    model.generate_from_emb(params, enc, **dict(kw, temperature=0.7))
     model.generate_from_emb(params, tuple(t[:8] for t in enc), **kw)
     model.generate_from_emb(params, enc, **kw)
-    assert [e["replays"] for e in graphs.cache_info()] == [1, 1, 2]
+    assert [e["replays"] for e in graphs.cache_info()] == [1, 2]
 
 
 @pytest.mark.cuda
-def test_char_captures_up_to_the_first_boundary(cuda):
-    # compaction and canon: the phases before p_eff 24 are captured, the
-    # rest run eagerly; the outputs and boundaries equal the eager loop's
+@pytest.mark.parametrize("sampler", ["pallas", "exact"])
+def test_a_new_temperature_reuses_its_key(cuda, sampler):
+    # 1/T is an input of the key's graphs: a second temperature replays
+    # them, and draws what the eager loop draws at that temperature
+    model, params, enc = _model("word", cuda)
+    kw = dict(GEN, sampler=sampler)
+    outs = {}
+    for temperature in (1.1, 0.7, 1.1):
+        for compiled in (None, False):
+            outs[temperature, compiled] = model.generate_from_emb(
+                params, enc, generator=torch.Generator(cuda).manual_seed(7),
+                compiled=compiled, **dict(kw, temperature=temperature))
+        for key in ("sequences", "scores", "chosen", "ended"):
+            assert torch.equal(outs[temperature, None][key],
+                               outs[temperature, False][key]), key
+    assert not torch.equal(outs[0.7, None]["scores"],
+                           outs[1.1, None]["scores"])
+    assert [e["replays"] for e in graphs.cache_info()] == [3]
+
+
+def _char(cuda, eos_bias):
     model = CaptioningTransformer(num_tokens=64, hid_dim=64, n_layers=2,
                                   n_heads=2, pf_dim=128, max_len=80,
                                   compute_dtype="bfloat16")
     params = model.init(torch.Generator(cuda).manual_seed(3), cuda)
-    params["decoder"]["classifier"]["bias"][3] = 1.0
+    params["decoder"]["classifier"]["bias"][3] = eos_bias
     g = torch.Generator(cuda).manual_seed(4)
     enc = (torch.randn(32, 64, generator=g, device=cuda),
            torch.randn(32, 49, 64, generator=g, device=cuda))
+    return model, params, enc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("greedy", [False, True])
+@pytest.mark.parametrize("eos_bias", [1.0, 4.0])
+def test_char_captures_its_whole_call(cuda, greedy, eos_bias):
+    # compaction and canon: every phase and every boundary is a graph, and
+    # no part of the call runs eagerly; the outputs, boundaries and
+    # launches equal the eager loop's (eos_bias 4, and greedy: every
+    # branch ends early, and the boundaries are skipped)
+    model, params, enc = _char(cuda, eos_bias)
     kw = dict(max_len=72, beam_size=4, top_k=8, temperature=1.1,
-              sampler="pallas")
-    outs = [model.generate_from_emb(
-        params, enc, generator=torch.Generator(cuda).manual_seed(5),
-        compiled=c, **kw) for c in (False, None, None)]
+              sampler="pallas", greedy=greedy)
+    outs, counts = [], []
+    for c in (False, None, None):
+        reset_launch_counts()
+        outs.append(model.generate_from_emb(
+            params, enc, generator=torch.Generator(cuda).manual_seed(5),
+            compiled=c, **kw))
+        counts.append(dict(LAUNCHES))
     for out in outs[1:]:
         for key in ("sequences", "scores", "chosen", "ended"):
             assert torch.equal(out[key], outs[0][key]), key
         assert out["boundaries"] == outs[0]["boundaries"]
+    if not outs[0]["ended"].all():
+        assert counts[2] == counts[0]
+    if eos_bias < 2 and not greedy:
+        # compaction and canon ran
+        assert any(b["live"] is not None for b in outs[0]["boundaries"])
+        assert any(b["stragglers"] is not None for b in outs[0]["boundaries"])
     (info,) = graphs.cache_info()
-    # the phases through p_eff 16 and 24; the first boundary follows
-    assert info["eager_tail"] and info["captured_segments"] == 2
+    assert not info["eager_tail"] and info["captured_boundaries"] >= 3

@@ -19,6 +19,10 @@ from deephumor_tpu.crawlers import parsers as jax_parsers
 from deephumor_tpu_torch.crawlers import parsers
 from test_crawlers import CAPTIONS_HTML, TEMPLATES_HTML, make_fetch
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 MALFORMED = [
     b"<html><body><div class='char-img'><a href='/x'></a></div></body></html>",
     b"""<html><body><h1><a>T</a></h1><div class="char-img"><a>

@@ -20,6 +20,10 @@ from deephumor_tpu_torch.ops import attention as A
 from deephumor_tpu_torch.ops import engine as E
 from test_torch_model import _to_jax_tree
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 G, R, T, HEADS, DM = 8, 5, 12, 8, 64  # n_heads * r = 40, a multiple of 8
 T_PAD = 16
 

@@ -12,6 +12,10 @@ from deephumor_tpu.data import splits as jax_splits
 from deephumor_tpu.data import utils as jax_utils
 from deephumor_tpu_torch.data import splits, utils
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 PIECES = ["hello", "world", "don't", "<sep>", "<emp>", "a", "123", "_x_",
           "!", "!!!!", "?!?!?", "...", "....", "$$$$$", "###", "____",
           "--", "(", ")", "**", ",,", ";;", "~~~", "@@", "^^", "{}", "\"\"",

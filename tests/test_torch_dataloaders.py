@@ -32,6 +32,10 @@ from deephumor_tpu_torch.data.datasets import MemeDataset
 from deephumor_tpu_torch.models import CaptioningLSTM
 from deephumor_tpu_torch.utils.pytree import flatten_tree
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = ["hello", "world", "bye", "one", "does", "not", "simply", "grumpy",
          "cat", "0", "1", "2", "3"]

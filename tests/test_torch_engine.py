@@ -14,6 +14,10 @@ from deephumor_tpu.ops import pallas_engine as pe
 from deephumor_tpu_torch.models import CaptioningTransformer
 from deephumor_tpu_torch.ops import engine as E
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 EOS, PAD = 3, 0
 ITEMS, L, P = 8, 16, 24
 NAMES = ("chosen", "val", "ended", "seq", "anc", "valid")

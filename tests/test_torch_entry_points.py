@@ -30,6 +30,10 @@ from torch_oracles import (OracleCaptioningLSTMWithLabels,
                            OracleCaptioningTransformerBase,
                            randomize_bn_stats)
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 WORDS = ["grumpy", "cat", "i", "had", "fun", "once", "it", "was", "awful",
          "no", "yes", "!", "?", "one", "does", "not", "simply", "walk",
          "into", "mordor", "when", "you", "ship", "bugs"]

@@ -13,6 +13,10 @@ import jax.numpy as jnp
 from deephumor_tpu.ops import image_ops as jops
 from deephumor_tpu_torch.ops import image_ops as tops
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 
 def _u8(n, h, w, seed):
     return np.random.default_rng(seed).integers(0, 256, (n, h, w, 3),

@@ -11,6 +11,10 @@ from PIL import Image
 from deephumor_tpu import imaging as jim
 from deephumor_tpu_torch import imaging as tim
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 CAPTIONS = [("when you ship it", "and it works"),
             ("", "a much longer bottom caption that has to wrap over lines"),
             ("top only, with punctuation?!", ""),

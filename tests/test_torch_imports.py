@@ -14,6 +14,10 @@ from deephumor_tpu_torch.ops import (LAUNCHES, _build, ancestry_bias,
                                      grouped_cross_attention,
                                      reset_launch_counts)
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deephumor_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]

@@ -14,6 +14,10 @@ from deephumor_tpu_torch.ops import cache as C
 from deephumor_tpu_torch.ops import sampler as S
 from deephumor_tpu_torch.ops.testing import canon_state
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -620,3 +624,42 @@ def test_cache_column_write_matches_twin(cuda, cache_dtype, new_dtype, rows,
     assert LAUNCHES["cache_column_write"] == 1
     assert got[0] is ck and got[1] is cv
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# K1-K6, K9 and K10 with the count in device memory (a 0-d int32, as a
+# captured step passes it): the same outputs as the int count, on the
+# rows that the count defines, and as many launches
+COUNT_SHAPES = dict(items=12, beam=7, p=40, c=24, pe=32, d=128, n_heads=2,
+                    t_enc=49, vocab=128, top_k=50, length=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("count", [0, 5, 12])
+def test_kernels_read_a_device_count(cuda, dtype, count):
+    from deephumor_tpu_torch.ops.testing import (COUNTED, count_rows,
+                                                 counted_calls)
+
+    items, beam = COUNT_SHAPES["items"], COUNT_SHAPES["beam"]
+    calls = counted_calls(**COUNT_SHAPES, dtype=dtype,
+                          generator=torch.Generator(cuda).manual_seed(3))
+    for name in COUNTED:
+        if name == "fused_classifier_topk_gumbel_sample" and (
+                dtype == torch.float32):
+            continue  # K4 casts to bf16 either way
+        per, run = calls[name]
+        reset_launch_counts()
+        got = run(torch.tensor(count * per, dtype=torch.int32, device=cuda))
+        launches = LAUNCHES[name]
+        reset_launch_counts()
+        want = run(count * per)
+        # an int count of 0 rows launches no K3; a device count launches
+        assert launches == LAUNCHES[name] or (
+            name == "fused_topk_gumbel_sample" and count == 0)
+        keep = count_rows(name, count, items, beam).to(cuda)
+        for g, w in zip(got, want):
+            if name != "ancestry_attention_ids":
+                assert torch.equal(g, w), name
+            else:  # rows of items not selected are left unwritten
+                k = keep.repeat_interleave(beam)
+                assert torch.equal(g[k], w[k]), name

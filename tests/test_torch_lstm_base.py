@@ -25,6 +25,10 @@ from deephumor_tpu_torch.models import sampling as TS
 from deephumor_tpu_torch.utils.pytree import load_params
 from test_torch_model import _flat, _images, _to_jax_tree
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 LSTM_HP = dict(num_tokens=211, emb_dim=32, hidden_size=64, num_layers=2)
 BASE_HP = dict(num_tokens=211, hid_dim=128, n_layers=2, n_heads=4,
                pf_dim=256, max_len=32)

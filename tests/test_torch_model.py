@@ -16,6 +16,10 @@ from deephumor_tpu_torch.models import CaptioningTransformer
 from deephumor_tpu_torch.models import transformer as ttfm
 from deephumor_tpu_torch.utils.pytree import load_params
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 HP = dict(num_tokens=211, hid_dim=128, n_layers=2, n_heads=4, pf_dim=256,
           max_len=32)
 GEN = dict(max_len=30, beam_size=3, top_k=8)

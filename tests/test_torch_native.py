@@ -26,6 +26,10 @@ from deephumor_tpu_torch.data import (CharTokenizer, Vocab,
 from deephumor_tpu_torch.data.datasets import MemeDataset
 from deephumor_tpu_torch.ops import _build
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 HAS_GXX = shutil.which("g++") is not None
 

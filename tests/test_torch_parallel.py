@@ -46,6 +46,10 @@ from deephumor_tpu_torch.pipeline import MemeGenerationPipeline
 from deephumor_tpu_torch.serving import DynamicBatcher
 from deephumor_tpu_torch.utils.pytree import flatten_tree
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 WORLD = 2
 SPAWN_TIMEOUT_S = 120
 V = 48

@@ -25,6 +25,10 @@ from deephumor_tpu_torch.models import (CaptioningLSTMWithLabels,
 from deephumor_tpu_torch.ops.image_ops import preprocess_batch
 from deephumor_tpu_torch.pipeline import MemeGenerationPipeline, derive_seed
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 WORDS = ["when", "you", "ship", "it", "works", "and", "bug", "<sep>", "the",
          "fix", "breaks", "prod", "again", "!", "?", "friday"]
 GEN = dict(max_len=10, beam_size=2, top_k=5, greedy=True)

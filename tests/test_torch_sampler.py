@@ -15,6 +15,10 @@ from deephumor_tpu.ops.pallas_sampler import (
     fused_classifier_topk_gumbel_sample, fused_topk_gumbel_sample)
 from deephumor_tpu_torch.ops import sampler as S
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 R, V, K, D = 16, 512, 16, 4
 
 

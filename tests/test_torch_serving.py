@@ -24,6 +24,10 @@ from deephumor_tpu_torch.ops import _build
 from deephumor_tpu_torch.pipeline import MemeGenerationPipeline
 from deephumor_tpu_torch.serving import DynamicBatcher
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 GEN = dict(max_len=6, beam_size=2, top_k=5)
 
 

@@ -34,6 +34,10 @@ from deephumor_tpu_torch.models import encoders, lstm, transformer
 from deephumor_tpu_torch.utils import checkpoint, config
 from deephumor_tpu_torch.utils.pytree import flatten_tree
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # JAX module -> the port's module of the same role where the names differ
 MODULE_MAP = {"ops.pallas_attention": "ops.attention",

@@ -12,6 +12,10 @@ from deephumor_tpu.experiments import inference as jinf
 from deephumor_tpu_torch import data as tdata
 from deephumor_tpu_torch.experiments import inference as tinf
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 ALPHABET = list("abcxyz ABC'!?.,;:-<>_0123456789\té中") + [
     "<sep>", "<emp>", "<eos>", "<unk>", " ", " "]
 

@@ -42,6 +42,10 @@ from deephumor_tpu_torch.parallel import mesh as mesh_mod
 from deephumor_tpu_torch.parallel.sharding import gather_tree
 from deephumor_tpu_torch.utils.pytree import flatten_tree
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 SPAWN_TIMEOUT_S = 120
 MODEL = 2  # the model axis in both layouts
 # tests/test_parallel.py's tolerances: one process (rtol 1e-5), the JAX

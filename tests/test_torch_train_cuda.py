@@ -15,6 +15,10 @@ from deephumor_tpu_torch.models import CaptioningLSTM, CaptioningTransformer
 from deephumor_tpu_torch.ops import LAUNCHES, reset_launch_counts
 from deephumor_tpu_torch.utils.pytree import flatten_tree, tree_map
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 
 @pytest.fixture
 def cuda():

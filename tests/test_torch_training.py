@@ -32,6 +32,10 @@ from deephumor_tpu_torch.models import transformer as ttfm
 from deephumor_tpu_torch.utils import profiling
 from deephumor_tpu_torch.utils.pytree import flatten_tree, unflatten_tree
 
+from deephumor_tpu_torch.ops.testing import cap_test_threads
+
+cap_test_threads()
+
 V = 48
 LSTM_HP = dict(num_tokens=V, emb_dim=16, hidden_size=16, num_layers=2)
 TFM_HP = dict(num_tokens=V, hid_dim=32, n_layers=2, n_heads=4, pf_dim=48,
