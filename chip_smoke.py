@@ -76,13 +76,19 @@ package's train measurement config, benchmarks/train_ab.py: default
 dropouts, bf16 compute, batch 256, captions of 32 tokens + EOS, a cache
 of 300 random templates' trunk features) for 32 steps of
 ``Trainer.run_epoch`` (prefetch 2) over ``BatchIterator`` batches of an
-in-memory dataset, with every launch count at zero: the loss must fall
-(the mean of the last 5 steps below that of the first 5), no kernel may
-launch, the ResNet and the batch-norm statistics must get no optimizer
-update and the statistics must move. It prints the median step time
-(CUDA events at each step's start, after 5 warm-up steps), examples/s,
-peak memory and the step's floor, then profiles 5 more steps (idle
-share, top device ops). The trained model is saved, loaded with
+in-memory dataset, with every launch count at zero, captured (the
+default: one CUDA graph per step key) and eager (``compiled=False``)
+from one seed: the loss must fall (the mean of the last 5 steps below
+that of the first 5), no kernel may launch, the ResNet and the
+batch-norm statistics must get no optimizer update and the statistics
+must move; the captured losses, parameters and moments must equal the
+eager run's bit for bit (or lie within the gap between two eager runs,
+when that is not 0), and every step after the first runs under the sync
+debug mode. It prints each run's median step time (CUDA events at each
+step's start, after 5 warm-up steps), examples/s, peak memory and the
+step's floor, the captured key's first step (eager, then capture) and
+the memory it holds, then profiles 5 more steps of each (idle share,
+top device ops). The trained model is saved, loaded with
 ``from_pretrained`` and served at batch 64 (greedy and sampled): K1, K2
 and K3 must launch and no plain twin may see a CUDA tensor. Then 3 steps
 from 224 x 224 images through the ResNet (batch 32; it takes no
@@ -188,7 +194,13 @@ path under ``torch.cuda.set_sync_debug_mode("error")``, with only the
 reads through ``sampling.host_read`` allowed (``ended.all()`` between
 graphs or eager steps, the boundaries' counts after the last graph). A
 second temperature on a word key replays that key and draws what the
-eager loop draws at it. Last, a burst of G_REQUESTS requests through
+eager loop draws at it. ``generate`` from 224 x 224 images (the encoder
+inside the prefill's graph) is held and timed the same way for the word
+model at one image and at G_IMAGES and for the labelled LSTM at
+G_IMAGES, then timed beside the encoder run eagerly before the captured
+decode (outputs bit-equal); ``Trainer.build_trunk_cache`` over
+T_TEMPLATES templates runs captured and eager in turns (features
+bit-equal). Last, a burst of G_REQUESTS requests through
 a warmed ``DynamicBatcher`` (buckets "auto") over a 32-template word
 pipeline, captured and eager in turns, twice each, after the pipeline's
 call of one full batch gave the same texts captured and eager.
@@ -198,6 +210,7 @@ call of one full batch gave the same texts captured and eager.
     python3 chip_smoke.py --tp
     python3 chip_smoke.py --product
     python3 chip_smoke.py --compiled
+    python3 chip_smoke.py --train
     torchrun --nproc-per-node N chip_smoke.py --mesh-ranks [tp]
 
 The second form only times K3 and K8 (word, first), K4 (all char rows,
@@ -206,7 +219,7 @@ C_LIVE live, and at X_SHAPES), K3 (the sweep's first draw), K9 (ng 2, 4,
 tree at ROOT (default: this one), and prints one JSON line: run beside
 a parent tree's root, it times the parent's kernels on the same inputs.
 The third builds the kernels and runs [14] alone, the fourth [15], the
-fifth [16]. The sixth runs over N
+fifth [16], the sixth [12]. The seventh runs over N
 ranks, one per card (N = 2 or 4): first [14]'s data N/2 x model 2 NCCL
 mesh, ``tp_generate`` at the word leg (batch BATCH; greedy on >=
 TP_GREEDY_SHARE of items equal to one card's call, sampled repeatable,
@@ -332,6 +345,7 @@ X_SAMPLE, X_CHAR_SAMPLE, X_CHAR_LEN, X_DEMO_ITEMS = 50_000, 5_000, 128, 64
 # the compiled phase ([16]): timed calls of each path and of char, and the
 # batcher burst's requests
 G_CALLS, G_CHAR_CALLS, G_REQUESTS = 10, 5, 1024
+G_IMAGES = 64  # generate from images ([16]): the word and labelled LSTM
 X_SHAPES = (("sweep", 256, 5, 64, 2006, HID, 1.0),
             ("demo_word", X_DEMO_ITEMS, 10, 70, 506, 64, 1.0),
             ("demo_char", X_DEMO_ITEMS, 7, 37, 37, 64, 1 / 1.1),
@@ -1695,10 +1709,14 @@ def train_step_cost(bs, seq, t_enc, d, layers, pf, vocab):
     return flops, nbytes
 
 
-def train_epoch_timed(trainer, state, loader, gen, mesh=None):
+def train_epoch_timed(trainer, state, loader, gen, mesh=None,
+                      no_sync=False):
     """``run_epoch`` with a CUDA event at the start of every step (no
     sync in between): the device-side period of each step, the epoch's
-    host time, and the peak memory."""
+    host time, and the peak memory. ``no_sync``: every step after the
+    first runs under ``torch.cuda.set_sync_debug_mode("error")``, so a
+    step that waits for the device raises (the first step of a captured
+    key synchronises on purpose, around its capture)."""
     events = []
     step = trainer._train_step
 
@@ -1706,7 +1724,13 @@ def train_epoch_timed(trainer, state, loader, gen, mesh=None):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append(ev)
-        return step(st, batch, g, *group)
+        if not (no_sync and len(events) > 1):
+            return step(st, batch, g, *group)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(st, batch, g, *group)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
 
     trainer._train_step = timed
     torch.cuda.synchronize()
@@ -1725,6 +1749,46 @@ def train_epoch_timed(trainer, state, loader, gen, mesh=None):
     return state, ms, wall, torch.cuda.max_memory_allocated()
 
 
+def train_profile(trainer, state, loader, gen, steps):
+    """torch.profiler over ``steps`` train steps of ``loader``: (state,
+    wall ms, device kernel ms, cuBLAS ms, events by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    window = itertools.islice(iter(loader), steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _, _ = trainer.run_epoch(state, window, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    busy = sum(e.device_time_total for e in events) / 1e3
+    # cuBLAS products (nvjet / gemm kernels) against the rest
+    gemm = sum(e.device_time_total for e in events
+               if "nvjet" in e.key or "gemm" in e.key) / 1e3
+    events.sort(key=lambda e: -e.device_time_total)
+    return state, wall, busy, gemm, events
+
+
+def state_gap(a, b):
+    """The largest difference between two train states' parameters and
+    moments."""
+    from deephumor_tpu_torch.utils.pytree import flatten_tree
+
+    def flat(st):
+        out = dict(flatten_tree(st["params"]))
+        for m in ("mu", "nu"):
+            out.update({f"{m}/{k}": v for k, v in st["opt_state"][m].items()})
+        return out
+
+    fa, fb = flat(a), flat(b)
+    return max((fa[k].float() - fb[k].float()).abs().max().item()
+               for k in fa)
+
+
 def check_train(CaptioningTransformer, tree_map, _build, modules, dev,
                 name_limit, logdir):
     """The train phase (module docstring, [12]), writing its logs and
@@ -1732,8 +1796,6 @@ def check_train(CaptioningTransformer, tree_map, _build, modules, dev,
     model's serving calls and the phase's numbers."""
     import dataclasses
     import itertools
-
-    from torch.profiler import ProfilerActivity, profile
 
     from deephumor_tpu_torch.data.dataloaders import BatchIterator
     from deephumor_tpu_torch.experiments.trainer import Trainer
@@ -1748,32 +1810,85 @@ def check_train(CaptioningTransformer, tree_map, _build, modules, dev,
                                   n_layers=LAYERS, n_heads=HEADS, pf_dim=PF,
                                   max_len=50)
     ds, _ = memory_set(T_ITEMS, T_TEMPLATES, VOCAB, 11)
-    loader = BatchIterator(ds, T_BATCH, max_caption_len=T_CAP + 1, seed=0,
-                           image_rows={f"t{i:03d}": i
-                                       for i in range(T_TEMPLATES)})
-    trainer = Trainer(model, "smoke", log_dir=logdir,
-                      compute_dtype="bfloat16", device=dev)
-    state = trainer.init_state(torch.Generator(dev).manual_seed(0))
-    # random unit-scale trunk features, as the JAX package's measurement
-    # (a random ResNet's features run ~30x hotter and stall the
-    # cross-attention model: its docstring)
-    trainer._trunk_cache = torch.randn(
-        T_TEMPLATES, 7, 7, 2048, device=dev,
-        generator=torch.Generator(dev).manual_seed(12))
-    # the frozen ResNet and the head's batch-norm statistics, before
-    flat0 = {k: v.clone() for k, v in flatten_tree(state["params"]).items()
-             if "resnet" in k or k.startswith("encoder/bn/running")}
-    gen = torch.Generator(dev).manual_seed(13)
-    steps = itertools.islice(itertools.chain.from_iterable(
-        loader for _ in range(T_STEPS // len(loader) + 1)), T_STEPS)
-    _build.reset_launch_counts()
-    state, ms, wall, peak = train_epoch_timed(trainer, state, steps, gen)
-    if any(_build.LAUNCHES.values()):
-        raise AssertionError(f"train steps launched kernels "
-                             f"{dict(_build.LAUNCHES)}")
-    losses = [json.loads(line)["value"] for line in open(os.path.join(
-        trainer.experiment_dir, "train", "metrics.jsonl"))
-        if '"train/batch_loss"' in line]
+    flops, nbytes = train_step_cost(T_BATCH, max(T_CAP + 1, T_ENC), T_ENC,
+                                    HID, LAYERS, PF, VOCAB)
+    floor = bound(nbytes, flops, torch.bfloat16)
+
+    def word_run(compiled, title):
+        """T_STEPS timed steps of the word model from one seed (the same
+        weights, trunk features, batches and dropout draws for every
+        run), each step after the first without a device read."""
+        loader = BatchIterator(ds, T_BATCH, max_caption_len=T_CAP + 1,
+                               seed=0, image_rows={
+                                   f"t{i:03d}": i
+                                   for i in range(T_TEMPLATES)})
+        trainer = Trainer(model, title, log_dir=logdir,
+                          compute_dtype="bfloat16", device=dev,
+                          compiled=compiled)
+        state = trainer.init_state(torch.Generator(dev).manual_seed(0))
+        # random unit-scale trunk features, as the JAX package's
+        # measurement (a random ResNet's features run ~30x hotter and
+        # stall the cross-attention model: its docstring)
+        trainer._trunk_cache = torch.randn(
+            T_TEMPLATES, 7, 7, 2048, device=dev,
+            generator=torch.Generator(dev).manual_seed(12))
+        gen = torch.Generator(dev).manual_seed(13)
+        steps = itertools.islice(itertools.chain.from_iterable(
+            loader for _ in range(T_STEPS // len(loader) + 1)), T_STEPS)
+        state0 = {k: v.clone()
+                  for k, v in flatten_tree(state["params"]).items()
+                  if "resnet" in k or k.startswith("encoder/bn/running")}
+        _build.reset_launch_counts()
+        state, ms, wall, peak = train_epoch_timed(trainer, state, steps, gen,
+                                                  no_sync=True)
+        if any(_build.LAUNCHES.values()):
+            raise AssertionError(f"train steps launched kernels "
+                                 f"{dict(_build.LAUNCHES)}")
+        med = float(np.median(ms[T_WARM:]))
+        res = {"step_ms_median": med, "step_ms": [round(x, 3) for x in ms],
+               "examples_per_s": T_BATCH / med * 1e3, "epoch_wall_s": wall,
+               "host_ms_per_step": wall / len(ms) * 1e3,
+               "peak_mem_gib": peak / 2**30, "floor_share":
+               floor["bound_ms"] / med, "card": name_limit}
+        return trainer, state, state0, loader, gen, res
+
+    def profiled(trainer, state, loader, gen, res, label):
+        state, pwall, busy, gemm, events = train_profile(
+            trainer, state, loader, gen, T_PROFILED)
+        res["profile"] = {
+            "wall_ms": pwall, "device_ms": busy, "matmul_ms": gemm,
+            "idle_share": 1 - busy / pwall,
+            "idle_share_unprofiled":
+                1 - busy / T_PROFILED / res["step_ms_median"],
+            "top": [[e.key[:80], e.device_time_total / 1e3, e.count]
+                    for e in events[:20]]}
+        log(f"  word train profile, {label}, {T_PROFILED} steps "
+            f"({name_limit}): wall {pwall:.1f} ms, device kernel time "
+            f"{busy:.1f} ms (matmuls {gemm:.1f} ms), idle share "
+            f"{1 - busy / pwall:.3f} under the profiler, "
+            f"{res['profile']['idle_share_unprofiled']:.3f} against the "
+            f"unprofiled median step")
+        for e in events[:12]:
+            log(f"  {e.device_time_total / 1e3:10.3f} ms {e.count:6d} calls "
+                f" {e.key[:90]}")
+        return state
+
+    # eager (compiled=False), then captured (the default), from one seed
+    etrainer, estate, _, eloader, egen, eager = word_run(False, "smoke_eager")
+    elosses = logged_losses(etrainer)
+    trainer, state, flat0, loader, gen, res = word_run(None, "smoke")
+    (key,) = [k for k in trainer._graphs.info() if k["kind"] == "train"]
+    losses = logged_losses(trainer)
+    gap = max([state_gap(state, estate)]
+              + [abs(a - b) for a, b in zip(losses, elosses)])
+    eager_gap = 0.0
+    if gap:
+        # not bit-equal: held within the gap between two eager runs
+        t2, s2, _, _, _, _ = word_run(False, "smoke_eager2")
+        eager_gap = max([state_gap(s2, estate)] + [
+            abs(a - b) for a, b in zip(logged_losses(t2), elosses)])
+        t2.close()
+        del t2, s2
     flat = flatten_tree(state["params"])
     frozen_same = all(torch.equal(flat[k], v) for k, v in flat0.items()
                       if "resnet" in k)
@@ -1781,25 +1896,28 @@ def check_train(CaptioningTransformer, tree_map, _build, modules, dev,
                       if k.startswith("encoder/bn/"))
     opt_keys = set(state["opt_state"]["mu"])
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    flops, nbytes = train_step_cost(T_BATCH, max(T_CAP + 1, T_ENC), T_ENC,
-                                    HID, LAYERS, PF, VOCAB)
-    floor = bound(nbytes, flops, torch.bfloat16)
-    med = float(np.median(ms[T_WARM:]))
-    out["word"] = {
-        "steps": len(losses), "loss_first5": first, "loss_last5": last,
-        "step_ms_median": med, "step_ms": [round(x, 3) for x in ms],
-        "examples_per_s": T_BATCH / med * 1e3,
-        "epoch_wall_s": wall, "host_ms_per_step": wall / len(ms) * 1e3,
-        "peak_mem_gib": peak / 2**30, "tflop_per_step": flops / 1e12,
-        "bound_ms": floor["bound_ms"], "bound_by": floor["bound_by"],
-        "floor_share": floor["bound_ms"] / med}
+    med = res["step_ms_median"]
+    out["word"] = dict(
+        res, steps=len(losses), loss_first5=first, loss_last5=last,
+        tflop_per_step=flops / 1e12, bound_ms=floor["bound_ms"],
+        bound_by=floor["bound_by"], capture_s=key["capture_s"],
+        key_bytes=key["bytes"], key_replays=key["replays"],
+        gap_to_eager=gap, gap_between_eager_runs=eager_gap, eager=eager)
     log(f"  word train, bf16, batch {T_BATCH}, {len(losses)} steps, "
-        f"prefetch 2 ({name_limit}): median step {med:.2f} ms after "
-        f"{T_WARM} warm-up steps, {T_BATCH / med * 1e3:.1f} examples/s, "
-        f"peak memory {peak / 2**30:.2f} GiB; floor {floor['bound_ms']:.3f} "
-        f"ms ({flops / 1e12:.3f} TFLOP, by {floor['bound_by']}) = "
-        f"{floor['bound_ms'] / med:.3f} of the step; loss first 5 "
-        f"{first:.4f} -> last 5 {last:.4f}; launches 0")
+        f"prefetch 2 ({name_limit}): captured median step {med:.2f} ms "
+        f"after {T_WARM} warm-up steps, {T_BATCH / med * 1e3:.1f} "
+        f"examples/s, peak memory {res['peak_mem_gib']:.2f} GiB; first "
+        f"step (eager, then capture) {key['capture_s']:.2f} s, the key "
+        f"holds {key['bytes'] / 2**30:.2f} GiB, {key['replays']} replays; "
+        f"eager median step {eager['step_ms_median']:.2f} ms, "
+        f"{eager['examples_per_s']:.1f} examples/s, peak memory "
+        f"{eager['peak_mem_gib']:.2f} GiB; floor {floor['bound_ms']:.3f} ms "
+        f"({flops / 1e12:.3f} TFLOP, by {floor['bound_by']}) = "
+        f"{floor['bound_ms'] / med:.3f} of the captured step; loss first 5 "
+        f"{first:.4f} -> last 5 {last:.4f}; captured vs eager: losses, "
+        f"parameters and moments differ by at most {gap} (two eager runs: "
+        f"{eager_gap}); no device read in a step after the first; launches "
+        f"0")
     if not (len(losses) == T_STEPS and np.isfinite(losses).all()
             and last < first):
         raise AssertionError(f"word train: losses {losses}")
@@ -1807,38 +1925,17 @@ def check_train(CaptioningTransformer, tree_map, _build, modules, dev,
             "resnet" in k or "running" in k for k in opt_keys):
         raise AssertionError("word train: the ResNet moved, the BN "
                              "statistics did not, or either is trained")
-
-    # one profiled window of T_PROFILED steps
-    window = itertools.islice(iter(loader), T_PROFILED)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _, _ = trainer.run_epoch(state, window, gen)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_time_total", 0) > 0
-              and e.device_type.name == "CUDA"]
-    busy = sum(e.device_time_total for e in events) / 1e3
-    # cuBLAS products (nvjet / gemm kernels) against the rest
-    gemm = sum(e.device_time_total for e in events
-               if "nvjet" in e.key or "gemm" in e.key) / 1e3
-    events.sort(key=lambda e: -e.device_time_total)
-    out["word"]["profile"] = {
-        "wall_ms": pwall * 1e3, "device_ms": busy, "matmul_ms": gemm,
-        "idle_share": 1 - busy / (pwall * 1e3),
-        "idle_share_unprofiled": 1 - busy / T_PROFILED / med,
-        "top": [[e.key[:80], e.device_time_total / 1e3, e.count]
-                for e in events[:20]]}
-    log(f"  word train profile, {T_PROFILED} steps ({name_limit}): wall "
-        f"{pwall * 1e3:.1f} ms, device kernel time {busy:.1f} ms (matmuls "
-        f"{gemm:.1f} ms), idle share {1 - busy / (pwall * 1e3):.3f} under "
-        f"the profiler, {1 - busy / T_PROFILED / med:.3f} against the "
-        f"unprofiled median step")
-    for e in events[:20]:
-        log(f"  {e.device_time_total / 1e3:10.3f} ms {e.count:6d} calls  "
-            f"{e.key[:90]}")
+    if gap > eager_gap:
+        raise AssertionError(f"word train: captured steps differ from eager "
+                             f"by {gap}, two eager runs by {eager_gap}")
+    if key["replays"] != T_STEPS - 1:
+        raise AssertionError(f"word train: {key['replays']} replays of "
+                             f"{T_STEPS} steps")
+    # one profiled window of T_PROFILED steps each
+    profiled(etrainer, estate, eloader, egen, eager, "eager")
+    etrainer.close()
+    del etrainer, estate
+    state = profiled(trainer, state, loader, gen, out["word"], "captured")
 
     # train, save, serve: the trained checkpoint through K1, K2 and K3
     path = os.path.join(logdir, "trained")
@@ -2176,11 +2273,12 @@ def parallel_train(CaptioningTransformer, tree_map, dev, name_limit, logdir,
         tr._trunk_cache = feats.to(dev)
         update = tr._opt.update
 
-        def first_grads(leaves, g, keys, opt_state, _label=label,
-                        _update=update):
+        def first_grads(leaves, g, keys, opt_state, *rest, _label=label,
+                        _update=update, **kw):
             # the summed gradient of the first step, before the clip
-            grads.setdefault(_label, dict(zip(keys, (x.clone() for x in g))))
-            return _update(leaves, g, keys, opt_state)
+            if _label not in grads:
+                grads[_label] = dict(zip(keys, (x.clone() for x in g)))
+            return _update(leaves, g, keys, opt_state, *rest, **kw)
 
         tr._opt.update = first_grads
         trainer_mod.masked_ce_and_perplexity = loss_fn
@@ -3704,9 +3802,12 @@ def idle_share(fn):
 
 
 def compare_compiled(model, params, enc, kw, _build, graphs, label,
-                     name_limit, calls=G_CALLS, path_kernels=()):
+                     name_limit, calls=G_CALLS, path_kernels=(), images=None):
     """One path captured beside eager (``compiled=False``) from the same
-    inputs and generator seed: outputs bit-equal (sampled and greedy),
+    inputs and generator seed (``images``: ``generate`` from these
+    positional inputs, the images and, for the labelled LSTM, the labels,
+    the encoder inside the prefill's graph; else ``generate_from_emb`` of
+    ``enc``): outputs bit-equal (sampled and greedy),
     boundaries equal, launches per call equal (and each of
     ``path_kernels`` launched), no part of the call eager (every segment
     and boundary a graph), the first captured call's warm-up and capture
@@ -3715,12 +3816,15 @@ def compare_compiled(model, params, enc, kw, _build, graphs, label,
     warm-up), the idle share of one profiled call of each, and one call
     of each under the sync debug mode (the reads through
     ``sampling.host_read`` counted). Returns the path's numbers."""
-    n, dev = batch(enc).shape[0], batch(enc).device
+    first = batch(enc) if images is None else images[0]
+    n, dev = first.shape[0], first.device
 
     def call(compiled, seed=5, **extra):
-        return model.generate_from_emb(
-            params, enc, generator=torch.Generator(dev).manual_seed(seed),
-            compiled=compiled, **dict(kw, **extra))
+        kwargs = dict(generator=torch.Generator(dev).manual_seed(seed),
+                      compiled=compiled, **dict(kw, **extra))
+        if images is not None:
+            return model.generate(params, *images, **kwargs)
+        return model.generate_from_emb(params, enc, **kwargs)
 
     graphs.clear()
     eager = call(False)
@@ -4079,6 +4183,120 @@ def greedy_text_small(_build, graphs, tree_map, dev):
         "== CPU for the cross-attention, decoder-only and LSTM models")
 
 
+def encoder_first(model, params, images, kw, graphs, label, name_limit,
+                  calls=G_CALLS):
+    """A call from images captured whole beside the route before the
+    encoder joined the prefill's graph: ``encode`` eagerly, then the
+    captured decode of its output (``generate_from_emb``), in turns, from
+    the same generator seed; outputs bit-equal. Returns captions/s of
+    both (median of ``calls`` calls each)."""
+    n, dev = images[0].shape[0], images[0].device
+
+    def whole(seed):
+        return model.generate(params, *images, generator=torch.Generator(
+            dev).manual_seed(seed), **kw)
+
+    def split(seed):
+        return model.generate_from_emb(
+            params, model.encode(params, *images),
+            generator=torch.Generator(dev).manual_seed(seed), **kw)
+
+    graphs.clear()
+    if not same_outputs(whole(5), split(5)):
+        raise AssertionError(f"[16] {label}: a call from images differs "
+                             f"from encode + generate_from_emb")
+    secs = {whole: [], split: []}
+    for i in range(calls):
+        for fn in (whole, split):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(10 + i)
+            torch.cuda.synchronize()
+            secs[fn].append(time.perf_counter() - t0)
+    graphs.clear()
+    rates = [n / float(np.median(secs[fn])) for fn in (whole, split)]
+    log(f"  {label}: captured whole {rates[0]:.1f} captions/s, encoder "
+        f"eager then the captured decode {rates[1]:.1f} (median of {calls} "
+        f"calls each, in turns); outputs bit-equal | {name_limit}")
+    return {"captions_per_s": rates[0], "captions_per_s_encoder_eager":
+            rates[1], "card": name_limit}
+
+
+def images_phase(_build, graphs, dev, name_limit, paths):
+    """``generate`` from 224 x 224 images, captured (the encoder in the
+    prefill's graph) beside eager: the word model at one image
+    (``caption_image``'s shape) and at G_IMAGES, and the labelled LSTM
+    at G_IMAGES; each path's numbers go into ``paths``. Then each beside
+    the encoder run eagerly before the captured decode
+    (:func:`encoder_first`). Returns the numbers of both comparisons."""
+    from deephumor_tpu_torch.models import (CaptioningLSTMWithLabels,
+                                            CaptioningTransformer)
+
+    kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K,
+              temperature=1.0, sampler="pallas")
+    g = torch.Generator(dev).manual_seed(17)
+    images = torch.randn(G_IMAGES, 224, 224, 3, device=dev, generator=g)
+    labels = torch.randint(4, VOCAB, (G_IMAGES, 5), device=dev, generator=g)
+    word = ("ancestry_attention_update", "grouped_cross_attention",
+            "fused_topk_gumbel_sample")
+    word_model = make_model(CaptioningTransformer, "bfloat16", dev, False)
+    lstm_model = make_lstm(CaptioningLSTMWithLabels, "bfloat16", dev)
+    cases = (("images_word_1", word_model, (images[:1],), word,
+              "word from 1 image"),
+             ("images_word", word_model, (images,), word,
+              f"word from {G_IMAGES} images"),
+             ("images_lstm_labels", lstm_model, (images, labels),
+              ("fused_topk_gumbel_sample",),
+              f"lstm_labels from {G_IMAGES} images and labels"))
+    out = {}
+    for name, (model, params), x, kernels, label in cases:
+        paths[name] = compare_compiled(
+            model, params, None, kw, _build, graphs, label, name_limit,
+            path_kernels=kernels, images=x)
+        out[name] = dict(encoder_first(model, params, x, kw, graphs, label,
+                                       name_limit),
+                         captions_per_s_eager=paths[name][
+                             "captions_per_s_eager"],
+                         key_bytes=paths[name]["key_bytes"])
+    return out
+
+
+def compare_trunk_cache(_build, dev, name_limit):
+    """``Trainer.build_trunk_cache`` over T_TEMPLATES random 224 x 224
+    templates in chunks of 16 (the last of 12: its own graph), captured
+    beside eager, in turns: features bit-equal, seconds of each."""
+    from deephumor_tpu_torch.experiments.trainer import Trainer
+    from deephumor_tpu_torch.models import CaptioningTransformer
+
+    model, params = make_model(CaptioningTransformer, "bfloat16", dev, False)
+    rng = np.random.default_rng(18)
+    data = MemorySet({}, [], {f"t{i:03d}": rng.normal(
+        size=(224, 224, 3)).astype(np.float32) for i in range(T_TEMPLATES)})
+    secs, feats = {False: [], None: []}, {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as logdir:
+        for compiled in (False, None, None, False):
+            trainer = Trainer(model, "trunk", log_dir=logdir, device=dev,
+                              compiled=compiled)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.build_trunk_cache(params, data)
+            torch.cuda.synchronize()
+            secs[compiled].append(time.perf_counter() - t0)
+            feats.setdefault(compiled, trainer._trunk_cache)
+            trainer.close()
+    if not torch.equal(feats[None], feats[False]):
+        raise AssertionError("[16] trunk cache: captured features differ "
+                             "from eager")
+    res = {"templates": T_TEMPLATES, "chunk": 16,
+           "s_captured": secs[None], "s_eager": secs[False],
+           "card": name_limit}
+    log(f"  trunk cache, {T_TEMPLATES} templates 224 x 224, chunks of 16: "
+        f"captured {secs[None][0]:.3f} s (first: warm-up and two "
+        f"captures) then {secs[None][1]:.3f} s, eager {secs[False][0]:.3f} "
+        f"/ {secs[False][1]:.3f} s; features bit-equal | {name_limit}")
+    return res
+
+
 def compiled_phase(_build, modules, dev, name_limit):
     """[16]: the decode loop captured (models/graphs.py) beside the eager
     loop on word (batch 1792), Base, LSTM, the sweep's shape (V 2,006,
@@ -4149,6 +4367,8 @@ def compiled_phase(_build, modules, dev, name_limit):
             "fused_classifier_topk_gumbel_sample",
             "ancestry_attention_update_canon", "ancestry_attention_ids"))
     del model, params
+    out["images"] = images_phase(_build, graphs, dev, name_limit, paths)
+    out["trunk_cache"] = compare_trunk_cache(_build, dev, name_limit)
     # a batcher burst over a word pipeline (32 templates)
     model, params = make_model(CaptioningTransformer, "bfloat16", dev, False)
     bias = params["decoder"]["classifier"]["bias"]
@@ -4187,6 +4407,29 @@ def compiled_only():
     legs, numbers = compiled_phase(_build, (A, C, E, S),
                                    torch.device("cuda", 0), card())
     print(json.dumps({"compiled": numbers, "launches": legs}), flush=True)
+
+
+def train_only():
+    """``--train``: builds the kernels and runs [12] alone; prints its
+    numbers and the served model's launches as one JSON line."""
+    from deephumor_tpu_torch.models import CaptioningTransformer
+    from deephumor_tpu_torch.ops import _build
+    from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops import cache as C
+    from deephumor_tpu_torch.ops import engine as E
+    from deephumor_tpu_torch.ops import sampler as S
+    from deephumor_tpu_torch.utils.pytree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for key in ("DH_CROSS_PACK", "DH_FUSED_SURVIVOR"):
+        os.environ.pop(key, None)
+    _build.library()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as logdir:
+        launches, train = check_train(
+            CaptioningTransformer, tree_map, _build, (A, C, E, S),
+            torch.device("cuda", 0), card(), logdir)
+    print(json.dumps({"train": train, "launches": launches}), flush=True)
 
 
 def kernel_split(fn, calls=10):
@@ -4287,6 +4530,8 @@ def main():
         return product_only()
     if sys.argv[1:2] == ["--compiled"]:
         return compiled_only()
+    if sys.argv[1:2] == ["--train"]:
+        return train_only()
     from deephumor_tpu_torch.models import (CaptioningLSTM,
                                             CaptioningLSTMWithLabels,
                                             CaptioningTransformer,

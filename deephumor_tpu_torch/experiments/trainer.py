@@ -10,9 +10,17 @@ frozen; epoch loops over train/val phases; the best-val model and a
 per-epoch train state saved; the reference's metric tag names.
 
 The step is plain PyTorch (autograd, ``torch._foreach_*`` updates) and
-launches none of the port's kernels. It updates the state's parameter and
-moment tensors in place and returns the state (the JAX package's
-``donate=True`` loop: ``state, metrics = step(state, ...)``).
+launches none of the port's kernels. It updates the state's parameter,
+batch-norm statistic and moment tensors in place and returns the state
+(the JAX package's ``donate=True`` loop: ``state, metrics = step(state,
+...)``), whose tensors keep their addresses. On a CUDA device the train
+step, the eval step and the trunk of ``build_trunk_cache`` replay as CUDA
+graphs, one per static configuration (experiments/step_graphs.py: the
+counterpart of the JAX package's jitted steps), unless the trainer is
+made with ``compiled=False``; on the CPU, and with a mesh, they run
+eagerly. The values of a step that change with Adam's count (the
+learning rate and the two bias corrections) are written into a device
+buffer before each step, so one graph serves every step.
 
 With a mesh (``run_epoch(..., mesh=)``, ``train(..., mesh=)``; the state
 replicated with ``parallel.replicate``) every rank runs the same steps on
@@ -58,6 +66,8 @@ import torch.distributed as dist
 from deephumor_tpu_torch.convert.jax_params import (params_from_jax,
                                                     params_to_jax)
 from deephumor_tpu_torch.experiments.metrics import masked_ce_and_perplexity
+from deephumor_tpu_torch.experiments.step_graphs import StepGraphs, step_key
+from deephumor_tpu_torch.models import graphs
 from deephumor_tpu_torch.parallel.sharding import (gather_tree,
                                                    is_model_sharded,
                                                    local_tree, model_group,
@@ -131,7 +141,10 @@ class Adam:
     ``learning_rate``.
 
     The state is ``{"count": int, "mu": {flat key: tensor}, "nu": ...}``
-    over the trainable keys of the port's tree.
+    over the trainable keys of the port's tree. The count stays on the
+    host; the values the update takes from it (:meth:`terms`) reach the
+    device through a buffer written before each update
+    (:meth:`write_terms`), which a captured step reads.
     """
 
     b1, b2, eps = 0.9, 0.999, 1e-8
@@ -150,17 +163,37 @@ class Adam:
                 "mu": {k: torch.zeros_like(flat[k]) for k in keys},
                 "nu": {k: torch.zeros_like(flat[k]) for k in keys}}
 
+    def terms(self, count):
+        """The update's values after ``count`` updates, in double on the
+        host as optax computes them: the learning rate (``schedule(count)``
+        with a schedule) and the bias corrections ``1 - b1 ** (count + 1)``
+        and ``1 - b2 ** (count + 1)``."""
+        lr = (self.schedule(count) if self.schedule is not None
+              else self.learning_rate)
+        return (float(lr), 1 - self.b1 ** (count + 1),
+                1 - self.b2 ** (count + 1))
+
     @torch.no_grad()
-    def update(self, leaves, grads, keys, opt_state, model_group=None,
+    def write_terms(self, buf, opt_state):
+        """Writes the next update's :meth:`terms` into ``buf`` (3 f32 on the
+        update's device; each rounded to f32 as a scalar operand would be)
+        by fills, which wait for nothing, and advances the count."""
+        for i, v in enumerate(self.terms(opt_state["count"])):
+            buf[i].fill_(v)
+        opt_state["count"] += 1
+
+    @torch.no_grad()
+    def update(self, leaves, grads, keys, opt_state, terms, model_group=None,
                sharded=None):
         """Updates the trainable ``leaves`` (flat ``keys``) and the
-        moments in place from ``grads``; returns the pre-clip global
-        norm, a device scalar. With ``model_group`` the leaves, gradients
-        and moments are this rank's local shards (moments placed on a
-        mesh are read through their local tensors), and ``sharded`` marks
-        the leaves split over the group: their squares are summed over it,
-        the replicated leaves' counted once."""
-        count = opt_state["count"]
+        moments in place from ``grads``, with the learning rate and bias
+        corrections in ``terms`` (:meth:`write_terms`'s buffer); returns
+        the pre-clip global norm, a device scalar. Reads nothing from the
+        host, so a graph can hold it. With ``model_group`` the leaves,
+        gradients and moments are this rank's local shards (moments placed
+        on a mesh are read through their local tensors), and ``sharded``
+        marks the leaves split over the group: their squares are summed
+        over it, the replicated leaves' counted once."""
         mu = [local_tree(opt_state["mu"][k]) for k in keys]
         nu = [local_tree(opt_state["nu"][k]) for k in keys]
         norms = torch.stack(torch._foreach_norm(grads))
@@ -179,18 +212,16 @@ class Adam:
         torch._foreach_add_(mu, grads, alpha=1 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
-        lr = (self.schedule(count) if self.schedule is not None
-              else self.learning_rate)
-        count += 1
-        den = torch._foreach_div(nu, 1 - self.b2 ** count)
+        lr, c1, c2 = terms.unbind()
+        den = torch._foreach_div(nu, c2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(mu, 1 - self.b1 ** count)
+        upd = torch._foreach_div(mu, c1)
         torch._foreach_div_(upd, den)
         if self.weight_decay:
             torch._foreach_add_(upd, leaves, alpha=self.weight_decay)
-        torch._foreach_add_(leaves, upd, alpha=-lr)
-        opt_state["count"] = count
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(leaves, upd)
         return norm
 
     def to_leaves(self, opt_state, params):
@@ -251,27 +282,15 @@ def _local_params(params):
     return local_tree(params), model_group(params)
 
 
-def _placed_like(placed, local):
-    """``local`` (a tree of local tensors from a step) placed as
-    ``placed``: leaves that are still ``placed``'s local tensors keep
-    their DTensor, new ones (batch-norm statistics) take its
-    placement."""
-    from torch.distributed.tensor import DTensor
-
-    def place(old, new):
-        if isinstance(old, dict):
-            return {k: place(old[k], new[k]) for k in new}
-        if isinstance(old, (list, tuple)):
-            return type(new)(place(o, n) for o, n in zip(old, new))
-        if not isinstance(old, DTensor):
-            return new
-        if local_tree(old) is new:
-            return old
-        return DTensor.from_local(new, old.device_mesh, old.placements,
-                                  run_check=False, shape=old.shape,
-                                  stride=old.stride())
-
-    return place(placed, local)
+@torch.no_grad()
+def _write_stats(flat, new_params):
+    """Copies the leaves of ``new_params`` that a train forward made anew
+    (the batch-norm statistics) into the matching tensors of ``flat``
+    (the state's flat tree, or its local tensors on a mesh), so that the
+    state keeps its tensors and addresses."""
+    for k, v in flatten_tree(new_params).items():
+        if v is not flat[k]:
+            flat[k].copy_(v)
 
 
 def _leads(mesh):
@@ -390,6 +409,13 @@ class Trainer:
             gives the same results.
         device: where the state lives and the steps run (``"cuda"``
             unless the caller asks for the CPU).
+        compiled: on a CUDA device, None (default) or True runs the train
+            step, the eval step and ``build_trunk_cache``'s trunk as CUDA
+            graphs (experiments/step_graphs.py: one per static
+            configuration, made at its first call, which runs eagerly and
+            counts); False runs them from the host, with the same results.
+            On the CPU they always run eagerly. With a mesh the steps run
+            eagerly, and True raises ``ValueError``.
     """
 
     def __init__(self, model, experiment_title="experiment",
@@ -397,7 +423,7 @@ class Trainer:
                  log_grad_norm=False, pad_index=0, schedule=None,
                  weight_decay=0.0, phases=("train", "val"),
                  compute_dtype=None, log_flush_every=64, prefetch=2,
-                 device="cuda"):
+                 device="cuda", compiled=None):
         self.model = model
         self.pad_index = pad_index
         self.log_grad_norm = log_grad_norm
@@ -405,6 +431,9 @@ class Trainer:
         self.phases = phases
         self.prefetch = max(0, int(prefetch))
         self.device = torch.device(device)
+        self.compiled = compiled
+        self._graphs = StepGraphs()
+        self._terms = None  # Adam.write_terms's buffer, made at first use
         self._opt = Adam(learning_rate, clip_norm, schedule, weight_decay)
         self._step_model = model
         if compute_dtype not in (None, "float32"):
@@ -440,14 +469,26 @@ class Trainer:
         steps then gather them for batches that carry ``image_rows``. The
         trunk runs in eval mode without a gradient, so training on the
         cache is the same computation. Returns the ``image_rows`` mapping
-        (template key -> row) for ``BatchIterator``."""
+        (template key -> row) for ``BatchIterator``. On the card the
+        trunk replays as a CUDA graph per chunk shape (the last, shorter
+        chunk has its own), with the eager trunk's features; the steps'
+        graphs read the new cache, so they are made anew."""
         keys = list(dataset.images)
+        trunk = StepGraphs()
         feats = []
         for start in range(0, len(keys), batch_size):
             images = torch.from_numpy(np.stack(
                 [dataset.images[k] for k in keys[start:start + batch_size]]
             ).astype(np.float32)).to(self.device)
-            feats.append(self.model.trunk(params, images))
+            if graphs.use_graphs(self.compiled, self.device):
+                key = step_key("trunk", self.model, {"images": images}, ())
+                feats.append(trunk.run(
+                    key, lambda x: self.model.trunk(params, x["images"]),
+                    {"images": images}).clone())
+            else:
+                feats.append(self.model.trunk(params, images))
+        trunk.clear()
+        self._graphs.clear()
         self._trunk_cache = torch.cat(feats)
         return {k: i for i, k in enumerate(keys)}
 
@@ -484,6 +525,22 @@ class Trainer:
             row_weights=row_valid, group=group)
         return loss, pp, new_params
 
+    def _captures(self, params, group):
+        """Whether a step runs as a graph (``compiled``). A step over a
+        mesh (``group``, or ``params`` placed on one) stays eager, and
+        ``compiled=True`` raises there."""
+        if group is not None or placed_mesh(params) is not None:
+            if self.compiled:
+                raise ValueError("steps over a mesh run eagerly: make the "
+                                 "Trainer with compiled=None or False")
+            return False
+        return graphs.use_graphs(self.compiled, self.device)
+
+    def _terms_buffer(self, device):
+        if self._terms is None or self._terms.device != device:
+            self._terms = torch.zeros(3, device=device)
+        return self._terms
+
     def _train_step(self, state, batch, gen, group=None):
         """Forward, loss, backward, clip and Adam on a device batch, with
         dropout drawn from ``gen``; the encoder's batch-norm statistics
@@ -492,43 +549,75 @@ class Trainer:
         perplexity are summed over the group before the clip. A state
         placed on a mesh with a model axis steps over its local shards
         (module docstring). Returns ``(state, metrics)``, the metrics
-        device scalars."""
+        device scalars; captured, they are the graph's outputs, which the
+        next step overwrites."""
         placed = state["params"]
+        captured = self._captures(placed, group)
         params, model_group = _local_params(placed)
         flat = flatten_tree(params)
         keys = _trainable_paths(params)
-        leaves = [flat[k].requires_grad_() for k in keys]
-        loss, pp, new_params = self._loss(params, batch, gen, True, group,
-                                          model_group)
-        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
-                                         materialize_grads=True))
-        loss, pp = loss.detach(), pp.detach()
-        if group is not None:
-            *grads, loss, pp = _all_reduce_sum(grads + [loss, pp], group)
-            # copies: as views, the metrics that run_epoch defers would
-            # each keep the whole summed-gradient buffer alive
-            loss, pp = loss.clone(), pp.clone()
+        opt = state["opt_state"]
         tp = {}
         if model_group is not None:
             flat_placed = flatten_tree(placed)
             tp = {"model_group": model_group, "sharded": [
                 is_model_sharded(flat_placed[k]) for k in keys]}
-        norm = self._opt.update(leaves, grads, keys, state["opt_state"],
-                                **tp)
-        if params is not placed:
-            new_params = _placed_like(placed, new_params)
-        state = {"params": new_params, "opt_state": state["opt_state"],
-                 "step": state["step"] + 1}
-        return state, {"loss": loss, "perplexity": pp, "grad_norm": norm}
+        terms = self._terms_buffer(flat[keys[0]].device)
+        self._opt.write_terms(terms, opt)
+
+        def step(batch):
+            leaves = [flat[k].requires_grad_() for k in keys]
+            loss, pp, new_params = self._loss(params, batch, gen, True,
+                                              group, model_group)
+            grads = list(torch.autograd.grad(
+                loss, leaves, allow_unused=True, materialize_grads=True))
+            loss, pp = loss.detach(), pp.detach()
+            if group is not None:
+                *grads, loss, pp = _all_reduce_sum(grads + [loss, pp], group)
+                # copies: as views, the metrics would keep the whole
+                # summed-gradient buffer alive into the next step
+                loss, pp = loss.clone(), pp.clone()
+            norm = self._opt.update(leaves, grads, keys, opt, terms, **tp)
+            _write_stats(flat, new_params)
+            return {"loss": loss, "perplexity": pp, "grad_norm": norm}
+
+        if captured:
+            metrics = self._graphs.run(
+                self._key("train", params, batch, opt, gen), step, batch,
+                gen)
+        else:
+            metrics = step(batch)
+        return dict(state, step=state["step"] + 1), metrics
+
+    def _key(self, kind, params, batch, opt_state=None, gen=None):
+        """The key of a train step (``opt_state`` given) or an eval step
+        (experiments/step_graphs.py ``step_key``): the tensors its graph
+        reads are every parameter, the trunk cache and, for a train step,
+        Adam's moments and the count terms' buffer."""
+        tensors = list(flatten_tree(params).values())
+        if opt_state is not None:
+            tensors += [*opt_state["mu"].values(), *opt_state["nu"].values(),
+                        self._terms]
+        if self._trunk_cache is not None:
+            tensors.append(self._trunk_cache)
+        return step_key(kind, self._step_model, batch, tensors, gen)
 
     @torch.no_grad()
     def _eval_step(self, params, batch, group=None):
-        params, model_group = _local_params(params)
-        loss, pp, _ = self._loss(params, batch, None, False, group,
-                                 model_group)
-        if group is not None:
-            loss, pp = _all_reduce_sum([loss, pp], group)
-        return {"loss": loss, "perplexity": pp}
+        placed = params
+        params, model_group = _local_params(placed)
+
+        def step(batch):
+            loss, pp, _ = self._loss(params, batch, None, False, group,
+                                     model_group)
+            if group is not None:
+                loss, pp = _all_reduce_sum([loss, pp], group)
+            return {"loss": loss, "perplexity": pp}
+
+        if self._captures(placed, group):
+            return self._graphs.run(self._key("eval", params, batch), step,
+                                    batch)
+        return step(batch)
 
     # -- epochs --------------------------------------------------------------
     def _host_batch(self, batch):
@@ -561,6 +650,7 @@ class Trainer:
         mesh)`` (one generator per data block); the returned and logged
         loss and perplexity are the global batch's, and only rank 0
         writes them."""
+        self._captures(state["params"], mesh)  # raises before any work
         is_train = phase == "train"
         writer = (self._writer(phase)
                   if phase in self.phases and _leads(mesh) else None)
@@ -573,18 +663,19 @@ class Trainer:
             if is_train and gen is not None:
                 gen = shard_generator(gen, mesh)
         totals = {"loss": 0.0, "pp": 0.0, "n": 0}
-        deferred = []
+        # each step's metrics, copied into a row of a device ring (a
+        # captured step's outputs are overwritten by the next replay) and
+        # fetched together every log_flush_every steps: (step, real rows)
+        # per row
+        ring, names, rows = None, None, []
         step0 = state["step"] if is_train else 0
 
         def flush():
-            if not deferred:
+            if not rows:
                 return
-            first = deferred[0][0]
-            names = list(deferred[0][1])
-            vals = torch.stack([torch.stack([m[k] for k in names])
-                                for _, m, _ in deferred]).cpu().numpy()
-            cols = dict(zip(names, vals.T))
-            ns = np.asarray([n for _, _, n in deferred], np.float64)
+            first = rows[0][0]
+            cols = dict(zip(names, ring[:len(rows)].cpu().numpy().T))
+            ns = np.asarray([n for _, n in rows], np.float64)
             losses = cols["loss"]
             if not np.isfinite(losses).all():
                 bad = int(np.argmax(~np.isfinite(losses)))
@@ -592,7 +683,7 @@ class Trainer:
                     f"non-finite loss {losses[bad]} at step {first + bad} "
                     f"({phase})")
             if writer is not None and is_train:
-                for j in range(len(deferred)):
+                for j in range(len(rows)):
                     writer.add_scalar("train/batch_loss", losses[j],
                                       first + j)
                     writer.add_scalar("train/batch_perplexity",
@@ -603,7 +694,7 @@ class Trainer:
             totals["loss"] += float(losses @ ns)
             totals["pp"] += float(cols["perplexity"] @ ns)
             totals["n"] += int(ns.sum())
-            deferred.clear()
+            rows.clear()
 
         batches = (_prefetch_iter(dataloader, self._host_batch, self.prefetch)
                    if self.prefetch
@@ -619,8 +710,14 @@ class Trainer:
                                                   *step_args)
             else:
                 metrics = self._eval_step(state["params"], batch, *step_args)
-            deferred.append((step0 + i + is_train, metrics, n))
-            if len(deferred) >= self.log_flush_every:
+            if ring is None:
+                names = list(metrics)
+                ring = torch.empty((self.log_flush_every, len(names)),
+                                   dtype=metrics["loss"].dtype,
+                                   device=metrics["loss"].device)
+            torch.stack([metrics[k] for k in names], out=ring[len(rows)])
+            rows.append((step0 + i + is_train, n))
+            if len(rows) >= self.log_flush_every:
                 flush()
         flush()
         epoch_loss = totals["loss"] / max(totals["n"], 1)

@@ -36,7 +36,8 @@ live: on a CUDA device the decode path goes through the hand-written
 kernels, on the CPU through their plain twins. On a CUDA device the
 decode loop replays as CUDA graphs unless the caller passes
 ``compiled=False`` (models/graphs.py: the counterpart of the JAX
-package's compiled ``generate``). Parameters placed on a
+package's compiled ``generate``); ``generate`` from images encodes them
+inside the prefill's graph. Parameters placed on a
 ``data x model`` mesh (``parallel.make_param_shardings``: DTensors) make
 ``generate_from_emb`` run ``parallel.tp_generate``: each rank decodes its
 data block over its local shards (``model_group``, see
@@ -142,6 +143,20 @@ class _Captioner:
                              self.compute_dtype)
         logits = decode(dec, encoded)
         return (logits, dict(params, encoder=new_enc)) if train else logits
+
+    def _from_images(self, params, inputs, kw):
+        """``generate`` from ``inputs`` (the images; the labelled LSTM's
+        labels after them): the encoder runs at the start of the prefill,
+        so on the card it is part of the prefill's graph and the call
+        replays whole, the image shape part of the key. A tree placed on a
+        mesh encodes first, then runs ``parallel.tp_generate``."""
+        if placed_mesh(params) is not None:
+            return self.generate_from_emb(
+                params, self.encode(local_tree(params), *inputs.values()),
+                **kw)
+        return self._generate(
+            params, inputs,
+            lambda x: self.encode(params, *(x[k] for k in inputs)), **kw)
 
     def hp(self):
         """The hyperparameters a checkpoint records (``compute_dtype``
@@ -272,16 +287,17 @@ class CaptioningLSTM(_Captioner):
 
         return step
 
-    def _program(self, params, emb, caption, *, max_len, beam_size, top_k,
-                 eos_index, greedy, sampler):
-        """One call as a :class:`graphs.Program`: the prefill and the
-        first draw, then the steps in segments of ``_GRAPH_STEPS`` (a
-        graph each on the card), then the final pick."""
-        num_items, dev = emb.shape[0], emb.device
+    def _program(self, params, encode, num_items, dev, caption, *, max_len,
+                 beam_size, top_k, eos_index, greedy, sampler):
+        """One call as a :class:`graphs.Program`: the encoder
+        (``encode(inputs)``, which takes the embedding from the inputs or
+        encodes the images there) and the prefill with the first draw,
+        then the steps in segments of ``_GRAPH_STEPS`` (a graph each on
+        the card), then the final pick."""
         prefix_len = 0 if caption is None else caption.shape[1]
 
         def begin(inputs, noise):
-            dec, emb = _cast((self._decoder(params), inputs["enc"]),
+            dec, emb = _cast((self._decoder(params), encode(inputs)),
                              self.compute_dtype)
             logits, state = self._prefill(dec, emb, inputs["caption"])
             state = {k: _tile_rows(v, beam_size)
@@ -320,21 +336,32 @@ class CaptioningLSTM(_Captioner):
         before K3 above it. A tree placed on a mesh runs
         ``parallel.tp_generate``; the LSTM has no sharded leaf, so every
         rank of the model axis runs it whole (``model_group`` is unused)."""
+        kw = dict(generator=generator, caption=caption, max_len=max_len,
+                  temperature=temperature, beam_size=beam_size, top_k=top_k,
+                  eos_index=eos_index, greedy=greedy, sampler=sampler,
+                  compiled=compiled)
         if placed_mesh(params) is not None:
-            return _tp_generate(self, params, emb, dict(
-                generator=generator, caption=caption, max_len=max_len,
-                temperature=temperature, beam_size=beam_size, top_k=top_k,
-                eos_index=eos_index, greedy=greedy, sampler=sampler,
-                compiled=compiled))
-        sampler = _check_sampler(sampler)
+            return _tp_generate(self, params, emb, kw)
+        return self._generate(params, {"enc": emb}, lambda x: x["enc"],
+                              **kw)
+
+    @torch.inference_mode()
+    def _generate(self, params, inputs, encode, *, generator, caption,
+                  temperature, compiled, **static):
+        """One generation call from ``inputs`` (the embedding, or images and
+        labels) that ``encode`` turns into the embedding at the start of
+        the prefill: on the card the encoder is then part of the prefill's
+        graph."""
+        static["sampler"] = _check_sampler(static["sampler"])
+        first = next(iter(inputs.values()))
+        num_items, dev = first.shape[0], first.device
         if generator is None:
-            generator = torch.Generator(emb.device).manual_seed(0)
-        static = dict(max_len=max_len, beam_size=beam_size, top_k=top_k,
-                      eos_index=eos_index, greedy=greedy, sampler=sampler)
-        inputs = {"enc": emb, "caption": caption,
-                  "inv_t": inv_temperature(temperature, emb.device)}
+            generator = torch.Generator(dev).manual_seed(0)
+        inputs = dict(inputs, caption=caption,
+                      inv_t=inv_temperature(temperature, dev))
         return graphs.generate(
-            lambda: self._program(params, emb, caption, **static), inputs,
+            lambda: self._program(params, encode, num_items, dev, caption,
+                                  **static), inputs,
             generator, compiled=compiled,
             key=lambda: graphs.graph_key(self, params, inputs, **static))
 
@@ -342,14 +369,13 @@ class CaptioningLSTM(_Captioner):
                  max_len=25, temperature=1.0, beam_size=10, top_k=50,
                  eos_index=EOS, greedy=False, sampler=None, compiled=None):
         """Batched caption generation from NHWC images ``[B, H, W, 3]``
-        (ImageNet-normalized; the ResNet runs eagerly, then the decode);
-        arguments as :meth:`generate_from_emb`."""
-        return self.generate_from_emb(
-            params, self.encode(local_tree(params), images),
+        (ImageNet-normalized; the encoder inside the call:
+        :meth:`_from_images`); arguments as :meth:`generate_from_emb`."""
+        return self._from_images(params, {"images": images}, dict(
             generator=generator, caption=caption, max_len=max_len,
             temperature=temperature, beam_size=beam_size, top_k=top_k,
             eos_index=eos_index, greedy=greedy, sampler=sampler,
-            compiled=compiled)
+            compiled=compiled))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -399,13 +425,13 @@ class CaptioningLSTMWithLabels(CaptioningLSTM):
                  max_len=25, temperature=1.0, beam_size=10, top_k=50,
                  eos_index=EOS, greedy=False, sampler=None, compiled=None):
         """Batched caption generation from NHWC images and label tokens;
-        arguments as :meth:`generate_from_emb`."""
-        return self.generate_from_emb(
-            params, self.encode(local_tree(params), images, labels),
-            generator=generator, caption=caption, max_len=max_len,
-            temperature=temperature, beam_size=beam_size, top_k=top_k,
-            eos_index=eos_index, greedy=greedy, sampler=sampler,
-            compiled=compiled)
+        arguments and the encoder as :meth:`CaptioningLSTM.generate`."""
+        return self._from_images(
+            params, {"images": images, "labels": labels}, dict(
+                generator=generator, caption=caption, max_len=max_len,
+                temperature=temperature, beam_size=beam_size, top_k=top_k,
+                eos_index=eos_index, greedy=greedy, sampler=sampler,
+                compiled=compiled))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -636,15 +662,15 @@ class CaptioningTransformerBase(_Captioner):
 
         return run
 
-    def _program(self, params, enc, caption, *, max_len, beam_size, top_k,
-                 greedy, eos_index, sampler, compact, canon, model_group,
-                 pack_items, fused_survivor):
-        """One call as a :class:`graphs.Program`: the prefill and the
-        first draw, then the phases and the boundaries between them (each
-        a graph on the card), then the final pick.
-        ``pack_items`` and ``fused_survivor``: the two switches, read by
-        the caller."""
-        num_items = (enc[0] if isinstance(enc, tuple) else enc).shape[0]
+    def _program(self, params, encode, num_items, caption, *, max_len,
+                 beam_size, top_k, greedy, eos_index, sampler, compact, canon,
+                 model_group, pack_items, fused_survivor):
+        """One call as a :class:`graphs.Program`: the encoder
+        (``encode(inputs)``, which takes the encoder output from the inputs
+        or encodes the images there), the prefill and the first draw, then
+        the phases and the boundaries between them (each a graph on the
+        card), then the final pick. ``pack_items`` and ``fused_survivor``:
+        the two switches, read by the caller."""
         prefix_len = 0 if caption is None else caption.shape[1]
         kw = dict(max_len=max_len, beam_size=beam_size, top_k=top_k,
                   greedy=greedy, eos_index=eos_index, sampler=sampler,
@@ -657,7 +683,7 @@ class CaptioningTransformerBase(_Captioner):
 
         return graphs.Program(
             begin=lambda inputs, noise: self._begin(
-                params, inputs["enc"], inputs["caption"], inputs["inv_t"],
+                params, encode(inputs), inputs["caption"], inputs["inv_t"],
                 noise, **kw),
             finish=finish,
             noise=noise_shapes(steps=max_len - prefix_len,
@@ -857,38 +883,47 @@ class CaptioningTransformerBase(_Captioner):
             it, ``live`` items after its compaction, ``stragglers`` of its
             canon set-up; None where that part did not run).
         """
+        kw = dict(generator=generator, caption=caption, max_len=max_len,
+                  temperature=temperature, beam_size=beam_size, top_k=top_k,
+                  eos_index=eos_index, greedy=greedy, sampler=sampler,
+                  compact=compact, canon=canon, compiled=compiled)
         if placed_mesh(params) is not None:
-            return _tp_generate(self, params, enc, dict(
-                generator=generator, caption=caption, max_len=max_len,
-                temperature=temperature, beam_size=beam_size, top_k=top_k,
-                eos_index=eos_index, greedy=greedy, sampler=sampler,
-                compact=compact, canon=canon, compiled=compiled))
-        sampler = _check_sampler(sampler)
+            return _tp_generate(self, params, enc, kw)
+        return self._generate(params, {"enc": enc}, lambda x: x["enc"],
+                              model_group=model_group, **kw)
+
+    @torch.inference_mode()
+    def _generate(self, params, inputs, encode, *, generator, caption,
+                  max_len, temperature, compiled, model_group=None,
+                  **static):
+        """One generation call from ``inputs`` (the encoder output, or
+        images) that ``encode`` turns into the encoder output at the start
+        of the prefill: on the card the encoder is then part of the
+        prefill's graph."""
+        static["sampler"] = _check_sampler(static["sampler"])
+        dev = params["decoder"]["classifier"]["weight"].device
         if generator is None:
-            generator = torch.Generator(params["decoder"]["classifier"][
-                "weight"].device).manual_seed(0)
+            generator = torch.Generator(dev).manual_seed(0)
         if model_group is not None:
             if compiled:
                 raise ValueError("generation over a model group runs "
                                  "eagerly: pass compiled=None or False")
             compiled = False
         # the positional table bounds total positions (start emb + tokens)
-        max_len = min(max_len, self.max_len - 1)
+        static["max_len"] = min(max_len, self.max_len - 1)
         # the JAX package's two kernel-selecting switches, read per call:
         # DH_CROSS_PACK=<ng> runs decode cross-attention in K9 with ng
         # items per block (0 or unset: K2), DH_FUSED_SURVIVOR=1 runs the
         # survivor update in K10
-        static = dict(
-            max_len=max_len, beam_size=beam_size, top_k=top_k,
-            greedy=greedy, eos_index=eos_index, sampler=sampler,
-            compact=compact, canon=canon,
+        static.update(
             pack_items=int(os.environ.get("DH_CROSS_PACK", "0") or 0),
             fused_survivor=os.environ.get("DH_FUSED_SURVIVOR") == "1")
-        dev = params["decoder"]["classifier"]["weight"].device
-        inputs = {"enc": enc, "caption": caption,
-                  "inv_t": inv_temperature(temperature, dev)}
+        first = next(iter(inputs.values()))
+        num_items = (first[0] if isinstance(first, tuple) else first).shape[0]
+        inputs = dict(inputs, caption=caption,
+                      inv_t=inv_temperature(temperature, dev))
         return graphs.generate(
-            lambda: self._program(params, enc, caption,
+            lambda: self._program(params, encode, num_items, caption,
                                   model_group=model_group, **static),
             inputs, generator, compiled=compiled,
             key=lambda: graphs.graph_key(self, params, inputs, **static))
@@ -898,14 +933,13 @@ class CaptioningTransformerBase(_Captioner):
                  eos_index=EOS, greedy=False, sampler=None, compact=None,
                  canon=None, compiled=None):
         """Batched caption generation from NHWC images ``[B, H, W, 3]``
-        (ImageNet-normalized; the ResNet runs eagerly, then the decode);
-        arguments as :meth:`generate_from_emb`."""
-        return self.generate_from_emb(
-            params, self.encode(local_tree(params), images),
+        (ImageNet-normalized; the encoder inside the call:
+        :meth:`_from_images`); arguments as :meth:`generate_from_emb`."""
+        return self._from_images(params, {"images": images}, dict(
             generator=generator, caption=caption, max_len=max_len,
             temperature=temperature, beam_size=beam_size, top_k=top_k,
             eos_index=eos_index, greedy=greedy, sampler=sampler,
-            compact=compact, canon=canon, compiled=compiled)
+            compact=compact, canon=canon, compiled=compiled))
 
 
 @dataclasses.dataclass(frozen=True)

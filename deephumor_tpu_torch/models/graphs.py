@@ -11,7 +11,10 @@ and the first draw, then the segments of
 :class:`~deephumor_tpu_torch.models.sampling.BeamSearch` (a phase each,
 unrolled; up to 8 steps for the LSTM) with the phase boundary after a
 segment (char's early-EOS compaction and canonical-prefix set-up), then
-the final pick.
+the final pick. A call from images (``generate``) encodes them at the
+start of the prefill, so the encoder (the ResNet-50 trunk and its head)
+is part of the prefill's graph and such a call replays whole, as the JAX
+package's compiled ``generate`` runs ``encode`` inside its program.
 
 The first call of a key runs the whole program once eagerly on a side
 stream (every kernel library build, cuBLAS handle and first-use attribute
@@ -38,9 +41,9 @@ so a skipped boundary leaves them right. After the last graph,
 once. The outputs returned are copies: the next replay overwrites the
 buffers.
 
-A graph bakes in what stays static, so the key holds it: the batch size,
-the device, the sampler arguments, the two kernel switches and the
-parameters' addresses. New parameters or a new batch size make a new
+A graph bakes in what stays static, so the key holds it: the batch size
+(from images, the image shape), the device, the sampler arguments, the
+two kernel switches and the parameters' addresses. New parameters or a new batch size make a new
 key; a new temperature does not. The last ``MAX_KEYS`` keys are kept
 (the batcher's bucket ladder makes one per bucket), as long as they hold
 at most ``MAX_SHARE`` of the card's memory together; an evicted key frees
@@ -67,7 +70,8 @@ from deephumor_tpu_torch.ops import _build
 from deephumor_tpu_torch.utils.pytree import flatten_tree, tree_map
 
 __all__ = ["Program", "graph_key", "use_graphs", "generate", "run_eager",
-           "run_captured", "cache_info", "clear", "MAX_KEYS", "MAX_SHARE"]
+           "run_captured", "capture", "cache_info", "clear", "MAX_KEYS",
+           "MAX_SHARE", "CAPTURE_LOCK"]
 
 # the keys kept, and the share of the card's memory that they may hold
 # together (a word key at batch 1792 holds ~7 GiB: its KV caches)
@@ -75,8 +79,9 @@ MAX_KEYS, MAX_SHARE = 8, 0.5
 
 _CACHE = collections.OrderedDict()
 _CACHE_LOCK = threading.Lock()
-# one capture at a time in a process (a server's batchers share it)
-_CAPTURE_LOCK = threading.Lock()
+# one capture at a time in a process (a server's batchers and a trainer's
+# steps, experiments/step_graphs.py, share it)
+CAPTURE_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -160,6 +165,26 @@ def run_captured(search, segment, boundary):
     return ran
 
 
+def capture(fn, pool, stream, generators=()):
+    """Captures ``fn()`` into a new graph in ``pool`` on ``stream``; returns
+    ``(graph, tally, fn's result)``, the tally holding the kernel launches
+    noted while it was captured (``_build.capture_tally``). Each of
+    ``generators`` (a ``torch.Generator`` that ``fn`` draws from) is
+    registered with the graph, so that every replay draws what an eager
+    call would draw from its state then, and advances it as much. The
+    capture is thread-local: another thread may make calls that a global
+    capture forbids meanwhile (a trainer's prefetch thread pins host
+    memory). The caller holds ``CAPTURE_LOCK``."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    with _build.capture_tally() as tally, torch.cuda.graph(
+            graph, pool=pool, stream=stream,
+            capture_error_mode="thread_local"):
+        out = fn()
+    return graph, tally, out
+
+
 def _tensors(tree):
     return [t for _, t in sorted(flatten_tree(tree).items())
             if isinstance(t, torch.Tensor)]
@@ -191,27 +216,23 @@ class _Graphs:
         self.graphs = []
         made = {}
 
-        def capture(fn):
-            graph = torch.cuda.CUDAGraph()
-            with _build.capture_tally() as tally, torch.cuda.graph(
-                    graph, pool=pool, stream=stream,
-                    capture_error_mode="thread_local"):
-                fn()
+        def add(fn):
+            graph, tally, _ = capture(fn, pool, stream)
             self.graphs.append((graph, tally))
 
-        capture(lambda: made.update(
+        add(lambda: made.update(
             search=program.begin(self.inputs, self.noise)))
         self.search = search = made["search"]
         # (segment graph, boundary graph or None) per segment
         self.steps = []
         for i in range(len(search.segments)):
-            capture(lambda i=i: search.run_segment(i, eager=False))
+            add(lambda i=i: search.run_segment(i, eager=False))
             step = [len(self.graphs) - 1, None]
             if search.has_boundary(i):
-                capture(lambda i=i: search.run_boundary(i, eager=False))
+                add(lambda i=i: search.run_boundary(i, eager=False))
                 step[1] = len(self.graphs) - 1
             self.steps.append(tuple(step))
-        capture(lambda: made.update(out=program.finish(search)))
+        add(lambda: made.update(out=program.finish(search)))
         self.out = made["out"]
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
@@ -256,7 +277,7 @@ def generate(make_program, inputs, gen, *, key, compiled=None):
             _CACHE.move_to_end(key)
     if entry is not None:
         return entry(inputs, gen)
-    with _CAPTURE_LOCK:
+    with CAPTURE_LOCK:
         with _CACHE_LOCK:
             entry = _CACHE.get(key)
         if entry is not None:

@@ -12,7 +12,9 @@ val model (``<title>.best``, readable by either package's
         --model captioning_transformer --mode word [--epochs 10] \\
         [--batch-size 256] [--resume ckpt_prefix] [--device cuda]
 
-It runs on the card unless ``--device cpu`` is given. ``--mesh`` trains
+It runs on the card unless ``--device cpu`` is given; there the train
+and eval steps replay as CUDA graphs unless ``--eager`` is given (the
+same results, stepped from the host). ``--mesh`` trains
 data-parallel over every rank that ``torchrun`` starts, one per card
 (gloo ranks with ``--device cpu``); ``--batch-size`` is the global batch,
 a multiple of the number of ranks, and rank 0 writes the vocabulary, the
@@ -49,6 +51,9 @@ def main(argv=None):
                     help="torch device of the steps (default: cuda)")
     ap.add_argument("--mesh", action="store_true",
                     help="data-parallel training over the torchrun ranks")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps from the host, not as CUDA graphs "
+                         "(a mesh's steps always do)")
     args = ap.parse_args(argv)
 
     import torch
@@ -96,7 +101,8 @@ def main(argv=None):
     model = MODEL_REGISTRY[args.model](num_tokens=len(vocab))
     trainer = Trainer(model, args.title or f"{args.model}-{args.mode}",
                       log_dir=args.log_dir, learning_rate=args.learning_rate,
-                      clip_norm=args.clip_norm, device=device)
+                      clip_norm=args.clip_norm, device=device,
+                      compiled=False if args.eager else None)
     if args.resume:
         state = trainer.restore_checkpoint(args.resume)
         say(f"resumed from {args.resume} at step {state['step']}")
