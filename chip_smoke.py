@@ -104,20 +104,36 @@ count at zero: K1, K2 and K3 must launch and no plain twin may see a CUDA
 tensor; greedy must be token-equal to ``generate_from_emb`` and the two
 sampled calls equal; sampled calls are then timed in turns beside
 ``generate_from_emb``. The word Trainer takes 6 steps at full width
-(bf16, batch 256, the trunk cache) without and with ``mesh=`` (median
-step times; with the mesh, every ``all_reduce`` recorded: the BN moments
-twice a step and the gradients once, all over NCCL on the card), then
-72 mesh steps at the trainer's default log_flush_every (64): the device
-memory held after a step may not grow past one summed-gradient buffer on
-any rank. Then 3 f32 steps at 2 layers, batch 16, dropout 0, without and
+(bf16, batch 256, the trunk cache) without the mesh and with it, captured
+(the default over NCCL: the step's all-reduces inside its graph) and
+eager (``compiled=False``): median step times, the key's first step;
+every all-reduce counted (``utils.collectives``: a captured graph adds
+its tally at each replay), the BN moments twice a step and the
+gradients once, all over NCCL on the card, the same captured and eager;
+captured and eager bit-equal (losses, parameters, moments), every
+captured step after the first under the sync debug mode; then 5 more
+steps of each under the profiler (idle share; the captured trainer's
+second epoch replays its first epoch's key). Then 72 captured mesh
+steps at the trainer's default log_flush_every (64): the device memory
+held after a step may not grow past one summed-gradient buffer on any
+rank. Then 3 f32 steps at 2 layers, batch 16, dropout 0, without and
 with the mesh (losses to rtol 1e-4, parameters to atol 2e-4, the first
 step's summed gradient within P_GRAD_RTOL of the plain one and of a
 plain step whose first forward takes the mesh's ReLU pattern, the first
-forward's ReLU inputs within P_RELU_RTOL). Last, a mesh pipeline
-behind a ``DynamicBatcher`` answers 64 greedy requests, equal to the
-pipeline without a mesh (K1 and K2 launch, no twin on the card), and the
-group is destroyed. The mesh spans one card here: the collectives are
-one-rank NCCL calls, and nothing in the phase measures scaling.
+forward's ReLU inputs within P_RELU_RTOL). On the data 1 x model 1
+mesh, ``place_train_state`` places a Shard on the size-1 model axis, so
+the DP x TP step and a decode given ``mesh.get_group("model")`` run
+their model-axis all-reduces over a one-rank group: the word step
+captured beside eager (bit-equal, the same all-reduces), and the word
+decode at the word leg's width over the local shards with that group,
+captured beside eager (``compare_compiled``: bit-equal greedy and
+sampled, launches per call equal, K1-K3 and no twin on the card, no
+device read in a step). Last, a mesh pipeline behind a
+``DynamicBatcher`` answers 64 greedy requests, equal to the pipeline
+without a mesh (K1 and K2 launch, no twin on the card), the graphs are
+cleared and the group is destroyed. The mesh spans one card here: the
+collectives are one-rank NCCL calls, and nothing in the phase measures
+scaling.
 
 Last, a tensor-parallel phase ([14]). K1 and K2 at the word leg's rows,
 K5, K6 and K4 at the char settings are held against their twins at the
@@ -211,6 +227,7 @@ call of one full batch gave the same texts captured and eager.
     python3 chip_smoke.py --product
     python3 chip_smoke.py --compiled
     python3 chip_smoke.py --train
+    python3 chip_smoke.py --parallel
     torchrun --nproc-per-node N chip_smoke.py --mesh-ranks [tp]
 
 The second form only times K3 and K8 (word, first), K4 (all char rows,
@@ -219,15 +236,21 @@ C_LIVE live, and at X_SHAPES), K3 (the sweep's first draw), K9 (ng 2, 4,
 tree at ROOT (default: this one), and prints one JSON line: run beside
 a parent tree's root, it times the parent's kernels on the same inputs.
 The third builds the kernels and runs [14] alone, the fourth [15], the
-fifth [16], the sixth [12]. The seventh runs over N
-ranks, one per card (N = 2 or 4): first [14]'s data N/2 x model 2 NCCL
-mesh, ``tp_generate`` at the word leg (batch BATCH; greedy on >=
-TP_GREEDY_SHARE of items equal to one card's call, sampled repeatable,
-K1-K3 launched, no twin) timed in turns beside one card's call, and the
-DP x TP train step (bf16, batch T_BATCH) beside the data-parallel step
-over the same cards; then, unless given ``tp``, [13]'s checks over N
-ranks: each dp_generate and mesh step does 1/N of the batch, timed beside
-a one-card plain call. Greedy outputs are held to plain calls on each rank's block
+fifth [16], the sixth [12], the seventh [13]. The eighth runs over N
+ranks, one per card (N = 2 or 4), each phase within MESH_PHASE_S
+seconds (a replayed collective is out of the process group's watchdog),
+after printing the link between the cards: first [14]'s data N/2 x
+model 2 NCCL mesh, ``tp_generate`` at the word leg (batch BATCH)
+captured beside eager (bit-equal sampled and greedy on every rank,
+launches per call equal, K1-K3 and no twin, no device read in the
+rank's decode; greedy on >= TP_GREEDY_SHARE of items equal to one
+card's call) timed in turns beside one card's captured call, and the
+data-parallel step over every card and the DP x TP train step (bf16,
+batch T_BATCH), each captured beside eager (bit-equal, the same
+all-reduces), timed in turns beside one card's captured step; then,
+unless given ``tp``, [13]'s checks over N ranks: each dp_generate and
+mesh step does 1/N of the batch, timed beside a one-card plain call.
+Greedy outputs are held to plain calls on each rank's block
 (the same products; one call of the whole batch rounds its bf16
 products at other shapes, and its share of equal items is reported).
 The f32 mesh steps are held by their losses, ReLU inputs and the masked
@@ -246,6 +269,7 @@ kernels (times, launches per path, bounds, library yardsticks).
 """
 
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -255,6 +279,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -323,6 +348,8 @@ P_RELU_RTOL, P_PARAM_SHARE = 1e-4, 1e-3
 TP_SHAPES = ((HID // 2, HEADS // 2), (HID // 4, HEADS // 4))
 TP_RANKS, TP_BATCH, TP_F32_ITEMS, TP_F32_LAYERS = 2, 256, 64, 2
 TP_GREEDY_SHARE, TP_TRAIN_RTOL, TP_TIMEOUT_S = 0.99, 1e-4, 600
+# --mesh-ranks: the seconds a phase may take on a rank before it exits
+MESH_PHASE_S = 300
 # the share of the f32 DP x TP run's trained parameters past T_PAR_ATOL of
 # one card's: elements whose gradient changes sign between the runs
 # (rounding noise, a ReLU input that rounds across 0 at the head-local
@@ -1709,6 +1736,20 @@ def train_step_cost(bs, seq, t_enc, d, layers, pf, vocab):
     return flops, nbytes
 
 
+def restore_step(trainer, step):
+    """Puts ``trainer._train_step`` back to ``step`` (what it was before a
+    wrapper replaced it), without leaving the trainer's own bound method
+    on the instance: that reference cycle would keep the trainer, its
+    captured graphs and through them its NCCL communicators alive until
+    the garbage collector runs, and a process group's destroy waits for
+    such graphs."""
+    if getattr(step, "__self__", None) is trainer and (
+            step.__func__ is type(trainer)._train_step):
+        del trainer._train_step
+    else:
+        trainer._train_step = step
+
+
 def train_epoch_timed(trainer, state, loader, gen, mesh=None,
                       no_sync=False):
     """``run_epoch`` with a CUDA event at the start of every step (no
@@ -1739,7 +1780,7 @@ def train_epoch_timed(trainer, state, loader, gen, mesh=None,
     try:
         state, loss, pp = trainer.run_epoch(state, loader, gen, mesh=mesh)
     finally:
-        trainer._train_step = step
+        restore_step(trainer, step)
     end = torch.cuda.Event(enable_timing=True)
     end.record()
     torch.cuda.synchronize()
@@ -1749,9 +1790,10 @@ def train_epoch_timed(trainer, state, loader, gen, mesh=None,
     return state, ms, wall, torch.cuda.max_memory_allocated()
 
 
-def train_profile(trainer, state, loader, gen, steps):
-    """torch.profiler over ``steps`` train steps of ``loader``: (state,
-    wall ms, device kernel ms, cuBLAS ms, events by device time)."""
+def train_profile(trainer, state, loader, gen, steps, mesh=None):
+    """torch.profiler over ``steps`` train steps of ``loader`` (over
+    ``mesh`` when given): (state, wall ms, device kernel ms, cuBLAS ms,
+    events by device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     window = itertools.islice(iter(loader), steps)
@@ -1759,7 +1801,7 @@ def train_profile(trainer, state, loader, gen, steps):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _, _ = trainer.run_epoch(state, window, gen)
+        state, _, _ = trainer.run_epoch(state, window, gen, mesh=mesh)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
@@ -1775,13 +1817,15 @@ def train_profile(trainer, state, loader, gen, steps):
 
 def state_gap(a, b):
     """The largest difference between two train states' parameters and
-    moments."""
+    moments (of a state placed on a mesh: this rank's local tensors)."""
+    from deephumor_tpu_torch.parallel.sharding import local_tree
     from deephumor_tpu_torch.utils.pytree import flatten_tree
 
     def flat(st):
-        out = dict(flatten_tree(st["params"]))
+        out = dict(flatten_tree(local_tree(st["params"])))
         for m in ("mu", "nu"):
-            out.update({f"{m}/{k}": v for k, v in st["opt_state"][m].items()})
+            out.update({f"{m}/{k}": v for k, v in
+                        local_tree(st["opt_state"][m]).items()})
         return out
 
     fa, fb = flat(a), flat(b)
@@ -2063,21 +2107,22 @@ def check_train(CaptioningTransformer, tree_map, _build, modules, dev,
 
 
 def recorded_all_reduce():
-    """Wraps ``torch.distributed.all_reduce`` (the port calls it through
-    the module) so that each call is recorded as (device type, elements,
-    backend of its group); returns the record and a function that puts the
-    original back."""
-    import torch.distributed as dist
+    """Records the port's all-reduces from now on as (device type,
+    elements, backend of its group), one entry a call: the counts of
+    ``utils.collectives``, where an eager call counts once and a captured
+    graph adds its tally at each replay. Returns the record and a
+    function that fills it in."""
+    import collections
 
-    seen, real = [], dist.all_reduce
+    from deephumor_tpu_torch.utils import collectives
 
-    def recording(tensor, *args, **kwargs):
-        seen.append((tensor.device.type, tensor.numel(),
-                     dist.get_backend(kwargs.get("group"))))
-        return real(tensor, *args, **kwargs)
+    seen, start = [], collections.Counter(collectives.COUNTS)
 
-    dist.all_reduce = recording
-    return seen, lambda: setattr(dist, "all_reduce", real)
+    def close():
+        seen.extend(k for k, n in sorted((collectives.COUNTS - start).items())
+                    for _ in range(n))
+
+    return seen, close
 
 
 def logged_losses(trainer):
@@ -2123,7 +2168,7 @@ def mesh_memory_held(trainer, state, loader, gen, mesh):
     try:
         trainer.run_epoch(state, loader, gen, mesh=mesh)
     finally:
-        trainer._train_step = step
+        restore_step(trainer, step)
     return held
 
 
@@ -2151,60 +2196,110 @@ def parallel_train(CaptioningTransformer, tree_map, dev, name_limit, logdir,
     cache = torch.randn(T_TEMPLATES, 7, 7, 2048, device=dev,
                         generator=torch.Generator(dev).manual_seed(12))
     n_trainable = None
-    for label, m in (("plain", None), ("mesh", mesh)):
+    runs = {}
+    # without the mesh, and with it captured (the default over NCCL) and
+    # eager (compiled=False), from one seed
+    for label, m, compiled in (("plain", None, None), ("mesh", mesh, None),
+                               ("mesh_eager", mesh, False)):
         trainer = Trainer(model, f"par_{label}", log_dir=logdir,
                           compute_dtype="bfloat16", device=dev,
-                          log_flush_every=1)
+                          log_flush_every=1, compiled=compiled)
         state = trainer.init_state(torch.Generator(dev).manual_seed(0))
         if m is not None:
             state = replicate(state, m)
         trainer._trunk_cache = cache
         n_trainable = sum(v.numel() for v in state["opt_state"]["mu"].values())
-        seen, restore = recorded_all_reduce()
+        gen = torch.Generator(dev).manual_seed(13)
+        seen, close = recorded_all_reduce()
         try:
+            # a captured step after the first reads nothing from the device
             state, ms, wall, peak = train_epoch_timed(
-                trainer, state, loader, torch.Generator(dev).manual_seed(13),
-                m)
+                trainer, state, loader, gen, m, no_sync=compiled is None)
         finally:
-            restore()
+            close()
         # the mesh's losses are logged on rank 0 only
         losses = logged_losses(trainer) if m is None or lead else None
         med = float(np.median(ms[P_WARM:]))
+        keys = [k for k in trainer._graphs.info() if k["kind"] == "train"]
         out[label] = {"losses": losses, "step_ms": ms, "step_ms_median": med,
                       "peak_mem_gib": peak / 2**30,
-                      "all_reduces": len(seen)}
+                      "all_reduces": len(seen), "keys": keys}
         log(f"  word train, bf16, batch {T_BATCH}, {len(ms)} steps, "
-            f"{'with' if m is not None else 'without'} the mesh "
+            f"{'with' if m is not None else 'without'} the mesh, "
+            f"{'eager' if compiled is False else 'captured'} "
             f"({name_limit}): median step {med:.2f} ms (steps "
             f"{P_WARM + 1}-{len(ms)}; all: {[round(x, 2) for x in ms]}), "
             f"peak {peak / 2**30:.2f} GiB, losses "
             f"{losses and [round(x, 4) for x in losses]}; all-reduces "
-            f"{len(seen)}")
+            f"{len(seen)}" + "".join(
+                f"; the key's first step (eager, then capture) "
+                f"{k['capture_s']:.2f} s, it holds {k['bytes'] / 2**30:.2f} "
+                f"GiB, {k['replays']} replays" for k in keys))
         if (m is None or lead) and not (
                 len(losses) == P_STEPS and np.isfinite(losses).all()):
             raise AssertionError(f"parallel train ({label}): losses {losses}")
         if m is None and seen:
             raise AssertionError("train without a mesh all-reduced")
+        if (len(keys) != (compiled is None)
+                or any(k["replays"] != P_STEPS - 1 for k in keys)):
+            raise AssertionError(f"parallel train ({label}): train keys "
+                                 f"{keys}")
         if m is not None:
             # per step: the BN moments (sums, sums of squares, count) in
             # the forward and their gradient in the backward; the loss's
             # token count and row weights; the gradients with the loss and
-            # perplexity, before the clip
+            # perplexity, before the clip. Captured, each replay adds the
+            # graph's tally: the same counts
             bn = [x for x in seen if x[1] == 2 * HID + 1]
             grad = [x for x in seen if x[1] == n_trainable + 2]
-            log(f"  mesh all-reduces: {len(bn)} of the BN moments "
+            log(f"  mesh all-reduces ({label}): {len(bn)} of the BN moments "
                 f"({2 * HID + 1} elements), {len(grad)} of the gradients "
                 f"({n_trainable + 2} elements), on {sorted(set(seen))[:1]}"
                 f" ... ({len(seen)} in all)")
             if not (len(bn) == 2 * P_STEPS and len(grad) == P_STEPS and all(
                     d == "cuda" and b == "nccl" for d, _, b in seen)):
                 raise AssertionError(f"mesh train all-reduces: {seen}")
-        del trainer, state
+            out[label]["seen"] = seen
+        runs[label] = (trainer, state, gen)
+    gap = state_gap(runs["mesh"][1], runs["mesh_eager"][1])
+    same_losses = out["mesh"]["losses"] == out["mesh_eager"]["losses"]
+    same_reduces = out["mesh"].pop("seen") == out["mesh_eager"].pop("seen")
+    log(f"  mesh, captured vs eager: parameters and moments differ by at "
+        f"most {gap}; losses equal: {same_losses}; the same all-reduces "
+        f"per step: {same_reduces}")
+    if gap or not (same_losses and same_reduces):
+        raise AssertionError("the captured mesh step differs from the eager "
+                             "one")
+    # the idle share of T_PROFILED more steps each: a second epoch of the
+    # captured mesh trainer replays its first epoch's key (its dropout
+    # generator is reseeded, not made anew)
+    for label in ("mesh", "mesh_eager"):
+        trainer, state, gen = runs[label]
+        _, pwall, busy, _, _ = train_profile(trainer, state, loader, gen,
+                                             T_PROFILED, mesh)
+        keys = [k for k in trainer._graphs.info() if k["kind"] == "train"]
+        out[label]["profile"] = {
+            "wall_ms": pwall, "device_ms": busy,
+            "idle_share": 1 - busy / pwall, "idle_share_unprofiled":
+                1 - busy / T_PROFILED / out[label]["step_ms_median"]}
+        log(f"  word train profile with the mesh, {label}, {T_PROFILED} "
+            f"steps ({name_limit}): wall {pwall:.1f} ms, device kernel time "
+            f"{busy:.1f} ms, idle share {1 - busy / pwall:.3f} under the "
+            f"profiler, {out[label]['profile']['idle_share_unprofiled']:.3f}"
+            f" against the unprofiled median step; train keys after a "
+            f"second epoch {[(k['replays'], k['capture_s']) for k in keys]}")
+        if label == "mesh" and not (
+                len(keys) == 1
+                and keys[0]["replays"] == P_STEPS - 1 + T_PROFILED):
+            raise AssertionError(f"the mesh's second epoch made a new key: "
+                                 f"{keys}")
+        trainer.close()
+    del runs, trainer, state
 
     # the mesh at the trainer's default log_flush_every, for more steps
-    # than it: what the deferred metrics hold must not grow with the
-    # steps on any rank (a metric that is a view of the summed-gradient
-    # buffer would keep the whole buffer alive)
+    # than it, captured (the default): what the deferred metrics hold must
+    # not grow with the steps on any rank (a metric that is a view of the
+    # summed-gradient buffer would keep the whole buffer alive)
     trainer = Trainer(model, "par_memory", log_dir=logdir,
                       compute_dtype="bfloat16", device=dev)
     state = replicate(trainer.init_state(torch.Generator(dev).manual_seed(0)),
@@ -2218,11 +2313,15 @@ def parallel_train(CaptioningTransformer, tree_map, dev, name_limit, logdir,
     growth = [None] * dist.get_world_size()
     dist.all_gather_object(growth, max(held[P_WARM:]) - held[P_WARM])
     grad_bytes = 4 * (n_trainable + 2)
+    keys = [(k["kind"], k["replays"]) for k in trainer._graphs.info()]
     out["memory"] = {"steps": len(held),
                      "log_flush_every": trainer.log_flush_every,
                      "growth_bytes_per_rank": growth,
-                     "gradient_buffer_bytes": grad_bytes}
-    log(f"  word train, bf16, batch {T_BATCH}, {len(held)} steps with the "
+                     "gradient_buffer_bytes": grad_bytes, "keys": keys}
+    if keys != [("train", steps - 1)]:
+        raise AssertionError(f"mesh memory run: keys {keys}")
+    log(f"  word train, bf16, batch {T_BATCH}, {len(held)} captured steps "
+        f"(keys {keys}) with the "
         f"mesh at log_flush_every {trainer.log_flush_every}: device memory "
         f"held after each step grew past step {P_WARM + 1}'s by at most "
         f"{growth} bytes on the ranks (<= {grad_bytes}, one summed-gradient "
@@ -2230,6 +2329,7 @@ def parallel_train(CaptioningTransformer, tree_map, dev, name_limit, logdir,
     if len(held) != steps or max(growth) > grad_bytes:
         raise AssertionError(f"mesh train memory grows with the steps: "
                              f"{growth} bytes per rank")
+    trainer.close()
     del trainer, state
 
     # f32, dropout 0: the mesh's steps are the plain steps. Beside them:
@@ -2295,6 +2395,7 @@ def parallel_train(CaptioningTransformer, tree_map, dev, name_limit, logdir,
             # the mesh's losses are logged on rank 0 only
             logged_losses(tr) if m is None or lead else None,
             {k: v.cpu() for k, v in flatten_tree(st["params"]).items()})
+        tr.close()
     trained = [k for k, m in flatten_tree(frozen_mask(params)).items() if m]
     n_trained = sum(runs["plain"][1][k].numel() for k in trained)
     l_plain, p_plain = runs["plain"]
@@ -2404,6 +2505,96 @@ def parallel_train(CaptioningTransformer, tree_map, dev, name_limit, logdir,
     return out
 
 
+def parallel_tp_one(CaptioningTransformer, _build, modules, dev, name_limit,
+                    logdir, mesh):
+    """[13]'s data 1 x model 1 part: ``place_train_state`` places a Shard on
+    the one-rank mesh's model axis, so the DP x TP step and a decode given
+    ``mesh.get_group("model")`` make their model-axis all-reduces over a
+    one-rank NCCL group, inside their graphs. The word step (bf16, batch
+    T_BATCH) captured beside eager: bit-equal, the same all-reduces a
+    step; the word decode at the word leg's width with that group
+    (``compare_compiled``): bit-equal, launches equal, K1-K3 and no twin
+    on the card. Returns the decode's launches per call and the numbers."""
+    from deephumor_tpu_torch.data.dataloaders import BatchIterator
+    from deephumor_tpu_torch.experiments.trainer import Trainer
+    from deephumor_tpu_torch.models import graphs
+    from deephumor_tpu_torch.parallel import (make_param_shardings,
+                                              place_train_state)
+    from deephumor_tpu_torch.parallel.sharding import local_tree, model_group
+
+    out = {}
+    model = CaptioningTransformer(num_tokens=VOCAB, hid_dim=HID,
+                                  n_layers=LAYERS, n_heads=HEADS, pf_dim=PF,
+                                  max_len=50)
+    ds, _ = memory_set(T_BATCH * P_STEPS, T_TEMPLATES, VOCAB, 11)
+    rows = {f"t{i:03d}": i for i in range(T_TEMPLATES)}
+    loader = list(BatchIterator(ds, T_BATCH, max_caption_len=T_CAP + 1,
+                                seed=0, image_rows=rows))[:P_STEPS]
+    cache = torch.randn(T_TEMPLATES, 7, 7, 2048, device=dev,
+                        generator=torch.Generator(dev).manual_seed(12))
+    runs = {}
+    for label, compiled in (("captured", None), ("eager", False)):
+        trainer = Trainer(model, f"tp1_{label}", log_dir=logdir,
+                          compute_dtype="bfloat16", device=dev,
+                          log_flush_every=1, compiled=compiled)
+        state = place_train_state(
+            trainer.init_state(torch.Generator(dev).manual_seed(0)), mesh)
+        trainer._trunk_cache = cache
+        seen, close = recorded_all_reduce()
+        try:
+            state, ms, _, peak = train_epoch_timed(
+                trainer, state, loader, torch.Generator(dev).manual_seed(13),
+                mesh, no_sync=compiled is None)
+        finally:
+            close()
+        keys = [(k["kind"], k["replays"]) for k in trainer._graphs.info()]
+        med = float(np.median(ms[P_WARM:]))
+        out[label] = {"step_ms": ms, "step_ms_median": med,
+                      "peak_mem_gib": peak / 2**30, "all_reduces": len(seen),
+                      "keys": keys}
+        runs[label] = (state, sorted(seen))
+        trainer.close()
+        log(f"  DP x TP word train on data 1 x model 1, bf16, batch "
+            f"{T_BATCH}, {len(ms)} steps, {label} ({name_limit}): median "
+            f"step {med:.2f} ms (all: {[round(x, 2) for x in ms]}), peak "
+            f"{peak / 2**30:.2f} GiB, {len(seen)} all-reduces, keys {keys}")
+    grouped = model_group(runs["captured"][0]["params"])
+    gap = state_gap(runs["captured"][0], runs["eager"][0])
+    same = runs["captured"][1] == runs["eager"][1]
+    log(f"  DP x TP captured vs eager: the model group has "
+        f"{grouped.size() if grouped is not None else None} rank(s); "
+        f"parameters and moments differ by at most {gap}; the same "
+        f"all-reduces: {same}")
+    if grouped is None or gap or not same or out["captured"]["keys"] != [
+            ("train", P_STEPS - 1)]:
+        raise AssertionError("[13] the captured DP x TP step differs from "
+                             "the eager one")
+    del runs, state, trainer, cache
+
+    model, params = make_model(CaptioningTransformer, "bfloat16", dev, False)
+    local = local_tree(make_param_shardings(params, mesh))
+    enc = features(BATCH, dev, 4)
+    kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K, temperature=1.0,
+              sampler="pallas", model_group=mesh.get_group("model"))
+    word = ("ancestry_attention_update", "grouped_cross_attention",
+            "fused_topk_gumbel_sample")
+    hits, restore = twin_guard(modules)
+    try:
+        res = compare_compiled(model, local, enc, kw, _build, graphs,
+                               "word with a one-rank model group",
+                               name_limit, path_kernels=word, tag="[13]")
+    finally:
+        restore()
+    extra = [k for k, v in res["launches_per_call"].items()
+             if v and k not in word]
+    if hits or extra:
+        raise AssertionError(f"[13] decode with a model group: twins on the "
+                             f"card {sorted(set(hits))}, launched off the "
+                             f"path {extra}")
+    out["decode"] = res
+    return res["launches_per_call"], out
+
+
 def parallel_serving(CaptioningTransformer, _build, modules, dev, mesh):
     """[13]'s serving check: a mesh pipeline behind a DynamicBatcher
     answers P_REQUESTS greedy requests, handed over in one submit_many
@@ -2474,6 +2665,7 @@ def check_parallel(CaptioningTransformer, tree_map, _build, modules, dev,
     and of the mesh batcher's, and its numbers."""
     import torch.distributed as dist
 
+    from deephumor_tpu_torch.models import graphs
     from deephumor_tpu_torch.parallel import dp_generate, make_mesh, replicate
 
     mesh = make_mesh("cuda")
@@ -2560,10 +2752,23 @@ def check_parallel(CaptioningTransformer, tree_map, _build, modules, dev,
 
         out["train"] = parallel_train(CaptioningTransformer, tree_map, dev,
                                       name_limit, logdir, mesh)
+        if world == 1:
+            out["tp_one_launches"], out["tp_one"] = parallel_tp_one(
+                CaptioningTransformer, _build, modules, dev, name_limit,
+                logdir, mesh)
         serving = parallel_serving(CaptioningTransformer, _build, modules,
                                    dev, mesh)
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        # the error first, and the group left as it is: a graph that holds
+        # its collectives may live on in the traceback, and a peer may be
+        # inside a collective
+        traceback.print_exc()
+        sys.stderr.flush()
+        raise
+    # graphs that hold the group's collectives go before it
+    gc.collect()
+    graphs.clear()
+    dist.destroy_process_group()
     return launches, serving, out
 
 
@@ -3032,16 +3237,21 @@ def tp_rank(rank, port, outdir, device_type="cuda"):
 def check_tp_mesh(CaptioningTransformer, _build, modules, dev, name_limit,
                   logdir):
     """``--mesh-ranks``' tensor-parallel part: a data N/2 x model 2 NCCL
-    mesh, one rank per card. ``tp_generate`` at the word leg (batch
-    BATCH) beside one card's call, and the DP x TP train step (bf16, batch
-    T_BATCH) beside the data-parallel step over every card. Returns the
-    launches of its tp_generate run and its numbers."""
+    mesh, one rank per card. ``tp_generate`` at the word leg (batch BATCH)
+    captured (the default) beside eager and beside one card's captured
+    call; the data-parallel step over every card (data N) and the DP x TP
+    step (bf16, batch T_BATCH), each captured beside eager, timed in turns
+    beside one card's captured step. Returns the launches of a captured
+    tp_generate call and its numbers."""
     import torch.distributed as dist
 
     from deephumor_tpu_torch.data.dataloaders import BatchIterator
     from deephumor_tpu_torch.experiments.trainer import Trainer
+    from deephumor_tpu_torch.models import graphs
     from deephumor_tpu_torch.parallel import (make_mesh, make_param_shardings,
                                               place_train_state, replicate)
+    from deephumor_tpu_torch.parallel.mesh import data_index
+    from deephumor_tpu_torch.parallel.sharding import local_tree
 
     mesh = make_mesh("cuda", model=2)
     shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -3051,54 +3261,87 @@ def check_tp_mesh(CaptioningTransformer, _build, modules, dev, name_limit,
     enc = features(BATCH, dev, 4)
     kw = dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K, temperature=1.0,
               sampler="pallas")
-    model.generate_from_emb(tp, enc, **kw)  # warm-up
+
+    def call(params, compiled, seed=5, **extra):
+        return model.generate_from_emb(
+            params, enc, generator=torch.Generator(dev).manual_seed(seed),
+            compiled=compiled, **dict(kw, **extra))
+
+    graphs.clear()
+    eager = call(tp, False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    captured = call(tp, None)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    info = graphs.cache_info()
+    again = call(tp, None)
+    greedy = [call(tp, c, greedy=True) for c in (False, None)]
+    same = (same_outputs(captured, eager) and same_outputs(again, eager)
+            and same_outputs(*greedy))
     hits, restore = twin_guard(modules)
-    _build.reset_launch_counts()
+    counts = []
     try:
-        greedy = model.generate_from_emb(tp, enc, greedy=True, **kw)
-        sampled = [model.generate_from_emb(
-            tp, enc, generator=torch.Generator(dev).manual_seed(5), **kw)
-            for _ in range(2)]
+        for compiled in (False, None):
+            _build.reset_launch_counts()
+            call(tp, compiled)
+            counts.append(dict(_build.LAUNCHES))
     finally:
         restore()
-    launches = dict(_build.LAUNCHES)
-    for o in (greedy, *sampled):
+    launches = counts[1]
+    for o in (eager, captured, *greedy):
         check_output(o, BATCH, VOCAB, BEAM, MAX_LEN)
-    whole = model.generate_from_emb(params, enc, greedy=True, **kw)
-    share = (greedy["chosen"] == whole["chosen"]).all(dim=1).float()
+    # the rank's decode alone (its data block, the model group), which
+    # replays the same key: no device read in a step or boundary
+    rows = BATCH // shape["data"]
+    block = slice(data_index(mesh) * rows, (data_index(mesh) + 1) * rows)
+    _, reads = sync_checked(lambda: model.generate_from_emb(
+        local_tree(tp), tuple(x[block] for x in enc),
+        model_group=mesh.get_group("model"), **kw))
+    whole = call(params, None, greedy=True)
+    share = (greedy[1]["chosen"] == whole["chosen"]).all(dim=1).float()
     share = share.mean().item()
-    repeat = all(torch.equal(sampled[0][k], sampled[1][k])
-                 for k in ("sequences", "chosen", "scores"))
     word = ("ancestry_attention_update", "grouped_cross_attention",
             "fused_topk_gumbel_sample")
     missing = [k for k in word if launches[k] < 1]
     extra = [k for k, v in launches.items() if v and k not in word]
-    log(f"  tp_generate over {shape}, batch {BATCH} (greedy, then sampled "
-        f"twice with seed 5): greedy token-equal to one card's call on "
-        f"{share:.4f} of items (>= {TP_GREEDY_SHARE}); sampled calls equal: "
-        f"{repeat}; launches {launches}; twins on the card "
-        f"{sorted(set(hits))}")
-    if missing or extra or hits or not repeat or share < TP_GREEDY_SHARE:
+    keys = [(k["graphs"], k["collective"], k["replays"]) for k in info]
+    log(f"  tp_generate over {shape}, batch {BATCH}: captured (the first "
+        f"call {first_s:.2f} s, keys {keys}) bit-equal to eager, sampled "
+        f"and greedy: {same}; launches per call equal: "
+        f"{counts[0] == counts[1]} ({launches}); twins on the card "
+        f"{sorted(set(hits))}; no device read in the rank's decode "
+        f"({reads} host_read calls); greedy token-equal to one card's call "
+        f"on {share:.4f} of items (>= {TP_GREEDY_SHARE})")
+    if (missing or extra or hits or not same or counts[0] != counts[1]
+            or share < TP_GREEDY_SHARE
+            or [k["collective"] for k in info] != [True]):
         raise AssertionError(f"tp_generate over the cards: not launched "
                              f"{missing}, off the path {extra}, twins "
-                             f"{sorted(set(hits))}, repeat {repeat}, greedy "
-                             f"share {share}")
-    secs = {"plain": [], "tp_generate": []}
-    for i, label in enumerate(("plain", "tp_generate") * 2
-                              + ("tp_generate", "plain") * 2):
-        g = torch.Generator(dev).manual_seed(30 + i)
+                             f"{sorted(set(hits))}, captured equal {same}, "
+                             f"launches {counts}, greedy share {share}, "
+                             f"keys {keys}")
+    # in turns: one card's captured call, tp_generate eager and captured
+    secs = {"plain": [], "tp_generate_eager": [], "tp_generate": []}
+    for i, label in enumerate(
+            ("plain", "tp_generate_eager", "tp_generate", "tp_generate",
+             "tp_generate_eager", "plain") * 2):
         dist.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.generate_from_emb(tp if label == "tp_generate" else params,
-                                enc, generator=g, **kw)
+        call(params if label == "plain" else tp,
+             False if label == "tp_generate_eager" else None, seed=30 + i)
         torch.cuda.synchronize()
         secs[label].append((time.perf_counter() - t0) * 1e3)
-    out.update(greedy_share=share, generate_ms=secs)
+    out.update(greedy_share=share, generate_ms=secs, first_call_s=first_s,
+               host_reads=reads)
     log(f"  sampled call, batch {BATCH} ({name_limit}): tp_generate "
-        f"{[round(x, 1) for x in secs['tp_generate']]} ms, one card's "
-        f"generate_from_emb {[round(x, 1) for x in secs['plain']]} ms")
-    del tp, enc, greedy, sampled, whole
+        f"captured {[round(x, 1) for x in secs['tp_generate']]} ms, eager "
+        f"{[round(x, 1) for x in secs['tp_generate_eager']]} ms, one card's "
+        f"captured generate_from_emb {[round(x, 1) for x in secs['plain']]}"
+        f" ms")
+    del tp, enc, eager, captured, again, greedy, whole
+    graphs.clear()
 
     tmodel = CaptioningTransformer(num_tokens=VOCAB, hid_dim=HID,
                                    n_layers=LAYERS, n_heads=HEADS,
@@ -3109,26 +3352,66 @@ def check_tp_mesh(CaptioningTransformer, _build, modules, dev, name_limit,
                                 seed=0, image_rows=rows))[:P_STEPS]
     cache = torch.randn(T_TEMPLATES, 7, 7, 2048, device=dev,
                         generator=torch.Generator(dev).manual_seed(12))
-    out["train"] = {}
-    for label, m in (("dp", make_mesh("cuda")), ("dp_x_tp", mesh)):
+    dp = make_mesh("cuda")
+    runs = {}
+    for label, m, compiled in (
+            ("one_card", None, None), ("dp", dp, None),
+            ("dp_eager", dp, False), ("dp_x_tp", mesh, None),
+            ("dp_x_tp_eager", mesh, False)):
         trainer = Trainer(tmodel, f"tp_{label}", log_dir=logdir,
                           compute_dtype="bfloat16", device=dev,
-                          log_flush_every=1)
+                          log_flush_every=1, compiled=compiled)
         state = trainer.init_state(torch.Generator(dev).manual_seed(0))
-        state = (replicate(state, m) if label == "dp"
-                 else place_train_state(state, m))
+        if m is dp:
+            state = replicate(state, m)
+        elif m is mesh:
+            state = place_train_state(state, m)
         trainer._trunk_cache = cache
-        state, ms, wall, peak = train_epoch_timed(
-            trainer, state, loader, torch.Generator(dev).manual_seed(13), m)
-        med = float(np.median(ms[P_WARM:]))
+        runs[label] = [trainer, state, m, torch.Generator(dev).manual_seed(13),
+                       [], [], compiled]
+    # in turns, one epoch of P_STEPS steps each: the order, then back
+    order = list(runs)
+    for rnd, labels in enumerate((order, order[::-1])):
+        for label in labels:
+            r = runs[label]
+            trainer, state, m, gen, ms, seen, compiled = r
+            rec, close = recorded_all_reduce()
+            dist.barrier()
+            try:
+                r[1], step_ms, _, _ = train_epoch_timed(
+                    trainer, state, loader, gen, m, no_sync=compiled is None)
+            finally:
+                close()
+            # the key's first step (round 0's first) holds its capture
+            ms += step_ms[P_WARM:] if rnd == 0 else step_ms
+            seen.append(sorted(rec))
+        if rnd == 0:
+            for label in ("dp", "dp_x_tp"):
+                gap = state_gap(runs[label][1], runs[label + "_eager"][1])
+                same = runs[label][5] == runs[label + "_eager"][5]
+                log(f"  {label} captured vs eager after {P_STEPS} steps: "
+                    f"parameters and moments differ by at most {gap}; the "
+                    f"same all-reduces: {same}")
+                if gap or not same:
+                    raise AssertionError(f"{label}: the captured step "
+                                         f"differs from the eager one")
+    out["train"] = {}
+    for label, (trainer, state, m, _, ms, seen, compiled) in runs.items():
+        keys = [(k["kind"], k["replays"], k["capture_s"])
+                for k in trainer._graphs.info()]
+        med = float(np.median(ms))
         out["train"][label] = {"step_ms": ms, "step_ms_median": med,
-                               "peak_mem_gib": peak / 2**30}
-        log(f"  word train, bf16, batch {T_BATCH}, {len(ms)} steps, "
-            f"{label} over {dict(zip(m.mesh_dim_names, m.shape))} "
-            f"({name_limit}): median step {med:.2f} ms (all: "
-            f"{[round(x, 2) for x in ms]}), peak {peak / 2**30:.2f} GiB")
+                               "keys": keys, "all_reduces": len(seen[0])}
+        where = (dict(zip(m.mesh_dim_names, m.shape)) if m is not None
+                 else "one card, the whole batch")
+        log(f"  word train, bf16, batch {T_BATCH}, {label} over {where} "
+            f"({name_limit}): median step {med:.2f} ms of {len(ms)} steps "
+            f"in two turns (all: {[round(x, 2) for x in ms]}); keys {keys}; "
+            f"{len(seen[0])} all-reduces an epoch")
+        if compiled is None and len(keys) != 1:
+            raise AssertionError(f"{label}: train keys {keys}")
         trainer.close()
-        del trainer, state
+    del runs, trainer, state
     return launches, out
 
 
@@ -3137,10 +3420,14 @@ def mesh_ranks(tp_only=False):
     data N/2 x model 2 part, then [13]'s checks and timings over every
     rank (module docstring); ``--mesh-ranks tp`` runs the [14] part
     alone. Rank 0 builds the kernels while the others wait, then prints
-    the phases' numbers."""
+    the phases' numbers. Each phase has MESH_PHASE_S seconds: a replayed
+    collective is out of the process group's watchdog, so a rank that
+    hangs in one dumps its stack and exits, which ends the run."""
+    import faulthandler
+
     import torch.distributed as dist
 
-    from deephumor_tpu_torch.models import CaptioningTransformer
+    from deephumor_tpu_torch.models import CaptioningTransformer, graphs
     from deephumor_tpu_torch.ops import _build
     from deephumor_tpu_torch.ops import attention as A
     from deephumor_tpu_torch.ops import cache as C
@@ -3164,24 +3451,41 @@ def mesh_ranks(tp_only=False):
         check=True, timeout=60).stdout.strip().splitlines()))
     log(f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | "
         f"nvidia-smi: {name_limit} | torch {torch.__version__}")
+    # the link between the cards (NVLink or PCIe) sets the all-reduces'
+    # share of a step
+    for args in (["topo", "-m"], ["nvlink", "--status"]):
+        res = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                             text=True, timeout=60)
+        log(f"nvidia-smi {' '.join(args)} (exit {res.returncode}):\n"
+            + (res.stdout + res.stderr).rstrip())
+    n = torch.cuda.device_count()
+    log("peer access between the cards (torch): " + str(
+        [[i == j or torch.cuda.can_device_access_peer(i, j)
+          for j in range(n)] for i in range(n)]))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as logdir:
         log(f"[14] tensor parallel over {dist.get_world_size()} ranks, one "
             f"per card: tp_generate and the DP x TP train step")
+        faulthandler.dump_traceback_later(MESH_PHASE_S, exit=True)
         tp_launches, tp = check_tp_mesh(CaptioningTransformer, _build,
                                         (A, C, E, S), dev, name_limit, logdir)
         tp.update(launches=tp_launches, card=name_limit,
                   seconds=time.perf_counter() - t0)
         log("tensor parallel: " + json.dumps(tp))
+        faulthandler.cancel_dump_traceback_later()
         if tp_only:
+            gc.collect()
+            graphs.clear()
             dist.destroy_process_group()
             return
         log(f"[13] parallel over {dist.get_world_size()} ranks, one per "
             f"card")
         t0 = time.perf_counter()
+        faulthandler.dump_traceback_later(MESH_PHASE_S, exit=True)
         launches, serving, out = check_parallel(
             CaptioningTransformer, tree_map, _build, (A, C, E, S), dev,
             name_limit, logdir)
+        faulthandler.cancel_dump_traceback_later()
     out.update(launches=launches, serving_launches=serving, card=name_limit,
                seconds=time.perf_counter() - t0)
     log("parallel: " + json.dumps(out))
@@ -3802,7 +4106,8 @@ def idle_share(fn):
 
 
 def compare_compiled(model, params, enc, kw, _build, graphs, label,
-                     name_limit, calls=G_CALLS, path_kernels=(), images=None):
+                     name_limit, calls=G_CALLS, path_kernels=(), images=None,
+                     tag="[16]"):
     """One path captured beside eager (``compiled=False``) from the same
     inputs and generator seed (``images``: ``generate`` from these
     positional inputs, the images and, for the labelled LSTM, the labels,
@@ -3835,22 +4140,22 @@ def compare_compiled(model, params, enc, kw, _build, graphs, label,
     first_s = time.perf_counter() - t0
     (info,) = graphs.cache_info()
     if info["eager_tail"]:
-        raise AssertionError(f"[16] {label}: part of the call runs eagerly "
+        raise AssertionError(f"{tag} {label}: part of the call runs eagerly "
                              f"after its graphs")
     budget = graphs.MAX_SHARE * torch.cuda.get_device_properties(
         dev).total_memory
     if info["bytes"] > budget:
-        raise AssertionError(f"[16] {label}: the key holds {info['bytes']} "
+        raise AssertionError(f"{tag} {label}: the key holds {info['bytes']} "
                              f"bytes, above MAX_SHARE of the card")
     again = call(None)
     if not (same_outputs(captured, eager) and same_outputs(again, eager)):
-        raise AssertionError(f"[16] {label}: captured outputs differ from "
+        raise AssertionError(f"{tag} {label}: captured outputs differ from "
                              f"the eager loop's at the same seed")
     if captured.get("boundaries") != eager.get("boundaries"):
-        raise AssertionError(f"[16] {label}: boundaries differ")
+        raise AssertionError(f"{tag} {label}: boundaries differ")
     greedy = [call(c, greedy=True) for c in (False, None)]
     if not same_outputs(*greedy):
-        raise AssertionError(f"[16] {label}: greedy captured differs from "
+        raise AssertionError(f"{tag} {label}: greedy captured differs from "
                              f"greedy eager")
     counts = []
     for compiled in (False, None):
@@ -3858,11 +4163,11 @@ def compare_compiled(model, params, enc, kw, _build, graphs, label,
         call(compiled)
         counts.append(dict(_build.LAUNCHES))
     if counts[0] != counts[1]:
-        raise AssertionError(f"[16] {label}: launches per call, eager "
+        raise AssertionError(f"{tag} {label}: launches per call, eager "
                              f"{counts[0]} != captured {counts[1]}")
     missing = [k for k in path_kernels if not counts[1][k]]
     if missing:
-        raise AssertionError(f"[16] {label}: kernels not launched {missing}")
+        raise AssertionError(f"{tag} {label}: kernels not launched {missing}")
     secs = {False: [], None: []}
     for i in range(calls):
         for compiled in (False, None):
@@ -4432,6 +4737,30 @@ def train_only():
     print(json.dumps({"train": train, "launches": launches}), flush=True)
 
 
+def parallel_only():
+    """``--parallel``: builds the kernels and runs [13] alone on this card;
+    prints its numbers as one JSON line."""
+    from deephumor_tpu_torch.models import CaptioningTransformer
+    from deephumor_tpu_torch.ops import _build
+    from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops import cache as C
+    from deephumor_tpu_torch.ops import engine as E
+    from deephumor_tpu_torch.ops import sampler as S
+    from deephumor_tpu_torch.utils.pytree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for key in ("DH_CROSS_PACK", "DH_FUSED_SURVIVOR"):
+        os.environ.pop(key, None)
+    _build.library()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as logdir:
+        launches, serving, out = check_parallel(
+            CaptioningTransformer, tree_map, _build, (A, C, E, S),
+            torch.device("cuda", 0), card(), logdir)
+    print(json.dumps({"parallel": out, "launches": launches,
+                      "serving_launches": serving}), flush=True)
+
+
 def kernel_split(fn, calls=10):
     """torch.profiler over ``calls`` calls of ``fn``: each kernel's device
     time per call (ms), by name."""
@@ -4532,6 +4861,8 @@ def main():
         return compiled_only()
     if sys.argv[1:2] == ["--train"]:
         return train_only()
+    if sys.argv[1:2] == ["--parallel"]:
+        return parallel_only()
     from deephumor_tpu_torch.models import (CaptioningLSTM,
                                             CaptioningLSTMWithLabels,
                                             CaptioningTransformer,
@@ -4853,14 +5184,16 @@ def main():
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"[13] parallel: a one-rank NCCL mesh on this card; dp_generate at "
         f"the word leg's width (batch {BATCH}), the word Trainer with the "
-        f"mesh (bf16, batch {T_BATCH}; f32 parity at {T_PAR_LAYERS} "
-        f"layers), a mesh pipeline behind the batcher ({P_REQUESTS} "
-        f"requests)")
+        f"mesh, captured beside eager (bf16, batch {T_BATCH}; f32 parity at "
+        f"{T_PAR_LAYERS} layers), the DP x TP step and the word decode over "
+        f"a one-rank model group captured beside eager, a mesh pipeline "
+        f"behind the batcher ({P_REQUESTS} requests)")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as logdir:
         legs["parallel"], legs["parallel_serving"], parallel = \
             check_parallel(CaptioningTransformer, tree_map, _build,
                            (A, C, E, S), dev, name_limit, logdir)
+    legs["parallel_tp_one"] = parallel.pop("tp_one_launches")
     log("parallel: " + json.dumps(parallel))
     log(f"    parallel phase {time.perf_counter() - t0:.1f} s; elapsed "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -16,6 +16,8 @@ tail batch's rows) up.
 import torch
 import torch.distributed as dist
 
+from deephumor_tpu_torch.utils.collectives import all_reduce
+
 __all__ = ["perplexity", "masked_cross_entropy", "masked_ce_and_perplexity"]
 
 
@@ -25,7 +27,7 @@ def _global_sum(x, group):
     if group is None:
         return x
     x = x.detach().clone()
-    dist.all_reduce(x, group=group)
+    all_reduce(x, group)
     return x
 
 

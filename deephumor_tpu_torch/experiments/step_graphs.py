@@ -34,6 +34,15 @@ are written into their buffer before each step (``Adam.write_terms``),
 and the batch-norm statistics are written into the state's own tensors
 in place, so the state keeps its addresses.
 
+Over a mesh (NCCL groups only: a gloo collective cannot be captured) the
+graph holds the step's all-reduces: the data axis's (the batch-norm
+moments, the loss's denominators, the summed gradients) and a model
+group's (the tensor-parallel partial sums and input gradients, the
+clip's norm). A key's first call runs them once, eagerly, as every
+replay does, so a rank that captures and a rank that replays run the
+same collectives; the ranks make the same calls, so they make the same
+keys. Every communicator exists before capture: the first call made it.
+
 A capture or replay that fails raises: there is no fallback to the eager
 call.
 """
@@ -44,7 +53,6 @@ import time
 import torch
 
 from deephumor_tpu_torch.models import graphs
-from deephumor_tpu_torch.ops import _build
 
 __all__ = ["Captured", "StepGraphs", "step_key", "MAX_KEYS"]
 
@@ -53,18 +61,20 @@ __all__ = ["Captured", "StepGraphs", "step_key", "MAX_KEYS"]
 MAX_KEYS = 4
 
 
-def step_key(kind, model, batch, tensors, generator=None):
+def step_key(kind, model, batch, tensors, generator=None, groups=()):
     """The key of a call: ``kind`` ("train", "eval", "trunk"), the model
     (its hyperparameters and compute dtype), the batch's keys, shapes,
     dtypes and device, the address, shape and dtype of each tensor the
     graph reads or writes in place (``tensors``), the generator that its
-    dropout draws from, and the TF32 flags that cuBLAS and cuDNN read when
-    it was captured."""
+    dropout draws from, the process groups that its collectives run over
+    (a graph holds their communicators: a mesh's data axis, a model
+    group) and the TF32 flags that cuBLAS and cuDNN read when it was
+    captured."""
     return (kind, model,
             tuple((k, tuple(v.shape), v.dtype, str(v.device))
                   for k, v in sorted(batch.items())),
             tuple((t.data_ptr(), t.shape, t.dtype) for t in tensors),
-            generator, torch.backends.cuda.matmul.allow_tf32,
+            generator, tuple(groups), torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
 
 
@@ -100,8 +110,7 @@ class Captured:
         returns the graph's outputs (overwritten by the next replay)."""
         for k, v in inputs.items():
             self.inputs[k].copy_(v)
-        self.graph.replay()
-        _build.add_launches(self.tally)
+        graphs.replay(self.graph, self.tally)
         self.replays += 1
         return self.out
 

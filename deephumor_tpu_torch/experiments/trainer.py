@@ -17,10 +17,13 @@ batch-norm statistic and moment tensors in place and returns the state
 step, the eval step and the trunk of ``build_trunk_cache`` replay as CUDA
 graphs, one per static configuration (experiments/step_graphs.py: the
 counterpart of the JAX package's jitted steps), unless the trainer is
-made with ``compiled=False``; on the CPU, and with a mesh, they run
-eagerly. The values of a step that change with Adam's count (the
-learning rate and the two bias corrections) are written into a device
-buffer before each step, so one graph serves every step.
+made with ``compiled=False``; on the CPU they run eagerly. Over a mesh
+they replay the same way when its groups are NCCL, the step's
+all-reduces inside the graph; over gloo, whose collectives cannot be
+captured, they run eagerly. The values of a step that change with
+Adam's count (the learning rate and the two bias corrections) are
+written into a device buffer before each step, so one graph serves
+every step.
 
 With a mesh (``run_epoch(..., mesh=)``, ``train(..., mesh=)``; the state
 replicated with ``parallel.replicate``) every rank runs the same steps on
@@ -29,8 +32,9 @@ each takes its rows (``parallel.shard_batch``); the loss, the perplexity
 and the batch-norm moments are normalised by the global batch; the
 gradients are summed over the data axis before the clip, so that the
 global norm, the clip and the Adam update are the single-device ones on
-every rank; dropout draws from a generator per data block; only rank 0
-writes metrics and checkpoints. A state placed by
+every rank; dropout draws from a generator per data block, one per
+trainer, reseeded at each epoch (a captured step's key holds it); only
+rank 0 writes metrics and checkpoints. A state placed by
 ``parallel.place_train_state`` on a mesh with a ``model`` axis (DP x TP)
 steps over each rank's local shards: the transformers' forward runs its
 heads and pf units with the model-axis collectives
@@ -72,6 +76,7 @@ from deephumor_tpu_torch.parallel.sharding import (gather_tree,
                                                    is_model_sharded,
                                                    local_tree, model_group,
                                                    placed_mesh)
+from deephumor_tpu_torch.utils.collectives import all_reduce
 from deephumor_tpu_torch.utils.pytree import (flatten_tree, tree_map,
                                               unflatten_tree)
 
@@ -192,8 +197,9 @@ class Adam:
         host, so a graph can hold it. With ``model_group`` the leaves,
         gradients and moments are this rank's local shards (moments placed
         on a mesh are read through their local tensors), and ``sharded``
-        marks the leaves split over the group: their squares are summed
-        over it, the replicated leaves' counted once."""
+        (a bool tensor on their device, one entry a leaf) marks the leaves
+        split over the group: their squares are summed over it, the
+        replicated leaves' counted once."""
         mu = [local_tree(opt_state["mu"][k]) for k in keys]
         nu = [local_tree(opt_state["nu"][k]) for k in keys]
         norms = torch.stack(torch._foreach_norm(grads))
@@ -201,10 +207,9 @@ class Adam:
             norm = torch.linalg.vector_norm(norms)
         else:
             sq = norms * norms
-            split = torch.tensor(sharded, device=sq.device)
-            sq_split = torch.where(split, sq, 0.0).sum()
-            dist.all_reduce(sq_split, group=model_group)
-            norm = torch.sqrt(sq_split + torch.where(split, 0.0, sq).sum())
+            sq_split = torch.where(sharded, sq, 0.0).sum()
+            all_reduce(sq_split, model_group)
+            norm = torch.sqrt(sq_split + torch.where(sharded, 0.0, sq).sum())
         scale = torch.where(norm < self.clip_norm, 1.0,
                             self.clip_norm / norm)
         grads = torch._foreach_mul(grads, scale)
@@ -268,7 +273,7 @@ def _all_reduce_sum(tensors, group):
     """``tensors`` summed over ``group``: one all-reduce of their f32
     concatenation."""
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, group=group)
+    all_reduce(flat, group)
     parts = flat.split([t.numel() for t in tensors])
     return [p.view_as(t).to(t.dtype) for p, t in zip(parts, tensors)]
 
@@ -414,8 +419,10 @@ class Trainer:
             graphs (experiments/step_graphs.py: one per static
             configuration, made at its first call, which runs eagerly and
             counts); False runs them from the host, with the same results.
-            On the CPU they always run eagerly. With a mesh the steps run
-            eagerly, and True raises ``ValueError``.
+            On the CPU they always run eagerly. Over a mesh whose groups
+            are NCCL the steps replay the same way, their all-reduces in
+            the graph; over gloo they run eagerly, and True raises
+            ``ValueError`` before any work.
     """
 
     def __init__(self, model, experiment_title="experiment",
@@ -434,6 +441,12 @@ class Trainer:
         self.compiled = compiled
         self._graphs = StepGraphs()
         self._terms = None  # Adam.write_terms's buffer, made at first use
+        # the mesh epochs' dropout generators, one per device and data
+        # index, reseeded in place at each epoch: a captured step's key
+        # holds its generator
+        self._shard_gens = {}
+        # Adam.update's ``sharded`` masks on the device, one per pattern
+        self._masks = {}
         self._opt = Adam(learning_rate, clip_norm, schedule, weight_decay)
         self._step_model = model
         if compute_dtype not in (None, "float32"):
@@ -525,16 +538,21 @@ class Trainer:
             row_weights=row_valid, group=group)
         return loss, pp, new_params
 
-    def _captures(self, params, group):
-        """Whether a step runs as a graph (``compiled``). A step over a
-        mesh (``group``, or ``params`` placed on one) stays eager, and
-        ``compiled=True`` raises there."""
-        if group is not None or placed_mesh(params) is not None:
-            if self.compiled:
-                raise ValueError("steps over a mesh run eagerly: make the "
-                                 "Trainer with compiled=None or False")
-            return False
-        return graphs.use_graphs(self.compiled, self.device)
+    def _captures(self, group, model_group):
+        """Whether a step runs as a graph (``compiled``): over a mesh
+        (``group``, its data axis; ``model_group``, the model axis of a
+        placed state) only when those groups are NCCL. Over gloo a step
+        runs eagerly, and ``compiled=True`` raises ``ValueError``."""
+        return graphs.use_graphs(self.compiled, self.device,
+                                 (group, model_group))
+
+    def _sharded_mask(self, flags, device):
+        """``flags`` as a bool tensor on ``device``, made once per pattern:
+        a graph reads it by address, and no step copies from the host."""
+        key = (tuple(flags), device)
+        if key not in self._masks:
+            self._masks[key] = torch.tensor(flags, device=device)
+        return self._masks[key]
 
     def _terms_buffer(self, device):
         if self._terms is None or self._terms.device != device:
@@ -552,17 +570,20 @@ class Trainer:
         device scalars; captured, they are the graph's outputs, which the
         next step overwrites."""
         placed = state["params"]
-        captured = self._captures(placed, group)
         params, model_group = _local_params(placed)
+        captured = self._captures(group, model_group)
         flat = flatten_tree(params)
         keys = _trainable_paths(params)
         opt = state["opt_state"]
+        device = flat[keys[0]].device
         tp = {}
         if model_group is not None:
             flat_placed = flatten_tree(placed)
-            tp = {"model_group": model_group, "sharded": [
-                is_model_sharded(flat_placed[k]) for k in keys]}
-        terms = self._terms_buffer(flat[keys[0]].device)
+            tp = {"model_group": model_group,
+                  "sharded": self._sharded_mask(
+                      [is_model_sharded(flat_placed[k]) for k in keys],
+                      device)}
+        terms = self._terms_buffer(device)
         self._opt.write_terms(terms, opt)
 
         def step(batch):
@@ -583,24 +604,28 @@ class Trainer:
 
         if captured:
             metrics = self._graphs.run(
-                self._key("train", params, batch, opt, gen), step, batch,
-                gen)
+                self._key("train", params, batch, opt, gen,
+                          (group, model_group)), step, batch, gen)
         else:
             metrics = step(batch)
         return dict(state, step=state["step"] + 1), metrics
 
-    def _key(self, kind, params, batch, opt_state=None, gen=None):
+    def _key(self, kind, params, batch, opt_state=None, gen=None,
+             groups=()):
         """The key of a train step (``opt_state`` given) or an eval step
         (experiments/step_graphs.py ``step_key``): the tensors its graph
-        reads are every parameter, the trunk cache and, for a train step,
-        Adam's moments and the count terms' buffer."""
+        reads are every parameter (``params``: the local tensors of a
+        placed state), the trunk cache and, for a train step, Adam's
+        moments (their local tensors) and the count terms' buffer;
+        ``groups``, the data and model groups of a step over a mesh."""
         tensors = list(flatten_tree(params).values())
         if opt_state is not None:
-            tensors += [*opt_state["mu"].values(), *opt_state["nu"].values(),
-                        self._terms]
+            tensors += [*local_tree(opt_state["mu"]).values(),
+                        *local_tree(opt_state["nu"]).values(), self._terms]
         if self._trunk_cache is not None:
             tensors.append(self._trunk_cache)
-        return step_key(kind, self._step_model, batch, tensors, gen)
+        return step_key(kind, self._step_model, batch, tensors, gen,
+                        groups)
 
     @torch.no_grad()
     def _eval_step(self, params, batch, group=None):
@@ -614,9 +639,10 @@ class Trainer:
                 loss, pp = _all_reduce_sum([loss, pp], group)
             return {"loss": loss, "perplexity": pp}
 
-        if self._captures(placed, group):
-            return self._graphs.run(self._key("eval", params, batch), step,
-                                    batch)
+        if self._captures(group, model_group):
+            return self._graphs.run(
+                self._key("eval", params, batch, groups=(group, model_group)),
+                step, batch)
         return step(batch)
 
     # -- epochs --------------------------------------------------------------
@@ -647,21 +673,29 @@ class Trainer:
         same batches and ``gen``: each step takes this rank's rows of the
         batch and sums the gradients over the ``data`` axis before the
         clip; dropout draws from ``parallel.mesh.shard_generator(gen,
-        mesh)`` (one generator per data block); the returned and logged
-        loss and perplexity are the global batch's, and only rank 0
-        writes them."""
-        self._captures(state["params"], mesh)  # raises before any work
+        mesh)`` (one generator per data block: this trainer's, reseeded
+        in place, so that a captured step's key holds across epochs); the
+        returned and logged loss and perplexity are the global batch's,
+        and only rank 0 writes them. Over NCCL the steps replay as graphs
+        (:class:`Trainer`'s ``compiled``); over gloo they run eagerly."""
+        group = None if mesh is None else mesh.get_group("data")
+        step_args = () if mesh is None else (group,)
+        # raises before any work (compiled=True over gloo)
+        self._captures(group, model_group(state["params"]))
         is_train = phase == "train"
         writer = (self._writer(phase)
                   if phase in self.phases and _leads(mesh) else None)
-        step_args = ()  # with a mesh: the data axis's group
         if mesh is not None:
-            from deephumor_tpu_torch.parallel.mesh import (shard_batch,
+            from deephumor_tpu_torch.parallel.mesh import (data_index,
+                                                           mesh_device,
+                                                           shard_batch,
                                                            shard_generator)
 
-            step_args = (mesh.get_group("data"),)
             if is_train and gen is not None:
-                gen = shard_generator(gen, mesh)
+                dev = mesh_device(mesh)
+                own = self._shard_gens.setdefault((dev, data_index(mesh)),
+                                                  torch.Generator(dev))
+                gen = shard_generator(gen, mesh, out=own)
         totals = {"loss": 0.0, "pp": 0.0, "n": 0}
         # each step's metrics, copied into a row of a device ring (a
         # captured step's outputs are overwritten by the next replay) and
@@ -811,5 +845,10 @@ class Trainer:
                 "step": int(flat["step"])}
 
     def close(self):
+        """Closes the metrics writers and frees the captured steps' graphs.
+        A graph that holds NCCL collectives keeps its communicators in use:
+        close the trainer (or drop it) before destroying its process
+        groups, which otherwise wait for those graphs."""
         for w in self.writers.values():
             w.close()
+        self._graphs.clear()

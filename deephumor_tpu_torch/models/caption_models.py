@@ -41,7 +41,8 @@ inside the prefill's graph. Parameters placed on a
 ``data x model`` mesh (``parallel.make_param_shardings``: DTensors) make
 ``generate_from_emb`` run ``parallel.tp_generate``: each rank decodes its
 data block over its local shards (``model_group``, see
-models/transformer.py).
+models/transformer.py), captured as one card's loop is when the group
+is NCCL.
 """
 
 import dataclasses
@@ -690,7 +691,7 @@ class CaptioningTransformerBase(_Captioner):
                                num_items=num_items, beam_size=beam_size,
                                top_k=top_k, sampler=sampler, greedy=greedy),
             device=params["decoder"]["classifier"]["weight"].device,
-            read_out=self._read_boundaries)
+            read_out=self._read_boundaries, group=model_group)
 
     def _begin(self, params, enc, caption, inv_t, noise, *, max_len,
                beam_size, top_k, greedy, eos_index, sampler, compact, canon,
@@ -858,9 +859,11 @@ class CaptioningTransformerBase(_Captioner):
                 ``parallel.tp_generate`` passes them; models/transformer.py).
                 Parameters placed on a mesh (DTensors) run
                 ``parallel.tp_generate`` instead, with ``enc`` the whole
-                batch on every rank or data-sharded DTensors. With a
-                model group the loop runs eagerly (its steps all-reduce
-                over the group).
+                batch on every rank or data-sharded DTensors. Over an
+                NCCL group the loop replays as graphs that hold the
+                layer-steps' all-reduces (every rank of the group makes
+                the same calls); over gloo it runs eagerly, and
+                ``compiled=True`` raises ``ValueError``.
             compiled: on a CUDA device, None (default) replays the decode
                 loop as CUDA graphs (models/graphs.py: one per phase and
                 per phase boundary, made at the first call of each static
@@ -904,11 +907,6 @@ class CaptioningTransformerBase(_Captioner):
         dev = params["decoder"]["classifier"]["weight"].device
         if generator is None:
             generator = torch.Generator(dev).manual_seed(0)
-        if model_group is not None:
-            if compiled:
-                raise ValueError("generation over a model group runs "
-                                 "eagerly: pass compiled=None or False")
-            compiled = False
         # the positional table bounds total positions (start emb + tokens)
         static["max_len"] = min(max_len, self.max_len - 1)
         # the JAX package's two kernel-selecting switches, read per call:
@@ -926,7 +924,8 @@ class CaptioningTransformerBase(_Captioner):
             lambda: self._program(params, encode, num_items, caption,
                                   model_group=model_group, **static),
             inputs, generator, compiled=compiled,
-            key=lambda: graphs.graph_key(self, params, inputs, **static))
+            key=lambda: graphs.graph_key(self, params, inputs,
+                                         model_group=model_group, **static))
 
     def generate(self, params, images, generator=None, caption=None,
                  max_len=25, temperature=1.0, beam_size=10, top_k=50,

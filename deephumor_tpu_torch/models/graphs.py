@@ -43,15 +43,31 @@ buffers.
 
 A graph bakes in what stays static, so the key holds it: the batch size
 (from images, the image shape), the device, the sampler arguments, the
-two kernel switches and the parameters' addresses. New parameters or a new batch size make a new
-key; a new temperature does not. The last ``MAX_KEYS`` keys are kept
-(the batcher's bucket ladder makes one per bucket), as long as they hold
-at most ``MAX_SHARE`` of the card's memory together; an evicted key frees
-its pool.
+two kernel switches, the parameters' addresses and the model group
+that the steps reduce over (``Program.group``). New parameters or a new
+batch size make a new key; a new temperature does not. The last
+``MAX_KEYS`` keys are kept (the batcher's bucket ladder makes one per
+bucket), as long as they hold at most ``MAX_SHARE`` of the card's memory
+together; an evicted key frees its pool.
+
+Over a model group (tensor-parallel decoding, ``tp_generate``) each
+layer-step all-reduces its row-parallel partial sums over the group
+(models/transformer.py), so the graphs hold NCCL collectives, and every
+rank of the group must replay, capture or run eagerly together: a rank
+that captures (an eager call, then the replays: the collectives twice)
+while its peers replay (once) hangs the group. A key is a hit on every
+rank alike, as the ranks make the same calls and a key holds its
+parameters (their addresses are not reused while it lives); and a key
+with collectives is evicted by its count alone, among such keys only
+(:func:`_admit`), never by the bytes that each rank measures for itself.
+A gloo group's collectives cannot be captured: a call over one runs
+eagerly, and ``compiled=True`` raises ``ValueError`` before any work
+(:func:`use_graphs`).
 
 A kernel wrapper notes its launch while a graph is captured into that
-graph's tally (ops/_build.py ``note_launch``); each replay adds the
-tally to ``LAUNCHES``, so the counts of a captured call equal the eager
+graph's tally (ops/_build.py ``note_launch``), and so does an all-reduce
+(utils/collectives.py); each replay adds the tally to ``LAUNCHES`` and
+to the all-reduce counts, so the counts of a captured call equal the eager
 call's, but where every branch ends inside a phase: the eager loop
 stops at once, a graph runs the rest of its phase (steps that change
 nothing). A capture or replay that fails raises: there is no fallback
@@ -64,14 +80,16 @@ import threading
 import time
 
 import torch
+import torch.distributed as dist
 
 from deephumor_tpu_torch.models.sampling import draw_noise, run_eagerly
 from deephumor_tpu_torch.ops import _build
+from deephumor_tpu_torch.utils import collectives
 from deephumor_tpu_torch.utils.pytree import flatten_tree, tree_map
 
 __all__ = ["Program", "graph_key", "use_graphs", "generate", "run_eager",
-           "run_captured", "capture", "cache_info", "clear", "MAX_KEYS",
-           "MAX_SHARE", "CAPTURE_LOCK"]
+           "run_captured", "capture", "replay", "cache_info", "clear",
+           "MAX_KEYS", "MAX_SHARE", "CAPTURE_LOCK"]
 
 # the keys kept, and the share of the card's memory that they may hold
 # together (a word key at batch 1792 holds ~7 GiB: its KV caches)
@@ -100,6 +118,8 @@ class Program:
             outputs after the last graph: the host reads of the call
             (``boundaries``: how many phase boundaries ran, None for an
             eager call, whose state lists only those).
+        group: the process group that the steps all-reduce over (a
+            model group), or None.
     """
 
     begin: object
@@ -107,21 +127,35 @@ class Program:
     noise: dict
     device: torch.device
     read_out: object = lambda out, boundaries: out
+    group: object = None
 
 
-def use_graphs(compiled, device):
+def use_graphs(compiled, device, groups=()):
     """Whether a call runs captured: on a CUDA device unless ``compiled``
     is False (None means captured there); on the CPU never, since no
-    graphs exist there."""
+    graphs exist there. ``groups``: the process groups that the call's
+    collectives run over (None entries are skipped); a graph holds NCCL
+    collectives only, so over any other group (gloo) the call runs
+    eagerly, and ``compiled=True`` raises ``ValueError`` (call this before
+    any work)."""
+    other = sorted({dist.get_backend(g) for g in groups if g is not None}
+                   - {"nccl"})
+    if other:
+        if compiled:
+            raise ValueError(f"a call over a {other[0]} group runs eagerly "
+                             f"(its collectives cannot be captured): pass "
+                             f"compiled=None or False")
+        return False
     return torch.device(device).type == "cuda" and compiled is not False
 
 
 def graph_key(model, params, inputs, **static):
     """The key of a call: the model's hyperparameters, the static
-    arguments (not the temperature: 1/T is an input), the inputs' shapes
-    and dtypes (the batch size), their device, the parameters' addresses
-    (a graph holds them) and the matmul precision flag that cuBLAS read
-    when it was captured."""
+    arguments (not the temperature: 1/T is an input; a model group, whose
+    communicator a graph holds, is one), the inputs' shapes and dtypes
+    (the batch size), their device, the parameters' addresses (a graph
+    holds them) and the matmul precision flag that cuBLAS read when it
+    was captured."""
     leaves = [t for t in flatten_tree(params).values()
               if isinstance(t, torch.Tensor)]
     shapes = tuple((k, tuple(t.shape), t.dtype, str(t.device))
@@ -168,7 +202,8 @@ def run_captured(search, segment, boundary):
 def capture(fn, pool, stream, generators=()):
     """Captures ``fn()`` into a new graph in ``pool`` on ``stream``; returns
     ``(graph, tally, fn's result)``, the tally holding the kernel launches
-    noted while it was captured (``_build.capture_tally``). Each of
+    and the all-reduces noted while it was captured
+    (``_build.capture_tally``, ``collectives.capture_tally``). Each of
     ``generators`` (a ``torch.Generator`` that ``fn`` draws from) is
     registered with the graph, so that every replay draws what an eager
     call would draw from its state then, and advances it as much. The
@@ -178,11 +213,20 @@ def capture(fn, pool, stream, generators=()):
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
-    with _build.capture_tally() as tally, torch.cuda.graph(
-            graph, pool=pool, stream=stream,
-            capture_error_mode="thread_local"):
+    with _build.capture_tally() as launches, \
+            collectives.capture_tally() as reduces, torch.cuda.graph(
+                graph, pool=pool, stream=stream,
+                capture_error_mode="thread_local"):
         out = fn()
-    return graph, tally, out
+    return graph, (launches, reduces), out
+
+
+def replay(graph, tally):
+    """Replays a graph of :func:`capture` and adds its tally to the
+    counts."""
+    graph.replay()
+    _build.add_launches(tally[0])
+    collectives.add(tally[1])
 
 
 def _tensors(tree):
@@ -202,6 +246,7 @@ class _Graphs:
         dev = program.device
         self.program, self.lock = program, threading.Lock()
         self.replays = 0
+        self.collective = program.group is not None
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         held = torch.cuda.memory_reserved(dev)
@@ -258,9 +303,7 @@ class _Graphs:
             return self.program.read_out(_clone(self.out), boundaries)
 
     def _replay(self, i):
-        graph, tally = self.graphs[i]
-        graph.replay()
-        _build.add_launches(tally)
+        replay(*self.graphs[i])
 
 
 def generate(make_program, inputs, gen, *, key, compiled=None):
@@ -268,7 +311,7 @@ def generate(make_program, inputs, gen, *, key, compiled=None):
     its first call) when :func:`use_graphs` says so, else eagerly.
     ``make_program()`` builds the call's :class:`Program`."""
     program = make_program()
-    if not use_graphs(compiled, program.device):
+    if not use_graphs(compiled, program.device, (program.group,)):
         return run_eager(program, inputs, gen)
     key = key()
     with _CACHE_LOCK:
@@ -283,34 +326,53 @@ def generate(make_program, inputs, gen, *, key, compiled=None):
         if entry is not None:
             return entry(inputs, gen)
         entry = _Graphs(program, inputs, gen)
-        budget = MAX_SHARE * torch.cuda.get_device_properties(
-            program.device).total_memory
-        with _CACHE_LOCK:
-            _CACHE[key] = entry
-            evicted = []
-            while len(_CACHE) > 1 and (
-                    len(_CACHE) > MAX_KEYS
-                    or sum(e.bytes for e in _CACHE.values()) > budget):
-                evicted.append(_CACHE.popitem(last=False))
-        if evicted:
-            del evicted
+        if _admit(key, entry, MAX_SHARE * torch.cuda.get_device_properties(
+                program.device).total_memory):
             torch.cuda.empty_cache()
         return entry()
+
+
+def _admit(key, entry, budget):
+    """Adds ``entry`` (``.bytes``, ``.collective``) under ``key`` and evicts,
+    oldest first: keys without collectives while the cache holds more
+    than ``MAX_KEYS`` keys or more than ``budget`` bytes, and never the
+    new key; keys with collectives while there are more than ``MAX_KEYS``
+    of them, whatever their bytes (each rank measures those itself, and
+    the ranks of a group must keep and drop such a key together). Returns
+    whether a key was evicted."""
+    with _CACHE_LOCK:
+        _CACHE[key] = entry
+        held = [k for k, e in _CACHE.items() if e.collective]
+        drop = held[:max(0, len(held) - MAX_KEYS)]
+        others = [k for k, e in _CACHE.items()
+                  if not e.collective and k != key]
+        size = sum(e.bytes for k, e in _CACHE.items() if k not in drop)
+        n = len(_CACHE) - len(drop)
+        for k in others:
+            if n <= MAX_KEYS and size <= budget:
+                break
+            drop.append(k)
+            size -= _CACHE[k].bytes
+            n -= 1
+        for k in drop:
+            del _CACHE[k]
+    return bool(drop)
 
 
 def cache_info():
     """One dict per cached key, oldest first: its graphs, the segments and
     boundaries they hold, whether any part of a call runs eagerly after
-    them (``eager_tail``: never since every boundary is captured), its
-    replays, the seconds its first call took to warm up and capture, and
-    the device memory it holds (its static buffers and pool, bytes)."""
+    them (``eager_tail``: never since every boundary is captured), whether
+    they hold collectives, its replays, the seconds its first call took to
+    warm up and capture, and the device memory it holds (its static
+    buffers and pool, bytes)."""
     with _CACHE_LOCK:
         return [{"graphs": len(e.graphs), "captured_segments": len(e.steps),
                  "captured_boundaries": sum(b is not None
                                             for _, b in e.steps),
                  "eager_tail": len(e.steps) < len(e.search.segments),
-                 "replays": e.replays, "capture_s": e.capture_s,
-                 "bytes": e.bytes}
+                 "collective": e.collective, "replays": e.replays,
+                 "capture_s": e.capture_s, "bytes": e.bytes}
                 for e in _CACHE.values()]
 
 

@@ -12,8 +12,9 @@ JAX package's distributions with an explicit ``torch.Generator``; so does
 import math
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
+
+from deephumor_tpu_torch.utils.collectives import all_reduce
 
 __all__ = ["linear", "embed", "layer_norm", "batch_norm", "dropout",
            "linear_init", "embedding_init", "layer_norm_init",
@@ -42,13 +43,13 @@ class _GroupSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         x = x.clone()
-        dist.all_reduce(x, group=group)
+        all_reduce(x, group)
         return x
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
+        all_reduce(grad, ctx.group)
         return grad, None
 
 

@@ -54,6 +54,7 @@ from deephumor_tpu_torch.models import layers as L
 from deephumor_tpu_torch.ops.attention import (
     MASK_FILL, ancestry_attention_ids, ancestry_attention_update,
     ancestry_attention_update_canon, ancestry_bias, grouped_cross_attention)
+from deephumor_tpu_torch.utils.collectives import all_reduce
 
 __all__ = ["mha_apply", "pff_apply", "get_pad_mask",
            "get_autoregressive_mask", "encoder_layer_init",
@@ -77,7 +78,7 @@ class _ModelCopy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
+        all_reduce(grad, ctx.group)
         return grad, None
 
 
@@ -90,7 +91,7 @@ class _ModelSum(torch.autograd.Function):
     def forward(ctx, x, group):
         # x is the fresh partial product, reduced where it lies
         ctx.mark_dirty(x)
-        dist.all_reduce(x, group=group)
+        all_reduce(x, group)
         return x
 
     @staticmethod

@@ -25,6 +25,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from deephumor_tpu_torch.models import graphs
 from deephumor_tpu_torch.parallel.sharding import local_tree, model_group
 from deephumor_tpu_torch.pipeline import derive_seed
 from deephumor_tpu_torch.utils.pytree import tree_map
@@ -179,19 +180,22 @@ def replicate(tree, mesh):
                     else next(it), out)
 
 
-def shard_generator(generator, mesh):
+def shard_generator(generator, mesh, out=None):
     """A generator for this rank's shard, on its device: seeded by
     ``derive_seed`` of a seed drawn from ``generator`` (every rank holds an
     equal one, so all draw the same) and the rank's data index: the
     counterpart of ``fold_in(key, axis_index('data'))``. None stands for a
-    generator seeded with 0."""
+    generator seeded with 0. ``out``: a generator on the rank's device to
+    reseed in place and return instead of a new one, with the same draws
+    (a captured train step holds its generator)."""
     dev = mesh_device(mesh)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
     seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
                              device=generator.device))
-    return torch.Generator(dev).manual_seed(derive_seed(seed,
-                                                        data_index(mesh)))
+    if out is None:
+        out = torch.Generator(dev)
+    return out.manual_seed(derive_seed(seed, data_index(mesh)))
 
 
 def all_gather_rows(x, group):
@@ -225,8 +229,13 @@ def _generate_blocks(model, params, enc, mesh, generator, generate_kwargs,
     gathered over the data axis (tensors) or listed per shard. With
     ``group_of_model`` (a model axis of several ranks) the chosen ids are
     checked equal over it; ``sharded``: ``params`` hold tensor-parallel
-    shards, and the decode runs its collectives over that group."""
+    shards, and the decode runs its collectives over that group: captured
+    over NCCL, eagerly over gloo, where ``compiled=True`` raises before
+    the generator is drawn from."""
     n, i, dev = data_size(mesh), data_index(mesh), mesh_device(mesh)
+    if sharded:
+        graphs.use_graphs(generate_kwargs.get("compiled"), dev,
+                          (group_of_model,))
     first = enc[0] if isinstance(enc, tuple) else enc
     bs = first.shape[0]
     local_enc = tree_map(lambda x: _data_rows(x, mesh, n, i, dev), enc)
@@ -239,6 +248,8 @@ def _generate_blocks(model, params, enc, mesh, generator, generate_kwargs,
     out = model.generate_from_emb(params, local_enc,
                                   generator=shard_generator(generator, mesh),
                                   **kwargs)
+    # after the call's last graph: one agreement check and one all-gather
+    # per call, from the host
     if group_of_model is not None:
         _check_model_agreement(out["chosen"], group_of_model)
     group = mesh.get_group("data")
@@ -307,7 +318,10 @@ def tp_generate(model, tp_params, enc, mesh, generator=None,
     draw (replicated) whole on every rank. The generator comes from
     ``shard_generator(generator, mesh)``, derived over the data axis only,
     so every rank of a model group draws alike; the call checks once that
-    their chosen ids agree and raises ``RuntimeError`` if not.
+    their chosen ids agree and raises ``RuntimeError`` if not. Over NCCL
+    the decode replays as CUDA graphs (models/graphs.py; the all-reduces
+    inside them), as one card's does; over gloo it runs eagerly, and
+    ``compiled=True`` raises ``ValueError`` before any work.
 
     Returns what :func:`dp_generate` returns: the whole batch's outputs
     on every rank. On a mesh whose model axis has size 1, or over a tree

@@ -376,14 +376,41 @@ def test_step_key_tracks_what_a_graph_reads(tmp_path):
 
 
 def test_compiled_true_with_a_mesh_raises_before_any_step(tmp_path):
-    trainer, state = _dropout_trainer(tmp_path, "mesh", compiled=True)
-    with pytest.raises(ValueError, match="mesh run eagerly"):
-        trainer.run_epoch(state, _epoch_loader(), None, mesh=object())
-    host = trainer._host_batch(_epoch_loader()[0])[0]
-    with pytest.raises(ValueError, match="mesh run eagerly"):
-        trainer._train_step(state, host, None, group=object())
-    # refused before the count moved; on the CPU compiled=True runs eagerly
-    assert state["opt_state"]["count"] == 0
+    # steps over a gloo group (a one-rank CPU mesh in this process) run
+    # eagerly, as its collectives cannot be captured: compiled=True raises
+    # there before the count moves or the generator is drawn from, from
+    # run_epoch and from a step; compiled=None runs the mesh's steps
+    # eagerly. Over NCCL they are captured (the card tests)
+    import torch.distributed as dist
+
+    from deephumor_tpu_torch.parallel import make_mesh, replicate
+
+    owned = not dist.is_initialized()
+    mesh = make_mesh("cpu")
+    try:
+        trainer, state = _dropout_trainer(tmp_path, "mesh", compiled=True)
+        state = replicate(state, mesh)
+        gen = torch.Generator().manual_seed(0)
+        drawn = gen.get_state()
+        with pytest.raises(ValueError, match="gloo group runs eagerly"):
+            trainer.run_epoch(state, _epoch_loader(), gen, mesh=mesh)
+        host = trainer._host_batch(_epoch_loader()[0])[0]
+        with pytest.raises(ValueError, match="gloo group runs eagerly"):
+            trainer._train_step(state, host, gen,
+                                group=mesh.get_group("data"))
+        assert state["opt_state"]["count"] == 0
+        assert torch.equal(gen.get_state(), drawn)
+        trainer.close()
+        trainer, state = _dropout_trainer(tmp_path, "mesh_eager")
+        state, _, _ = trainer.run_epoch(replicate(state, mesh),
+                                        _epoch_loader(), gen, mesh=mesh)
+        assert state["step"] == state["opt_state"]["count"] == 7
+        trainer.close()
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    # on the CPU without a mesh compiled=True runs eagerly
+    trainer, state = _dropout_trainer(tmp_path, "cpu", compiled=True)
     state, _, _ = trainer.run_epoch(state, _epoch_loader(),
                                     torch.Generator().manual_seed(0))
     assert state["step"] == state["opt_state"]["count"] == 7
