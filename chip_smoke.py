@@ -47,15 +47,20 @@ switches, and char also with canon off) against the plain path on the
 CPU, then runs each leg once with
 every launch count at zero and fails if one of its kernels was not
 launched or one off its leg was. word_fused and base_fused must give
-their default legs' sequences and scores exactly. After the char leg, K6
-is held against its twin and timed at each straggler count that leg
-showed. Kernels shorter than their wrapper's host work (K2, K3, K4, K5,
+their default legs' sequences and scores exactly. K1, K5 and K6 also run
+on the fused QKV product's row-strided views, bit-equal to contiguous
+copies and timed beside them; K6 writing into K5's output equals the
+row-mask merge bit for bit. After the char leg, K6 is held against its
+twin and timed at each straggler count that leg showed, as the decode
+step calls it, with an int and a device count (bit-equal). Kernels
+shorter than their wrapper's host work (K2, K3, K4, K5,
 K6, K9, K10, K11) are timed with the device queued: K4 at all char rows
 and at C_LIVE live rows, beside bf16 F.linear + K3 (the unfused route) and
 F.linear alone; K9 at the word and char shapes beside K2 on the same rows.
 torch.profiler tables (kernel time by name, the device's idle share)
 follow the word, word_packed_fused, base, base_fused and lstm legs, and
-end the char path: one more call without and one with both switches.
+end the char path: one more call without and one with both switches;
+each also counts the call's copy, where and cat kernels.
 
 After the legs, a serving phase drives the product path at the word
 width: a 29,184-token vocabulary, 256 random 300x400 uint8 templates
@@ -193,8 +198,8 @@ twin, and timed in both forms, K3 at word's rows, K4 at the sweep's and
 char's. K1-K6, K9 and K10 take the count that a boundary sets (live
 items, K3/K4's live rows, K6's stragglers) from device memory: at the
 char shapes, at counts of 0, some and all (K6: 0, 1 and 8 stragglers,
-its device form's grid over all 768 items), held to the int count
-(equal outputs) and timed in both forms; K4 also on its streamed path.
+both forms on one grid), held to the int count (bit-equal outputs) and
+timed in both forms; K4 also on its streamed path.
 Greedy text of the captured path at a small size (2 layers, hid 64, V
 300, 8 items, f32) must equal the CPU's for the three families. Then
 word, Base and LSTM (batch 1792), the sweep's shape (V 2,006, batch 256)
@@ -223,6 +228,7 @@ call of one full batch gave the same texts captured and eager.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [ROOT]
+    python3 chip_smoke.py --leg-times [ROOT]
     python3 chip_smoke.py --tp
     python3 chip_smoke.py --product
     python3 chip_smoke.py --compiled
@@ -235,8 +241,12 @@ C_LIVE live, and at X_SHAPES), K3 (the sweep's first draw), K9 (ng 2, 4,
 8) and K2 on K9's rows, queued, through the deephumor_tpu_torch of the
 tree at ROOT (default: this one), and prints one JSON line: run beside
 a parent tree's root, it times the parent's kernels on the same inputs.
-The third builds the kernels and runs [14] alone, the fourth [15], the
-fifth [16], the sixth [12], the seventh [13]. The eighth runs over N
+``--leg-times`` runs the word and char legs captured through the tree at
+ROOT (captions/s of 10 calls, one profiled call's kernel time, idle
+share and copy / where / cat kernels) and times K6 at 0-8 stragglers
+with an int and a device count; one JSON line, for the same comparison.
+The fourth builds the kernels and runs [14] alone, the fifth [15], the
+sixth [16], the seventh [12], the eighth [13]. The ninth runs over N
 ranks, one per card (N = 2 or 4), each phase within MESH_PHASE_S
 seconds (a replayed collective is out of the process group's watchdog),
 after printing the link between the cards: first [14]'s data N/2 x
@@ -500,10 +510,47 @@ def k1_bytes(live, beam, pe, elt, d=HID):
         + lr * beam * pe * 4
 
 
+def fused_views(*ts):
+    """q, k_new, v_new (each [rows, d]) copied into the three column
+    views of one [rows, 3 d] tensor: rows 3 d apart, as decode_step's fused
+    QKV product hands them to K1, K5 and K6."""
+    rows, d = ts[0].shape
+    base = torch.empty(rows, 3 * d, dtype=ts[0].dtype, device=ts[0].device)
+    views = base.split(d, -1)
+    for view, t in zip(views, ts):
+        view.copy_(t)
+    return views
+
+
+def check_strided(label, run, views, timed):
+    """``run(q, k_new, v_new, fresh)`` -> tensors (outputs, written
+    caches; on fresh copies of what the kernel writes with ``fresh``) on
+    the fused product's row-strided views and on contiguous copies: bit
+    equal. Returns (strided ms, contiguous ms), queued, with ``timed``."""
+    copies = [v.contiguous() for v in views]
+    got, want = run(*views, True), run(*copies, True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{label}: row-strided q/k/v views give other "
+                             f"outputs than contiguous copies")
+    if not timed:
+        log(f"  {label} on the fused QKV product's views (rows "
+            f"{views[0].stride(0)} apart): bit-equal to contiguous copies")
+        return None
+    ms = (cuda_ms(lambda: run(*views, False), queued=True),
+          cuda_ms(lambda: run(*copies, False), queued=True))
+    log(f"  {label} on the fused QKV product's views (rows "
+        f"{views[0].stride(0)} apart): bit-equal to contiguous copies; "
+        f"{ms[0]:.4f} ms strided, {ms[1]:.4f} ms contiguous (queued)")
+    return ms
+
+
 def check_k1(A, dev, gen, *, items, beam, p, pes, dt, live_items=None,
              label="K1", d=HID, heads=HEADS, timed=True):
     """K1 vs twin for each p_eff; caches bit-equal, rows past live_items
-    zero. Returns the last p_eff's measurements (with ``timed``)."""
+    zero; at the last p_eff also on the fused QKV product's row-strided
+    views, bit-equal to contiguous copies. Returns the last p_eff's
+    measurements (with ``timed``)."""
     rows = items * beam
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)  # noqa
     ck, cv = rnd(rows, p, d), rnd(rows, p, d)
@@ -536,15 +583,26 @@ def check_k1(A, dev, gen, *, items, beam, p, pes, dt, live_items=None,
         log(f"  {label} {str(dt)[6:]} head_dim {d // heads} p_eff={pe} "
             f"live_items={live_items}: caches bit-equal, max|out-twin|="
             f"{e:.3e} (atol=rtol={tol})")
+    k, v = caches[0]
+
+    def run(q_, kn_, vn_, fresh):
+        # the same column rewritten in place with the same values: timed
+        # without the copies
+        ck_, cv_ = (k.clone(), v.clone()) if fresh else (k, v)
+        return (A.ancestry_attention_update(q_, ck_, cv_, kn_, vn_, bias, pos,
+                                            **kw), ck_, cv_)
+
+    strided = check_strided(f"{label} {str(dt)[6:]} p_eff={pos + 1}", run,
+                            fused_views(q, kn, vn), timed)
     if not timed:
         return None
-    k, v = caches[0]
     ms = cuda_ms(lambda: A.ancestry_attention_update(
         q, k, v, kn, vn, bias, pos, **kw))
     plain_ms = cuda_ms(lambda: A.ancestry_attention_update_plain(
         q, k, v, kn, vn, bias, pos, **kw), iters=3)
     live = items if live_items is None else live_items
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                ms_strided=strided[0], ms_contiguous=strided[1],
                 library_ms=ancestry_sdpa_ms(q, k, v, bias, items, beam, p, pe,
                                             heads),
                 **bound(k1_bytes(live, beam, pe, k.element_size(), d),
@@ -995,8 +1053,12 @@ def check_k4(S, dev, gen, d=HID):
 def check_k5_k6(A, dev, gen, d=HID, n_heads=HEADS):
     """K5 (pe 120: c 104, w 16; pe 128: c 120, w 8) and K6 (pe 128) at the
     char shapes (``d`` wide over ``n_heads`` heads), and K5 + K6 merged ==
-    K1's full-width twin. K5 is timed at both canon shapes (the row
-    reports pe 120), K6 at 96 items, both on the device alone (queued)."""
+    K1's full-width twin. K6 writing into K5's output (``out=``, the
+    decode step's seam) equals the row-mask merge bit for bit, with an int
+    count and with a count in device memory. K5 and K6 on the fused QKV
+    product's row-strided views are bit-equal to contiguous copies. K5 is
+    timed at both canon shapes (the row reports pe 120), K6 at 96 items,
+    both on the device alone (queued), each also on the views."""
     from deephumor_tpu_torch.ops.testing import canon_state
 
     dt, items, beam = torch.bfloat16, C_BATCH, C_BEAM
@@ -1026,6 +1088,16 @@ def check_k5_k6(A, dev, gen, d=HID, n_heads=HEADS):
             f"max|out-twin|={e:.3e} (atol=rtol={TOL})")
         if live is not None:
             continue
+
+        def run5(q, kn, vn, fresh, s=s, kw=kw):
+            ck, cv = ((s["ck"].clone(), s["cv"].clone()) if fresh
+                      else (s["ck"], s["cv"]))
+            return (A.ancestry_attention_update_canon(
+                q, ck, cv, s["sk"], s["sv"], kn, vn, s["bias_sh"],
+                s["bias_win"], s["pos"], **kw), ck, cv)
+
+        strided5 = check_strided(f"K5 c={c} p_eff={pe}", run5, fused_views(
+            s["q"], s["kn"], s["vn"]), timed=pe == 120)
         # K6 on the written caches: the 96 stragglers, then the merge
         k6kw = dict(beam=beam, n_heads=n_heads, p_eff=pe)
         ck, cv = caches[0]
@@ -1045,15 +1117,41 @@ def check_k5_k6(A, dev, gen, d=HID, n_heads=HEADS):
             s["pos"], beam=beam, n_heads=n_heads, p_eff=pe)
         torch.testing.assert_close(merged, full, atol=TOL, rtol=TOL)
         em = (merged.float() - full.float()).abs().max().item()
+        # the decode step's seam: K6 writes the stragglers' rows into K5's
+        # output, with the count as an int and in device memory
+        for count in (n, torch.tensor(n, dtype=torch.int32, device=dev)):
+            seam = got.clone()
+            A.ancestry_attention_ids(s["q"], ck, cv, s["bias"], strag_ids,
+                                     count, out=seam, **k6kw)
+            if not torch.equal(seam, merged):
+                raise AssertionError(f"K6 p_eff={pe} out= ({type(count)}): "
+                                     f"not the row-mask merge bit for bit")
         log(f"  K6 p_eff={pe} {n} stragglers: max|out-twin|="
             f"{e:.3e}; K5+K6 merged vs K1 twin full width: max|diff|="
-            f"{em:.3e} (atol=rtol={TOL})")
+            f"{em:.3e} (atol=rtol={TOL}); K6 into K5's output (int and "
+            f"device count) bit-equal to the merge")
+
+        seam_buf = got.clone()
+
+        def run6(q, kn, vn, fresh, ck=ck, cv=cv, got=got, s=s,
+                 seam_buf=seam_buf):
+            seam = got.clone() if fresh else seam_buf
+            A.ancestry_attention_ids(q, ck, cv, s["bias"], strag_ids, n,
+                                     out=seam, **k6kw)
+            return (seam,)
+
+        strided6 = check_strided(f"K6 p_eff={pe} {n} stragglers", run6,
+                                 fused_views(s["q"], s["kn"], s["vn"]),
+                                 timed=pe == 128)
         ms5[pe] = cuda_ms(lambda: A.ancestry_attention_update_canon(
             s["q"], ck, cv, *args, **kw), queued=True)
         log(f"  K5 c={c} p_eff={pe} (joined support {c + beam * (pe - c)} "
             f"rows): {ms5[pe]:.4f} ms")
         if pe == 120:
             k5_state = (s, caches[0], args, kw)
+            ms5_strided = strided5
+        else:
+            ms6_strided = strided6
     s, (ck, cv), args, kw = k5_state
     plain5 = cuda_ms(lambda: A.ancestry_attention_update_canon_plain(
         s["q"], ck, cv, *args, **kw), iters=3)
@@ -1072,6 +1170,7 @@ def check_k5_k6(A, dev, gen, d=HID, n_heads=HEADS):
                + 4 * rows * d + 2 * rows * d) * 2 \
         + items * c * 4 + items * beam * beam * w * 4
     k5 = dict(max_abs_err=err5, ms=ms5[120], ms_pe128=ms5[128],
+              ms_strided=ms5_strided[0], ms_contiguous=ms5_strided[1],
               plain_ms=plain5,
               library_ms=library_ms(lambda: sdpa(qh, kh, vh, mask)),
               **bound(nbytes5, 4 * rows * (c + beam * w) * d, dt))
@@ -1082,6 +1181,12 @@ def check_k5_k6(A, dev, gen, d=HID, n_heads=HEADS):
     ms6 = cuda_ms(lambda: A.ancestry_attention_ids(
         s6["q"], s6["ck"], s6["cv"], s6["bias"], strag_ids, n, **k6kw),
         queued=True)
+    n_ptr = torch.tensor(n, dtype=torch.int32, device=dev)
+    ms6_ptr = cuda_ms(lambda: A.ancestry_attention_ids(
+        s6["q"], s6["ck"], s6["cv"], s6["bias"], strag_ids, n_ptr, **k6kw),
+        queued=True)
+    log(f"  K6 p_eff=128 {n} stragglers: {ms6:.4f} ms (int count), "
+        f"{ms6_ptr:.4f} ms (device count)")
     plain6 = cuda_ms(lambda: A.ancestry_attention_ids_plain(
         s6["q"], s6["ck"], s6["cv"], s6["bias"], strag_ids, n, **k6kw),
         iters=3)
@@ -1094,45 +1199,75 @@ def check_k5_k6(A, dev, gen, d=HID, n_heads=HEADS):
         n, 1, beam, beam * 128).contiguous()
     nbytes6 = (2 * n * beam * 128 * d + 2 * n * beam * d) * 2 + (
         n * beam * beam * 128 * 4 + n * 4)
-    k6 = dict(max_abs_err=err6, ms=ms6, plain_ms=plain6,
+    k6 = dict(max_abs_err=err6, ms=ms6, ms_count_ptr=ms6_ptr,
+              ms_strided=ms6_strided[0], ms_contiguous=ms6_strided[1],
+              plain_ms=plain6,
               library_ms=library_ms(lambda: sdpa(qh, kh, vh, mask)),
               **bound(nbytes6, 4 * n * beam * beam * 128 * d, dt))
     return k5, k6
 
 
 def check_k6_leg(A, dev, gen, boundaries, k6):
-    """K6 at the straggler counts the char leg showed: at each canon
-    boundary with stragglers, held against its twin and timed on the
-    device alone (queued: a launch is shorter than its wrapper's host time)
-    over that many items at the p_eff of the phase after it (the
-    boundary's + 8, at most 128). Adds the times to ``k6``."""
+    """K6 at the straggler counts the char leg showed (and at none), as
+    the decode step calls it: q a row-strided view of the fused QKV
+    product, the stragglers' rows written into K5's output (``out=``),
+    the count an int and a 0-d int32 in device memory (a captured step's).
+    At each canon boundary with stragglers, over that many items at the
+    p_eff of the phase after it (the boundary's + 8, at most 128): the two
+    count forms bit-equal on every row, the written rows within TOL of
+    the twin, every other row unchanged, and both forms timed on the
+    device alone (queued: a launch is shorter than its wrapper's host
+    time). Adds [p_eff, stragglers, int ms, device-count ms, bound ms]
+    rows to ``k6`` (the bound: the listed items' K and V over p_eff
+    positions, q, the written rows, their bias and ids read once)."""
     from deephumor_tpu_torch.ops.testing import canon_state
 
     counts = [(min(pe + 8, 128), n) for pe, _, n in boundaries if n]
     if not counts:
         raise AssertionError("char leg: no canon boundary had stragglers")
+    counts.append((128, 0))
     dt, items, beam = torch.bfloat16, C_BATCH, C_BEAM
     s = canon_state(items=items, beam=beam, p=C_P, c=120, pe=128, d=HID,
                     dtype=dt, generator=gen,
                     stragglers=range(max(n for _, n in counts)))
     ids = torch.arange(items, device=dev, dtype=torch.int32)
-    args = (s["q"], s["ck"], s["cv"], s["bias"], ids)
+    q = fused_views(s["q"], s["kn"], s["vn"])[0]
+    args = (q, s["ck"], s["cv"], s["bias"], ids)
+    base = torch.randn(items * beam, HID, generator=gen, device=dev).to(dt)
     kw = dict(beam=beam, n_heads=HEADS)
     k6["ms_leg"] = []
     for pe, n in counts:
-        got = A.ancestry_attention_ids(*args, n, p_eff=pe, **kw)
+        forms = (n, torch.tensor(n, dtype=torch.int32, device=dev))
+        outs = [base.clone() for _ in forms]
+        for count, out in zip(forms, outs):
+            A.ancestry_attention_ids(*args, count, p_eff=pe, out=out, **kw)
         want = A.ancestry_attention_ids_plain(*args, n, p_eff=pe, **kw)
         sel = slice(0, n * beam)
-        torch.testing.assert_close(got[sel], want[sel], atol=TOL, rtol=TOL)
-        e = (got[sel].float() - want[sel].float()).abs().max().item()
-        k6["max_abs_err"] = max(k6["max_abs_err"], e)
-        ms = cuda_ms(lambda: A.ancestry_attention_ids(*args, n, p_eff=pe,
-                                                      **kw), queued=True)
-        k6["ms_leg"].append([pe, n, ms])
-    log(f"  K6 at the char leg's straggler counts, each within atol=rtol="
-        f"{TOL} of its twin: (p_eff, stragglers, ms) "
-        f"{[(pe, n, round(ms, 4)) for pe, n, ms in k6['ms_leg']]}; 96 items "
-        f"at p_eff 128: {k6['ms']:.4f} ms")
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"K6 p_eff={pe} {n} stragglers: a device "
+                                 f"count gives other rows than the int")
+        if not torch.equal(outs[0][n * beam:], base[n * beam:]):
+            raise AssertionError(f"K6 p_eff={pe} {n} stragglers: rows past "
+                                 f"the stragglers' were written")
+        torch.testing.assert_close(outs[0][sel], want[sel], atol=TOL,
+                                   rtol=TOL)
+        if n:
+            e = (outs[0][sel].float() - want[sel].float()).abs().max().item()
+            k6["max_abs_err"] = max(k6["max_abs_err"], e)
+        nbytes = (2 * n * beam * pe * HID + 2 * n * beam * HID) * 2 \
+            + n * beam * beam * pe * 4 + n * 4
+        k6["ms_leg"].append([pe, n] + [
+            cuda_ms(lambda c=count, o=out: A.ancestry_attention_ids(
+                *args, c, p_eff=pe, out=o, **kw), queued=True)
+            for count, out in zip(forms, outs)] + [bound(
+                nbytes, 4 * n * beam * beam * pe * HID, dt)["bound_ms"]])
+    log(f"  K6 at the char leg's straggler counts and at none, as the "
+        f"decode step calls it (strided q, out=): int and device count "
+        f"bit-equal, within atol=rtol={TOL} of its twin; (p_eff, "
+        f"stragglers, int ms, device-count ms, ratio, bound ms) "
+        f"{[(pe, n, round(a, 4), round(b, 4), round(b / a, 3), round(f, 5)) for pe, n, a, b, f in k6['ms_leg']]}"
+        f"; 96 items at p_eff 128: {k6['ms']:.4f} ms (int), "
+        f"{k6['ms_count_ptr']:.4f} ms (device count)")
 
 
 def make_model(CaptioningTransformer, dtype, dev, char):
@@ -1323,7 +1458,9 @@ def drive(model, params, enc, _build, kw, name_limit, label, path_kernels,
 def profile_call(model, params, enc, kw, name_limit, label, top, pack=0,
                  fused=False):
     """torch.profiler over one call with the switches as given: kernel
-    time by name (the ``top`` largest) and the device's idle share."""
+    time by name (the ``top`` largest), the device's idle share, and the
+    call's copy, ``where`` and ``cat`` kernels (decode_step makes no
+    per-layer-step q/k/v copy, QKV weight concatenation or K6 merge)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1344,8 +1481,24 @@ def profile_call(model, params, enc, kw, name_limit, label, top, pack=0,
     for e in events[:top]:
         lines.append(f"  {e.device_time_total / 1e3:10.3f} ms "
                      f"{e.count:6d} calls  {e.key[:90]}")
+
+    def tally(match):
+        hits = [e for e in events if match(e.key)]
+        return [sum(e.count for e in hits),
+                sum(e.device_time_total for e in hits) / 1e3]
+
+    found = {"copy": tally(lambda k: "copy" in k.lower()
+                           and "CatArray" not in k),
+             "where": tally(lambda k: "where" in k.lower()),
+             "cat": tally(lambda k: "CatArray" in k)}
+    lines.append("  a call's " + ", ".join(
+        f"{kind} kernels {n} ({ms:.3f} ms)"
+        for kind, (n, ms) in found.items()))
     for line in lines:
         log(line)
+    return {"kernel_ms": busy, "wall_ms": wall * 1e3,
+            "idle_share": 1 - busy / (wall * 1e3),
+            **{f"{kind}_kernels": v for kind, v in found.items()}}
 
 
 def check_leg_launches(label, launches, packed, steps):
@@ -4273,15 +4426,12 @@ def check_device_counts(dev, name_limit):
     beside the int count, at the char shapes (768 items, beam 7, P 136, c
     120, p_eff 128, D 512 over 8 heads, 49 encoder rows, V 128, bf16):
     at counts of 0, C_LIVE // C_BEAM and all the items (K6: 0, 1 and 8
-    stragglers, its int grid over the selected items only), the outputs
-    equal on every row the count defines (K6 leaves the others
-    unwritten), each form timed queued. K6's int grid of 1-8 items splits
-    each (item, head) over a cluster of up to four blocks, whose partial
-    outputs it sums in rank order, while its device grid of 768 items
-    keeps one block each: the two round differently, so K6 is held
-    within TOL and its bit-equality reported. K4 also on its streamed
-    path at V 2,006 (1,280 rows) and V 16,384 (3,072 rows: two chunks).
-    Returns name -> count -> numbers."""
+    stragglers), the outputs bit-equal on every row the count defines
+    (K6 leaves the others unwritten), each form timed queued. K6's two
+    forms launch one grid shape (a wave of list entries, each (item,
+    head) over the same cluster of blocks), so they sum alike. K4 also on
+    its streamed path at V 2,006 (1,280 rows) and V 16,384 (3,072 rows:
+    two chunks). Returns name -> count -> numbers."""
     from deephumor_tpu_torch.ops import sampler as S
     from deephumor_tpu_torch.ops.testing import (COUNTED, count_rows,
                                                  counted_calls)
@@ -4295,22 +4445,18 @@ def check_device_counts(dev, name_limit):
     out = {}
 
     def both(name, run, trun, n, per, rows=None):
-        """int and device count of ``n`` items: equal outputs (K6, given
-        ``rows``: within TOL on those rows), queued ms."""
+        """int and device count of ``n`` items: bit-equal outputs (K6,
+        given ``rows``: on those rows), queued ms."""
         t = torch.tensor(n * per, dtype=torch.int32, device=dev)
-        equal, err = True, 0.0
         for g, w in zip(run(t), run(n * per)):
             if rows is not None:
                 g, w = g[rows], w[rows]
-                torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
-                err = max(err, (g.float() - w.float()).abs().max().item())
-            elif not torch.equal(g, w):
+            if not torch.equal(g, w):
                 raise AssertionError(f"[16] {name}: a device count of {n} "
                                      f"gives other outputs than the int")
-            equal = equal and torch.equal(g, w)
         return {"ms_count_ptr": cuda_ms(lambda: trun(t), queued=True),
                 "ms_count_int": cuda_ms(lambda: trun(n * per), queued=True),
-                "bit_equal": equal, "max_abs_err": err}
+                "bit_equal": True}
 
     for name in COUNTED:
         (per, run), (_, trun) = calls[name], timed[name]
@@ -4340,12 +4486,9 @@ def check_device_counts(dev, name_limit):
                      for n in (0, n_rows * 2 // 3, n_rows)}
     log(f"  K1-K6, K9, K10 with a device count beside the int count at the "
         f"char shapes (K4 also streamed at V 2006 and 16384): outputs "
-        f"equal (K6 within atol=rtol={TOL}); queued ms (device / int "
-        f"count; K6 max|diff|, bit-equal): " + "; ".join(
+        f"bit-equal; queued ms (device / int count): " + "; ".join(
             f"{k} " + ", ".join(
                 f"{n}: {r['ms_count_ptr']:.4f} / {r['ms_count_int']:.4f}"
-                + (f" ({r['max_abs_err']:.2e}, {r['bit_equal']})"
-                   if k == "ancestry_attention_ids" else "")
                 for n, r in v.items()) for k, v in out.items())
         + f" | {name_limit}")
     return out
@@ -4842,11 +4985,67 @@ def kernel_times(root):
     print(json.dumps(out), flush=True)
 
 
+def leg_times(root, calls=10):
+    """The word and char legs as they serve (bf16, sampler 'pallas', the
+    legs' batches, inputs and seeds; captured, the default), through the
+    deephumor_tpu_torch of the tree at ``root``: the captions/s of each of
+    ``calls`` calls (host clock, synchronised), one profiled call's kernel
+    time, idle share and copy / ``where`` / ``cat`` kernels, and K6 queued
+    at 0, 1, 2, 4 and 8 stragglers of the char shape with an int and a
+    device count (a contiguous q and no ``out=``, which every tree takes).
+    Given another tree's root it runs that tree's code on the same
+    inputs: a change beside its parent, in one call. Prints one JSON
+    line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from deephumor_tpu_torch.models import CaptioningTransformer, graphs
+    from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops.testing import canon_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    name_limit = card()
+    out = {"tree": root, "card": name_limit}
+    for label, char in (("word", False), ("char", True)):
+        model, params = make_model(CaptioningTransformer, "bfloat16", dev,
+                                   char)
+        n = C_BATCH if char else BATCH
+        kw = (dict(max_len=C_LEN, beam_size=C_BEAM, top_k=C_TOP_K,
+                   temperature=C_TEMP, sampler="pallas") if char
+              else dict(max_len=MAX_LEN, beam_size=BEAM, top_k=TOP_K,
+                        temperature=1.0, sampler="pallas"))
+        enc = features(n, dev, 6 if char else 4)
+        model.generate_from_emb(params, enc, **kw)  # warm-up and capture
+        rates = [n / timed_call(model, params, enc, kw, seed)[1]
+                 for seed in range(5, 5 + calls)]
+        out[label] = dict(captions_per_s=rates, **profile_call(
+            model, params, enc, kw, name_limit, f"{label} ({root})", 12))
+        log(f"  {label} ({root}): captured captions/s "
+            f"{[round(r, 1) for r in rates]} | {name_limit}")
+        del model, params, enc
+        graphs.clear()
+    gen = torch.Generator(dev).manual_seed(0)
+    s = canon_state(items=C_BATCH, beam=C_BEAM, p=C_P, c=120, pe=128, d=HID,
+                    dtype=torch.bfloat16, generator=gen, stragglers=range(8))
+    ids = torch.arange(C_BATCH, device=dev, dtype=torch.int32)
+    args = (s["q"], s["ck"], s["cv"], s["bias"], ids)
+    kw = dict(beam=C_BEAM, n_heads=HEADS, p_eff=128)
+    out["k6_ms"] = {
+        str(n): [cuda_ms(lambda c=c: A.ancestry_attention_ids(
+            *args, c, **kw), queued=True)
+            for c in (n, torch.tensor(n, dtype=torch.int32, device=dev))]
+        for n in (0, 1, 2, 4, 8)}
+    log(f"  K6 ({root}) at 0-8 stragglers, int / device count ms: "
+        f"{out['k6_ms']}")
+    print(json.dumps(out), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing is run")
     if sys.argv[1:2] == ["--kernel-times"]:
         return kernel_times(sys.argv[2] if len(sys.argv) > 2 else ".")
+    if sys.argv[1:2] == ["--leg-times"]:
+        return leg_times(sys.argv[2] if len(sys.argv) > 2 else ".")
     if sys.argv[1:2] == ["--cold-build"]:
         return cold_build()
     if sys.argv[1:2] == ["--mesh-ranks"]:
@@ -5267,8 +5466,11 @@ def main():
             # shape, in f32, and torch.topk alone; K4 at C_LIVE live rows,
             # beside F.linear + K3 and F.linear alone (partial yardsticks);
             # [14]'s head-local shapes; K3 and K4 at [15]'s shapes, and
-            # with the seed and the count in device memory ([16])
+            # with the seed and the count in device memory ([16]); K1, K5
+            # and K6 on the fused QKV product's views beside contiguous
+            # copies, K6 at 96 stragglers with a device count
             **{k: row[k] for k in (
+                "ms_strided", "ms_contiguous", "ms_count_ptr",
                 "ms_pe128", "ms_leg", "ms_char_pe128", "ms_char",
                 "bound_ms_char", "k2_ms", "k2_ms_char", "ms_f32", "topk_ms",
                 "ms_live", "bound_ms_live", "linear_ms", "linear_k3_ms",

@@ -545,8 +545,7 @@ class CaptioningTransformerBase(_Captioner):
             canon = None
             if canon_c is not None:
                 canon = {"c": canon_c, **{k: state[k] for k in (
-                    "shared", "bias_sh", "strag_ids", "n_strag",
-                    "strag_rows")}}
+                    "shared", "bias_sh", "strag_ids", "n_strag")}}
             emb = L.embed(dec["tok_embedding"], tokens) / scale
             out, cache = tfm.decode_step(
                 dec, emb, pos, state["cache"], valid, self.n_heads,
@@ -622,7 +621,9 @@ class CaptioningTransformerBase(_Captioner):
         of ``beam`` slots per position. Items whose live branches disagree
         (stragglers) are listed first in ``strag_ids`` (``n_strag`` of
         them, a 0-d int32 tensor that K6 reads) and recomputed full-width
-        by K6, whose rows ``strag_rows`` marks. Agreement below
+        by K6, which writes their rows over K5's. ``strag_rows`` marks
+        those rows, as the JAX package's state does for its row-mask
+        merge; the decode step does not read it. Agreement below
         ``c`` persists for the rest of the phase (survivors inherit live
         ancestries; ended branches' outputs are discarded), so one gather
         per boundary is exact.
@@ -699,6 +700,8 @@ class CaptioningTransformerBase(_Captioner):
         """The prefill, the phase ladder and the first draw: the started
         :class:`BeamSearch` of one call."""
         dec, enc = _cast((params["decoder"], enc), self.compute_dtype)
+        # the fused QKV weights, once a call (in the prefill's graph)
+        dec = tfm.fuse_qkv(dec)
         prefix_len = 0 if caption is None else caption.shape[1]
         max_positions = max_len + 1
         logits, state, consts = self._prefill_and_state(

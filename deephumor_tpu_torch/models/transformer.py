@@ -62,7 +62,7 @@ __all__ = ["mha_apply", "pff_apply", "get_pad_mask",
            "transformer_encoder_forward", "transformer_decoder_init",
            "transformer_decoder_forward", "self_attn_decoder_init",
            "self_attn_decoder_forward", "init_cache",
-           "precompute_cross_attention", "decode_step"]
+           "precompute_cross_attention", "fuse_qkv", "decode_step"]
 
 
 class _ModelCopy(torch.autograd.Function):
@@ -416,6 +416,25 @@ def precompute_cross_attention(params, enc_out, pad_to_tile=False):
             for layer in params["layers"]]
 
 
+def fuse_qkv(params):
+    """``params`` with each layer's self-attention q, k and v projections
+    also held fused, as one ``[3D, D]`` weight and ``[3D]`` bias
+    (``self_attn["qkv"]``; ``[3D / model, D]`` from a tree of
+    tensor-parallel shards), which :func:`decode_step` multiplies by in one
+    product. The tree and the layers' dicts are new, the other tensors
+    shared; the fused ones are made from the parameters' values now, so a
+    generation call makes them once, at its prefill (on the card inside
+    the prefill's graph), and reads the parameters as they are when it
+    starts."""
+    def fused(layer):
+        sa = layer["self_attn"]
+        qkv = {k: torch.cat([sa[n][k] for n in ("fc_q", "fc_k", "fc_v")])
+               for k in ("weight", "bias")}
+        return dict(layer, self_attn=dict(sa, qkv=qkv))
+
+    return dict(params, layers=[fused(layer) for layer in params["layers"]])
+
+
 def _cached_attention(q, cache_k, cache_v, n_heads, key_mask):
     """Single-query attention of ``q [bs, D]`` over ``[bs, T, D]`` caches;
     ``key_mask [bs, T]`` is True where masked. Used by prefill."""
@@ -438,6 +457,9 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
     """One incremental decode position; writes K/V at ``pos`` in place.
 
     Args:
+        params: the decoder's parameters; its layers carry the fused QKV
+            projection of :func:`fuse_qkv` (generation fuses once per
+            call), or the step fuses them itself.
         token_emb_scaled: ``[bs, D]`` input embedding already divided by
             sqrt(hid_dim).
         pos: int absolute position.
@@ -462,12 +484,14 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
             boundary (``CaptioningTransformer._canonicalize_state``):
             ``{"c": int, "shared": [{"sk", "sv"} per layer],
             "bias_sh": [B, 1, c], "strag_ids": [B], "n_strag": int or
-            0-d int32 tensor, "strag_rows": bool [bs]}``. Self-attention
-            then reads the shared rows below ``c`` plus the per-slot
-            window ``[c, p_eff)`` (K5); straggler items are recomputed
-            full-width (K6, launched on every canon step, as in the JAX
-            package: with no straggler it computes the first listed item)
-            and merged by row mask.
+            0-d int32 tensor}`` (the engine's ``strag_rows`` is not read
+            here). Self-attention then reads the shared rows below ``c``
+            plus the per-slot window ``[c, p_eff)`` (K5); the straggler
+            items' rows are recomputed full-width by K6, launched on every
+            canon step as in the JAX package, which writes them into K5's
+            output in place (none with no straggler: the JAX package
+            computes the first listed item there and its row-mask merge
+            discards it).
         cross_t_real: the number of valid encoder rows of a tile-padded
             cross store (None: the store is not padded).
         pack_items: with ``anc`` and ``cross_t_real``, cross-attention
@@ -485,6 +509,8 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
     Returns:
         (logits ``[bs, V]`` or hidden ``[bs, D]``, cache)
     """
+    if "qkv" not in params["layers"][0]["self_attn"]:
+        params = fuse_qkv(params)
     x = token_emb_scaled + params["pos_embedding"]["weight"][pos]
     heads = local_heads(n_heads, model_group)
     pack = cross_bias = None
@@ -520,11 +546,11 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
     for i, layer in enumerate(params["layers"]):
         sa = layer["self_attn"]
         # fused QKV projection: one [3D, D] matmul instead of three (over a
-        # model group, of this rank's shards: [3D / model, D])
-        w = torch.cat([sa[n]["weight"] for n in ("fc_q", "fc_k", "fc_v")])
-        b = torch.cat([sa[n]["bias"] for n in ("fc_q", "fc_k", "fc_v")])
-        q, k, v = (t.contiguous() for t in F.linear(x, w, b).split(
-            w.shape[0] // 3, -1))
+        # model group, of this rank's shards: [3D / model, D]); q, k and v
+        # are views of its columns, rows 3D apart, which the kernels read
+        # in place
+        w, b = sa["qkv"]["weight"], sa["qkv"]["bias"]
+        q, k, v = F.linear(x, w, b).split(w.shape[0] // 3, -1)
         ck, cv = cache[i]["k"], cache[i]["v"]
         if canon is not None:
             beam = anc.shape[1]
@@ -533,10 +559,10 @@ def decode_step(params, token_emb_scaled, pos, cache, self_key_valid,
                 q, ck, cv, sh["sk"], sh["sv"], k, v, canon["bias_sh"],
                 bias_win, pos, beam=beam, n_heads=heads, c=canon["c"],
                 p_eff=pe, live_items=live_items)
-            out_s = ancestry_attention_ids(
+            # the stragglers' rows, full width, written over K5's
+            ancestry_attention_ids(
                 q, ck, cv, anc_bias, canon["strag_ids"], canon["n_strag"],
-                beam=beam, n_heads=heads, p_eff=p_eff)
-            attn = torch.where(canon["strag_rows"][:, None], out_s, attn)
+                beam=beam, n_heads=heads, p_eff=p_eff, out=attn)
         elif anc_bias is not None:
             attn = ancestry_attention_update(
                 q, ck, cv, k, v, anc_bias, pos, beam=anc.shape[1],

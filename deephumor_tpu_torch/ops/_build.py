@@ -58,10 +58,11 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # A count (live items or rows, straggler items) is an int and a pointer
 # beside it: NULL, or a device int32 that the kernel reads (count_args).
 _SIGNATURES = {
-    # dtype, q, cache_k, cache_v, k_new, v_new, bias, out, items, live,
-    # live_ptr, beam, P, p_eff, D, H, pos, inv_scale, stream
+    # dtype, q, ldq, cache_k, cache_v, k_new, ldk, v_new, ldv, bias, out,
+    # items, live, live_ptr, beam, P, p_eff, D, H, pos, inv_scale, stream
     "dh_ancestry_attention_update":
-        [_I, *[_P] * 7, _I, _I, _P, *[_I] * 6, _F, _P],
+        [_I, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P,
+         *[_I] * 6, _F, _P],
     # dtype, q, ek, ev, bias (or NULL), out, G, live, live_ptr, r, T, D, H,
     # inv_scale, stream
     "dh_grouped_cross_attention":
@@ -75,15 +76,17 @@ _SIGNATURES = {
     # (or NULL), stream
     "dh_classifier_topk_gumbel_sample":
         [*[_P] * 6, _I, _I, _P, *[_I] * 5, _U, _P, _F, _P, _P],
-    # dtype, q, cache_k, cache_v, shared_k, shared_v, k_new, v_new,
-    # bias_shared, bias_win, out, items, live, live_ptr, beam, P,
-    # shared_len, c, p_eff, D, H, pos, inv_scale, stream
+    # dtype, q, ldq, cache_k, cache_v, shared_k, shared_v, k_new, ldk,
+    # v_new, ldv, bias_shared, bias_win, out, items, live, live_ptr, beam,
+    # P, shared_len, c, p_eff, D, H, pos, inv_scale, stream
     "dh_ancestry_attention_update_canon":
-        [_I, *[_P] * 10, _I, _I, _P, *[_I] * 8, _F, _P],
-    # dtype, q, cache_k, cache_v, bias, item_ids, out, items, n_sel,
-    # n_sel_ptr, beam, P, p_eff, D, H, inv_scale, stream
+        [_I, _P, _I, *[_P] * 5, _I, _P, _I, *[_P] * 3, _I, _I, _P,
+         *[_I] * 8, _F, _P],
+    # dtype, q, ldq, cache_k, cache_v, bias, item_ids, out, items, list
+    # length, n_sel, n_sel_ptr, min_sel, beam, P, p_eff, D, H, inv_scale,
+    # stream
     "dh_ancestry_attention_ids":
-        [_I, *[_P] * 6, _I, _I, _P, *[_I] * 5, _F, _P],
+        [_I, _P, _I, *[_P] * 5, _I, _I, _I, _P, *[_I] * 6, _F, _P],
     # dtype, q, ek, ev, bias (or NULL), out, G, live, live_ptr, r, Tp,
     # t_real, D, H, inv_scale, stream
     "dh_cross_attention_packed":
@@ -255,10 +258,12 @@ def dtype_code(t, name):
     return codes[t.dtype]
 
 
-def on_kernel_device(name, *tensors):
+def on_kernel_device(name, *tensors, rows=()):
     """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (use the plain twin); raises on mixed or other devices."""
-    devices = {t.device for t in tensors}
+    (use the plain twin); raises on mixed or other devices, and on the card
+    on a non-contiguous tensor of ``tensors``. ``rows`` are 2-D operands
+    that the kernel reads at their row stride (their wrapper checks it)."""
+    devices = {t.device for t in tensors + tuple(rows)}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
     (dev,) = devices

@@ -49,10 +49,29 @@ def ancestry_bias(anc, valid, p):
         b, beam, beam * p)
 
 
+def _check_rows(name, t, d):
+    """A ``[rows, d]`` operand that the kernels read at its row stride
+    (q, k_new, v_new: the views of a fused QKV product lie 3 D apart):
+    unit stride along a row, rows at least ``d`` apart, and a view's row
+    stride a multiple of 16 bytes (rows load as 16-byte vectors; a
+    contiguous operand's rows are as aligned as its head_dim, which the
+    card's wrappers check)."""
+    ld = t.stride(0)
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name} must have unit stride along its rows, got "
+                         f"strides {t.stride()}")
+    if t.shape[0] > 1 and ld < d:
+        raise ValueError(f"{name}: row stride {ld} below its width {d}")
+    if t.shape[0] > 1 and ld != d and ld * t.element_size() % 16:
+        raise ValueError(f"{name}: row stride {ld} x {t.element_size()} "
+                         f"bytes is not a multiple of 16")
+
+
 def _check_update(q, cache_k, cache_v, k_new, v_new, bias, pos, beam,
                   n_heads):
-    """Shapes of the ancestry kernels' operands; k_new/v_new, bias and pos
-    may be None where a kernel does not take them."""
+    """Shapes of the ancestry kernels' operands and the row strides of
+    q, k_new and v_new; k_new/v_new, bias and pos may be None where a
+    kernel does not take them."""
     rows, p, d = cache_k.shape
     if cache_v.shape != cache_k.shape:
         raise ValueError("cache_k and cache_v shapes differ")
@@ -62,6 +81,7 @@ def _check_update(q, cache_k, cache_v, k_new, v_new, bias, pos, beam,
         if t.shape != (rows, d):
             raise ValueError(f"{name} must be [{rows}, {d}], got "
                              f"{tuple(t.shape)}")
+        _check_rows(name, t, d)
     if len({t.dtype for t in [q, cache_k, cache_v] + [t for _, t in news]}
            ) != 1:
         raise ValueError("q, caches and k_new/v_new must share one dtype")
@@ -184,7 +204,9 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
     with ``bias`` (:func:`ancestry_bias`) added to the scaled energies.
 
     Args:
-        q, k_new, v_new: ``[B*beam, D]``.
+        q, k_new, v_new: ``[B*beam, D]``, contiguous or row-strided views
+            (unit stride along a row; rows at least D apart, a multiple of
+            16 bytes: the three views of a fused QKV product).
         cache_k, cache_v: ``[B*beam, P, D]``, the same dtype as ``q``.
         bias: f32 ``[B, beam, beam*P]``.
         pos: int decode position, ``0 <= pos < P``.
@@ -209,12 +231,12 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
     _check_update(q, cache_k, cache_v, k_new, v_new, bias, pos, beam,
                   n_heads)
     kw = dict(beam=beam, n_heads=n_heads, p_eff=p_eff, live_items=live_items)
-    if not _build.on_kernel_device(name, q, cache_k, cache_v, k_new, v_new,
-                                   bias):
+    if not _build.on_kernel_device(name, cache_k, cache_v, bias,
+                                   rows=(q, k_new, v_new)):
         return ancestry_attention_update_plain(
             q, cache_k, cache_v, k_new, v_new, bias, pos, **kw)
     rows, p, d = cache_k.shape
-    _build.check_vector_rows(name, d // n_heads, cache_k, cache_v, k_new,
+    _build.check_vector_rows(name, d // n_heads, cache_k, cache_v, q, k_new,
                              v_new)
     pe = p if p_eff is None else min(p_eff, p)
     code = _build.dtype_code(q, name)
@@ -223,13 +245,13 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
         n_heads), q)
     live, live_ptr = _build.count_args(name, rows // beam, live_items,
                                        q.device)
-    out = torch.empty_like(q)
+    out = q.new_empty((rows, d))  # contiguous, whatever q's stride
     err = _build.library().dh_ancestry_attention_update(
-        code, q.data_ptr(), cache_k.data_ptr(),
-        cache_v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), rows // beam, live, live_ptr, beam,
-        p, pe, d, n_heads, pos, 1.0 / math.sqrt(d // n_heads),
-        _build.stream_of(q))
+        code, q.data_ptr(), q.stride(0), cache_k.data_ptr(),
+        cache_v.data_ptr(), k_new.data_ptr(), k_new.stride(0),
+        v_new.data_ptr(), v_new.stride(0), bias.data_ptr(), out.data_ptr(),
+        rows // beam, live, live_ptr, beam, p, pe, d, n_heads, pos,
+        1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
     _build.note_launch(name)
     return out
@@ -368,7 +390,8 @@ def ancestry_attention_update_canon(q, cache_k, cache_v, shared_k, shared_v,
     the caller recomputes them with :func:`ancestry_attention_ids`.
 
     Args:
-        q, k_new, v_new: ``[B*beam, D]``.
+        q, k_new, v_new: ``[B*beam, D]``, contiguous or row-strided views
+            (as :func:`ancestry_attention_update`).
         cache_k, cache_v: ``[B*beam, P, D]``, updated IN PLACE at ``pos``.
         shared_k, shared_v: ``[B, >=c, D]`` canonical ancestor caches.
         bias_shared: f32 ``[B, 1, c]`` validity bias of the shared rows.
@@ -389,22 +412,23 @@ def ancestry_attention_update_canon(q, cache_k, cache_v, shared_k, shared_v,
                  beam, c, p_eff)
     kw = dict(beam=beam, n_heads=n_heads, c=c, p_eff=p_eff,
               live_items=live_items)
-    if not _build.on_kernel_device(name, q, cache_k, cache_v, shared_k,
-                                   shared_v, k_new, v_new, bias_shared,
-                                   bias_win):
+    if not _build.on_kernel_device(name, cache_k, cache_v, shared_k,
+                                   shared_v, bias_shared, bias_win,
+                                   rows=(q, k_new, v_new)):
         return ancestry_attention_update_canon_plain(
             q, cache_k, cache_v, shared_k, shared_v, k_new, v_new,
             bias_shared, bias_win, pos, **kw)
     _build.check_vector_rows(name, d // n_heads, cache_k, cache_v, shared_k,
-                             shared_v, k_new, v_new)
+                             shared_v, q, k_new, v_new)
     _build.check_mma_tiles(name, d // n_heads, q)
     live, live_ptr = _build.count_args(name, rows // beam, live_items,
                                        q.device)
-    out = torch.empty_like(q)
+    out = q.new_empty((rows, d))
     err = _build.library().dh_ancestry_attention_update_canon(
-        _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
-        cache_v.data_ptr(), shared_k.data_ptr(), shared_v.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), bias_shared.data_ptr(),
+        _build.dtype_code(q, name), q.data_ptr(), q.stride(0),
+        cache_k.data_ptr(), cache_v.data_ptr(), shared_k.data_ptr(),
+        shared_v.data_ptr(), k_new.data_ptr(), k_new.stride(0),
+        v_new.data_ptr(), v_new.stride(0), bias_shared.data_ptr(),
         bias_win.data_ptr(), out.data_ptr(), rows // beam, live, live_ptr,
         beam, p, shared_k.shape[1], c, p_eff, d, n_heads, pos,
         1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
@@ -414,44 +438,58 @@ def ancestry_attention_update_canon(q, cache_k, cache_v, shared_k, shared_v,
 
 
 def ancestry_attention_ids_plain(q, cache_k, cache_v, bias, item_ids, n_sel,
-                                 *, beam, n_heads, p_eff=None):
+                                 *, beam, n_heads, p_eff=None, out=None):
     """Plain PyTorch twin of :func:`ancestry_attention_ids` (rows of items
-    it does not compute are zero): every item computed, the selected
-    ones' rows kept, so a tensor ``n_sel`` is never read."""
+    it does not compute are zero, or with ``out`` as they were): every item
+    computed, the selected ones' rows kept, so a tensor ``n_sel`` is never
+    read."""
     rows, p, _ = cache_k.shape
     pe = p if p_eff is None else min(p_eff, p)
     items = rows // beam
     ids = item_ids[:items].long()
     take = _build.count_mask(ids.shape[0], n_sel, q.device)
-    take[:1] = True  # at least one
+    if out is None:
+        take[:1] = True  # at least one
     sel = torch.zeros(items, dtype=torch.int32, device=q.device).index_add_(
         0, ids, take.to(torch.int32)) > 0
-    out = _attend(q, cache_k, cache_v, bias, beam=beam, n_heads=n_heads,
-                  pe=pe)
-    return torch.where(sel.repeat_interleave(beam)[:, None], out, 0.0)
+    attn = _attend(q, cache_k, cache_v, bias, beam=beam, n_heads=n_heads,
+                   pe=pe)
+    keep = sel.repeat_interleave(beam)[:, None]
+    if out is None:
+        return torch.where(keep, attn, 0.0)
+    return out.copy_(torch.where(keep, attn, out))
 
 
 def ancestry_attention_ids(q, cache_k, cache_v, bias, item_ids, n_sel, *,
-                           beam, n_heads, p_eff=None):
+                           beam, n_heads, p_eff=None, out=None):
     """K6: read-only full-width ancestry attention of the items
-    ``item_ids[:max(n_sel, 1)]``.
+    ``item_ids[:max(n_sel, 1)]``, or with ``out`` of ``item_ids[:n_sel]``
+    written into ``out``.
 
     Args:
         q, cache_k, cache_v, bias, p_eff: as
-            :func:`ancestry_attention_update` (``bias`` is the step's full
-            ``[B, beam, beam*P]`` bias); the caches are only read.
+            :func:`ancestry_attention_update` (``q`` may be a row-strided
+            view; ``bias`` is the step's full ``[B, beam, beam*P]`` bias);
+            the caches are only read.
         item_ids: int ``[>= n_sel]`` item indices (the engine lists the
             straggler items first).
-        n_sel: the number of leading ids to compute: an int (the grid
-            has that many entries), or a 0-d int32 tensor on the device of
-            ``q`` that the kernel reads (a captured step's straggler
-            count: the grid covers the whole list, up to ``B`` entries,
-            and the entries at or past ``max(n_sel, 1)`` return at once).
+        n_sel: the number of leading ids to compute: an int, or a 0-d
+            int32 tensor on the device of ``q`` that the kernel reads (a
+            captured step's straggler count). Either way the grid holds
+            as many list entries as the card holds at once, each (item,
+            head) on a cluster of up to four blocks (the TPU grid is
+            ``(n_sel,)``), each entry walking the list in strides of the
+            grid, so every count is computed, and both forms compute each
+            entry alike, bit for bit.
+        out: optional contiguous ``[B*beam, D]`` of ``q``'s dtype (the
+            canonical-prefix step passes K5's output): the rows of the
+            first ``n_sel`` listed items (none at 0) are written into it
+            in place and every other row is left as it was.
 
     Returns:
-        ``[B*beam, D]``: rows of the selected items hold their attention
-        output; the kernel leaves every other row unwritten (the caller
-        merges by row mask).
+        ``[B*beam, D]`` (``out`` when given): rows of the selected items
+        hold their attention output; without ``out`` the kernel leaves
+        every other row unwritten.
     """
     name = "ancestry_attention_ids"
     rows, p, d = cache_k.shape
@@ -460,26 +498,31 @@ def ancestry_attention_ids(q, cache_k, cache_v, bias, item_ids, n_sel, *,
     if item_ids.ndim != 1 or item_ids.dtype not in (torch.int32,
                                                     torch.int64):
         raise ValueError("item_ids must be a 1-D integer tensor")
-    kw = dict(beam=beam, n_heads=n_heads, p_eff=p_eff)
-    if not _build.on_kernel_device(name, q, cache_k, cache_v, bias,
-                                   item_ids):
+    if item_ids.shape[0] < 1:
+        raise ValueError("item_ids lists no item")
+    if out is not None and (out.shape != (rows, d) or out.dtype != q.dtype
+                            or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous [{rows}, {d}] "
+                         f"{q.dtype}, got {out.dtype} {tuple(out.shape)}")
+    kw = dict(beam=beam, n_heads=n_heads, p_eff=p_eff, out=out)
+    dst = () if out is None else (out,)
+    if not _build.on_kernel_device(name, cache_k, cache_v, bias, item_ids,
+                                   *dst, rows=(q,)):
         return ancestry_attention_ids_plain(q, cache_k, cache_v, bias,
                                             item_ids, n_sel, **kw)
-    _build.check_vector_rows(name, d // n_heads, cache_k, cache_v)
+    _build.check_vector_rows(name, d // n_heads, cache_k, cache_v, q, *dst)
     _build.check_mma_tiles(name, d // n_heads, q)
     pe = p if p_eff is None else min(p_eff, p)
-    # the grid walks the whole list for a device count, else the first
-    # n_sel ids, at least one (the TPU grid is clamped to [1, items] the
-    # same way)
     items = rows // beam
-    _, n_ptr = _build.count_args(name, items, n_sel, q.device)
-    sel = item_ids[:items if n_ptr else min(max(int(n_sel), 1), items)].to(
-        torch.int32)
-    out = torch.empty_like(q)
+    sel = item_ids[:items].to(torch.int32)
+    n, n_ptr = _build.count_args(name, sel.shape[0], n_sel, q.device)
+    if out is None:
+        out = q.new_empty((rows, d))
     err = _build.library().dh_ancestry_attention_ids(
-        _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
-        cache_v.data_ptr(), bias.data_ptr(), sel.data_ptr(), out.data_ptr(),
-        items, sel.shape[0], n_ptr, beam, p, pe, d, n_heads,
+        _build.dtype_code(q, name), q.data_ptr(), q.stride(0),
+        cache_k.data_ptr(), cache_v.data_ptr(), bias.data_ptr(),
+        sel.data_ptr(), out.data_ptr(), items, sel.shape[0], n, n_ptr,
+        0 if dst else 1, beam, p, pe, d, n_heads,
         1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
     _build.note_launch(name)

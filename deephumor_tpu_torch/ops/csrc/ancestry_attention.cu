@@ -63,7 +63,8 @@ __global__ void __launch_bounds__(ma::kThreads)
         bf16* __restrict__ cv, const bf16* __restrict__ knew,
         const bf16* __restrict__ vnew, const float* __restrict__ bias,
         bf16* __restrict__ out, dh::Count live, int beam, int P, int pe,
-        int D, int hd, int pos, float inv_scale, int cs) {
+        int D, int hd, int pos, float inv_scale, int cs, int ldq, int ldk,
+        int ldv) {
   extern __shared__ __align__(16) unsigned char smem[];
   namespace cg = cooperative_groups;
   const int H = D / hd, b = blockIdx.x / cs, col0 = b % H * hd;
@@ -76,12 +77,13 @@ __global__ void __launch_bounds__(ma::kThreads)
   }
   // the cache column at `pos` is never read (it comes from k_new / v_new),
   // so it is written first, its latency under the reads
-  dh::write_column(ck, cv, knew, vnew, qrow0, ch.nq, P, D, hd, col0, pos,
-                   rank, cs);
-  const dh::UpdateRows<bf16> rows{ck,    cv, knew, vnew, bias, row0, qrow0,
-                                  beam,  P,  pe,   D,    col0, pos};
-  ma::attend<NT>(rows, q + qrow0 * D + col0, D, out + qrow0 * D + col0, D,
-                 beam * pe, ch.nq, hd, inv_scale, cs, smem);
+  dh::write_column(ck, cv, knew, ldk, vnew, ldv, qrow0, ch.nq, P, D, hd,
+                   col0, pos, rank, cs);
+  const dh::UpdateRows<bf16> rows{ck,   cv, knew, vnew, bias, row0, qrow0,
+                                  beam, P,  pe,   D,    col0, pos,  ldk,
+                                  ldv};
+  ma::attend<NT>(rows, q + qrow0 * ldq + col0, ldq, out + qrow0 * D + col0,
+                 D, beam * pe, ch.nq, hd, inv_scale, cs, smem);
 }
 
 template <typename T>
@@ -90,7 +92,8 @@ __global__ void __launch_bounds__(dh::simt::kThreads)
         const T* __restrict__ q, T* __restrict__ ck, T* __restrict__ cv,
         const T* __restrict__ knew, const T* __restrict__ vnew,
         const float* __restrict__ bias, T* __restrict__ out, dh::Count live,
-        int beam, int P, int pe, int D, int hd, int pos, float inv_scale) {
+        int beam, int P, int pe, int D, int hd, int pos, float inv_scale,
+        int ldq, int ldk, int ldv) {
   extern __shared__ __align__(16) uint32_t smem_w[];
   const int H = D / hd, item = blockIdx.x / H, col0 = blockIdx.x % H * hd;
   const size_t row0 = (size_t)item * beam;
@@ -98,11 +101,12 @@ __global__ void __launch_bounds__(dh::simt::kThreads)
     dh::zero_rows(out + row0 * D + col0, beam, hd, D);
     return;
   }
-  dh::write_column(ck, cv, knew, vnew, row0, beam, P, D, hd, col0, pos);
+  dh::write_column(ck, cv, knew, ldk, vnew, ldv, row0, beam, P, D, hd, col0,
+                   pos);
   const dh::UpdateRows<T> rows{ck,   cv, knew, vnew, bias, row0, row0,
-                               beam, P,  pe,   D,    col0, pos};
-  dh::simt::attend<T>(rows, q + row0 * D + col0, D, out + row0 * D + col0, D,
-                      beam * pe, beam, hd, inv_scale, smem_w);
+                               beam, P,  pe,   D,    col0, pos,  ldk, ldv};
+  dh::simt::attend<T>(rows, q + row0 * ldq + col0, ldq, out + row0 * D + col0,
+                      D, beam * pe, beam, hd, inv_scale, smem_w);
 }
 
 bool use_mma(int dtype, int hd) {
@@ -130,34 +134,39 @@ template <typename T>
 cudaError_t launch_simt(const void* q, void* ck, void* cv, const void* kn,
                         const void* vn, const void* bias, void* out,
                         int items, dh::Count live, int beam, int P, int pe,
-                        int D, int H, int pos, float inv_scale,
-                        cudaStream_t stream) {
+                        int D, int H, int pos, float inv_scale, int ldq,
+                        int ldk, int ldv, cudaStream_t stream) {
   const int hd = D / H;
   return ma::launch<&ancestry_attention_update_simt_kernel<T>,
                     dh::simt::kThreads>(
       items * H, 1, dh::simt::smem_bytes(beam * pe, beam, hd, sizeof(T)),
       stream, (const T*)q, (T*)ck, (T*)cv, (const T*)kn, (const T*)vn,
-      (const float*)bias, (T*)out, live, beam, P, pe, D, hd, pos, inv_scale);
+      (const float*)bias, (T*)out, live, beam, P, pe, D, hd, pos, inv_scale,
+      ldq, ldk, ldv);
 }
 
 }  // namespace
 
 // live_ptr: NULL (`live` items are computed) or a device int32 that the
-// kernel reads (a captured step's live count).
+// kernel reads (a captured step's live count). q, k_new and v_new rows lie
+// ldq, ldk and ldv elements apart (D when contiguous; 3 D for the views of
+// a fused QKV product), each a multiple of 16 bytes; the caches, the bias
+// and the output are contiguous.
 extern "C" int dh_ancestry_attention_update(
-    int dtype, const void* q, void* ck, void* cv, const void* kn,
-    const void* vn, const void* bias, void* out, int items, int live_items,
-    const void* live_ptr, int beam, int P, int pe, int D, int H, int pos,
-    float inv_scale, void* stream) {
+    int dtype, const void* q, int ldq, void* ck, void* cv, const void* kn,
+    int ldk, const void* vn, int ldv, const void* bias, void* out, int items,
+    int live_items, const void* live_ptr, int beam, int P, int pe, int D,
+    int H, int pos, float inv_scale, void* stream) {
   auto s = (cudaStream_t)stream;
   const dh::Count live{(const int*)live_ptr, live_items};
   if ((size_t)items * beam * P >= dh::kFresh) return cudaErrorInvalidValue;
   if (!use_mma(dtype, D / H)) {
     if (dtype == dh::kBFloat16)
       return launch_simt<bf16>(q, ck, cv, kn, vn, bias, out, items, live,
-                               beam, P, pe, D, H, pos, inv_scale, s);
+                               beam, P, pe, D, H, pos, inv_scale, ldq, ldk,
+                               ldv, s);
     return launch_simt<float>(q, ck, cv, kn, vn, bias, out, items, live, beam,
-                              P, pe, D, H, pos, inv_scale, s);
+                              P, pe, D, H, pos, inv_scale, ldq, ldk, ldv, s);
   }
   return ma::dispatch(beam, D / H, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
@@ -168,7 +177,7 @@ extern "C" int dh_ancestry_attention_update(
         ma::smem_bytes(beam * pe, cs, ma::chunk_beam(beam), D / H, NT), s,
         (const bf16*)q, (bf16*)ck, (bf16*)cv, (const bf16*)kn,
         (const bf16*)vn, (const float*)bias, (bf16*)out, live, beam, P, pe,
-        D, D / H, pos, inv_scale, cs);
+        D, D / H, pos, inv_scale, cs, ldq, ldk, ldv);
   });
 }
 

@@ -62,16 +62,17 @@ constexpr int kThreads = 256;  // the f32 kernel's block
 // (slot i, position c + p') with r - c = i * w + p', and position `pos` of
 // the window comes from k_new / v_new. A row's code is its row in the
 // shared caches [items * cs], in the per-slot caches [rows * P] (tag
-// kCache) or in k_new / v_new [rows] (tag kFresh); the launcher refuses
-// rows * P of 2^30 or more. `qrow0` is the row of the block's first query
-// (the bf16 blocks take the branches in chunks).
+// kCache) or in k_new / v_new [rows] (tag kFresh, rows `ldk` / `ldv`
+// elements apart); the launcher refuses rows * P of 2^30 or more. `qrow0`
+// is the row of the block's first query (the bf16 blocks take the branches
+// in chunks).
 constexpr uint32_t kCache = 1u << 30, kFresh = 2u << 30;
 template <typename T>
 struct CanonSupport {
   const T *sk, *sv, *ck, *cv, *knew, *vnew;
   const float *bias_sh, *bias_win;
   size_t item, row0, qrow0;
-  int cs, c, w, P, D, col0, pos, bw;  // bw = beam * w
+  int cs, c, w, P, D, col0, pos, bw, ldk, ldv;  // bw = beam * w
   __device__ uint32_t index(int r) const {
     if (r < c) return (uint32_t)(item * cs + r);
     const int i = (r - c) / w, p = c + (r - c) - i * w;
@@ -79,12 +80,17 @@ struct CanonSupport {
                     : kCache | (uint32_t)((row0 + i) * P + p);
   }
   __device__ const T* pick(const T* shared, const T* cache, const T* fresh,
-                           uint32_t x) const {
-    const T* base = x >= kFresh ? fresh : x >= kCache ? cache : shared;
-    return base + (size_t)(x & (kCache - 1)) * D + col0;
+                           int ldf, uint32_t x) const {
+    const size_t row = x & (kCache - 1);
+    return x >= kFresh ? fresh + row * ldf + col0
+                       : (x >= kCache ? cache : shared) + row * D + col0;
   }
-  __device__ const T* k(uint32_t x) const { return pick(sk, ck, knew, x); }
-  __device__ const T* v(uint32_t x) const { return pick(sv, cv, vnew, x); }
+  __device__ const T* k(uint32_t x) const {
+    return pick(sk, ck, knew, ldk, x);
+  }
+  __device__ const T* v(uint32_t x) const {
+    return pick(sv, cv, vnew, ldv, x);
+  }
   __device__ const float* bias(int j, int r, uint32_t) const {
     return r < c ? bias_sh + item * c + r
                  : bias_win + (qrow0 + j) * bw + (r - c);
@@ -100,7 +106,7 @@ __global__ void __launch_bounds__(dh::mma_attn::kThreads)
         const bf16* __restrict__ vnew, const float* __restrict__ bias_sh,
         const float* __restrict__ bias_win, bf16* __restrict__ out,
         dh::Count live, int beam, int P, int cs, int c, int w, int D,
-        int hd, int pos, float inv_scale) {
+        int hd, int pos, float inv_scale, int ldq, int ldk, int ldv) {
   extern __shared__ __align__(16) unsigned char smem[];
   // heads vary fastest, so an item's heads read its 1 KB rows together;
   // then the item's chunks of at most kMaxBeam branches
@@ -114,12 +120,13 @@ __global__ void __launch_bounds__(dh::mma_attn::kThreads)
   }
   const CanonSupport<bf16> rows{sk, sv, ck, cv, knew, vnew, bias_sh,
                                 bias_win, item, row0, qrow0, cs, c, w, P, D,
-                                col0, pos, beam * w};
-  dh::mma_attn::attend<NT>(rows, q + qrow0 * D + col0, D,
+                                col0, pos, beam * w, ldk, ldv};
+  dh::mma_attn::attend<NT>(rows, q + qrow0 * ldq + col0, ldq,
                            out + qrow0 * D + col0, D, c + beam * w, nq, hd,
                            inv_scale, 1, smem);
   // the cache column at `pos` was never read (it came from k_new / v_new)
-  dh::write_column(ck, cv, knew, vnew, qrow0, nq, P, D, hd, col0, pos);
+  dh::write_column(ck, cv, knew, ldk, vnew, ldv, qrow0, nq, P, D, hd, col0,
+                   pos);
 }
 
 __global__ void __launch_bounds__(kThreads) canon_attention_f32_kernel(
@@ -129,7 +136,7 @@ __global__ void __launch_bounds__(kThreads) canon_attention_f32_kernel(
     const float* __restrict__ vnew, const float* __restrict__ bias_sh,
     const float* __restrict__ bias_win, float* __restrict__ out,
     dh::Count live, int beam, int P, int cs, int c, int w, int D, int hd,
-    int pos, float inv_scale) {
+    int pos, float inv_scale, int ldq, int ldk, int ldv) {
   extern __shared__ __align__(16) uint32_t smem_w[];
   const int n = c + beam * w;  // joined support
   const int ld = hd + 1;       // odd: conflict-free columns
@@ -146,7 +153,7 @@ __global__ void __launch_bounds__(kThreads) canon_attention_f32_kernel(
 
   const CanonSupport<float> rows{sk, sv, ck, cv, knew, vnew, bias_sh,
                                  bias_win, item, row0, row0, cs, c, w, P, D,
-                                 col0, pos, beam * w};
+                                 col0, pos, beam * w, ldk, ldv};
   dh::stage_rows(ks, ld, n, hd / 4, [&](int r) {
     return reinterpret_cast<const uint4*>(rows.k(rows.index(r)));
   });
@@ -154,7 +161,7 @@ __global__ void __launch_bounds__(kThreads) canon_attention_f32_kernel(
     return reinterpret_cast<const uint4*>(rows.v(rows.index(r)));
   });
   for (int t = threadIdx.x; t < beam * hd; t += blockDim.x)
-    qs[t] = q[(row0 + t / hd) * D + col0 + t % hd];
+    qs[t] = q[(row0 + t / hd) * ldq + col0 + t % hd];
   __syncthreads();
 
   for (int t = threadIdx.x; t < beam * n; t += blockDim.x) {
@@ -179,7 +186,8 @@ __global__ void __launch_bounds__(kThreads) canon_attention_f32_kernel(
   }
   // the cache column at `pos` was never read above, so the write needs no
   // barrier
-  dh::write_column(ck, cv, knew, vnew, row0, beam, P, D, hd, col0, pos);
+  dh::write_column(ck, cv, knew, ldk, vnew, ldv, row0, beam, P, D, hd, col0,
+                   pos);
 }
 
 template <int NT>
@@ -188,7 +196,7 @@ cudaError_t launch_mma(const void* q, void* ck, void* cv, const void* sk,
                        const void* bias_sh, const void* bias_win, void* out,
                        int items, dh::Count live, int beam, int P, int cs,
                        int c, int pe, int D, int H, int pos, float inv_scale,
-                       cudaStream_t stream) {
+                       int ldq, int ldk, int ldv, cudaStream_t stream) {
   namespace ma = dh::mma_attn;
   const int hd = D / H, w = pe - c, n = c + beam * w;
   return ma::launch<&canon_attention_mma_kernel<NT>>(
@@ -197,7 +205,7 @@ cudaError_t launch_mma(const void* q, void* ck, void* cv, const void* sk,
       (const bf16*)q, (bf16*)ck, (bf16*)cv, (const bf16*)sk, (const bf16*)sv,
       (const bf16*)kn, (const bf16*)vn, (const float*)bias_sh,
       (const float*)bias_win, (bf16*)out, live, beam, P, cs, c, w, D, hd,
-      pos, inv_scale);
+      pos, inv_scale, ldq, ldk, ldv);
 }
 
 cudaError_t launch_f32(const void* q, void* ck, void* cv, const void* sk,
@@ -205,7 +213,7 @@ cudaError_t launch_f32(const void* q, void* ck, void* cv, const void* sk,
                        const void* bias_sh, const void* bias_win, void* out,
                        int items, dh::Count live, int beam, int P, int cs,
                        int c, int pe, int D, int H, int pos, float inv_scale,
-                       cudaStream_t stream) {
+                       int ldq, int ldk, int ldv, cudaStream_t stream) {
   const int hd = D / H, w = pe - c;
   const size_t n = (size_t)c + (size_t)beam * w;
   const size_t smem = 4 * (2 * n * (hd + 1) + beam * hd + beam * n);
@@ -219,30 +227,32 @@ cudaError_t launch_f32(const void* q, void* ck, void* cv, const void* sk,
       (const float*)q, (float*)ck, (float*)cv, (const float*)sk,
       (const float*)sv, (const float*)kn, (const float*)vn,
       (const float*)bias_sh, (const float*)bias_win, (float*)out, live, beam,
-      P, cs, c, w, D, hd, pos, inv_scale);
+      P, cs, c, w, D, hd, pos, inv_scale, ldq, ldk, ldv);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // live_ptr: NULL (`live_items` items are computed) or a device int32 that
-// the kernel reads (a captured step's live count).
+// the kernel reads (a captured step's live count). q, k_new and v_new rows
+// lie ldq, ldk and ldv elements apart (3 D for the views of a fused QKV
+// product), each a multiple of 16 bytes; every other operand is contiguous.
 extern "C" int dh_ancestry_attention_update_canon(
-    int dtype, const void* q, void* ck, void* cv, const void* sk,
-    const void* sv, const void* kn, const void* vn, const void* bias_sh,
-    const void* bias_win, void* out, int items, int live_items,
-    const void* live_ptr, int beam, int P, int cs, int c, int pe, int D,
-    int H, int pos, float inv_scale, void* stream) {
+    int dtype, const void* q, int ldq, void* ck, void* cv, const void* sk,
+    const void* sv, const void* kn, int ldk, const void* vn, int ldv,
+    const void* bias_sh, const void* bias_win, void* out, int items,
+    int live_items, const void* live_ptr, int beam, int P, int cs, int c,
+    int pe, int D, int H, int pos, float inv_scale, void* stream) {
   auto s = (cudaStream_t)stream;
   const dh::Count live{(const int*)live_ptr, live_items};
   if (dtype != dh::kBFloat16)
     return launch_f32(q, ck, cv, sk, sv, kn, vn, bias_sh, bias_win, out,
                       items, live, beam, P, cs, c, pe, D, H, pos, inv_scale,
-                      s);
+                      ldq, ldk, ldv, s);
   if ((size_t)items * beam * P >= kCache) return cudaErrorInvalidValue;
   return dh::mma_attn::dispatch(beam, D / H, [&](auto nt) {
     return launch_mma<decltype(nt)::value>(
         q, ck, cv, sk, sv, kn, vn, bias_sh, bias_win, out, items, live, beam,
-        P, cs, c, pe, D, H, pos, inv_scale, s);
+        P, cs, c, pe, D, H, pos, inv_scale, ldq, ldk, ldv, s);
   });
 }

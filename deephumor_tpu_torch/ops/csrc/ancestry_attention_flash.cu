@@ -69,10 +69,10 @@ __global__ void __launch_bounds__(ma::kThreads)
   const size_t row0 = (size_t)ch.sel * beam, qrow0 = row0 + ch.j0;
   // the cache column at `pos` is never read (it comes from k_new / v_new),
   // so it is written first, its latency under the reads
-  dh::write_column(ck, cv, knew, vnew, qrow0, ch.nq, P, D, hd, col0, pos,
-                   rank, cs);
+  dh::write_column(ck, cv, knew, D, vnew, D, qrow0, ch.nq, P, D, hd, col0,
+                   pos, rank, cs);
   const dh::UpdateRows<bf16> rows{ck,   cv, knew, vnew, bias, row0, qrow0,
-                                  beam, P,  pe,   D,    col0, pos};
+                                  beam, P,  pe,   D,    col0, pos,  D, D};
   ma::attend_online<NT>(rows, q + qrow0 * D + col0, D,
                         out + qrow0 * D + col0, D, beam * pe, ch.nq, hd,
                         inv_scale, cs, smem);
@@ -124,7 +124,8 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
 
   // the cache column at `pos` is never read (it comes from k_new / v_new)
-  dh::write_column(ck, cv, knew, vnew, row0, beam, P, D, hd, col0, pos);
+  dh::write_column(ck, cv, knew, D, vnew, D, row0, beam, P, D, hd, col0,
+                   pos);
   for (int t = threadIdx.x; t < beam * hd; t += blockDim.x) {
     qs[t] = dh::to_f32(q[(row0 + t / hd) * D + col0 + t % hd]);
     acc[t] = 0.f;

@@ -13,13 +13,25 @@
 // still disagree below c -- outputs from a stale shared path; K6
 // recomputes exactly those items over the full per-slot caches
 // [0, p_eff) with the step's flat ancestry bias [items, beam, beam * P].
-// The grid computes the first max(n_sel, 1) entries of an item-id list (the
-// TPU grid is clamped the same way); rows of other items are not written.
-// n_sel is a launch argument, and the grid then has max(n_sel, 1) entries,
-// or an int32 in device memory (dh::Count) that the canonical-prefix
-// boundary sets: the grid then covers the whole list (a captured step
-// bakes it in, and the engine launches K6 on every canon step) and the
-// blocks of entries at or past the count return at once.
+//
+// K6 computes the first max(n_sel, 1) entries of an item-id list (the TPU
+// grid is clamped the same way), or, with `min_sel` 0 (the engine's call,
+// writing into K5's output), the first n_sel: none at 0, where the TPU
+// kernel computes one entry that the engine's merge discards. Rows of
+// other items are not written. The TPU grid is (n_sel,), a traced value;
+// here the grid holds G list entries, each (item, head) on a cluster of
+// up to four blocks, G as many entries as the card holds at once at the
+// kernel's occupancy (the char leg has 0-10 stragglers: one wave at its 8
+// heads), and the blocks of grid entry e compute list entries e, e + G,
+// e + 2 G, ... below the count, so any count up to the whole list is
+// computed.
+// n_sel is a launch argument (the grid then has min(max(n_sel, 1), G)
+// entries) or an int32 in device memory (dh::Count) that the
+// canonical-prefix boundary sets (a captured step bakes the launch in,
+// and the engine launches K6 on every canon step: the grid then has G
+// entries, and those past the count return at once). Both forms split
+// each (item, head) over the cluster size of the G-entry grid, so they
+// compute every entry alike, bit for bit.
 //
 // Bound on the H100: bytes. At the char config's last phase (beam 7 x
 // p_eff 128 x D 512, bf16) each item moves ~1.87 MB: K+V 1.84 MB, its
@@ -36,17 +48,24 @@
 // energy (<= 7 x 964 f32 = 27 KB) stays in shared memory for the exact two-pass
 // softmax: ~56 KB a block at this shape. The grid is small on the real path:
 // the char leg's boundaries leave 0-10 stragglers, n_sel x 8 working blocks on
-// 132 SMs, each walking 28 tiles in turn. So a small grid spreads each (item,
-// head) over a cluster of up to four blocks on four SMs, each taking a quarter
-// of the tiles (a grid over the whole list of 768 items, the device count's,
-// keeps one block per (item, head)); the blocks exchange each branch's max and sum through
-// distributed shared memory (weights still normalised before rounding), then
-// their partial outputs. K7's grids fill the card and keep one block per (item,
-// head).
+// 132 SMs, each walking 28 tiles in turn. So K6 spreads each (item, head) over
+// a cluster of up to four blocks on four SMs (as many as the rows have tiles),
+// each taking a quarter of the tiles; the blocks exchange each branch's max and
+// sum through distributed shared memory (weights still normalised before
+// rounding), then their partial outputs. K7's grids fill the card and size
+// their clusters by the grid (ma::cluster_size): one block per (item, head)
+// there.
+//
+// q rows lie `ldq` elements apart (3 D for the view of a fused QKV product);
+// the caches, the bias and the output are contiguous.
 //
 // f32: the two-pass CUDA-core body of attention_simt.cuh
 // (ancestry_attention_f32_kernel): exact f32 arithmetic, K and V staged 256
 // rows at a time, every energy in shared memory.
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "attention_mma.cuh"
 #include "attention_simt.cuh"
@@ -78,13 +97,78 @@ struct CacheRows {
   }
 };
 
-// The item of block b (the b-th of the list, or item b for K7's NULL
-// list), heads varying fastest so that an item's heads read its 1 KB rows
-// together; -1 for an entry at or past max(n_sel, 1).
-__device__ __forceinline__ int block_item(const int* ids, dh::Count n_sel,
-                                          int b) {
-  if (!ids) return b;
-  return b < max(n_sel.get(), 1) ? ids[b] : -1;
+// The list entries that a block walks: grid entry e computes entries e,
+// e + stride, ... below bound() (every block of a cluster walks alike, so
+// their barriers match); the item of entry e is ids[e], or e for K7's NULL
+// list.
+struct Walk {
+  const int* ids;
+  dh::Count n;   // the count of entries to compute
+  int min_n;     // computed at least (1: the TPU grid's clamp; 0: none)
+  int len;       // the list's length
+  int stride;    // the grid's entries
+  __device__ __forceinline__ int bound() const {
+    return min(max(n.get(), min_n), len);
+  }
+  __device__ __forceinline__ int item(int e) const { return ids ? ids[e] : e; }
+};
+
+// The blocks of `Kernel` (`Threads` threads, `smem` bytes of dynamic
+// shared memory, clusters of `cs`) that the current card holds at once,
+// from the occupancy calculator (cluster placement included), asked once
+// per device and shape.
+template <auto Kernel, int Threads>
+cudaError_t resident_blocks(int cs, size_t smem, int* blocks) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, size_t>, int> seen;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(dev, cs, smem);
+  const auto it = seen.find(key);
+  if (it != seen.end()) {
+    *blocks = it->second;
+    return cudaSuccess;
+  }
+  err = dh::prepare<Kernel>();  // the opt-in shared memory limit
+  int n = 0;
+  if (err == cudaSuccess && cs > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cs);
+    cfg.blockDim = dim3(Threads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(
+        &n, reinterpret_cast<const void*>(Kernel), &cfg);
+    n *= cs;
+  } else if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, Kernel, Threads,
+                                                        smem);
+    n *= dh::sm_count();
+  }
+  if (err != cudaSuccess) return err;
+  seen[key] = *blocks = n;
+  return cudaSuccess;
+}
+
+// K6's grid: as many list entries, of `per` clusters of `cs` blocks each,
+// as the card holds at once (`resident` blocks), at least one, at most the
+// list's `len`; the walk strides by it. An int count launches only the
+// entries it computes, a device count the whole grid.
+void size_list_grid(Walk* walk, int resident, int per, int cs,
+                    bool count_ptr, int n_sel, int* entries) {
+  int g = resident / (per * cs);
+  g = g < 1 ? 1 : g < walk->len ? g : walk->len;
+  walk->stride = g;
+  const int want = n_sel > 1 ? n_sel : 1;
+  *entries = count_ptr || want > g ? g : want;
 }
 
 // Clusters of `cs` consecutive blocks share one (item, head, chunk of at
@@ -92,107 +176,146 @@ __device__ __forceinline__ int block_item(const int* ids, dh::Count n_sel,
 template <int NT>
 __global__ void __launch_bounds__(dh::mma_attn::kThreads)
     ancestry_attention_mma_kernel(
-        const bf16* __restrict__ q, const bf16* __restrict__ ck,
+        const bf16* __restrict__ q, int ldq, const bf16* __restrict__ ck,
         const bf16* __restrict__ cv, const float* __restrict__ bias,
-        const int* __restrict__ ids, dh::Count n_sel, bf16* __restrict__ out,
-        int items, int beam, int P, int pe, int D, int hd, float inv_scale,
-        int cs) {
+        Walk walk, bf16* __restrict__ out, int items, int beam, int P, int pe,
+        int D, int hd, float inv_scale, int cs) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = D / hd, b = blockIdx.x / cs, col0 = b % H * hd;
   const dh::mma_attn::Chunk<NT> ch(b, H, beam);
-  const int item = block_item(ids, n_sel, ch.sel), nq = ch.nq;
-  if (item < 0 || item >= items) return;  // the whole cluster returns
-  const size_t row0 = (size_t)item * beam, qrow0 = row0 + ch.j0;
-  const CacheRows<bf16> rows{ck,   cv, bias, row0, qrow0,
-                             beam, P,  pe,   D,    col0};
-  dh::mma_attn::attend<NT>(rows, q + qrow0 * D + col0, D,
-                           out + qrow0 * D + col0, D, beam * pe, nq, hd,
-                           inv_scale, cs, smem);
+  const int end = walk.bound();
+  // `attend` ends on a barrier after its last read of shared memory, so the
+  // next entry may refill it
+  for (int e = ch.sel; e < end; e += walk.stride) {
+    const int item = walk.item(e);
+    if (item < 0 || item >= items) continue;  // the whole cluster skips it
+    const size_t row0 = (size_t)item * beam, qrow0 = row0 + ch.j0;
+    const CacheRows<bf16> rows{ck,   cv, bias, row0, qrow0,
+                               beam, P,  pe,   D,    col0};
+    dh::mma_attn::attend<NT>(rows, q + qrow0 * ldq + col0, ldq,
+                             out + qrow0 * D + col0, D, beam * pe, ch.nq, hd,
+                             inv_scale, cs, smem);
+  }
 }
 
 __global__ void __launch_bounds__(dh::simt::kThreads)
     ancestry_attention_f32_kernel(
-        const float* __restrict__ q, const float* __restrict__ ck,
+        const float* __restrict__ q, int ldq, const float* __restrict__ ck,
         const float* __restrict__ cv, const float* __restrict__ bias,
-        const int* __restrict__ ids, dh::Count n_sel, float* __restrict__ out,
-        int items, int beam, int P, int pe, int D, int hd, float inv_scale) {
+        Walk walk, float* __restrict__ out, int items, int beam, int P,
+        int pe, int D, int hd, float inv_scale) {
   extern __shared__ __align__(16) uint32_t smem_w[];
-  const int item = block_item(ids, n_sel, blockIdx.x / (D / hd));
-  if (item < 0 || item >= items) return;
-  const size_t row0 = (size_t)item * beam;
-  const int col0 = blockIdx.x % (D / hd) * hd;
-  const CacheRows<float> rows{ck,   cv, bias, row0, row0,
-                              beam, P,  pe,   D,    col0};
-  dh::simt::attend<float>(rows, q + row0 * D + col0, D,
-                          out + row0 * D + col0, D, beam * pe, beam, hd,
-                          inv_scale, smem_w);
+  const int H = D / hd, col0 = blockIdx.x % H * hd, end = walk.bound();
+  for (int e = blockIdx.x / H; e < end; e += walk.stride) {
+    const int item = walk.item(e);
+    if (item < 0 || item >= items) continue;
+    __syncthreads();  // the previous entry's reads of shared memory are done
+    const size_t row0 = (size_t)item * beam;
+    const CacheRows<float> rows{ck,   cv, bias, row0, row0,
+                                beam, P,  pe,   D,    col0};
+    dh::simt::attend<float>(rows, q + row0 * ldq + col0, ldq,
+                            out + row0 * D + col0, D, beam * pe, beam, hd,
+                            inv_scale, smem_w);
+  }
 }
+
+// How a launch covers its list: K7 (`list` false) every item in one
+// grid, its clusters sized by that grid (ma::cluster_size); K6 one
+// resident wave of list entries (size_list_grid), each (item, head) on a
+// cluster of as many blocks, up to four, as its rows have tiles, whatever
+// the count, so that an int and a device count compute alike.
+struct Cover {
+  bool list, count_ptr;
+  int n_sel;
+};
 
 template <int NT>
-cudaError_t launch_mma(const void* q, const void* ck, const void* cv,
-                       const void* bias, const void* ids, dh::Count n_sel,
-                       int entries, void* out, int items, int beam, int P,
-                       int pe, int D, int H, float inv_scale,
+cudaError_t launch_mma(const void* q, int ldq, const void* ck,
+                       const void* cv, const void* bias, Walk walk,
+                       const Cover& cover, void* out, int items, int beam,
+                       int P, int pe, int D, int H, float inv_scale,
                        cudaStream_t stream) {
   namespace ma = dh::mma_attn;
-  const int hd = D / H, n = beam * pe;
-  const int blocks = entries * H * ma::beam_chunks(beam);
-  const int cs = ma::cluster_size(blocks, n);
-  return ma::launch<&ancestry_attention_mma_kernel<NT>>(
-      blocks * cs, cs, ma::smem_bytes(n, cs, ma::chunk_beam(beam), hd, NT),
-      stream, (const bf16*)q, (const bf16*)ck, (const bf16*)cv,
-      (const float*)bias, (const int*)ids, n_sel, (bf16*)out, items, beam, P,
-      pe, D, hd, inv_scale, cs);
+  constexpr auto kernel = &ancestry_attention_mma_kernel<NT>;
+  const int hd = D / H, n = beam * pe, per = H * ma::beam_chunks(beam);
+  int cs = 1, entries = walk.stride;
+  if (cover.list) {
+    while (2 * cs <= ma::kMaxCluster && 2 * cs <= ma::tiles_of(n)) cs *= 2;
+  } else {
+    cs = ma::cluster_size(walk.stride * per, n);
+  }
+  const size_t smem = ma::smem_bytes(n, cs, ma::chunk_beam(beam), hd, NT);
+  if (cover.list) {
+    int resident = 0;
+    const cudaError_t err =
+        resident_blocks<kernel, ma::kThreads>(cs, smem, &resident);
+    if (err != cudaSuccess) return err;
+    size_list_grid(&walk, resident, per, cs, cover.count_ptr, cover.n_sel,
+                   &entries);
+  }
+  return ma::launch<kernel>(
+      entries * per * cs, cs, smem, stream, (const bf16*)q, ldq,
+      (const bf16*)ck, (const bf16*)cv, (const float*)bias, walk, (bf16*)out,
+      items, beam, P, pe, D, hd, inv_scale, cs);
 }
 
-cudaError_t launch_f32(const void* q, const void* ck, const void* cv,
-                       const void* bias, const void* ids, dh::Count n_sel,
-                       int entries, void* out, int items, int beam, int P,
-                       int pe, int D, int H, float inv_scale,
-                       cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, int ldq, const void* ck, const void* cv,
+                       const void* bias, Walk walk, const Cover& cover,
+                       void* out, int items, int beam, int P, int pe, int D,
+                       int H, float inv_scale, cudaStream_t stream) {
+  constexpr auto kernel = &ancestry_attention_f32_kernel;
   const int hd = D / H;
-  return dh::mma_attn::launch<&ancestry_attention_f32_kernel,
-                              dh::simt::kThreads>(
-      entries * H, 1, dh::simt::smem_bytes(beam * pe, beam, hd, 4), stream,
-      (const float*)q, (const float*)ck, (const float*)cv,
-      (const float*)bias, (const int*)ids, n_sel, (float*)out, items, beam,
+  const size_t smem = dh::simt::smem_bytes(beam * pe, beam, hd, 4);
+  int entries = walk.stride;
+  if (cover.list) {
+    int resident = 0;
+    const cudaError_t err =
+        resident_blocks<kernel, dh::simt::kThreads>(1, smem, &resident);
+    if (err != cudaSuccess) return err;
+    size_list_grid(&walk, resident, H, 1, cover.count_ptr, cover.n_sel,
+                   &entries);
+  }
+  return dh::mma_attn::launch<kernel, dh::simt::kThreads>(
+      entries * H, 1, smem, stream, (const float*)q, ldq, (const float*)ck,
+      (const float*)cv, (const float*)bias, walk, (float*)out, items, beam,
       P, pe, D, hd, inv_scale);
 }
 
 // bf16 through the tensor-core kernel (n-tiles by beam), f32 through the
-// CUDA-core kernel, over `entries` entries of the list `ids` (NULL for K7:
-// item b for entry b).
-int launch(int dtype, const void* q, const void* ck, const void* cv,
-           const void* bias, const void* ids, dh::Count n_sel, int entries,
-           void* out, int items, int beam, int P, int pe, int D, int H,
-           float inv_scale, void* stream) {
+// CUDA-core kernel.
+int launch(int dtype, const void* q, int ldq, const void* ck, const void* cv,
+           const void* bias, const Walk& walk, const Cover& cover, void* out,
+           int items, int beam, int P, int pe, int D, int H, float inv_scale,
+           void* stream) {
   auto s = (cudaStream_t)stream;
   if ((size_t)items * beam * P > UINT32_MAX) return cudaErrorInvalidValue;
-  if (entries < 1) return cudaErrorInvalidValue;
+  if (walk.len < 1 || H < 1 || beam < 1) return cudaErrorInvalidValue;
   if (dtype != dh::kBFloat16)
-    return launch_f32(q, ck, cv, bias, ids, n_sel, entries, out, items, beam,
-                      P, pe, D, H, inv_scale, s);
+    return launch_f32(q, ldq, ck, cv, bias, walk, cover, out, items, beam, P,
+                      pe, D, H, inv_scale, s);
   return dh::mma_attn::dispatch(beam, D / H, [&](auto nt) {
-    return launch_mma<decltype(nt)::value>(q, ck, cv, bias, ids, n_sel,
-                                           entries, out, items, beam, P, pe,
-                                           D, H, inv_scale, s);
+    return launch_mma<decltype(nt)::value>(q, ldq, ck, cv, bias, walk, cover,
+                                           out, items, beam, P, pe, D, H,
+                                           inv_scale, s);
   });
 }
 
 }  // namespace
 
-// n_sel_ptr: NULL (the grid computes the first n_sel >= 1 ids) or a device
-// int32 that the kernel reads (a captured step's straggler count); the
-// grid then walks n_sel entries of the list (its length, at most items),
-// and those at or past max(count, 1) return.
+// K6 over the list ids[:len]: n_sel_ptr NULL (the first max(n_sel, min_sel)
+// entries) or a device int32 that the kernel reads (a captured step's
+// straggler count, in place of n_sel); min_sel 1 computes at least one
+// entry, 0 none at a count of 0. q rows lie ldq elements apart.
 extern "C" int dh_ancestry_attention_ids(
-    int dtype, const void* q, const void* ck, const void* cv,
-    const void* bias, const void* ids, void* out, int items, int n_sel,
-    const void* n_sel_ptr, int beam, int P, int pe, int D, int H,
-    float inv_scale, void* stream) {
-  return launch(dtype, q, ck, cv, bias, ids,
-                dh::Count{(const int*)n_sel_ptr, n_sel}, n_sel, out, items,
-                beam, P, pe, D, H, inv_scale, stream);
+    int dtype, const void* q, int ldq, const void* ck, const void* cv,
+    const void* bias, const void* ids, void* out, int items, int len,
+    int n_sel, const void* n_sel_ptr, int min_sel, int beam, int P, int pe,
+    int D, int H, float inv_scale, void* stream) {
+  const Walk walk{(const int*)ids, dh::Count{(const int*)n_sel_ptr, n_sel},
+                  min_sel, len, len};
+  return launch(dtype, q, ldq, ck, cv, bias, walk,
+                Cover{true, n_sel_ptr != nullptr, n_sel}, out, items, beam, P,
+                pe, D, H, inv_scale, stream);
 }
 
 // K7: the same kernels over every item (block x computes item x).
@@ -201,6 +324,7 @@ extern "C" int dh_ancestry_attention(int dtype, const void* q, const void* ck,
                                      void* out, int items, int beam, int P,
                                      int pe, int D, int H, float inv_scale,
                                      void* stream) {
-  return launch(dtype, q, ck, cv, bias, nullptr, dh::Count{nullptr, items},
-                items, out, items, beam, P, pe, D, H, inv_scale, stream);
+  const Walk walk{nullptr, dh::Count{nullptr, items}, 0, items, items};
+  return launch(dtype, q, D, ck, cv, bias, walk, Cover{false, false, items},
+                out, items, beam, P, pe, D, H, inv_scale, stream);
 }

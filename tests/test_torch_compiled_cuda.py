@@ -174,3 +174,25 @@ def test_char_captures_its_whole_call(cuda, greedy, eos_bias):
         assert any(b["stragglers"] is not None for b in outs[0]["boundaries"])
     (info,) = graphs.cache_info()
     assert not info["eager_tail"] and info["captured_boundaries"] >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype", [("word", "float32"),
+                                        ("base", "float32"),
+                                        ("word", "bfloat16")])
+def test_a_replay_reads_parameters_changed_in_place(cuda, kind, dtype):
+    # the fused QKV weights are made inside the prefill's graph, so a
+    # replay reads the parameters as they are at the call (a trainer
+    # updates them in place between its eval calls)
+    model, params, enc = _model(kind, cuda, dtype=dtype)
+    kw = dict(GEN, greedy=True, sampler="exact")
+    model.generate_from_emb(params, enc, **kw)  # warm-up and capture
+    with torch.no_grad():
+        for layer in params["decoder"]["layers"]:
+            for name in ("fc_q", "fc_k", "fc_v"):
+                layer["self_attn"][name]["weight"].mul_(3.0)
+    replayed = model.generate_from_emb(params, enc, **kw)
+    assert len(graphs.cache_info()) == 1
+    eager = model.generate_from_emb(params, enc, compiled=False, **kw)
+    for key in ("sequences", "scores", "chosen", "ended"):
+        assert torch.equal(replayed[key], eager[key]), key

@@ -663,3 +663,88 @@ def test_kernels_read_a_device_count(cuda, dtype, count):
             else:  # rows of items not selected are left unwritten
                 k = keep.repeat_interleave(beam)
                 assert torch.equal(g[k], w[k]), name
+
+
+def _fused_views(t_q, t_k, t_v):
+    """The three column views of one [rows, 3D] tensor (rows 3D apart,
+    as decode_step's fused QKV product), holding the given values."""
+    rows, d = t_q.shape
+    base = torch.empty(rows, 3 * d, dtype=t_q.dtype, device=t_q.device)
+    views = base.split(d, -1)
+    for view, t in zip(views, (t_q, t_k, t_v)):
+        view.copy_(t)
+    return views
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["k1", "k5", "k6"])
+def test_strided_views_bit_equal_contiguous_copies(cuda, dtype, kernel):
+    # the char leg's last phase at 2 heads of 64: K1, K5 and K6 read q,
+    # k_new and v_new in place from the fused product's views
+    items, beam, p, c, pe, d, heads = 9, 7, 136, 120, 128, 128, 2
+    g = torch.Generator(cuda).manual_seed(21)
+    s = canon_state(items=items, beam=beam, p=p, c=c, pe=pe, d=d,
+                    dtype=dtype, generator=g, stragglers=range(1, items, 2))
+    views = _fused_views(s["q"], s["kn"], s["vn"])
+    assert views[0].stride() == (3 * d, 1)
+    ids = torch.randperm(items, generator=g, device=cuda).to(torch.int32)
+
+    def run(q, kn, vn):
+        ck, cv = s["ck"].clone(), s["cv"].clone()
+        if kernel == "k1":
+            out = A.ancestry_attention_update(
+                q, ck, cv, kn, vn, s["bias"], s["pos"], beam=beam,
+                n_heads=heads, p_eff=pe)
+        elif kernel == "k5":
+            out = A.ancestry_attention_update_canon(
+                q, ck, cv, s["sk"], s["sv"], kn, vn, s["bias_sh"],
+                s["bias_win"], s["pos"], beam=beam, n_heads=heads, c=c,
+                p_eff=pe)
+        else:
+            out = torch.zeros_like(s["q"])
+            A.ancestry_attention_ids(q, ck, cv, s["bias"], ids, 4,
+                                     beam=beam, n_heads=heads, p_eff=pe,
+                                     out=out)
+        return out, ck, cv
+
+    got = run(*views)
+    want = run(*(v.contiguous() for v in views))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_sel", [0, 1, 2, 3, 4, 5, 6, 7, 8, 96])
+def test_ids_device_count_bit_equal_to_int(cuda, dtype, n_sel):
+    # K6 at the char shapes (beam 7, p_eff 128, D 512 over 8 heads) over
+    # 128 items: a count in device memory launches the bounded grid, an
+    # int the entries it computes, with one cluster split; both write the
+    # listed items' rows into `out` alike and leave every other row
+    items, beam, p, pe, d, heads = 128, 7, 136, 128, 512, 8
+    g = torch.Generator(cuda).manual_seed(22)
+    s = canon_state(items=items, beam=beam, p=p, c=120, pe=pe, d=d,
+                    dtype=dtype, generator=g, stragglers=range(0, items, 3))
+    q = _fused_views(s["q"], s["kn"], s["vn"])[0]
+    ids = torch.randperm(items, generator=g, device=cuda).to(torch.int32)
+    base = torch.randn(items * beam, d, generator=g, device=cuda).to(dtype)
+    kw = dict(beam=beam, n_heads=heads, p_eff=pe)
+    outs = []
+    for count in (n_sel, torch.tensor(n_sel, dtype=torch.int32,
+                                      device=cuda)):
+        out = base.clone()
+        A.ancestry_attention_ids(q, s["ck"], s["cv"], s["bias"], ids, count,
+                                 out=out, **kw)
+        outs.append(out)
+    want = A.ancestry_attention_ids_plain(q, s["ck"], s["cv"], s["bias"],
+                                          ids, n_sel, out=base.clone(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    rows = torch.zeros(items, dtype=torch.bool, device=cuda)
+    rows[ids[:n_sel].long()] = True
+    rows = rows.repeat_interleave(beam)
+    assert torch.equal(outs[0][~rows], base[~rows])
+    torch.testing.assert_close(outs[0], want, atol=_tol(dtype),
+                               rtol=_tol(dtype))
