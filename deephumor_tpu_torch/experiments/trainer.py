@@ -76,6 +76,7 @@ from deephumor_tpu_torch.parallel.sharding import (gather_tree,
                                                    is_model_sharded,
                                                    local_tree, model_group,
                                                    placed_mesh)
+from deephumor_tpu_torch.utils import profiling
 from deephumor_tpu_torch.utils.collectives import all_reduce
 from deephumor_tpu_torch.utils.pytree import (flatten_tree, tree_map,
                                               unflatten_tree)
@@ -368,7 +369,8 @@ def _prefetch_iter(iterable, prepare, depth):
     t.start()
     try:
         while True:
-            item = q.get()
+            with profiling.span("train.batch_wait"):
+                item = q.get()
             if item is done:
                 return
             if isinstance(item, Exception):
@@ -707,28 +709,29 @@ class Trainer:
         def flush():
             if not rows:
                 return
-            first = rows[0][0]
-            cols = dict(zip(names, ring[:len(rows)].cpu().numpy().T))
-            ns = np.asarray([n for _, n in rows], np.float64)
-            losses = cols["loss"]
-            if not np.isfinite(losses).all():
-                bad = int(np.argmax(~np.isfinite(losses)))
-                raise FloatingPointError(
-                    f"non-finite loss {losses[bad]} at step {first + bad} "
-                    f"({phase})")
-            if writer is not None and is_train:
-                for j in range(len(rows)):
-                    writer.add_scalar("train/batch_loss", losses[j],
-                                      first + j)
-                    writer.add_scalar("train/batch_perplexity",
-                                      cols["perplexity"][j], first + j)
-                    if self.log_grad_norm:
-                        writer.add_scalar("train/grad_norm",
-                                          cols["grad_norm"][j], first + j)
-            totals["loss"] += float(losses @ ns)
-            totals["pp"] += float(cols["perplexity"] @ ns)
-            totals["n"] += int(ns.sum())
-            rows.clear()
+            with profiling.span("train.flush"):
+                first = rows[0][0]
+                cols = dict(zip(names, ring[:len(rows)].cpu().numpy().T))
+                ns = np.asarray([n for _, n in rows], np.float64)
+                losses = cols["loss"]
+                if not np.isfinite(losses).all():
+                    bad = int(np.argmax(~np.isfinite(losses)))
+                    raise FloatingPointError(
+                        f"non-finite loss {losses[bad]} at step {first + bad} "
+                        f"({phase})")
+                if writer is not None and is_train:
+                    for j in range(len(rows)):
+                        writer.add_scalar("train/batch_loss", losses[j],
+                                          first + j)
+                        writer.add_scalar("train/batch_perplexity",
+                                          cols["perplexity"][j], first + j)
+                        if self.log_grad_norm:
+                            writer.add_scalar("train/grad_norm",
+                                              cols["grad_norm"][j], first + j)
+                totals["loss"] += float(losses @ ns)
+                totals["pp"] += float(cols["perplexity"] @ ns)
+                totals["n"] += int(ns.sum())
+                rows.clear()
 
         batches = (_prefetch_iter(dataloader, self._host_batch, self.prefetch)
                    if self.prefetch
@@ -739,11 +742,13 @@ class Trainer:
                          for k, v in host.items()}
             else:
                 batch = shard_batch(host, mesh)
-            if is_train:
-                state, metrics = self._train_step(state, batch, gen,
-                                                  *step_args)
-            else:
-                metrics = self._eval_step(state["params"], batch, *step_args)
+            with profiling.span("train.step"):
+                if is_train:
+                    state, metrics = self._train_step(state, batch, gen,
+                                                      *step_args)
+                else:
+                    metrics = self._eval_step(state["params"], batch,
+                                              *step_args)
             if ring is None:
                 names = list(metrics)
                 ring = torch.empty((self.log_flush_every, len(names)),

@@ -71,6 +71,7 @@ from deephumor_tpu_torch.models.sampling import (BeamSearch,
 from deephumor_tpu_torch.ops.attention import MASK_FILL
 from deephumor_tpu_torch.ops.engine import fused_survivor_update
 from deephumor_tpu_torch.parallel.sharding import local_tree, placed_mesh
+from deephumor_tpu_torch.utils import profiling
 from deephumor_tpu_torch.utils.pytree import (load_params, save_params,
                                               tree_map)
 
@@ -343,8 +344,9 @@ class CaptioningLSTM(_Captioner):
                   compiled=compiled)
         if placed_mesh(params) is not None:
             return _tp_generate(self, params, emb, kw)
-        return self._generate(params, {"enc": emb}, lambda x: x["enc"],
-                              **kw)
+        with profiling.span("model.generate"):
+            return self._generate(params, {"enc": emb}, lambda x: x["enc"],
+                                  **kw)
 
     @torch.inference_mode()
     def _generate(self, params, inputs, encode, *, generator, caption,
@@ -895,8 +897,9 @@ class CaptioningTransformerBase(_Captioner):
                   compact=compact, canon=canon, compiled=compiled)
         if placed_mesh(params) is not None:
             return _tp_generate(self, params, enc, kw)
-        return self._generate(params, {"enc": enc}, lambda x: x["enc"],
-                              model_group=model_group, **kw)
+        with profiling.span("model.generate"):
+            return self._generate(params, {"enc": enc}, lambda x: x["enc"],
+                                  model_group=model_group, **kw)
 
     @torch.inference_mode()
     def _generate(self, params, inputs, encode, *, generator, caption,

@@ -84,7 +84,7 @@ import torch.distributed as dist
 
 from deephumor_tpu_torch.models.sampling import draw_noise, run_eagerly
 from deephumor_tpu_torch.ops import _build
-from deephumor_tpu_torch.utils import collectives
+from deephumor_tpu_torch.utils import collectives, profiling
 from deephumor_tpu_torch.utils.pytree import flatten_tree, tree_map
 
 __all__ = ["Program", "graph_key", "use_graphs", "generate", "run_eager",
@@ -243,6 +243,11 @@ class _Graphs:
     """One key's graphs, static buffers and memory pool."""
 
     def __init__(self, program, inputs, gen):
+        with profiling.span("graphs.capture"):
+            self._make(program, inputs, gen)
+
+    def _make(self, program, inputs, gen):
+        """A key's warm-up (one eager call on a side stream) and capture."""
         dev = program.device
         self.program, self.lock = program, threading.Lock()
         self.replays = 0

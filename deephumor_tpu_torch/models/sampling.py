@@ -34,6 +34,7 @@ import torch
 from deephumor_tpu_torch import EOS, PAD, UNK
 from deephumor_tpu_torch.ops.sampler import (
     fused_classifier_topk_gumbel_sample, fused_topk_gumbel_sample)
+from deephumor_tpu_torch.utils import profiling
 from deephumor_tpu_torch.utils.pytree import tree_map
 
 __all__ = ["filter_top_k", "gumbel_top_k", "beam_search", "BeamSearch",
@@ -175,8 +176,10 @@ def host_read(t):
     """``t``'s values on the host. Every read of the device that a
     generation call makes on purpose goes through here: ``ended.all()``
     between steps (eager) or graphs (captured), and the phase boundaries'
-    counts once after the last graph (the transformers' ``boundaries``)."""
-    return t.tolist()
+    counts once after the last graph (the transformers' ``boundaries``).
+    Each read is the span ``host_read`` (utils/profiling.py)."""
+    with profiling.span("host_read"):
+        return t.tolist()
 
 
 def draw_noise(gen, shapes, device, out=None):

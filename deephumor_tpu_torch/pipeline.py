@@ -38,6 +38,7 @@ import torch.distributed as dist
 
 from deephumor_tpu_torch.experiments.inference import (seq_to_text,
                                                        split_caption)
+from deephumor_tpu_torch.utils import profiling
 
 __all__ = ["MemeGenerationPipeline", "derive_seed"]
 
@@ -280,6 +281,10 @@ class MemeGenerationPipeline:
         rank fills the rows that its block holds, zeros elsewhere, and the
         rows are summed over the data axis: every rank gets all of them,
         equal to the single-device gather."""
+        with profiling.span("pipeline.gather"):
+            return self._gather(ids)
+
+    def _gather(self, ids):
         with self._lock:
             rows = [self._row[tid] for tid in ids]
             self._consolidate()
@@ -361,9 +366,11 @@ class MemeGenerationPipeline:
                 self.model, self.params, enc, self.mesh,
                 generator=torch.Generator(self.device).manual_seed(
                     generator), **generate_kwargs)
-        seqs = result["chosen"][:n].cpu().numpy()  # one copy to the host
-        return [seq_to_text(seq, self.vocab, delimiter=self.delimiter)
-                for seq in seqs]
+        with profiling.span("pipeline.fetch"):
+            seqs = result["chosen"][:n].cpu().numpy()  # one copy to the host
+        with profiling.span("pipeline.decode"):
+            return [seq_to_text(seq, self.vocab, delimiter=self.delimiter)
+                    for seq in seqs]
 
     def _broadcast(self, obj):
         """``obj`` of rank 0 on every rank of the mesh."""

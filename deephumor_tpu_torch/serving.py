@@ -40,6 +40,7 @@ from concurrent.futures import Future
 import torch
 
 from deephumor_tpu_torch.pipeline import derive_seed
+from deephumor_tpu_torch.utils import profiling
 
 __all__ = ["DynamicBatcher", "bucket_ladder"]
 
@@ -156,7 +157,7 @@ class DynamicBatcher:
         if not self._known(template_id):
             fut.set_exception(KeyError(f"unknown template {template_id!r}"))
             return fut
-        self._queue.put((template_id, fut))
+        self._queue.put((template_id, fut, profiling.stamp()))
         return fut
 
     def submit_many(self, template_ids):
@@ -165,12 +166,12 @@ class DynamicBatcher:
         collector still splits or joins it against ``max_batch``."""
         if self._closed.is_set():
             raise RuntimeError("DynamicBatcher is closed")
-        futs, good = [], []
+        futs, good, t0 = [], [], profiling.stamp()
         for tid in template_ids:
             fut = Future()
             futs.append(fut)
             if self._known(tid):
-                good.append((tid, fut))
+                good.append((tid, fut, t0))
             else:
                 fut.set_exception(KeyError(f"unknown template {tid!r}"))
         if good:
@@ -230,8 +231,9 @@ class DynamicBatcher:
 
     # -- collector -----------------------------------------------------------
     def _take(self, batch, item):
-        """Adds one queue item (a (tid, fut) pair or a submit_many list) to
-        ``batch``, spilling what passes max_batch to the next dispatch."""
+        """Adds one queue item (a (tid, fut, stamp) triple or a submit_many
+        list of them) to ``batch``, spilling what passes max_batch to the
+        next dispatch."""
         if isinstance(item, list):
             room = self.max_batch - len(batch)
             batch.extend(item[:room])
@@ -271,36 +273,49 @@ class DynamicBatcher:
                 and not self._spill)
 
     def _run(self):
+        seq = next(self._seq)
         while True:
-            batch = self._collect()
+            # a batch's collection and dispatch share its sequence number
+            with profiling.span("batcher.collect", id=seq):
+                batch = self._collect()
             if not batch:
                 if self._drained():
                     return
                 continue
-            ids = [tid for tid, _ in batch]
-            futs = [f for _, f in batch]
-            gen = self._generator(next(self._seq))
-            pad_to = self._choose_bucket(len(ids))
-            try:
-                if self.render:
-                    out = self.pipeline.generate_memes(
-                        ids, gen, pad_to=pad_to, **self.generate_kwargs)
-                    results = [(text, img) for _, text, img in out]
-                else:
-                    results = self.pipeline.generate_captions(
-                        ids, gen, pad_to=pad_to, **self.generate_kwargs)
-            except Exception as e:  # noqa: BLE001 — fail the batch, not the server
-                for f in futs:
-                    f.set_exception(e)
-            else:
-                self.batches_dispatched += 1
-                self.requests_served += len(futs)
-                self.batch_sizes.append(len(futs))
-                self.pad_sizes.append(pad_to)
-                for f, r in zip(futs, results):
-                    f.set_result(r)
+            with profiling.span("batcher.dispatch", id=seq):
+                self._dispatch(batch, seq)
+            seq = next(self._seq)
             # close()'s wake-up may have been taken while this batch was
             # collected: check on every path, or a failed last batch would
             # leave _collect blocked (spilled leftovers drain first)
             if self._drained():
                 return
+
+    def _dispatch(self, batch, seq):
+        """Runs batch ``seq`` and resolves its futures; a failed call fails
+        them all. Each request's wait in the queue ends here."""
+        ids, futs, stamps = zip(*batch)
+        if any(stamps):  # None while no profiler records
+            for t0 in stamps:
+                profiling.span_since("batcher.queue", t0, id=seq)
+        gen = self._generator(seq)
+        pad_to = self._choose_bucket(len(ids))
+        try:
+            if self.render:
+                out = self.pipeline.generate_memes(
+                    ids, gen, pad_to=pad_to, **self.generate_kwargs)
+                results = [(text, img) for _, text, img in out]
+            else:
+                results = self.pipeline.generate_captions(
+                    ids, gen, pad_to=pad_to, **self.generate_kwargs)
+        except Exception as e:  # noqa: BLE001 — fail the batch, not the server
+            for f in futs:
+                f.set_exception(e)
+            return
+        self.batches_dispatched += 1
+        self.requests_served += len(futs)
+        self.batch_sizes.append(len(futs))
+        self.pad_sizes.append(pad_to)
+        with profiling.span("batcher.resolve"):
+            for f, r in zip(futs, results):
+                f.set_result(r)

@@ -61,6 +61,12 @@ EXCEPTIONS = {
     ("models.transformer", "pff_init"):
         "as mha_init: the port's feed-forward parameters are made in its "
         "layer init",
+    ("utils.profiling", "Timer"):
+        "read by nothing in the port; the program's own spans "
+        "(utils.profiling.span) time its sections on the profiler's clock",
+    ("utils.profiling", "benchmark"):
+        "read by nothing in the port; perfbench/run.py measures the port's "
+        "cells, and utils.profiling.sync waits for a result",
     ("ops.pallas_attention", "supports_fused_update"):
         "a TPU-only layout constraint of the Pallas kernels; the CUDA "
         "kernels take every shape their wrappers check (ROADMAP: TPU-only "

@@ -619,14 +619,6 @@ def test_bf16_compute_tracks_f32_losses(tmp_path):
 
 
 def test_profiling_helpers(tmp_path):
-    timer = profiling.Timer()
-    with timer.section("mm") as s:
-        s.result = {"y": [torch.ones(8) @ torch.ones(8)]}
-    with timer.section("mm"):
-        pass
-    assert timer.summary()["mm"]["count"] == 2
-    stats = profiling.benchmark(lambda a: a * 2, torch.ones(4), iters=3)
-    assert stats["iters"] == 3 and stats["min_s"] <= stats["mean_s"]
     assert profiling.sync({"a": torch.ones(1)})["a"].item() == 1.0
     with profiling.trace(str(tmp_path / "trace")) as prof:
         torch.ones(64, 64) @ torch.ones(64, 64)
