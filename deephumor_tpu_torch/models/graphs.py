@@ -83,7 +83,7 @@ import torch
 import torch.distributed as dist
 
 from deephumor_tpu_torch.models.sampling import draw_noise, run_eagerly
-from deephumor_tpu_torch.ops import _build
+from deephumor_tpu_torch.ops import _build, attention
 from deephumor_tpu_torch.utils import collectives, profiling
 from deephumor_tpu_torch.utils.pytree import flatten_tree, tree_map
 
@@ -209,7 +209,11 @@ def capture(fn, pool, stream, generators=()):
     call would draw from its state then, and advances it as much. The
     capture is thread-local: another thread may make calls that a global
     capture forbids meanwhile (a trainer's prefetch thread pins host
-    memory). The caller holds ``CAPTURE_LOCK``."""
+    memory). The caller holds ``CAPTURE_LOCK``. The device's tally of the
+    attention kernels' rows (``attention.rows_tally``) is made first, so
+    that the graph's launches bake in an address that outlives it."""
+    attention.rows_tally(stream.device if stream is not None
+                         else torch.cuda.current_device())
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)

@@ -27,11 +27,14 @@ canonical-prefix setup) that permutes the items; ``finalize_fn`` puts
 the outputs back in the caller's order.
 """
 
+import threading
+
 import numpy as np
 
 import torch
 
 from deephumor_tpu_torch import EOS, PAD, UNK
+from deephumor_tpu_torch.ops import attention
 from deephumor_tpu_torch.ops.sampler import (
     fused_classifier_topk_gumbel_sample, fused_topk_gumbel_sample)
 from deephumor_tpu_torch.utils import profiling
@@ -39,7 +42,7 @@ from deephumor_tpu_torch.utils.pytree import tree_map
 
 __all__ = ["filter_top_k", "gumbel_top_k", "beam_search", "BeamSearch",
            "noise_shapes", "draw_noise", "inv_temperature", "host_read",
-           "run_eagerly"]
+           "fold_rows_tally", "run_eagerly"]
 
 NEG_INF = float("-inf")
 # above this vocabulary the classifier runs as a separate bf16 product
@@ -177,9 +180,41 @@ def host_read(t):
     generation call makes on purpose goes through here: ``ended.all()``
     between steps (eager) or graphs (captured), and the phase boundaries'
     counts once after the last graph (the transformers' ``boundaries``).
-    Each read is the span ``host_read`` (utils/profiling.py)."""
+    Each read is the span ``host_read`` (utils/profiling.py). While a
+    profiler records, a read of a CUDA tensor then folds the attention
+    kernels' row tally into the counters (:func:`fold_rows_tally`)."""
     with profiling.span("host_read"):
-        return t.tolist()
+        values = t.tolist()
+    if t.is_cuda:
+        fold_rows_tally(t.device)
+    return values
+
+
+# device -> (profiled window, rows read, dense rows) at the last fold
+_FOLDED = {}
+_FOLD_LOCK = threading.Lock()
+
+
+def fold_rows_tally(device):
+    """While a profiler records, adds what K1, K6 and K7 added to the row
+    tally of ``device`` (ops/attention.py ``rows_tally``) since the last
+    fold to the counters ``attn.rows_read`` and ``attn.rows_span``
+    (utils/profiling.py ``count``): a device read, made only then. The
+    first fold of a profiled window only notes where the tally stands, so
+    the counters hold the window's launches from its first host read
+    on."""
+    window = profiling.window()
+    if window is None:
+        return
+    totals = attention.rows_tally_totals(device)
+    if totals is None:
+        return
+    with _FOLD_LOCK:
+        last = _FOLDED.get(device)
+        _FOLDED[device] = (window, *totals)
+    if last is not None and last[0] == window:
+        profiling.count("attn.rows_read", totals[0] - last[1])
+        profiling.count("attn.rows_span", totals[1] - last[2])
 
 
 def draw_noise(gen, shapes, device, out=None):

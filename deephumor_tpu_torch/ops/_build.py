@@ -59,9 +59,10 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # beside it: NULL, or a device int32 that the kernel reads (count_args).
 _SIGNATURES = {
     # dtype, q, ldq, cache_k, cache_v, k_new, ldk, v_new, ldv, bias, out,
-    # items, live, live_ptr, beam, P, p_eff, D, H, pos, inv_scale, stream
+    # rows tally (or NULL), items, live, live_ptr, beam, P, p_eff, D, H,
+    # pos, inv_scale, stream
     "dh_ancestry_attention_update":
-        [_I, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P,
+        [_I, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P,
          *[_I] * 6, _F, _P],
     # dtype, q, ek, ev, bias (or NULL), out, G, live, live_ptr, r, T, D, H,
     # inv_scale, stream
@@ -82,11 +83,11 @@ _SIGNATURES = {
     "dh_ancestry_attention_update_canon":
         [_I, _P, _I, *[_P] * 5, _I, _P, _I, *[_P] * 3, _I, _I, _P,
          *[_I] * 8, _F, _P],
-    # dtype, q, ldq, cache_k, cache_v, bias, item_ids, out, items, list
-    # length, n_sel, n_sel_ptr, min_sel, beam, P, p_eff, D, H, inv_scale,
-    # stream
+    # dtype, q, ldq, cache_k, cache_v, bias, item_ids, out, rows tally (or
+    # NULL), items, list length, n_sel, n_sel_ptr, min_sel, beam, P, p_eff,
+    # D, H, inv_scale, stream
     "dh_ancestry_attention_ids":
-        [_I, _P, _I, *[_P] * 5, _I, _I, _I, _P, *[_I] * 6, _F, _P],
+        [_I, _P, _I, *[_P] * 6, _I, _I, _I, _P, *[_I] * 6, _F, _P],
     # dtype, q, ek, ev, bias (or NULL), out, G, live, live_ptr, r, Tp,
     # t_real, D, H, inv_scale, stream
     "dh_cross_attention_packed":
@@ -95,10 +96,10 @@ _SIGNATURES = {
     # live_ptr, beam, L, P, pos, eos, pad, stream
     "dh_fused_survivor_update":
         [*[_P] * 9, _I, _I, _P, *[_I] * 6, _P],
-    # dtype, q, cache_k, cache_v, bias, out, items, beam, P, p_eff, D, H,
-    # inv_scale, stream
+    # dtype, q, cache_k, cache_v, bias, out, rows tally (or NULL), items,
+    # beam, P, p_eff, D, H, inv_scale, stream
     "dh_ancestry_attention":
-        [_I, *[_P] * 5, *[_I] * 6, _F, _P],
+        [_I, *[_P] * 6, *[_I] * 6, _F, _P],
     # dtype, q, cache_k, cache_v, k_new, v_new, bias, out, items, beam, P,
     # D, H, pos, inv_scale, stream
     "dh_ancestry_attention_update_flash":

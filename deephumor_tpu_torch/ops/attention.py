@@ -9,6 +9,7 @@ product, as the kernels do.
 """
 
 import math
+import threading
 
 import torch
 
@@ -23,9 +24,60 @@ __all__ = ["MASK_FILL", "ancestry_bias", "ancestry_attention",
            "ancestry_attention_update_canon_plain", "ancestry_attention_ids",
            "ancestry_attention_ids_plain", "grouped_cross_attention",
            "grouped_cross_attention_plain", "cross_attention_packed",
-           "cross_attention_packed_plain"]
+           "cross_attention_packed_plain", "TALLY_SLOTS", "rows_tally",
+           "rows_tally_totals"]
 
 MASK_FILL = -1e8
+
+# The tally of the (slot, position) rows that the tensor-core blocks of K1,
+# K6 and K7 read and of the rows in their dense span (ops/csrc/row_list.cuh):
+# per device, int64 [2, TALLY_SLOTS], rows read in row 0 and dense rows in
+# row 1, one slot per item modulo TALLY_SLOTS.
+TALLY_SLOTS = 32
+_TALLY = {}
+_TALLY_LOCK = threading.Lock()
+
+
+def _cuda_device(device):
+    device = torch.device(device)
+    return device if device.index is not None else torch.device(
+        "cuda", torch.cuda.current_device())
+
+
+def rows_tally(device):
+    """The tally of the rows that K1, K6 and K7 read on ``device`` (a CUDA
+    device): int64 ``[2, TALLY_SLOTS]``, to which each head-0 block of their
+    tensor-core kernels adds the rows it read and the rows of its dense
+    span. It lives as long as the process, so that a captured graph, which
+    bakes its address, adds to it at every replay. Made at the first call
+    on the device outside a capture (models/graphs.py makes it before each
+    capture); None while this thread captures and it does not exist yet:
+    launches captured then count nothing."""
+    device = _cuda_device(device)
+    t = _TALLY.get(device)
+    if t is None and not torch.cuda.is_current_stream_capturing():
+        with _TALLY_LOCK:
+            t = _TALLY.get(device)
+            if t is None:
+                t = _TALLY[device] = torch.zeros(
+                    2, TALLY_SLOTS, dtype=torch.int64, device=device)
+    return t
+
+
+def rows_tally_totals(device):
+    """``(rows read, dense rows)`` that the kernels have added to the
+    tally of ``device`` so far, read from the device (it waits for the
+    current stream), or None where no kernel has made it there."""
+    t = _TALLY.get(_cuda_device(device))
+    if t is None:
+        return None
+    read, dense = t.sum(dim=1).tolist()
+    return read, dense
+
+
+def _tally_ptr(device):
+    t = rows_tally(device)
+    return None if t is None else t.data_ptr()
 
 
 def ancestry_bias(anc, valid, p):
@@ -171,9 +223,9 @@ def ancestry_attention(q, cache_k, cache_v, bias, *, beam, n_heads,
     out = torch.empty_like(q)
     err = _build.library().dh_ancestry_attention(
         _build.dtype_code(q, name), q.data_ptr(), cache_k.data_ptr(),
-        cache_v.data_ptr(), bias.data_ptr(), out.data_ptr(), rows // beam,
-        beam, p, pe, d, n_heads, 1.0 / math.sqrt(d // n_heads),
-        _build.stream_of(q))
+        cache_v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        _tally_ptr(q.device), rows // beam, beam, p, pe, d, n_heads,
+        1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
     _build.note_launch(name)
     return out
@@ -250,8 +302,8 @@ def ancestry_attention_update(q, cache_k, cache_v, k_new, v_new, bias, pos,
         code, q.data_ptr(), q.stride(0), cache_k.data_ptr(),
         cache_v.data_ptr(), k_new.data_ptr(), k_new.stride(0),
         v_new.data_ptr(), v_new.stride(0), bias.data_ptr(), out.data_ptr(),
-        rows // beam, live, live_ptr, beam, p, pe, d, n_heads, pos,
-        1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
+        _tally_ptr(q.device), rows // beam, live, live_ptr, beam, p, pe, d,
+        n_heads, pos, 1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
     _build.note_launch(name)
     return out
@@ -521,8 +573,8 @@ def ancestry_attention_ids(q, cache_k, cache_v, bias, item_ids, n_sel, *,
     err = _build.library().dh_ancestry_attention_ids(
         _build.dtype_code(q, name), q.data_ptr(), q.stride(0),
         cache_k.data_ptr(), cache_v.data_ptr(), bias.data_ptr(),
-        sel.data_ptr(), out.data_ptr(), items, sel.shape[0], n, n_ptr,
-        0 if dst else 1, beam, p, pe, d, n_heads,
+        sel.data_ptr(), out.data_ptr(), _tally_ptr(q.device), items,
+        sel.shape[0], n, n_ptr, 0 if dst else 1, beam, p, pe, d, n_heads,
         1.0 / math.sqrt(d // n_heads), _build.stream_of(q))
     _build.check(err, name)
     _build.note_launch(name)

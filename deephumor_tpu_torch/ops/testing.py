@@ -1,9 +1,11 @@
 """Support for the port's tests and ``chip_smoke.py``: synthetic decode
 states for holding the canonical-prefix kernels (K5, K6) against their
 plain twins (the card tests and ``chip_smoke.py`` build their inputs
-here, so both check the same kind of state), and the cap on torch's CPU
-threads that each test module sets. Nothing of the port's runtime calls
-either."""
+here, so both check the same kind of state), the plain mirror of the row
+list that K1, K6 and K7 walk (``ancestry_rows``) and the ancestry biases
+of a beam search to hold it on (``searched_biases``), and the cap on
+torch's CPU threads that each test module sets. Nothing of the port's
+runtime calls any of them."""
 
 import os
 
@@ -11,7 +13,12 @@ import torch
 
 from deephumor_tpu_torch.ops.attention import MASK_FILL, ancestry_bias
 
-__all__ = ["canon_state", "cap_test_threads"]
+__all__ = ["canon_state", "cap_test_threads", "ancestry_rows",
+           "searched_biases", "TILE_ROWS"]
+
+# the rows of one tile of the kernels' tensor-core body (attention_mma.cuh
+# kTile), and the branches of one block (kMaxBeam)
+TILE_ROWS, CHUNK_BRANCHES = 64, 32
 
 
 def cap_test_threads():
@@ -216,3 +223,81 @@ def count_rows(name, count, items, beam):
     sel = torch.zeros(items, dtype=torch.bool)
     sel[listed[:max(n, 1)]] = True
     return sel
+
+
+def ancestry_rows(bias, *, beam, pe, cs=1):
+    """The rows that a tensor-core block of K1, K6 or K7 walks
+    (ops/csrc/row_list.cuh), in plain PyTorch.
+
+    For each item of the ancestry bias ``[items, beam, beam * P]`` and each
+    chunk of up to 32 of its branches (one block), the indices ``r = i *
+    pe + p`` of the dense (slot i, position p < ``pe``) rows in walk order:
+    the rows that some branch keeps (bias above ``MASK_FILL``), padded with
+    the first dropped rows to ``(cs - 1) * 64 + 1`` for a cluster of ``cs``
+    blocks, or every row where some branch selects none (no bias above
+    ``MASK_FILL / 2``). Returns ``[[LongTensor per chunk] per item]``; the
+    lengths are what each block adds to the device's tally of rows read,
+    ``beam * pe`` what it adds to the dense rows."""
+    items, p = bias.shape[0], bias.shape[-1] // beam
+    dense = bias.reshape(items, beam, beam, p)[..., :pe].reshape(
+        items, beam, beam * pe).cpu()
+    n, need = beam * pe, (cs - 1) * TILE_ROWS + 1
+    out = []
+    for g in range(items):
+        chunks = []
+        for j0 in range(0, beam, CHUNK_BRANCHES):
+            b = dense[g, j0:j0 + CHUNK_BRANCHES]
+            keep = (b > MASK_FILL).any(0)
+            if not (b > MASK_FILL / 2).any(1).all():
+                chunks.append(torch.arange(n))
+                continue
+            pad = min(max(int(keep.sum()), need), n) - int(keep.sum())
+            keep[(~keep).nonzero().flatten()[:pad]] = True
+            chunks.append(keep.nonzero().flatten())
+        out.append(chunks)
+    return out
+
+
+# the two configurations' model widths and searches (perfbench/configs)
+SEARCHES = {
+    "word": (dict(num_tokens=29184, max_len=50),
+             dict(max_len=32, beam_size=5, top_k=64)),
+    "char": (dict(num_tokens=128, max_len=130),
+             dict(max_len=128, beam_size=7, top_k=50, temperature=1.1,
+                  compact=False, canon=False)),
+}
+
+
+def searched_biases(*, items, seed, steps, config="word", device="cpu"):
+    """The ancestry biases that a beam search of the word or char model at
+    its widths (``SEARCHES``: D 512, 6 layers, 8 heads; word V 29,184, beam
+    5, 32 tokens; char V 128, beam 7, 128 characters; random weights from
+    ``seed``, the exact top-k sampler, char with neither compaction nor
+    canonical prefixes, so that K1 runs every step) hands K1 over ``items``
+    prompts, at the decode positions ``steps``. Returns ``[(pos, p_eff,
+    bias [items, beam, beam * P])]`` in the order of ``steps``, the biases
+    on ``device``. The search runs on the CPU, through the plain twins."""
+    from deephumor_tpu_torch.models import CaptioningTransformer
+    from deephumor_tpu_torch.models import transformer
+
+    widths, search = SEARCHES[config]
+    model = CaptioningTransformer(hid_dim=512, n_layers=6, n_heads=8,
+                                  pf_dim=2048, **widths)
+    gen = torch.Generator().manual_seed(seed)
+    params = model.init(gen, device="cpu")
+    emb = (torch.randn(items, 512, generator=gen),
+           torch.randn(items, 49, 512, generator=gen))
+    real, seen = transformer.ancestry_attention_update, {}
+
+    def spy(q, ck, cv, kn, vn, bias, pos, **kw):
+        if pos in steps and pos not in seen:
+            seen[pos] = (pos, kw.get("p_eff"), bias.to(device))
+        return real(q, ck, cv, kn, vn, bias, pos, **kw)
+
+    transformer.ancestry_attention_update = spy
+    try:
+        model.generate_from_emb(params, emb, generator=gen, sampler="exact",
+                                **search)
+    finally:
+        transformer.ancestry_attention_update = real
+    return [seen[s] for s in steps if s in seen]

@@ -43,8 +43,8 @@ import time
 import torch
 from torch.autograd import profiler as _flag
 
-__all__ = ["trace", "sync", "span", "count", "stamp", "span_since",
-           "records", "counts", "summary", "dropped", "Record",
+__all__ = ["trace", "sync", "span", "count", "window", "stamp",
+           "span_since", "records", "counts", "summary", "dropped", "Record",
            "MAX_RECORDS"]
 
 # a long traced run keeps at most this many records (~200 bytes each)
@@ -149,6 +149,16 @@ def count(name, n=1):
     _window()
     with _S.lock:
         _S.counts[name] += n
+
+
+def window():
+    """The recorded window's number while a profiler records, else None: a
+    caller that folds a device's running tally into :func:`count` starts
+    afresh in each window."""
+    if not _flag._is_profiler_enabled:
+        _S.seen_off = True
+        return None
+    return _window()
 
 
 def stamp():

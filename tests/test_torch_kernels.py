@@ -12,7 +12,8 @@ from deephumor_tpu_torch.ops import LAUNCHES, reset_launch_counts
 from deephumor_tpu_torch.ops import attention as A
 from deephumor_tpu_torch.ops import cache as C
 from deephumor_tpu_torch.ops import sampler as S
-from deephumor_tpu_torch.ops.testing import canon_state
+from deephumor_tpu_torch.ops.testing import (ancestry_rows, canon_state,
+                                             searched_biases)
 
 from deephumor_tpu_torch.ops.testing import cap_test_threads
 
@@ -748,3 +749,166 @@ def test_ids_device_count_bit_equal_to_int(cuda, dtype, n_sel):
     assert torch.equal(outs[0][~rows], base[~rows])
     torch.testing.assert_close(outs[0], want, atol=_tol(dtype),
                                rtol=_tol(dtype))
+
+
+# ---- the row list of K1, K6 and K7 (ops/csrc/row_list.cuh) ----
+
+ANCESTRIES = ["search", "distinct", "blank"]
+
+
+@pytest.fixture(scope="module")
+def word_biases():
+    # positions whose p_eff is 16, 24 and 32
+    return {pos: bias for pos, _, bias in searched_biases(
+        items=4, seed=3, steps=(15, 23, 31))}
+
+
+@pytest.fixture(scope="module")
+def char_biases():
+    return {pos: bias for pos, _, bias in searched_biases(
+        items=4, seed=3, steps=(63, 127), config="char")}
+
+
+def _row_list_bias(kind, searched, items, beam, p, pos, device, seed=0):
+    """An ancestry bias [items, beam, beam * p]: the search's items over
+    and over (``searched``: its bias at ``pos``), every branch on its own
+    slot, or a random ancestry whose item 0 has a branch valid nowhere."""
+    if kind == "search":
+        reps = -(-items // searched.shape[0])
+        b = searched.repeat(reps, 1, 1)[:items]
+        b = b.reshape(items, beam, beam, -1)[..., :p]
+        return b.reshape(items, beam, beam * p).contiguous().to(device)
+    if kind == "distinct":
+        anc = torch.arange(beam, device=device)[None, :, None].expand(
+            items, beam, p)
+        valid = torch.zeros(items * beam, p, dtype=torch.bool, device=device)
+        valid[:, :pos + 1] = True
+        return A.ancestry_bias(anc, valid, p)
+    g = torch.Generator(device).manual_seed(seed)
+    anc = torch.randint(0, beam, (items, beam, p), generator=g, device=device)
+    valid = torch.rand(items * beam, p, generator=g, device=device) < 0.8
+    valid[:, pos + 1:] = False
+    valid[:, 0] = valid[:, pos] = True
+    valid[1] = False
+    return A.ancestry_bias(anc, valid, p)
+
+
+def _tally_since(cuda, before):
+    torch.cuda.synchronize()
+    read, dense = A.rows_tally_totals(cuda)
+    return read - before[0], dense - before[1]
+
+
+def _tally_now(cuda):
+    A.rows_tally(cuda)
+    torch.cuda.synchronize()
+    return A.rows_tally_totals(cuda)
+
+
+def _mirror_count(bias, beam, pe, cs, items=None):
+    lists = ancestry_rows(bias if items is None else bias[items], beam=beam,
+                          pe=pe, cs=cs)
+    blocks = sum(len(c) for c in lists)
+    return sum(len(x) for c in lists for x in c), blocks * beam * pe
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ANCESTRIES)
+@pytest.mark.parametrize("pos", [15, 23, 31])
+@pytest.mark.parametrize("items,p", [(3, 40), (64, 40), (64, 33)])
+def test_row_list_k1_at_the_word_shape(cuda, word_biases, dtype, kind, pos,
+                                       items, p):
+    # beam 5, D 512 over 8 heads, p_eff 16 / 24 / 32: 3 items spread each
+    # (item, head) over a cluster (padded lists), 64 fill the card; P 33
+    # scans the biases a row a lane (a slot's biases not 16-byte aligned)
+    beam, d, heads, pe = 5, 512, 8, 8 * (pos // 8 + 1)
+    bias = _row_list_bias(kind, word_biases[pos], items, beam, p, pos, cuda)
+    q, ck, cv, kn, vn, _ = _attention_inputs(cuda, dtype, 31, items, beam, p,
+                                             d, pos)
+    caches = [(ck.clone(), cv.clone()) for _ in range(2)]
+    kw = dict(beam=beam, n_heads=heads, p_eff=pe)
+    before = _tally_now(cuda)
+    got = A.ancestry_attention_update(q, *caches[0], kn, vn, bias, pos, **kw)
+    read, dense = _tally_since(cuda, before)
+    want = A.ancestry_attention_update_plain(q, *caches[1], kn, vn, bias,
+                                             pos, **kw)
+    torch.testing.assert_close(got, want, atol=_tol(dtype), rtol=_tol(dtype))
+    assert torch.equal(caches[0][0], caches[1][0])
+    assert torch.equal(caches[0][1], caches[1][1])
+    if dtype == torch.float32:
+        assert (read, dense) == (0, 0)  # the CUDA-core kernel lists nothing
+    elif items == 64:
+        # one block per (item, head): the mirror's rows, from head 0's
+        assert (read, dense) == _mirror_count(bias, beam, pe, 1)
+        if kind == "search":
+            assert read < dense
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ANCESTRIES)
+@pytest.mark.parametrize("pos", [63, 127])
+@pytest.mark.parametrize("n_sel", [0, 1, 5, 96])
+def test_row_list_k6_at_the_char_shape(cuda, char_biases, dtype, kind, pos,
+                                       n_sel):
+    # beam 7, D 512 over 8 heads, P 136, p_eff 64 / 128, over 128 items:
+    # 0-96 stragglers through a device count and an int, into K5's output
+    items, beam, p, d, heads, pe = 128, 7, 136, 512, 8, pos + 1
+    bias = _row_list_bias(kind, char_biases[pos], items, beam, p, pos, cuda,
+                          seed=pos)
+    g = torch.Generator(cuda).manual_seed(pos + n_sel)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)  # noqa
+    q, ck, cv, base = rnd(items * beam, d), rnd(items * beam, p, d), \
+        rnd(items * beam, p, d), rnd(items * beam, d)
+    ids = torch.randperm(items, generator=g, device=cuda).to(torch.int32)
+    kw = dict(beam=beam, n_heads=heads, p_eff=pe)
+    outs = []
+    before = _tally_now(cuda)
+    for count in (n_sel, torch.tensor(n_sel, dtype=torch.int32,
+                                      device=cuda)):
+        out = base.clone()
+        A.ancestry_attention_ids(q, ck, cv, bias, ids, count, out=out, **kw)
+        outs.append(out)
+    read, dense = _tally_since(cuda, before)
+    want = A.ancestry_attention_ids_plain(q, ck, cv, bias, ids, n_sel,
+                                          out=base.clone(), **kw)
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0], want, atol=_tol(dtype),
+                               rtol=_tol(dtype))
+    if dtype == torch.bfloat16:
+        # both forms computed the same entries: a few on a cluster each over
+        # the dense rows, 96 (more than the H100's resident wave holds
+        # clusters) a block each over its list
+        r1, d1 = _mirror_count(bias, beam, pe, 1, ids[:n_sel].long().cpu())
+        assert (read, dense) == ((2 * d1, 2 * d1) if n_sel <= 8
+                                 else (2 * r1, 2 * d1))
+
+
+@pytest.mark.cuda
+def test_row_list_k1_replays_over_new_ancestries(cuda, word_biases):
+    # a captured K1 bakes its grid and buffers; each replay lists the rows
+    # of the bias it finds there, and adds them to the tally
+    items, beam, p, d, heads, pos = 64, 5, 40, 512, 8, 31
+    dtype = torch.bfloat16
+    q, ck, cv, kn, vn, _ = _attention_inputs(cuda, dtype, 32, items, beam, p,
+                                             d, pos)
+    biases = [_row_list_bias(k, word_biases[pos], items, beam, p, pos, cuda)
+              for k in ("search", "distinct", "blank")]
+    static = biases[0].clone()
+    kw = dict(beam=beam, n_heads=heads, p_eff=32)
+    work = (ck.clone(), cv.clone())
+    A.ancestry_attention_update(q, *work, kn, vn, static, pos, **kw)
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.graph(graph, stream=stream):
+        got = A.ancestry_attention_update(q, *work, kn, vn, static, pos, **kw)
+    for bias in biases[::-1] + biases[:1]:
+        static.copy_(bias)
+        before = _tally_now(cuda)
+        graph.replay()
+        read, dense = _tally_since(cuda, before)
+        want = A.ancestry_attention_update_plain(q, ck.clone(), cv.clone(),
+                                                 kn, vn, bias, pos, **kw)
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+        assert (read, dense) == _mirror_count(bias, beam, 32, 1)

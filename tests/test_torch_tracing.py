@@ -313,3 +313,46 @@ def test_host_reads_of_a_captured_call(kind):
     else:
         assert ran > 0 and len(out["boundaries"]) == ran
         assert len(reads) == checks["n"] + 1
+
+
+def test_the_attention_row_tally_folds_into_counters_per_window(
+        monkeypatch):
+    # the device tally of K1, K6 and K7 (ops/attention.py rows_tally) as
+    # a sequence of totals; a fold reads it only while a profiler records
+    dev = torch.device("cuda", 0)
+    totals = iter([(100, 400), (130, 520), (150, 600), (190, 800),
+                   (200, 840)])
+    reads = []
+
+    def read(device):
+        reads.append(device)
+        return next(totals)
+
+    monkeypatch.setattr(sampling.attention, "rows_tally_totals", read)
+    monkeypatch.setattr(sampling, "_FOLDED", {})
+    _off_span()
+    sampling.fold_rows_tally(dev)
+    assert reads == []                  # off: no read of the device
+    with _profile():
+        sampling.fold_rows_tally(dev)   # the window's first fold: a mark
+        assert "attn.rows_read" not in profiling.counts()
+        sampling.fold_rows_tally(dev)
+        sampling.fold_rows_tally(dev)
+        assert profiling.counts()["attn.rows_read"] == 50
+        assert profiling.counts()["attn.rows_span"] == 200
+    assert len(reads) == 3
+    _off_span()
+    with _profile():                     # a new window starts afresh
+        sampling.fold_rows_tally(dev)
+        sampling.fold_rows_tally(dev)
+        assert profiling.counts()["attn.rows_read"] == 10
+        assert profiling.counts()["attn.rows_span"] == 40
+
+
+def test_a_host_read_of_a_cpu_tensor_folds_nothing(monkeypatch):
+    monkeypatch.setattr(sampling.attention, "rows_tally_totals",
+                        lambda device: pytest.fail("read a tally"))
+    _off_span()
+    with _profile():
+        assert sampling.host_read(torch.tensor([1, 2])) == [1, 2]
+    assert "attn.rows_read" not in profiling.counts()
