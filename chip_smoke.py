@@ -226,6 +226,22 @@ a warmed ``DynamicBatcher`` (buckets "auto") over a 32-template word
 pipeline, captured and eager in turns, twice each, after the pipeline's
 call of one full batch gave the same texts captured and eager.
 
+Last, a Kimi-VL phase ([17]) at the kimi_vl.offline cell's shapes: K12
+(the absorbed latent attention: 768 items x beam 5 x 16 heads over 64
+prefix rows and a searched or all-distinct ancestry at three generated
+positions), moe.cu's gather, SwiGLU and combine (3,840 tokens x 6 of 64
+experts, 16 held) and K3 over [3,840, 163,840] bf16 rows (its streamed
+path) are held to their twins, each tolerance failed by planted wrong
+answers (the ancestry ignored, a row left out, gate and up swapped, the
+absent experts' pairs added), and timed beside their twins and floors;
+f32 and an unaligned width must raise on the card. Then
+``CaptioningMLAMoE.generate_from_emb`` at Kimi-VL-A3B-Instruct's
+published widths (27 layers, 16 of 64 experts held, V 163,840, bf16,
+batch 768), with every launch count at zero: K12 once a layer-step,
+each moe.cu kernel once an expert layer's prefill pass and step, K3
+once a step, no other kernel and no twin on a CUDA tensor; then a
+profiled call.
+
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [ROOT]
     python3 chip_smoke.py --leg-times [ROOT]
@@ -234,6 +250,7 @@ call of one full batch gave the same texts captured and eager.
     python3 chip_smoke.py --compiled
     python3 chip_smoke.py --train
     python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --kimi
     torchrun --nproc-per-node N chip_smoke.py --mesh-ranks [tp]
 
 The second form only times K3 and K8 (word, first), K4 (all char rows,
@@ -246,7 +263,8 @@ ROOT (captions/s of 10 calls, one profiled call's kernel time, idle
 share and copy / where / cat kernels) and times K6 at 0-8 stragglers
 with an int and a device count; one JSON line, for the same comparison.
 The fourth builds the kernels and runs [14] alone, the fifth [15], the
-sixth [16], the seventh [12], the eighth [13]. The ninth runs over N
+sixth [16], the seventh [12], the eighth [13], the ninth [17]. The tenth
+runs over N
 ranks, one per card (N = 2 or 4), each phase within MESH_PHASE_S
 seconds (a replayed collective is out of the process group's watchdog),
 after printing the link between the cards: first [14]'s data N/2 x
@@ -282,6 +300,7 @@ import contextlib
 import gc
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -388,6 +407,20 @@ X_SHAPES = (("sweep", 256, 5, 64, 2006, HID, 1.0),
             ("demo_char", X_DEMO_ITEMS, 7, 37, 37, 64, 1 / 1.1),
             ("v257", 256, 5, 64, 257, HID, 1.0),
             ("v16384", 256, 5, 64, 16384, HID, 1.0))
+# the Kimi-VL phase ([17]) at the kimi_vl.offline cell's shapes
+# (perfbench/configs/kimi_vl.json): CaptioningMLAMoE at Kimi-VL-A3B-
+# Instruct's published widths with 16 of its 64 routed experts held (one
+# card of an EP4 host), 768 items of 64 prefix rows, beam 5, 32 tokens,
+# top_k 64, V 163,840; the head's EOS row zeroed and its bias K_EOS_BIAS,
+# as the cell's assumed shaping; K12 at the first, a middle and the last
+# step's generated positions
+K_ITEMS, K_PREFIX, K_HELD, K_VOCAB = 768, 64, 16, 163840
+K_BEAM, K_LEN, K_TOP_K, K_EOS_BIAS = 5, 32, 64, 2.2
+K_ROWS, K_PES = K_ITEMS * K_BEAM, (1, 16, 31)
+# K12 and moe.cu's SwiGLU and combine vs their twins: each element within
+# K_RTOL of its own size plus K_RTOL of the twin's RMS (a few bf16
+# roundings, 2^-8 of a value each); the gather is a copy (exact)
+K_RTOL = 2 ** -6
 TOL = 2e-2  # bf16 kernel vs twin: one bf16 rounding of each output
 TOL_F32 = 1e-5  # f32 kernel vs twin: the summation order only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -4838,6 +4871,288 @@ def compiled_phase(_build, modules, dev, name_limit):
             for k, v in paths.items()}, out
 
 
+def k_close(label, got, want, failures, planted=()):
+    """``got`` within K_RTOL of ``want`` element by element (K_RTOL of
+    the element plus K_RTOL of ``want``'s RMS), and each ``planted`` wrong
+    answer ``(name, tensor)`` outside it somewhere, so that the tolerance
+    fails a wrong kernel. A miss is logged and added to ``failures``.
+    Returns the largest gap over the RMS."""
+    w = want.float()
+    rms = w.pow(2).mean().sqrt().item()
+
+    def within(x):
+        return bool(((x.float() - w).abs()
+                     <= K_RTOL * (w.abs() + rms)).all())
+
+    err = (got.float() - w).abs().max().item() / rms
+    ok = within(got)
+    missed = [name for name, x in planted if within(x)]
+    log(f"  {label}: largest gap {err:.2e} of the twin's RMS {rms:.3e} "
+        f"(within {K_RTOL:.4f}: {ok}); planted faults outside it: "
+        f"{[n for n, _ in planted if n not in missed]}")
+    if not ok:
+        failures.append(f"{label}: outside the tolerance ({err:.2e})")
+    if missed:
+        failures.append(f"{label}: planted {missed} inside the tolerance")
+    return err
+
+
+def check_k12(A, dev, gen, failures):
+    """K12 against its twin at the kimi_vl.offline cell's decode shape (768
+    items x beam 5 x 16 heads, 64 prefix rows, dk 576 / dv 512), over a
+    searched and an all-distinct ancestry at K_PES generated positions;
+    planted: the ancestry ignored (every slot's rows read by every branch)
+    and the step's own row left out. Times each (queued) beside its twin,
+    with the floor of its bytes (each item's prefix and listed rows read
+    once, the queries in, the latent out)."""
+    heads, s, dk, dv = 16, K_LEN, 576, 512
+    bf = torch.bfloat16
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(bf)  # noqa
+    q_lat, q_pe = rnd(heads, K_ROWS, dv), rnd(K_ROWS, heads, dk - dv)
+    prefix, gen_rows = rnd(K_ITEMS, K_PREFIX, dk), rnd(K_ROWS, s, dk)
+    scale = 1.0 / math.sqrt(192)
+    row = {"ms": {}, "plain_ms": {}, "bound_ms": {}, "max_err": {}}
+    for kind in ("searched", "distinct"):
+        anc = torch.arange(K_BEAM, device=dev)[None, :, None].expand(
+            K_ITEMS, K_BEAM, s).contiguous()
+        for step in range(s):
+            if kind == "searched":
+                branch = torch.randint(0, K_BEAM, (K_ITEMS, K_BEAM),
+                                       generator=gen, device=dev)
+                anc = anc.gather(1, branch[:, :, None].expand_as(anc))
+            anc[:, :, step] = torch.arange(K_BEAM, device=dev)
+        for pe in K_PES:
+            valid = (torch.arange(s, device=dev) < pe).expand(K_ROWS, s)
+            bias = A.ancestry_bias(anc, valid, s)
+            kw = dict(beam=K_BEAM, pe=pe, scale=scale)
+            got = A.mla_attention(q_lat, q_pe, prefix, gen_rows, bias, **kw)
+            want = A.mla_attention_plain(q_lat, q_pe, prefix, gen_rows, bias,
+                                         **kw)
+            own = bias.clone().reshape(K_ITEMS, K_BEAM, K_BEAM, s)
+            own[:, torch.arange(K_BEAM), torch.arange(K_BEAM), pe - 1] = \
+                A.MASK_FILL
+            planted = (
+                ("ancestry ignored", A.mla_attention_plain(
+                    q_lat, q_pe, prefix, gen_rows, torch.zeros_like(bias),
+                    **kw)),
+                ("own row left out", A.mla_attention_plain(
+                    q_lat, q_pe, prefix, gen_rows, own.reshape(bias.shape),
+                    **kw)))
+            key = f"{kind}_pe{pe}"
+            row["max_err"][key] = k_close(f"K12 {kind} pe {pe}", got, want,
+                                          failures, planted)
+            listed = int((bias.reshape(K_ITEMS, K_BEAM, K_BEAM, s)[..., :pe]
+                          == 0).any(1).sum())
+            nbytes = ((K_ITEMS * K_PREFIX + listed) * dk * 2
+                      + K_ROWS * heads * (dk * 2 + dv * 2)
+                      + K_ITEMS * K_BEAM * K_BEAM * pe * 4)
+            row["bound_ms"][key] = nbytes / HBM_BYTES_PER_S * 1e3
+            row["ms"][key] = cuda_ms(lambda: A.mla_attention(
+                q_lat, q_pe, prefix, gen_rows, bias, **kw), queued=True)
+            row["plain_ms"][key] = cuda_ms(lambda: A.mla_attention_plain(
+                q_lat, q_pe, prefix, gen_rows, bias, **kw), iters=3,
+                warmup=1)
+            log(f"  K12 {kind} pe {pe}: {row['ms'][key]:.4f} ms (device "
+                f"alone; {listed} of {K_ITEMS * K_BEAM * pe} generated rows "
+                f"listed), twin {row['plain_ms'][key]:.4f} ms, floor "
+                f"{row['bound_ms'][key]:.4f} ms")
+    return row
+
+
+def check_moe_kernels(moe, dev, gen, failures):
+    """moe.cu's gather, SwiGLU and combine against their twins at the
+    kimi_vl.offline cell's decode step (3,840 tokens x 6 of 64 experts,
+    16 held, D 2,048, I 1,408), routed by a seeded router as the model
+    routes; the gather exact on the held rows, the SwiGLU and the combine
+    within K_RTOL (planted: gate and up swapped; the absent experts'
+    pairs added). Each timed (queued) beside its twin, with the floor of
+    its bytes."""
+    d, i, k, experts = 2048, 1408, 6, 64
+    bf = torch.bfloat16
+    h = torch.randn(K_ROWS, d, generator=gen, device=dev).to(bf)
+    w_gate = (torch.rand(experts, d, generator=gen, device=dev) * 2 - 1) \
+        / math.sqrt(d)
+    e_bias = (torch.rand(experts, generator=gen, device=dev) * 2 - 1) * 0.05
+    ids, w = moe.route(h, w_gate, e_bias, top_k=k, scaling=2.446)
+    order, offs, mask, counts = moe.dispatch(ids, 0, K_HELD)
+    held = int(offs[-1])
+    pairs = order.numel()
+    gu = torch.randn(pairs, 2 * i, generator=gen, device=dev).to(bf)
+    y = torch.randn(pairs, d, generator=gen, device=dev).to(bf)
+    cases = {
+        "moe_gather": (
+            lambda: moe.gather_pairs(h, order, offs, k),
+            lambda: moe.gather_pairs_plain(h, order, offs, k),
+            held * d * 2 * 2 + held * 8),
+        "moe_swiglu": (
+            lambda: moe.swiglu_rows(gu, offs),
+            lambda: moe.swiglu_rows_plain(gu, offs),
+            held * 3 * i * 2),
+        "moe_combine": (
+            lambda: moe.combine(y, order, mask, w, h),
+            lambda: moe.combine_plain(y, order, mask, w, h),
+            K_ROWS * d * 2 * 2 + held * d * 2 + pairs * (4 + 8 + 1)),
+    }
+    out = {}
+    for name, (run, twin, nbytes) in cases.items():
+        got, want = run(), twin()
+        if name == "moe_gather":
+            err = (got[:held].float() - want[:held].float()).abs().max()
+            err = err.item()
+            ok = torch.equal(got[:held], want[:held])
+            log(f"  {name}: the {held} held rows equal to the twin's: {ok}")
+            if not ok:
+                failures.append(f"{name}: held rows differ from the twin")
+        elif name == "moe_swiglu":
+            swapped = moe.swiglu_rows_plain(
+                torch.cat([gu[:, i:], gu[:, :i]], 1), offs)
+            err = k_close(name, got[:held], want[:held], failures,
+                          (("gate and up swapped", swapped[:held]),))
+        else:
+            every = moe.combine_plain(y, order, torch.ones_like(mask), w, h)
+            err = k_close(name, got, want, failures,
+                          (("absent experts' pairs added", every),))
+        ms = cuda_ms(run, queued=True)
+        plain_ms = cuda_ms(twin, iters=3, warmup=1)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "max_err": err,
+                     "held_pairs": held, "pairs": pairs,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes", "library_ms": None}
+        log(f"  {name}: {ms:.4f} ms (device alone, {held} held of {pairs} "
+            f"pairs), twin {plain_ms:.4f} ms, floor "
+            f"{out[name]['bound_ms']:.4f} ms")
+    return out
+
+
+def check_card_dtypes(moe, model_cls, dev, failures):
+    """On the card the expert kernels and the model take bf16 alone: f32
+    rows, and a width that is not a multiple of 8, raise ValueError."""
+    h = torch.zeros(16, 64, device=dev)
+    order = torch.arange(32, device=dev)
+    offs = torch.full((4,), 8, dtype=torch.int32, device=dev)
+    mask = torch.ones(32, dtype=torch.bool, device=dev)
+    w = torch.ones(16, 2, device=dev)
+    small = model_cls(num_tokens=64, hid_dim=64, n_layers=2, n_heads=4,
+                      qk_nope=16, qk_rope=8, v_dim=16, kv_rank=32,
+                      dense_width=64, expert_width=16, n_routed=8, n_held=4,
+                      experts_per_token=2, n_shared=1, prefix_len=4)
+    calls = {
+        "gather f32": lambda: moe.gather_pairs(h, order, offs, 2),
+        "swiglu f32": lambda: moe.swiglu_rows(h[:, :32].contiguous(), offs),
+        "swiglu width 12": lambda: moe.swiglu_rows(
+            h[:, :24].bfloat16().contiguous(), offs),
+        "combine f32": lambda: moe.combine(torch.zeros(32, 64, device=dev),
+                                           order, mask, w, h),
+        "generate_from_emb f32": lambda: small.generate_from_emb(
+            small.init(torch.Generator(dev).manual_seed(0), dev),
+            torch.zeros(2, 4, 64, device=dev), max_len=2, beam_size=2,
+            top_k=4)}
+    refused = []
+    for label, call in calls.items():
+        try:
+            call()
+        except ValueError:
+            refused.append(label)
+    log(f"  on the card, refused with ValueError: {refused}")
+    if len(refused) != len(calls):
+        failures.append(f"not refused on the card: "
+                        f"{sorted(set(calls) - set(refused))}")
+
+
+def kimi_phase(_build, modules, dev, name_limit):
+    """[17]: Kimi-VL-A3B-Instruct's language model (module docstring):
+    K12, moe.cu's three kernels and K3's streamed rows held to their twins
+    and timed at the kimi_vl.offline cell's shapes; then
+    ``CaptioningMLAMoE.generate_from_emb`` at the published widths (27
+    layers, 16 of 64 experts held, V 163,840, bf16) through BeamSearch,
+    the captured graphs, K12, moe.cu and K3, with every launch count at
+    zero, no plain twin seeing a CUDA tensor, and a profiled call. Returns
+    the leg's launches and the phase's numbers."""
+    from deephumor_tpu_torch.models import CaptioningMLAMoE, graphs, mla_moe
+    from deephumor_tpu_torch.ops import moe
+
+    A, S = modules[0], modules[-1]
+    log(f"[17] Kimi-VL's language model: K12, moe.cu and K3 (V {K_VOCAB}) "
+        f"at the kimi_vl.offline shapes, then generate_from_emb at the "
+        f"published widths ({K_HELD} of 64 experts held, batch {K_ITEMS}, "
+        f"{K_PREFIX} prefix rows, beam {K_BEAM}) | {name_limit}")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(17)
+    failures = []
+    out = {"kernels": {"mla_attention": check_k12(A, dev, gen, failures)}}
+    out["kernels"].update(check_moe_kernels(moe, dev, gen, failures))
+    out["kernels"]["fused_topk_gumbel_sample_streamed"] = check_k3(
+        S, dev, gen, rows=K_ROWS, vocab=K_VOCAB, top_k=K_TOP_K, draws=K_BEAM,
+        inv_t=1.0, label="K3 streamed")
+    check_card_dtypes(moe, CaptioningMLAMoE, dev, failures)
+    torch.cuda.empty_cache()
+
+    model = CaptioningMLAMoE(num_tokens=K_VOCAB, n_held=K_HELD,
+                             prefix_len=K_PREFIX, compute_dtype="bfloat16")
+    params = model.init(torch.Generator(dev).manual_seed(18), dev)
+    cls = params["decoder"]["classifier"]
+    cls["weight"][3] = 0.0
+    cls["bias"][3] = K_EOS_BIAS
+    enc = torch.randn(K_ITEMS, K_PREFIX, model.hid_dim, device=dev,
+                      generator=torch.Generator(dev).manual_seed(19))
+    kw = dict(max_len=K_LEN, beam_size=K_BEAM, top_k=K_TOP_K,
+              temperature=1.0, sampler="pallas")
+    kernels = ("mla_attention", "moe_gather", "moe_swiglu", "moe_combine",
+               "fused_topk_gumbel_sample")
+    hits, restore = twin_guard(modules + (moe,))
+    try:
+        res, launches = drive(model, params, enc, _build, kw, name_limit,
+                              "kimi", kernels)
+    finally:
+        restore()
+    check_output(res, K_ITEMS, K_VOCAB, K_BEAM, K_LEN)
+    if hits:
+        failures.append(f"kimi: plain twins called with CUDA tensors "
+                        f"{sorted(set(hits))}")
+    steps = launches["fused_topk_gumbel_sample"] - 1
+    passes = -(-K_ITEMS // (mla_moe.PREFILL_TOKENS // K_PREFIX))
+    moe_layers = model.n_layers - model.first_dense
+    want = {"mla_attention": model.n_layers * steps,
+            **{k: moe_layers * (passes + steps)
+               for k in ("moe_gather", "moe_swiglu", "moe_combine")}}
+    got = {k: launches[k] for k in want}
+    log(f"  kimi: {steps} decode steps, {passes} prefill passes; launches "
+        f"{got} (want {want}); plain twins on CUDA tensors: "
+        f"{sorted(set(hits))}")
+    if got != want:
+        failures.append(f"kimi: launches {got}, want {want}")
+    out["profile"] = profile_call(model, params, enc, kw, name_limit, "kimi",
+                                  16)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["card"] = name_limit
+    del model, params, enc, res
+    graphs.clear()
+    torch.cuda.empty_cache()
+    log(f"  peak memory {out['peak_gb']:.2f} GB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("[17] " + "; ".join(failures))
+    return {"kimi": launches}, out
+
+
+def kimi_only():
+    """``--kimi``: builds the kernels and runs [17] alone; prints its
+    numbers and launches as one JSON line."""
+    from deephumor_tpu_torch.ops import _build
+    from deephumor_tpu_torch.ops import attention as A
+    from deephumor_tpu_torch.ops import cache as C
+    from deephumor_tpu_torch.ops import engine as E
+    from deephumor_tpu_torch.ops import sampler as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for key in ("DH_CROSS_PACK", "DH_FUSED_SURVIVOR"):
+        os.environ.pop(key, None)
+    _build.library()
+    legs, numbers = kimi_phase(_build, (A, C, E, S), torch.device("cuda", 0),
+                               card())
+    print(json.dumps({"kimi": numbers, "launches": legs}), flush=True)
+
+
 def compiled_only():
     """``--compiled``: builds the kernels and runs [16] alone; prints its
     numbers and launches as one JSON line."""
@@ -5062,6 +5377,8 @@ def main():
         return train_only()
     if sys.argv[1:2] == ["--parallel"]:
         return parallel_only()
+    if sys.argv[1:2] == ["--kimi"]:
+        return kimi_only()
     from deephumor_tpu_torch.models import (CaptioningLSTM,
                                             CaptioningLSTMWithLabels,
                                             CaptioningTransformer,
@@ -5423,6 +5740,13 @@ def main():
         k: v for k, v in compiled["device_counts"].items()
         if k.startswith("fused_classifier_topk_gumbel_sample_v")}
     log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
+    kimi_legs, kimi = kimi_phase(_build, (A, C, E, S), dev, name_limit)
+    legs.update(kimi_legs)
+    port_rows = kimi.pop("kernels")
+    rows["fused_topk_gumbel_sample"]["streamed"] = port_rows.pop(
+        "fused_topk_gumbel_sample_streamed")
+    log("kimi: " + json.dumps(kimi))
+    log(f"    elapsed {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "ancestry_attention_update": (
@@ -5455,8 +5779,9 @@ def main():
             "name": name, "route": "cuda",
             "source": "deephumor_tpu_torch/ops/csrc/" + src,
             "replaces": "deephumor_tpu/ops/" + tpu,
-            "launches": sum(leg[name] for leg in legs.values()),
-            "launches_by_path": {k: leg[name] for k, leg in legs.items()},
+            "launches": sum(leg.get(name, 0) for leg in legs.values()),
+            "launches_by_path": {k: leg.get(name, 0)
+                                 for k, leg in legs.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -5475,8 +5800,22 @@ def main():
                 "bound_ms_char", "k2_ms", "k2_ms_char", "ms_f32", "topk_ms",
                 "ms_live", "bound_ms_live", "linear_ms", "linear_k3_ms",
                 "linear_k3_ms_live", "tp", "product", "seed_ptr",
-                "count_ptr", "count_ptr_streamed")
+                "count_ptr", "count_ptr_streamed", "streamed")
                 if k in row}})
+    # kernels of the port alone (no pallas_call behind them), at the
+    # kimi_vl.offline cell's shapes ([17])
+    port_sources = {"mla_attention": "mla_attention.cu",
+                    "moe_gather": "moe.cu", "moe_swiglu": "moe.cu",
+                    "moe_combine": "moe.cu"}
+    for name, src in port_sources.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "deephumor_tpu_torch/ops/csrc/" + src,
+            "replaces": None,
+            "launches": sum(leg.get(name, 0) for leg in legs.values()),
+            "launches_by_path": {k: leg.get(name, 0)
+                                 for k, leg in legs.items()},
+            **port_rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {name_limit}")
     print(json.dumps({"ok": True, "device": {

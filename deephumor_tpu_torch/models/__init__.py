@@ -1,9 +1,9 @@
-"""Models of the port: the four captioners, the encoders, beam search and
+"""Models of the port: the captioners, the encoders, beam search and
 the reference-name layer handles (counterpart of deephumor_tpu/models)."""
 
 from deephumor_tpu_torch.models.caption_models import (
     MODEL_REGISTRY, CaptioningLSTM, CaptioningLSTMWithLabels,
-    CaptioningTransformer, CaptioningTransformerBase)
+    CaptioningMLAMoE, CaptioningTransformer, CaptioningTransformerBase)
 from deephumor_tpu_torch.models.compat import (
     ImageEncoder, ImageLabelEncoder, LabelEncoder, LSTMDecoder,
     SelfAttentionTransformerDecoder, TransformerDecoder, TransformerEncoder)
@@ -18,7 +18,8 @@ __all__ = [
     "SelfAttentionTransformerDecoder",
     "MODEL_REGISTRY", "CaptioningLSTM", "CaptioningLSTMWithLabels",
     "CaptioningTransformer", "CaptioningTransformerBase",
-    "image_encoder_init", "image_encoder_apply", "label_encoder_init",
+    "CaptioningMLAMoE", "image_encoder_init", "image_encoder_apply",
+    "label_encoder_init",
     "label_encoder_apply", "image_label_encoder_init",
     "image_label_encoder_apply", "beam_search", "filter_top_k",
 ]

@@ -10,6 +10,9 @@ Counterparts of deephumor_tpu/models/caption_models.py:
   transformer.
 - ``CaptioningTransformer``: ResNet-50 spatial encoder -> cross-attention
   transformer decoder, word- or character-level.
+- ``CaptioningMLAMoE`` (the port's own, no JAX counterpart): an image
+  prefix -> DeepSeek-V3's latent-attention and sparse-expert decoder
+  (Kimi-VL's language model, models/mla_moe.py).
 
 The LSTMs generate by batched beam search over their (h, c) state, which
 follows the surviving branches row by row. The transformers generate over
@@ -57,6 +60,7 @@ from deephumor_tpu_torch.convert.jax_params import (params_from_jax,
                                                     params_to_jax)
 from deephumor_tpu_torch.models import graphs
 from deephumor_tpu_torch.models import layers as L
+from deephumor_tpu_torch.models import mla_moe
 from deephumor_tpu_torch.models import transformer as tfm
 from deephumor_tpu_torch.models.encoders import (
     image_encoder_apply, image_encoder_init, image_encoder_trunk,
@@ -68,7 +72,7 @@ from deephumor_tpu_torch.models import sampling
 from deephumor_tpu_torch.models.sampling import (BeamSearch,
                                                  inv_temperature,
                                                  noise_shapes)
-from deephumor_tpu_torch.ops.attention import MASK_FILL
+from deephumor_tpu_torch.ops.attention import MASK_FILL, ancestry_bias
 from deephumor_tpu_torch.ops.engine import fused_survivor_update
 from deephumor_tpu_torch.parallel.sharding import local_tree, placed_mesh
 from deephumor_tpu_torch.utils import profiling
@@ -77,7 +81,7 @@ from deephumor_tpu_torch.utils.pytree import (load_params, save_params,
 
 __all__ = ["CaptioningLSTM", "CaptioningLSTMWithLabels",
            "CaptioningTransformerBase", "CaptioningTransformer",
-           "MODEL_REGISTRY"]
+           "CaptioningMLAMoE", "MODEL_REGISTRY"]
 
 _SAMPLERS = ("exact", "pallas")
 # canonical prefix length c = p_eff - _CANON_LAG: the still-diverging
@@ -990,6 +994,161 @@ class CaptioningTransformer(CaptioningTransformerBase):
                                       cross, enc_key_mask, model_group)
         return logits, state, {"cross": cross, "enc_key_mask": enc_key_mask,
                                "cross_t_real": spatial.shape[1]}
+
+
+@dataclasses.dataclass(frozen=True)
+class CaptioningMLAMoE(_Captioner):
+    """Decoder-only captioner on DeepSeek-V3's block (models/mla_moe.py):
+    Kimi-VL-A3B-Instruct's language model, which captions an image from
+    the ``prefix_len`` rows that its vision tower and projector give.
+    ``generate_from_emb`` takes those rows (cached template features),
+    prefills them, then beam-searches through :class:`BeamSearch`, the
+    decode step's latent attention in K12 and the draws in K3 (V above
+    K4's range: the classifier is a bf16 product before K3), replayed as
+    CUDA graphs on the card (models/graphs.py) like the other captioners.
+
+    ``n_held`` of the ``n_routed`` experts from ``held_first`` live here
+    (one card's share under expert parallelism; every expert by default):
+    the router keeps all its outputs and its ``experts_per_token``, and the
+    layer adds its held experts' part. The router's weight and correction
+    bias stay in f32 under a bf16 ``compute_dtype``; on the card the model
+    runs in bf16 alone (another ``compute_dtype`` raises ``ValueError``).
+    It has no checkpoint format of the JAX package, so it is not in
+    ``MODEL_REGISTRY``.
+    """
+
+    num_tokens: int
+    hid_dim: int = 2048
+    n_layers: int = 27
+    n_heads: int = 16
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_dim: int = 128
+    kv_rank: int = 512
+    dense_width: int = 11264
+    expert_width: int = 1408
+    n_routed: int = 64
+    n_held: int = 64
+    held_first: int = 0
+    experts_per_token: int = 6
+    n_shared: int = 2
+    first_dense: int = 1
+    routed_scaling: float = 2.446
+    rope_theta: float = 800000.0
+    rms_eps: float = 1e-5
+    prefix_len: int = 64
+    compute_dtype: str = "float32"
+
+    model_type = "captioning_mla_moe"
+
+    def init(self, gen, device="cuda"):
+        """Random parameters drawn from ``gen`` (a ``torch.Generator`` on
+        ``device``): ``{"decoder": ...}`` (models/mla_moe.py
+        ``init_decoder``)."""
+        return {"decoder": mla_moe.init_decoder(self, gen, device)}
+
+    def _decoder_in_compute_dtype(self, params):
+        """The decoder in the compute dtype, but each router's weight and
+        correction bias, which route in f32."""
+        dec = params["decoder"]
+        cast = _cast(dec, self.compute_dtype)
+        for layer, orig in zip(cast["layers"], dec["layers"]):
+            if "gate" in layer["ffn"]:
+                layer["ffn"] = dict(layer["ffn"], gate=orig["ffn"]["gate"])
+        return cast
+
+    @staticmethod
+    def _shuffle_state(state, flat_branch, branch):
+        """Survivor reorder: the latent rows stay in their slots; the
+        ancestry table re-roots onto the surviving branch's history."""
+        anc = state["anc"]
+        return dict(state, anc=anc.gather(1, branch[:, :, None].expand_as(
+            anc)))
+
+    def _begin(self, params, prefix, inv_t, noise, *, max_len, beam_size,
+               top_k, greedy, eos_index, sampler):
+        """The prefill and the first draw: the started :class:`BeamSearch`
+        of one call."""
+        dec = self._decoder_in_compute_dtype(params)
+        prefix = prefix.to(getattr(torch, self.compute_dtype))
+        hidden, latent = mla_moe.prefill(self, dec, prefix)
+        cls = dec["classifier"]
+        logits = torch.nn.functional.linear(hidden, cls["weight"],
+                                            cls["bias"])
+        n, dev = prefix.shape[0], prefix.device
+        rows = n * beam_size
+        # generated position p of slot i; step s writes position s - 1
+        state = {"prefix": latent, "s": 1,
+                 "gen": [x.new_zeros((rows, max_len, x.shape[-1]))
+                         for x in latent],
+                 "anc": torch.arange(beam_size, device=dev)[
+                     None, :, None].expand(n, beam_size, max_len).contiguous()}
+        classifier = None
+        if sampler == "pallas" and not greedy:
+            classifier = (cls["weight"], cls["bias"])
+        wabs = mla_moe.absorbed(self, dec)
+        slots = torch.arange(beam_size, device=dev)
+        positions = torch.arange(max_len, device=dev)
+
+        def step(st, tokens):
+            s, anc = st["s"], st["anc"]
+            anc[:, :, s - 1] = slots
+            bias = ancestry_bias(anc, (positions < s).expand(rows, max_len),
+                                 max_len)
+            out = mla_moe.decode_step(
+                self, dec, wabs, L.embed(dec["tok_embedding"], tokens), s,
+                st["prefix"], st["gen"], bias, beam_size)
+            if classifier is None:
+                out = L.linear(cls, out)
+            return out, dict(st, s=s + 1)
+
+        search = BeamSearch(
+            step_fn=step, shuffle_fn=self._shuffle_state,
+            beam_size=beam_size, top_k=top_k, inv_t=inv_t, max_len=max_len,
+            greedy=greedy, sampler=sampler, classifier=classifier,
+            eos_index=eos_index)
+        return search.start(noise, state, logits)
+
+    @torch.inference_mode()
+    def generate_from_emb(self, params, enc, generator=None, caption=None,
+                          max_len=25, temperature=1.0, beam_size=10,
+                          top_k=50, eos_index=EOS, greedy=False,
+                          sampler=None, compiled=None):
+        """Batched generation from the image prefix rows ``enc`` ``[B,
+        prefix_len, hid_dim]`` (or a 1-tuple of them); arguments and
+        result as :meth:`CaptioningLSTM.generate_from_emb` (one segment of
+        ``max_len`` steps, no phases and no compaction; ``caption`` is not
+        taken)."""
+        if caption is not None:
+            raise ValueError("CaptioningMLAMoE takes no caption prefix")
+        prefix = enc[0] if isinstance(enc, tuple) else enc
+        if prefix.ndim != 3 or prefix.shape[1:] != (self.prefix_len,
+                                                    self.hid_dim):
+            raise ValueError(f"enc must be [B, {self.prefix_len}, "
+                             f"{self.hid_dim}], got {tuple(prefix.shape)}")
+        static = dict(max_len=max_len, beam_size=beam_size, top_k=top_k,
+                      eos_index=eos_index, greedy=greedy,
+                      sampler=_check_sampler(sampler))
+        dev = params["decoder"]["classifier"]["weight"].device
+        if dev.type == "cuda" and self.compute_dtype != "bfloat16":
+            raise ValueError(f"CaptioningMLAMoE runs on the card in "
+                             f"bfloat16 alone (K12 and the expert kernels "
+                             f"take bf16), not {self.compute_dtype}")
+        if generator is None:
+            generator = torch.Generator(dev).manual_seed(0)
+        inputs = {"enc": prefix, "inv_t": inv_temperature(temperature, dev)}
+        program = graphs.Program(
+            begin=lambda x, noise: self._begin(params, x["enc"], x["inv_t"],
+                                               noise, **static),
+            finish=lambda search: search.finish(),
+            noise=noise_shapes(steps=max_len, num_items=prefix.shape[0],
+                               beam_size=beam_size, top_k=top_k,
+                               sampler=static["sampler"], greedy=greedy),
+            device=dev)
+        with profiling.span("model.generate"):
+            return graphs.generate(
+                lambda: program, inputs, generator, compiled=compiled,
+                key=lambda: graphs.graph_key(self, params, inputs, **static))
 
 
 MODEL_REGISTRY = {cls.model_type: cls for cls in (

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from deephumor_tpu_torch import EOS, PAD, UNK
-from deephumor_tpu_torch.ops import attention
+from deephumor_tpu_torch.ops import attention, moe
 from deephumor_tpu_torch.ops.sampler import (
     fused_classifier_topk_gumbel_sample, fused_topk_gumbel_sample)
 from deephumor_tpu_torch.utils import profiling
@@ -42,7 +42,7 @@ from deephumor_tpu_torch.utils.pytree import tree_map
 
 __all__ = ["filter_top_k", "gumbel_top_k", "beam_search", "BeamSearch",
            "noise_shapes", "draw_noise", "inv_temperature", "host_read",
-           "fold_rows_tally", "run_eagerly"]
+           "fold_rows_tally", "fold_moe_tally", "run_eagerly"]
 
 NEG_INF = float("-inf")
 # above this vocabulary the classifier runs as a separate bf16 product
@@ -182,39 +182,60 @@ def host_read(t):
     counts once after the last graph (the transformers' ``boundaries``).
     Each read is the span ``host_read`` (utils/profiling.py). While a
     profiler records, a read of a CUDA tensor then folds the attention
-    kernels' row tally into the counters (:func:`fold_rows_tally`)."""
+    kernels' row tally into the counters (:func:`fold_rows_tally`), and
+    the expert layers' tally (:func:`fold_moe_tally`)."""
     with profiling.span("host_read"):
         values = t.tolist()
     if t.is_cuda:
         fold_rows_tally(t.device)
+        fold_moe_tally(t.device)
     return values
 
 
-# device -> (profiled window, rows read, dense rows) at the last fold
+# (counters, device) -> (profiled window, *totals) at the last fold
 _FOLDED = {}
 _FOLD_LOCK = threading.Lock()
 
 
+def _fold(device, names, read):
+    """Adds to the counters ``names`` what a device tally (``read(device)``:
+    its totals read from the device, or None) grew by since the last fold,
+    while a profiler records; the first fold of a profiled window only
+    notes where the tally stands."""
+    window = profiling.window()
+    if window is None:
+        return
+    totals = read(device)
+    if totals is None:
+        return
+    with _FOLD_LOCK:
+        last = _FOLDED.get((names, device))
+        _FOLDED[(names, device)] = (window, *totals)
+    if last is not None and last[0] == window:
+        for name, now, before in zip(names, totals, last[1:]):
+            profiling.count(name, now - before)
+
+
 def fold_rows_tally(device):
-    """While a profiler records, adds what K1, K6 and K7 added to the row
-    tally of ``device`` (ops/attention.py ``rows_tally``) since the last
+    """While a profiler records, adds what K1, K6, K7 and K12 added to the
+    row tally of ``device`` (ops/attention.py ``rows_tally``) since the last
     fold to the counters ``attn.rows_read`` and ``attn.rows_span``
     (utils/profiling.py ``count``): a device read, made only then. The
     first fold of a profiled window only notes where the tally stands, so
     the counters hold the window's launches from its first host read
     on."""
-    window = profiling.window()
-    if window is None:
-        return
-    totals = attention.rows_tally_totals(device)
-    if totals is None:
-        return
-    with _FOLD_LOCK:
-        last = _FOLDED.get(device)
-        _FOLDED[device] = (window, *totals)
-    if last is not None and last[0] == window:
-        profiling.count("attn.rows_read", totals[0] - last[1])
-        profiling.count("attn.rows_span", totals[1] - last[2])
+    _fold(device, ("attn.rows_read", "attn.rows_span"),
+          attention.rows_tally_totals)
+
+
+def fold_moe_tally(device):
+    """As :func:`fold_rows_tally`, the expert layers' tally of ``device``
+    (ops/moe.py ``moe_tally``: pairs routed, pairs of held experts, the
+    most pairs of one held expert in a layer-step) into the counters
+    ``moe.pairs``, ``moe.pairs_held`` and ``moe.held_load_max``; nothing is
+    read where no expert layer has run."""
+    _fold(device, ("moe.pairs", "moe.pairs_held", "moe.held_load_max"),
+          moe.moe_tally_totals)
 
 
 def draw_noise(gen, shapes, device, out=None):

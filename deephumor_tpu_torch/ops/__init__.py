@@ -9,7 +9,7 @@ from deephumor_tpu_torch.ops.attention import (
     ancestry_attention_update_flash, ancestry_attention_update_flash_plain,
     ancestry_attention_update_plain, ancestry_bias, cross_attention_packed,
     cross_attention_packed_plain, grouped_cross_attention,
-    grouped_cross_attention_plain)
+    grouped_cross_attention_plain, mla_attention, mla_attention_plain)
 from deephumor_tpu_torch.ops.cache import (cache_column_write,
                                            cache_column_write_plain)
 from deephumor_tpu_torch.ops.engine import (fused_survivor_update,
@@ -33,6 +33,7 @@ __all__ = [
     "ancestry_attention_ids", "ancestry_attention_ids_plain",
     "grouped_cross_attention", "grouped_cross_attention_plain",
     "cross_attention_packed", "cross_attention_packed_plain",
+    "mla_attention", "mla_attention_plain",
     "cache_column_write", "cache_column_write_plain",
     "fused_topk_gumbel_sample", "fused_topk_gumbel_sample_plain",
     "fused_classifier_topk_gumbel_sample",

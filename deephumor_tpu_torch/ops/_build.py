@@ -52,6 +52,10 @@ LAUNCHES = {
     "ancestry_attention": 0,
     "ancestry_attention_update_flash": 0,
     "cache_column_write": 0,
+    "mla_attention": 0,
+    "moe_gather": 0,
+    "moe_swiglu": 0,
+    "moe_combine": 0,
 }
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
@@ -108,6 +112,16 @@ _SIGNATURES = {
     # pos, stream
     "dh_cache_column_write":
         [_I, _I, *[_P] * 4, *[_I] * 4, _P],
+    # q_lat, q_pe, prefix, gen, bias, out, rows tally (or NULL), items,
+    # beam, H, T0, S, pe, scale, stream
+    "dh_mla_attention":
+        [*[_P] * 7, *[_I] * 6, _F, _P],
+    # src, order, dst, count, pairs, k, D, stream
+    "dh_moe_gather": [*[_P] * 4, *[_I] * 3, _P],
+    # gu, a, count, pairs, I, stream
+    "dh_moe_swiglu": [*[_P] * 3, _I, _I, _P],
+    # base, y, inv, w, held, out, tokens, k, D, stream
+    "dh_moe_combine": [*[_P] * 6, *[_I] * 3, _P],
 }
 # entry points that return a size, not an error
 _SIZES = {
@@ -121,6 +135,8 @@ _SIZES = {
     "dh_topk_gumbel_sample_smem": ([_I] * 2, ctypes.c_longlong),
     # V, D, live rows -> bytes of K4's logits scratch on the current device
     "dh_classifier_topk_gumbel_sample_scratch": ([_I] * 3, ctypes.c_longlong),
+    # beam, H, T0, pe -> bytes of dynamic shared memory
+    "dh_mla_attention_smem": ([_I] * 4, ctypes.c_longlong),
     # device -> the opt-in limit of a block's dynamic shared memory
     "dh_smem_optin": ([_I], ctypes.c_int),
 }

@@ -1,4 +1,4 @@
-"""Decode-time attention: the K1, K2, K5, K6, K7, K8 and K9 kernel
+"""Decode-time attention: the K1, K2, K5, K6, K7, K8, K9 and K12 kernel
 wrappers and their twins.
 
 Counterparts of deephumor_tpu/ops/pallas_attention.py. Each wrapper
@@ -24,13 +24,15 @@ __all__ = ["MASK_FILL", "ancestry_bias", "ancestry_attention",
            "ancestry_attention_update_canon_plain", "ancestry_attention_ids",
            "ancestry_attention_ids_plain", "grouped_cross_attention",
            "grouped_cross_attention_plain", "cross_attention_packed",
-           "cross_attention_packed_plain", "TALLY_SLOTS", "rows_tally",
+           "cross_attention_packed_plain", "mla_attention",
+           "mla_attention_plain", "TALLY_SLOTS", "rows_tally",
            "rows_tally_totals"]
 
 MASK_FILL = -1e8
 
 # The tally of the (slot, position) rows that the tensor-core blocks of K1,
-# K6 and K7 read and of the rows in their dense span (ops/csrc/row_list.cuh):
+# K6, K7 and K12 read and of the rows in their dense span
+# (ops/csrc/row_list.cuh):
 # per device, int64 [2, TALLY_SLOTS], rows read in row 0 and dense rows in
 # row 1, one slot per item modulo TALLY_SLOTS.
 TALLY_SLOTS = 32
@@ -45,14 +47,15 @@ def _cuda_device(device):
 
 
 def rows_tally(device):
-    """The tally of the rows that K1, K6 and K7 read on ``device`` (a CUDA
-    device): int64 ``[2, TALLY_SLOTS]``, to which each head-0 block of their
-    tensor-core kernels adds the rows it read and the rows of its dense
-    span. It lives as long as the process, so that a captured graph, which
-    bakes its address, adds to it at every replay. Made at the first call
-    on the device outside a capture (models/graphs.py makes it before each
-    capture); None while this thread captures and it does not exist yet:
-    launches captured then count nothing."""
+    """The tally of the rows that K1, K6, K7 and K12 read on ``device`` (a
+    CUDA device): int64 ``[2, TALLY_SLOTS]``, to which each head-0 block of
+    their tensor-core kernels (each block of K12) adds the generated rows it
+    read and the rows of its dense span. It lives as long as the process,
+    so that a captured graph, which bakes its address, adds to it at every
+    replay. Made at the first call on the device outside a capture
+    (models/graphs.py makes it before each capture); None while this
+    thread captures and it does not exist yet: launches captured then
+    count nothing."""
     device = _cuda_device(device)
     t = _TALLY.get(device)
     if t is None and not torch.cuda.is_current_stream_capturing():
@@ -705,6 +708,112 @@ def grouped_cross_attention(q, ek, ev, bias, *, n_heads, live_items=None,
         None if bias is None else bias.data_ptr(), out.data_ptr(), g, live,
         live_ptr, r, t, d, n_heads, 1.0 / math.sqrt(d // n_heads),
         _build.stream_of(q))
+    _build.check(err, name)
+    _build.note_launch(name)
+    return out
+
+
+def _check_mla(q_lat, q_pe, prefix, gen, bias, beam, pe):
+    heads, rows, dv = q_lat.shape
+    dk = prefix.shape[-1]
+    if q_pe.shape != (rows, heads, dk - dv):
+        raise ValueError(f"q_pe must be [{rows}, {heads}, {dk - dv}], got "
+                         f"{tuple(q_pe.shape)}")
+    if rows % beam or prefix.shape[0] * beam != rows:
+        raise ValueError(f"the {rows} rows are not {prefix.shape[0]} items "
+                         f"x beam {beam}")
+    if gen.shape[0] != rows or gen.shape[2] != dk:
+        raise ValueError(f"gen must be [{rows}, S, {dk}], got "
+                         f"{tuple(gen.shape)}")
+    s = gen.shape[1]
+    if bias.dtype != torch.float32 or bias.shape != (rows // beam, beam,
+                                                     beam * s):
+        raise ValueError(f"bias must be f32 [{rows // beam}, {beam}, "
+                         f"{beam * s}], got {bias.dtype} {tuple(bias.shape)}")
+    if not 1 <= pe <= s:
+        raise ValueError(f"need 1 <= pe ({pe}) <= S ({s})")
+    if len({q_lat.dtype, q_pe.dtype, prefix.dtype, gen.dtype}) != 1:
+        raise ValueError("q_lat, q_pe, prefix and gen must share one dtype")
+
+
+def mla_attention_plain(q_lat, q_pe, prefix, gen, bias, *, beam, pe, scale):
+    """Plain PyTorch twin of :func:`mla_attention`: f32 energies and
+    softmax over the dense rows (every prefix row, every (slot, position <
+    pe) with its bias), weights rounded to the rows' dtype before the
+    second product."""
+    _check_mla(q_lat, q_pe, prefix, gen, bias, beam, pe)
+    heads, rows, dv = q_lat.shape
+    items, t0, dk = prefix.shape
+    s = gen.shape[1]
+    keys = torch.cat([prefix.float(), gen.float().reshape(
+        items, beam, s, dk)[:, :, :pe].reshape(items, beam * pe, dk)], 1)
+    q = torch.cat([q_lat.transpose(0, 1), q_pe], -1).float().reshape(
+        items, beam, heads, dk)
+    e = torch.einsum("gjhd,gnd->gjhn", q, keys) * scale
+    gb = bias.reshape(items, beam, beam, s)[..., :pe].reshape(
+        items, beam, 1, beam * pe)
+    e = torch.cat([e[..., :t0], e[..., t0:] + gb], -1)
+    w = torch.softmax(e, dim=-1).to(q_lat.dtype).float()
+    out = torch.einsum("gjhn,gnd->hgjd", w, keys[..., :dv])
+    return out.reshape(heads, rows, dv).to(q_lat.dtype)
+
+
+def mla_attention(q_lat, q_pe, prefix, gen, bias, *, beam, pe, scale):
+    """K12: the absorbed latent attention of one decode step over the
+    beam's ancestry (models/mla_moe.py).
+
+    Each item's ``beam`` branches x ``H`` heads attend, with one query
+    ``[q_lat | q_pe]`` each (``dk`` = the rows' width), over the item's
+    prefix rows and the generated rows (slot i, position p < ``pe``) that
+    the branch's ``bias`` selects; the output is the weighted sum of the
+    rows' first ``dv`` columns (the latent).
+
+    Args:
+        q_lat: ``[H, items*beam, dv]``, head-major (the absorbed key half's
+            product).
+        q_pe: ``[items*beam, H, dk - dv]``, the rotated query.
+        prefix: ``[items, T0, dk]`` latent rows of each item's prefix, read
+            by every branch.
+        gen: ``[items*beam, S, dk]`` latent rows of the generated positions
+            per beam slot; only the first ``pe`` positions are read.
+        bias: f32 ``[items, beam, beam*S]`` (:func:`ancestry_bias`; 0 where
+            branch j reads (slot i, position p), -1e8 elsewhere).
+        scale: the energies' scale (1/sqrt of the unabsorbed head width).
+
+    Returns:
+        ``[H, items*beam, dv]``, head-major, in the dtype of ``q_lat``.
+
+    Each block adds its listed generated rows and its dense ``beam * pe``
+    to the device's :func:`rows_tally`. On the card the kernel takes bf16
+    at dk 576 and dv 512 (DeepSeek-V3's
+    latent and rotary widths), ``beam * H`` a multiple of 16 up to 80,
+    beam <= 32 and ``T0 + beam * pe <= 576``; anything else raises
+    ``ValueError`` before the launch.
+    """
+    name = "mla_attention"
+    kw = dict(beam=beam, pe=pe, scale=scale)
+    if not _build.on_kernel_device(name, q_lat, q_pe, prefix, gen, bias):
+        return mla_attention_plain(q_lat, q_pe, prefix, gen, bias, **kw)
+    _check_mla(q_lat, q_pe, prefix, gen, bias, beam, pe)
+    heads, rows, dv = q_lat.shape
+    t0, dk = prefix.shape[1], prefix.shape[2]
+    if (q_lat.dtype != torch.bfloat16 or (dk, dv) != (576, 512)
+            or (beam * heads) % 16 or beam * heads > 80 or beam > 32
+            or t0 + beam * pe > 576):
+        raise ValueError(f"{name}: the kernel takes bf16 at dk 576, dv 512, "
+                         f"beam x heads a multiple of 16 up to 80, beam <= 32 "
+                         f"and T0 + beam x pe <= 576; got {q_lat.dtype}, dk "
+                         f"{dk}, dv {dv}, beam {beam}, heads {heads}, T0 "
+                         f"{t0}, pe {pe}")
+    _build.check_vector_rows(name, dk - dv, q_lat, q_pe, prefix, gen)
+    _build.check_smem(name, _build.smem_need(
+        "dh_mla_attention_smem", beam, heads, t0, pe), q_lat)
+    out = torch.empty_like(q_lat)
+    err = _build.library().dh_mla_attention(
+        q_lat.data_ptr(), q_pe.data_ptr(), prefix.data_ptr(), gen.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), _tally_ptr(q_lat.device),
+        rows // beam, beam, heads, t0,
+        gen.shape[1], pe, float(scale), _build.stream_of(q_lat))
     _build.check(err, name)
     _build.note_launch(name)
     return out

@@ -35,7 +35,11 @@
 // row too long for the vector table and a full list beside it (f32 past
 // ~49.7K logits, bf16 past ~99K) drops the table, and its list shrinks to
 // what fits: the gather then reads every vector, and a shorter list
-// overflows sooner to the whole-row search, with the same result. A
+// overflows sooner to the whole-row search, with the same result. A bf16
+// row past any team's buffer (~115.9K logits: Kimi-VL's 163,840) runs
+// topk_gumbel_streamed_kernel: the same body over the row where it lies in
+// device memory, two passes of 16-byte loads and no bulk copy (the second
+// pass mostly from L2); an f32 row that long is refused. A
 // bulk copy needs 16-byte aligned addresses and sizes, so the row's aligned
 // interior comes in bulk and its first and last few logits (rows of an odd
 // V start unaligned) by plain loads. Per row, with four barriers of the
@@ -96,21 +100,52 @@ __global__ void __launch_bounds__(kTeam* kMaxTeams) topk_gumbel_kernel(
               });
 }
 
+// K3 over rows too long for any team's buffer (bf16 past ~115.9K logits):
+// the same draws, each row read in place (topk_rows.cuh
+// sample_rows_streamed).
+template <typename T>
+__global__ void __launch_bounds__(kTeam* kMaxTeams) topk_gumbel_streamed_kernel(
+    const T* __restrict__ logits, int* __restrict__ ids, int rows,
+    dh::Count live_rows, int V, int top_k, int num_draws, int unk,
+    dh::Seed seed, dh::InvT invt, int low_bit, int col_bits,
+    TeamLayout lay) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int live = min(max(live_rows.get(), 0), rows);
+  for (size_t o = (size_t)live * num_draws + blockIdx.x * blockDim.x
+                  + threadIdx.x;
+       o < (size_t)rows * num_draws; o += (size_t)gridDim.x * blockDim.x)
+    ids[o] = 0;
+  sample_rows_streamed(smem, logits, V, live, V, 0, top_k, num_draws, unk,
+                       seed, invt.get(), low_bit, col_bits, lay,
+                       [=](int r, int j, int id) {
+                         ids[(size_t)r * num_draws + j] = id;
+                       });
+}
+
 template <typename T>
 cudaError_t launch(const void* logits, void* ids, int rows,
                    dh::Count live_rows, int V, int top_k, int num_draws,
                    int unk, dh::Seed seed, dh::InvT invt,
                    cudaStream_t stream) {
   Plan p;
-  cudaError_t err = plan<&topk_gumbel_kernel<T>>(
-      V, sizeof(T), live_rows.ptr ? rows : live_rows.value, &p);
+  const int n = live_rows.ptr ? rows : live_rows.value;
+  const bool streamed = streams(V, sizeof(T), dh::smem_optin());
+  cudaError_t err =
+      streamed ? plan_streamed<&topk_gumbel_streamed_kernel<T>>(sizeof(T), n,
+                                                                &p)
+               : plan<&topk_gumbel_kernel<T>>(V, sizeof(T), n, &p);
   if (err != cudaSuccess) return err;
   const int low_bit = sizeof(T) == 2 ? 15 : 0;
   int col_bits = 13;
   while ((1 << col_bits) < V) ++col_bits;
-  topk_gumbel_kernel<T><<<p.blocks, p.threads, p.smem, stream>>>(
-      (const T*)logits, (int*)ids, rows, live_rows, V, top_k, num_draws, unk,
-      seed, invt, low_bit, col_bits, p.lay);
+  if (streamed)
+    topk_gumbel_streamed_kernel<T><<<p.blocks, p.threads, p.smem, stream>>>(
+        (const T*)logits, (int*)ids, rows, live_rows, V, top_k, num_draws,
+        unk, seed, invt, low_bit, col_bits, p.lay);
+  else
+    topk_gumbel_kernel<T><<<p.blocks, p.threads, p.smem, stream>>>(
+        (const T*)logits, (int*)ids, rows, live_rows, V, top_k, num_draws,
+        unk, seed, invt, low_bit, col_bits, p.lay);
   return cudaGetLastError();
 }
 
@@ -137,9 +172,12 @@ extern "C" int dh_topk_gumbel_sample(int dtype, const void* logits, void* ids,
 }
 
 // The least dynamic shared memory a block needs at V logits: one team, no
-// table, an empty list (the wrapper compares it with the card's opt-in
-// limit before the launch).
+// table, an empty list; for a bf16 row that no team's buffer holds, a
+// block of the streamed kernel (the wrapper compares it with the card's
+// opt-in limit before the launch).
 extern "C" long long dh_topk_gumbel_sample_smem(int dtype, int V) {
-  return (long long)smem_for(
-      TeamLayout(V, dtype == dh::kBFloat16 ? 2 : 4, 0, false), 1);
+  const int elt = dtype == dh::kBFloat16 ? 2 : 4;
+  if (streams(V, elt, dh::smem_optin()))
+    return (long long)smem_for(streamed_layout(elt), kMaxTeams);
+  return (long long)smem_for(TeamLayout(V, elt, 0, false), 1);
 }

@@ -90,6 +90,37 @@ cudaError_t plan(int V, int elt, int live, Plan* p) {
   return cudaSuccess;
 }
 
+// Whether a row of V bf16 logits is past every team's buffer under `optin`
+// bytes, so that K3 reads it where it lies (sample_rows_streamed); an f32
+// row that no buffer holds is refused.
+inline bool streams(int V, int elt, int optin) {
+  return elt == 2 && teams_for(layout_for(V, elt, optin), optin) < 1;
+}
+// The layout of a team that stages no row: the list, the maxima, kMisc ints.
+inline TeamLayout streamed_layout(int elt) {
+  return TeamLayout(0, elt, kCap, false);
+}
+
+// The plan of a kernel that runs `sample_rows_streamed` over `live` rows:
+// kMaxTeams teams a block, as many blocks as the rows need and the card
+// holds at once.
+template <auto Kernel>
+cudaError_t plan_streamed(int elt, int live, Plan* p) {
+  cudaError_t err = prepare<Kernel>();
+  if (err != cudaSuccess) return err;
+  const TeamLayout lay = streamed_layout(elt);
+  const size_t smem = smem_for(lay, kMaxTeams);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, Kernel, kMaxTeams * kTeam, smem);
+  if (err != cudaSuccess) return err;
+  const int want = (live + kMaxTeams - 1) / kMaxTeams;
+  const int fit = (per_sm > 1 ? per_sm : 1) * sm_count();
+  *p = Plan{lay, kMaxTeams, kMaxTeams * kTeam,
+            want < 1 ? 1 : want < fit ? want : fit, smem};
+  return cudaSuccess;
+}
+
 // Where row `src` of V logits lies in its buffer: element 0 at byte `off`
 // (src's offset from 16-byte alignment); the aligned interior, `nvec`
 // 16-byte vectors from buffer byte `ib`, holds elements [head, tail); the
@@ -414,6 +445,83 @@ __device__ __forceinline__ void sample_rows(
       team_sync(team);
       if (tid == 0 && next < live)
         stage_row(src + (size_t)stride * ld, V, buf, bar);
+    }
+  }
+}
+
+// The rows of a kernel whose row is too long for any team's buffer (bf16
+// past ~115.9K logits): the same body over the row where it lies in device
+// memory, in two passes of 16-byte loads (each thread's largest key, then
+// the list of the keys at or above the bound), with no bulk copy and no
+// vector table. `lay` is a layout of no buffer (TeamLayout(0, ...)): the
+// list, the maxima and kMisc ints a team. A list over its capacity sends
+// the team through the bitwise search over the row in device memory.
+template <typename T, typename Out>
+__device__ __forceinline__ void sample_rows_streamed(
+    unsigned char* smem, const T* __restrict__ logits, size_t ld, int live,
+    int V, int row0, int top_k, int num_draws, int unk, dh::Seed seed,
+    float invt, int low_bit, int col_bits, const TeamLayout& lay,
+    const Out& out) {
+  using VK = Vec<T>;
+  const int teams = blockDim.x / kTeam, team = threadIdx.x / kTeam;
+  const int tid = threadIdx.x % kTeam, warp = tid >> 5, lane = tid & 31;
+  unsigned char* base = smem + team * lay.team;
+  int* keys = reinterpret_cast<int*>(base + lay.buf);
+  int* cols = keys + lay.cap;
+  int* maxima = cols + lay.cap;
+  int* misc = maxima + kTeam;
+  Draw d{top_k, num_draws, unk, low_bit, (1 << col_bits) - 1, invt, 0u};
+  for (int r = blockIdx.x * teams + team; r < live;
+       r += gridDim.x * teams) {
+    const T* src = logits + (size_t)r * ld;
+    const RowSpan<T> sp(src, V);
+    const uint4* vec = reinterpret_cast<const uint4*>(sp.interior);
+    const int extra = sp.head + V - sp.tail;
+    auto extra_col = [&](int i) {
+      return i < sp.head ? i : sp.tail + i - sp.head;
+    };
+    int own = INT32_MIN;
+    for (int i = tid; i < extra; i += kTeam)
+      own = ::max(own, order_key(to_f32(src[extra_col(i)])));
+#pragma unroll 4
+    for (int i = tid; i < sp.nvec; i += kTeam)
+      own = ::max(own, VK::max(__ldg(vec + i)));
+    maxima[tid] = own;
+    team_sync(team);
+    {
+      const int q = count_above(maxima, kTeam, own) < top_k ? own : INT32_MAX;
+      const int m = __reduce_min_sync(0xffffffffu, q);
+      if (lane == 0) misc[kScratch + warp] = m;
+      if (tid == 0) misc[kLen] = 0;
+    }
+    team_sync(team);
+    int bound = misc[kScratch];
+    for (int w = 1; w < kTeamWarps; ++w)
+      bound = ::min(bound, misc[kScratch + w]);
+    if (top_k > kTeam) bound = INT32_MIN;  // fewer maxima than top_k
+    for (int i = tid; i < extra; i += kTeam) {
+      const int c = extra_col(i);
+      gather(order_key(to_f32(src[c])), c, bound, keys, cols, misc + kLen,
+             lay.cap);
+    }
+#pragma unroll 4
+    for (int i = tid; i < sp.nvec; i += kTeam) {
+      const uint4 v = __ldg(vec + i);
+      if (VK::max(v) < bound) continue;
+#pragma unroll
+      for (int e = 0; e < VK::kPer; ++e)
+        gather(VK::key(v, e), sp.head + i * VK::kPer + e, bound, keys, cols,
+               misc + kLen, lay.cap);
+    }
+    team_sync(team);
+    const int n = misc[kLen];
+    d.rh = row_hash(seed.get(), (uint32_t)(row0 + r));
+    const auto put = [&](int j, int id) { out(r, j, id); };
+    if (n <= lay.cap) {
+      list_draws(keys, cols, n, team, d, put);
+    } else {
+      row_draws(src, V, misc + kScratch, team, d, put);
+      team_sync(team);
     }
   }
 }
